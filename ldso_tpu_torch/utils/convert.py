@@ -1,0 +1,122 @@
+"""Carry state between the JAX package and the port.
+
+The JAX package's state goes in as numpy arrays (`np.asarray` of each JAX
+field) and comes out as the port's tensors on a given device, and back.
+Covered: Window, TrackerRef, ImmaturePool / ImmatureArena, FramePyramid
+and InitializerState. Index fields the port uses to index tensors
+(`pt_host`, the initializer's `neighbours` / `parent`) widen from int32 to
+int64 on the way in and narrow back on the way out.
+
+The JAX window keeps its level-0 image stack tap-packed, (F, H, W, 12) in
+the `pack_taps` layout [img, right, down, down_right] of (I, dx, dy);
+`window_images_to_torch` unpacks it to the port's (F, H, W, 3).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ldso_tpu_torch.backend.window import Window
+from ldso_tpu_torch.frontend.immature import ImmatureArena, ImmaturePool
+from ldso_tpu_torch.frontend.initializer import InitializerState, InitLevel
+from ldso_tpu_torch.frontend.tracker import TrackerRef
+from ldso_tpu_torch.ops.preprocess import FramePyramid
+
+_WIDEN = {"pt_host", "neighbours", "parent"}
+
+
+def _t(name, a, device):
+    a = np.asarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.array(a)).to(device)
+    if name in _WIDEN:
+        t = t.to(torch.int64)
+    return t
+
+
+def _n(name, t):
+    a = t.detach().cpu().numpy()
+    if name in _WIDEN:
+        a = a.astype(np.int32)
+    return a
+
+
+def _nt_to_torch(cls, nt, device):
+    return cls(**{k: _t(k, getattr(nt, k), device) for k in cls._fields})
+
+
+def _nt_to_numpy(nt):
+    return {k: _n(k, getattr(nt, k)) for k in type(nt)._fields}
+
+
+def window_to_torch(W, device="cpu") -> Window:
+    return _nt_to_torch(Window, W, device)
+
+
+def window_to_numpy(W: Window) -> dict:
+    return _nt_to_numpy(W)
+
+
+def window_images_to_torch(dIs, device="cpu") -> torch.Tensor:
+    """(F, H, W, 12) tap-packed or (F, H, W, 3) plain -> (F, H, W, 3)."""
+    a = np.asarray(dIs, np.float32)
+    if a.shape[-1] == 12:
+        a = a[..., 0:3]          # the first tap group is the image itself
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def tracker_ref_to_torch(ref, device="cpu") -> TrackerRef:
+    return TrackerRef(
+        points=tuple(_t("", p, device) for p in ref.points),
+        valid=tuple(_t("", v, device) for v in ref.valid),
+        ref_exposure=_t("", ref.ref_exposure, device),
+        ref_aff=_t("", ref.ref_aff, device))
+
+
+def tracker_ref_to_numpy(ref: TrackerRef) -> dict:
+    return dict(points=[p.cpu().numpy() for p in ref.points],
+                valid=[v.cpu().numpy() for v in ref.valid],
+                ref_exposure=ref.ref_exposure.cpu().numpy(),
+                ref_aff=ref.ref_aff.cpu().numpy())
+
+
+def pool_to_torch(pool, device="cpu") -> ImmaturePool:
+    return _nt_to_torch(ImmaturePool, pool, device)
+
+
+def arena_to_torch(arena, device="cpu") -> ImmatureArena:
+    return ImmatureArena(pool=pool_to_torch(arena.pool, device),
+                         host=_t("host", arena.host, device))
+
+
+def arena_to_numpy(arena: ImmatureArena) -> dict:
+    d = _nt_to_numpy(arena.pool)
+    d["host"] = arena.host.cpu().numpy()
+    return d
+
+
+def pyramid_to_torch(pyr, device="cpu") -> FramePyramid:
+    return FramePyramid(dI=tuple(_t("", a, device) for a in pyr.dI),
+                        abs_grad=tuple(_t("", a, device) for a in pyr.abs_grad))
+
+
+def pyramid_to_numpy(pyr: FramePyramid) -> dict:
+    return dict(dI=[a.cpu().numpy() for a in pyr.dI],
+                abs_grad=[a.cpu().numpy() for a in pyr.abs_grad])
+
+
+def init_state_to_torch(state, device="cpu") -> InitializerState:
+    return InitializerState(
+        levels=tuple(_nt_to_torch(InitLevel, L, device) for L in state.levels),
+        T=np.asarray(state.T, np.float64).copy(),
+        aff=np.asarray(state.aff, np.float64).copy(),
+        snapped=bool(state.snapped), frame_id=int(state.frame_id),
+        snapped_at=int(state.snapped_at))
+
+
+def init_state_to_numpy(state: InitializerState) -> dict:
+    return dict(levels=[_nt_to_numpy(L) for L in state.levels],
+                T=state.T.copy(), aff=state.aff.copy(), snapped=state.snapped,
+                frame_id=state.frame_id, snapped_at=state.snapped_at)

@@ -1,0 +1,149 @@
+"""The port's host layer: import isolation, the jax-free host copies pinned
+to their originals, and the synthetic renderer."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_utils import close, equal, npy
+
+import ldso_tpu.config as jcfg
+import ldso_tpu_torch.config as tcfg
+from ldso_tpu.camera.calib import Calibration as JCalib
+from ldso_tpu.math import lie_np as jlie_np
+from ldso_tpu_torch.camera.calib import Calibration as TCalib
+from ldso_tpu_torch.math import lie_np as tlie_np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    """The port and its main entry point load without jax or ldso_tpu."""
+    code = ("import sys, ldso_tpu_torch, ldso_tpu_torch.system.full_system, "
+            "ldso_tpu_torch.utils.convert, ldso_tpu_torch.ops.cuda_kernels; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'ldso_tpu' "
+            "or m.startswith('ldso_tpu.')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_matmul_policy():
+    import ldso_tpu_torch  # noqa: F401
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_config_copy_matches():
+    jf = {f.name: f.default for f in dataclasses.fields(jcfg.Config)}
+    tf = {f.name: f.default for f in dataclasses.fields(tcfg.Config)}
+    assert jf == tf
+    for name in ("PYR_LEVELS", "PATTERN_NUM", "PATTERN_PADDING", "CPARS"):
+        assert getattr(jcfg, name) == getattr(tcfg, name)
+    for name in dir(jcfg):
+        if name.startswith(("SCALE_", "SOLVER_")):
+            assert getattr(jcfg, name) == getattr(tcfg, name), name
+    equal(tcfg.PATTERN, jcfg.PATTERN)
+    for idx in range(4):
+        assert (dataclasses.asdict(jcfg.preset(idx))
+                == dataclasses.asdict(tcfg.preset(idx)))
+    c = tcfg.Config(point_selection=0)
+    with pytest.raises(ValueError):
+        c.validate()
+    assert tcfg.Config().pyr_levels_used(640, 480) == \
+        jcfg.Config().pyr_levels_used(640, 480)
+
+
+@pytest.mark.parametrize("wh", [(640, 480), (256, 192), (61, 97), (752, 480)])
+def test_calibration_pyramid_matches(wh):
+    w, h = wh
+    a = JCalib.create(w, h, 0.55 * w, 0.6 * w, (w - 1) / 2.0, (h - 1) / 2.1)
+    b = TCalib.create(w, h, 0.55 * w, 0.6 * w, (w - 1) / 2.0, (h - 1) / 2.1)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    for lvl in range(a.levels):
+        equal(b.K(lvl), a.K(lvl))
+        equal(b.Ki(lvl), a.Ki(lvl))
+    c = np.array([300.0, 310.0, 150.0, 100.0])
+    assert dataclasses.asdict(a.with_intrinsics(c)) == \
+        dataclasses.asdict(b.with_intrinsics(c))
+
+
+def test_lie_np_copy_matches():
+    rng = np.random.RandomState(0)
+    for scale in (1e-9, 1e-3, 0.5, 3.1):
+        for _ in range(5):
+            xi = rng.randn(6) * scale
+            equal(tlie_np.se3_exp(xi), jlie_np.se3_exp(xi))
+            T = jlie_np.se3_exp(xi)
+            equal(tlie_np.se3_log(T), jlie_np.se3_log(T))
+            q = rng.randn(4)
+            equal(tlie_np.quat_to_rotmat(q), jlie_np.quat_to_rotmat(q))
+            equal(tlie_np.rotmat_to_quat(T[:3, :3]),
+                  jlie_np.rotmat_to_quat(T[:3, :3]))
+
+
+def test_slam_map_copy_roundtrips_with_original(tmp_path):
+    from ldso_tpu.slam_map import GlobalMap as JMap
+    from ldso_tpu_torch.slam_map import FrameShell, GlobalMap, MapPointRecord
+    gm = GlobalMap()
+    for k in range(3):
+        sh = FrameShell(id=10 * k, timestamp=0.5 * k, kf_id=k,
+                        T_cw=np.eye(4) + 0.01 * k)
+        sh.map_points.append(MapPointRecord(k, 0.1, -0.2, 0.5 + k))
+        if k:
+            sh.add_pose_rel(k - 1, np.eye(4) * 2.0)
+        gm.add_keyframe(sh)
+    p = str(tmp_path / "map.npz")
+    gm.save(p)
+    back = JMap.load(p)
+    assert sorted(back.keyframes) == sorted(gm.keyframes)
+    close(back.point_cloud(), gm.point_cloud(), 0, 0)
+    assert back.keyframes[2].pose_rel.keys() == gm.keyframes[2].pose_rel.keys()
+
+
+def test_stage_timer_matches_original():
+    from ldso_tpu.utils.timing import StageTimer as JTimer
+    from ldso_tpu_torch.utils.timing import StageTimer
+    t, j = StageTimer(), JTimer()
+    for timer in (t, j):
+        with timer.stage("a"):
+            pass
+        with timer.stage("a"):
+            pass
+        timer.total["a"] = 1.5          # pin the report format, not the clock
+        timer.total["b"] = 0.25
+        timer.count["b"] = 3
+    assert t.count == j.count
+    assert t.summary() == j.summary()
+
+
+@pytest.mark.parametrize("lvl", [0, 1])
+def test_plane_scene_render_matches(lvl):
+    """Port renderer vs the JAX renderer; float32 sin sums agree to
+    ~1e-4 of the 0..255 range (summation order differs)."""
+    from ldso_tpu.math import lie
+    from ldso_tpu.synthetic import PlaneScene as JScene, default_calib as jdc
+    from ldso_tpu_torch.synthetic import PlaneScene as TScene, default_calib
+    calib = default_calib(160, 120)
+    assert dataclasses.asdict(calib) == dataclasses.asdict(jdc(160, 120))
+    T = np.linalg.inv(np.asarray(lie.se3_exp(jnp.asarray(
+        np.array([0.1, -0.05, 0.2, 0.01, 0.02, -0.03])))))
+    kw = dict(freq_hi=25.0, contrast=80.0)
+    ij, dj = JScene(**kw).render(calib, jnp.asarray(T, jnp.float32), lvl=lvl,
+                                 exposure=1.2, aff_a=0.1, aff_b=3.0)
+    it, dt = TScene(**kw).render(calib, T, lvl=lvl, exposure=1.2, aff_a=0.1,
+                                 aff_b=3.0)
+    close(it, ij, rtol=0, atol=2e-3, what="image")
+    close(dt, dj, rtol=1e-5, atol=1e-7, what="idepth")
+    assert npy(it).dtype == np.float32
