@@ -29,6 +29,7 @@ from ldso_tpu_torch.math import lie
 from ldso_tpu_torch.ops import select as select_ops
 from ldso_tpu_torch.ops.interp import bilinear
 from ldso_tpu_torch.ops.preprocess import FramePyramid
+from ldso_tpu_torch.ops.scatter import segment_sum
 
 ALPHA_K = 2.5 * 2.5
 ALPHA_W = 150.0 * 150.0
@@ -482,12 +483,14 @@ def _propagate_down(Lc: InitLevel, Lf: InitLevel, snapped: bool):
 
 def _propagate_up(Lf: InitLevel, Lc: InitLevel, snapped: bool):
     """Child (fine) -> parent (coarse) weighted mean (propagateUp,
-    :462-517); the scatter-add sums in another order than XLA's."""
+    :462-517); the sums run in child order on every device, as XLA's
+    scatter-add does (ops/scatter.py)."""
     good = Lf.is_good & Lf.valid & (Lf.parent >= 0)
     par = torch.clamp(Lf.parent, min=0)
     w = torch.where(good, Lf.last_hessian, torch.zeros_like(Lf.last_hessian))
-    num = torch.zeros_like(Lc.iR).index_add_(0, par, w * Lf.iR)
-    den = torch.zeros_like(Lc.iR).index_add_(0, par, w)
+    n = Lc.iR.shape[0]
+    num = segment_sum(w * Lf.iR, par, n)
+    den = segment_sum(w, par, n)
     has = den > 0
     mean = num / torch.clamp(den, min=1e-12)
     Lc = Lc._replace(

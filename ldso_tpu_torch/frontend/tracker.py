@@ -32,6 +32,7 @@ from ldso_tpu_torch.frontend import affine
 from ldso_tpu_torch.math import lie
 from ldso_tpu_torch.ops.interp import bilinear
 from ldso_tpu_torch.ops.preprocess import FramePyramid
+from ldso_tpu_torch.ops.scatter import segment_sum
 from ldso_tpu_torch.utils.static import nonzero_padded
 
 _LAMBDA_EXTRAPOLATION_LIMIT = 0.001
@@ -94,15 +95,14 @@ def make_tracker_ref(proj_u, proj_v, proj_idepth, weight, point_valid,
     proj_idepth = proj_idepth.to(torch.float32)
     weight = weight.to(torch.float32)
 
-    # splat (CoarseTracker.cc:264-283); float sums in scatter order
+    # splat (CoarseTracker.cc:264-283); float sums in point order on
+    # every device (ops/scatter.py)
     ui = torch.clamp(torch.floor(proj_u + 0.5).long(), 0, W0 - 1)
     vi = torch.clamp(torch.floor(proj_v + 0.5).long(), 0, H0 - 1)
     w_eff = torch.where(point_valid, weight, torch.zeros_like(weight))
     flat = vi * W0 + ui
-    idep0 = torch.zeros(H0 * W0, **f32).index_add_(
-        0, flat, w_eff * proj_idepth).reshape(H0, W0)
-    wsum0 = torch.zeros(H0 * W0, **f32).index_add_(
-        0, flat, w_eff).reshape(H0, W0)
+    idep0 = segment_sum(w_eff * proj_idepth, flat, H0 * W0).reshape(H0, W0)
+    wsum0 = segment_sum(w_eff, flat, H0 * W0).reshape(H0, W0)
 
     ideps, wsums = [idep0], [wsum0]
     for lvl in range(1, levels):

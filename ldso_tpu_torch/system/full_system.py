@@ -14,8 +14,10 @@ the next frame enters.
                                -> tracker reference -> point marg -> new
                                candidates -> frame marg
   makeNonKeyFrame (:593-600), initializeFromInitializer (:1326-1400)
+  loop closing (makeKeyFrame :585-589) -> loop/loopclosing.LoopClosing,
+                               inline at the end of make_keyframe
 
-Loop closing, the asynchronous pipeline and its tracking chain come later.
+The asynchronous pipeline and its tracking chain come later.
 `FullSystem(calib, cfg, device=...)` places every tensor on `device`; on a
 CUDA device the activation gate's distance map runs the hand-written
 kernel of ops/cuda_kernels.py.
@@ -36,6 +38,7 @@ from ldso_tpu_torch.backend.energy_functional import (EnergyFunctional,
 from ldso_tpu_torch.backend.window import (RES_IN, RES_OOB, RES_OUTLIER,
                                            Window, aff_g2l, current_poses)
 from ldso_tpu_torch.frontend import detector, immature, initializer, tracker
+from ldso_tpu_torch.loop.loopclosing import LoopClosing
 from ldso_tpu_torch.math import lie_np
 from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.ops import select as select_ops
@@ -161,13 +164,10 @@ def _motion_hypotheses(lastF_2_slast, fh_2_slast):
 
 class FullSystem:
     def __init__(self, calib: Calibration, cfg: Config,
-                 b_grad_lut: Optional[np.ndarray] = None, device="cpu"):
+                 b_grad_lut: Optional[np.ndarray] = None, vocab=None,
+                 device="cpu"):
         self.calib = calib
         self.cfg = cfg.validate()
-        if cfg.enable_loop_closing or cfg.point_selection != 1:
-            raise NotImplementedError(
-                "ldso_tpu_torch runs pure VO with the corner-aware selector "
-                "for now: pass enable_loop_closing=False, point_selection=1")
         self.device = torch.device(device)
         dev = self.device
         self.b_grad = (torch.as_tensor(np.asarray(b_grad_lut, np.float32),
@@ -179,6 +179,10 @@ class FullSystem:
                                                  dev)
         self.global_map = GlobalMap()
         self.timer = StageTimer()
+        self.loop_closing: Optional[LoopClosing] = None
+        if cfg.enable_loop_closing:
+            self.loop_closing = LoopClosing(calib, cfg, self.global_map,
+                                            vocab=vocab, device=dev)
 
         self.initialized = False
         self.is_lost = False
@@ -757,6 +761,29 @@ class FullSystem:
                 else:
                     i += 1
         self.global_map.add_keyframe(shell)
+        if self.loop_closing is not None:
+            with self.timer.stage("kf.loop"):
+                self._loop_closing_step(shell, pyr)
+
+    def _loop_closing_step(self, shell: FrameShell, pyr: FramePyramid):
+        """Loop closing inline after the keyframe (makeKeyFrame :585-589;
+        the reference hands it to its thread). Feature depths come from
+        every window point projected into the new keyframe through the
+        BA's centre projections (LoopClosing.cc:281-283 reads the same
+        idepth map), plus the points it hosts at their own pixels."""
+        W = self.ef.W
+        newest = len(self.window_frames) - 1
+        m = (W.pt_valid & W.res_exist[:, newest]
+             & (W.res_state[:, newest] == RES_IN))
+        mh = W.pt_valid & (W.pt_host == newest)
+        pui = torch.cat([W.center_proj[:, newest][m],
+                         torch.stack([W.pt_u, W.pt_v, W.idepth], 1)[mh]])
+        pui = pui.cpu().numpy() if len(pui) else None
+        self.loop_closing.make_kf_record(shell, pyr, pui)
+        window_ids = [f.kf_id for f in self.window_frames]
+        if self.loop_closing.insert_keyframe(shell, window_ids):
+            with self.timer.stage("kf.loop.pgo"):
+                self.loop_closing.run_pose_graph_if_needed()
 
     def make_non_keyframe(self, shell: FrameShell, pyr: FramePyramid):
         if not self._traced_this_frame:
@@ -814,12 +841,38 @@ class FullSystem:
         self.first_coarse_rmse = -1.0
 
     def _make_new_traces(self, pyr: FramePyramid, idx: int):
-        """makeNewTraces (:1272-1324) with the LDSO corner-aware selector
-        (point_selection=1, the pure-VO default)."""
+        """makeNewTraces (:1272-1324): candidate selection per
+        setting_pointSelection (0 = DSO gradient selector, 1 = LDSO
+        corner-aware detector, 2 = random)."""
         cfg = self.cfg
         H, W = self.calib.h[0], self.calib.w[0]
-        gp = detector.detect_grid_params(H, W, int(cfg.desired_immature_density))
-        status = detector.detect_status_map(pyr.dI[0], pyr.abs_grad[0], *gp)
+        dev = self.device
+        if cfg.point_selection == 1 and self.loop_closing is None:
+            # pure VO: no host-side features needed, one device status map
+            gp = detector.detect_grid_params(
+                H, W, int(cfg.desired_immature_density))
+            status = detector.detect_status_map(pyr.dI[0], pyr.abs_grad[0],
+                                                *gp)
+        elif cfg.point_selection == 1:
+            feats = detector.detect_corners(
+                pyr.dI[0], pyr.abs_grad[0], int(cfg.desired_immature_density),
+                max_feats=self._imm_cap)
+            valid = feats["valid"]
+            u = torch.clamp(feats["u"][valid].to(torch.int64), 3, W - 4)
+            v = torch.clamp(feats["v"][valid].to(torch.int64), 3, H - 4)
+            status = torch.zeros(H * W, dtype=torch.int32, device=dev)
+            status[v * W + u] = 1
+            status = status.reshape(H, W)
+        elif cfg.point_selection == 2:
+            n_want = int(cfg.desired_immature_density)
+            xs = self.rng.randint(20, W - 20, n_want)
+            ys = self.rng.randint(20, H - 20, n_want)
+            status_np = np.zeros((H, W), np.int32)
+            status_np[ys, xs] = 1
+            status = torch.as_tensor(status_np, device=dev)
+        else:
+            status, _ = self.selector.make_maps(pyr,
+                                                cfg.desired_immature_density)
         self.imm_arena = immature.arena_compact(self.imm_arena)
         self.imm_arena = immature.arena_add_from_status(
             self.imm_arena, status, pyr.dI[0], idx, self._imm_cap, cfg)

@@ -2,8 +2,9 @@
 
 The JAX package's state goes in as numpy arrays (`np.asarray` of each JAX
 field) and comes out as the port's tensors on a given device, and back.
-Covered: Window, TrackerRef, ImmaturePool / ImmatureArena, FramePyramid
-and InitializerState. Index fields the port uses to index tensors
+Covered: Window, TrackerRef, ImmaturePool / ImmatureArena, FramePyramid,
+InitializerState, and for loop closing a Vocabulary and a GlobalMap with
+its FrameShells (features, descriptors, pose_rel edges, S_cw). Index fields the port uses to index tensors
 (`pt_host`, the initializer's `neighbours` / `parent`) widen from int32 to
 int64 on the way in and narrow back on the way out.
 
@@ -14,6 +15,9 @@ the `pack_taps` layout [img, right, down, down_right] of (I, dx, dy);
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -21,7 +25,9 @@ from ldso_tpu_torch.backend.window import Window
 from ldso_tpu_torch.frontend.immature import ImmatureArena, ImmaturePool
 from ldso_tpu_torch.frontend.initializer import InitializerState, InitLevel
 from ldso_tpu_torch.frontend.tracker import TrackerRef
+from ldso_tpu_torch.loop.vocab import Vocabulary
 from ldso_tpu_torch.ops.preprocess import FramePyramid
+from ldso_tpu_torch.slam_map import FrameShell, GlobalMap, MapPointRecord
 
 _WIDEN = {"pt_host", "neighbours", "parent"}
 
@@ -120,3 +126,35 @@ def init_state_to_numpy(state: InitializerState) -> dict:
     return dict(levels=[_nt_to_numpy(L) for L in state.levels],
                 T=state.T.copy(), aff=state.aff.copy(), snapped=state.snapped,
                 frame_id=state.frame_id, snapped_at=state.snapped_at)
+
+
+def vocabulary_to_torch(voc) -> Vocabulary:
+    """A JAX-package Vocabulary (numpy tables) -> the port's."""
+    return Vocabulary(voc.k, voc.L, np.array(voc.node_desc, np.uint32),
+                      np.array(voc.children, np.int32),
+                      np.array(voc.is_leaf, bool),
+                      np.array(voc.word_id, np.int32),
+                      np.array(voc.word_weight, np.float32))
+
+
+def frame_shell_to_torch(sh) -> FrameShell:
+    """A JAX-package FrameShell -> the port's (deep copies of every field;
+    retired points become the port's MapPointRecord)."""
+    kw = {f.name: copy.deepcopy(getattr(sh, f.name))
+          for f in dataclasses.fields(FrameShell)}
+    kw["map_points"] = [MapPointRecord(**dataclasses.asdict(p))
+                        for p in sh.map_points]
+    out = FrameShell(**kw)
+    for k, v in vars(sh).items():       # runtime extras (e.g. dead counts)
+        if k not in kw:
+            setattr(out, k, copy.deepcopy(v))
+    return out
+
+
+def global_map_to_torch(gm) -> GlobalMap:
+    """A JAX-package GlobalMap -> the port's, keyframe by keyframe."""
+    out = GlobalMap()
+    out.latest_optimized_kf_id = gm.latest_optimized_kf_id
+    for k in sorted(gm.keyframes):
+        out.keyframes[k] = frame_shell_to_torch(gm.keyframes[k])
+    return out

@@ -92,3 +92,65 @@ def test_main_path_card_matches_cpu(cuda):
         if a.pose_valid:
             ca, cb = np.linalg.inv(a.T_cw)[:3, 3], np.linalg.inv(b.T_cw)[:3, 3]
             assert np.linalg.norm(ca - cb) < 1e-3
+
+
+def test_segment_sum_card_matches_cpu_bitwise(cuda):
+    """The deterministic scatter-add: the card sums each destination in
+    ascending source order like the CPU, so the results are bitwise equal
+    and equal across repeats."""
+    from ldso_tpu_torch.ops.scatter import segment_sum
+    g = torch.Generator().manual_seed(3)
+    v = torch.randn(20000, 3, generator=g) * 100.0
+    idx = torch.randint(0, 97, (20000,), generator=g)
+    want = segment_sum(v, idx, 100)
+    for _ in range(5):
+        got = segment_sum(v.to(cuda), idx.to(cuda), 100)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_loop_stack_card_matches_cpu(cuda):
+    """ORB features, descriptor distances and the pose graph on the card
+    against the same functions on the CPU: corners exact, at most a few
+    flipped descriptor bits (cos/sin differ in the last ulp between the
+    two), Hamming distances exact, pose graph within 1e-9 (float64)."""
+    from ldso_tpu_torch.frontend import detector
+    from ldso_tpu_torch.loop import posegraph
+    from ldso_tpu_torch.math import lie
+    from ldso_tpu_torch.ops.preprocess import make_pyramid
+    from ldso_tpu_torch.synthetic import PlaneScene, default_calib
+    calib = default_calib(640, 480)
+    img, _ = PlaneScene(freq_hi=25.0, contrast=80.0, n_waves=32).render(
+        calib, np.eye(4))
+    img = torch.round(img)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pyr = make_pyramid(img.to(dev), calib.levels)
+        out[dev] = {k: t.cpu() for k, t in detector.detect_corners(
+            pyr.dI[0], pyr.abs_grad[0], 2000).items()}
+    a, b = out["cpu"], out["cuda"]
+    for k in ("u", "v", "valid", "is_corner"):
+        assert torch.equal(a[k], b[k]), k
+    assert torch.allclose(a["angle"], b["angle"], rtol=0, atol=1e-5)
+    x = detector.desc_to_numpy(a["desc"]) ^ detector.desc_to_numpy(b["desc"])
+    assert np.unpackbits(x.view(np.uint8)).sum() <= 1e-3 * x.size * 32
+    d = detector.hamming_matrix(a["desc"][:300].to(cuda),
+                                a["desc"][:400].to(cuda)).cpu()
+    assert torch.equal(d, detector.hamming_matrix(a["desc"][:300],
+                                                  a["desc"][:400]))
+
+    n = 40
+    rng = np.random.RandomState(0)
+    xi = torch.from_numpy(rng.randn(n, 7) * 0.05)
+    S = lie.sim3_exp(xi)
+    ei = torch.arange(1, n)
+    ej = torch.arange(0, n - 1)
+    Z = S[ei] @ lie.sim3_inv(S[ej]) @ lie.sim3_exp(
+        torch.from_numpy(rng.randn(n - 1, 7) * 0.01))
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[-1] = True
+    args = (S, fixed, ei, ej, Z, torch.eye(7, dtype=torch.float64).expand(
+        n - 1, 7, 7).contiguous(), torch.ones(n - 1, dtype=torch.bool))
+    want = posegraph.optimize_pose_graph(*args, iterations=5)
+    got = posegraph.optimize_pose_graph(*[t.to(cuda) for t in args],
+                                        iterations=5)
+    assert torch.allclose(got.cpu(), want, rtol=0, atol=1e-9)

@@ -26,7 +26,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_no_jax():
     """The port and its main entry point load without jax or ldso_tpu."""
     code = ("import sys, ldso_tpu_torch, ldso_tpu_torch.system.full_system, "
-            "ldso_tpu_torch.utils.convert, ldso_tpu_torch.ops.cuda_kernels; "
+            "ldso_tpu_torch.utils.convert, ldso_tpu_torch.ops.cuda_kernels, "
+            "ldso_tpu_torch.loop.loopclosing, ldso_tpu_torch.native; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ldso_tpu' "
             "or m.startswith('ldso_tpu.')); print(bad); "
@@ -147,3 +148,67 @@ def test_plane_scene_render_matches(lvl):
     close(it, ij, rtol=0, atol=2e-3, what="image")
     close(dt, dj, rtol=1e-5, atol=1e-7, what="idepth")
     assert npy(it).dtype == np.float32
+
+
+def test_qlz_copy_matches_original():
+    """loop/qlz.py is a verbatim copy (it never imported jax)."""
+    a = open(os.path.join(REPO, "ldso_tpu", "loop", "qlz.py"), "rb").read()
+    b = open(os.path.join(REPO, "ldso_tpu_torch", "loop", "qlz.py"),
+             "rb").read()
+    assert a == b
+
+
+def test_orb_pattern_copy_matches_original():
+    from ldso_tpu.frontend import detector as jd
+    from ldso_tpu_torch.frontend import detector as td
+    equal(td._PATTERN, jd._PATTERN)
+    equal(td.UMAX, jd.UMAX)
+
+
+def _tree_state(path):
+    return sorted((f, os.path.getmtime(os.path.join(path, f)),
+                   os.path.getsize(os.path.join(path, f)))
+                  for f in os.listdir(path))
+
+
+def test_native_loader_builds_into_build_dir():
+    """The port compiles ldso_tpu/native/native.cpp itself into
+    build/ldso_tpu_torch/native-<hash>/ and leaves ldso_tpu/native/ as it
+    found it; the library it loads is that build."""
+    from ldso_tpu_torch import native
+    src_dir = os.path.join(REPO, "ldso_tpu", "native")
+    before = _tree_state(src_dir)
+    path = native.build()
+    assert path == native.library_path()
+    assert os.path.dirname(os.path.dirname(path)) == os.path.join(
+        REPO, "build", "ldso_tpu_torch")
+    assert os.path.basename(os.path.dirname(path)).startswith("native-")
+    assert native.SOURCE == os.path.join(src_dir, "native.cpp")
+    lib = native.get_lib()
+    assert lib._name == path
+    out = native.bow_transform(np.zeros((3, 8), np.uint32),
+                               np.zeros((2, 8), np.uint32),
+                               np.array([[1], [-1]], np.int32),
+                               np.array([-1, 0], np.int32), 1, 1)
+    equal(out, np.zeros(3, np.int32))
+    assert _tree_state(src_dir) == before
+    assert not any(f.endswith(".cpp") for f in os.listdir(
+        os.path.join(REPO, "ldso_tpu_torch")))
+
+
+def test_native_loader_raises_when_the_build_fails(tmp_path, monkeypatch):
+    """No fallback: a source that does not compile raises, and so does
+    every entry point that needs the library."""
+    from ldso_tpu_torch import native
+    bad = tmp_path / "native.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", str(bad))
+    monkeypatch.setattr(native, "BUILD_ROOT", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.build()
+    with pytest.raises(RuntimeError):
+        native.radius_nms(np.zeros(2, np.float32), np.zeros(2, np.float32),
+                          np.ones(2, np.float32), 5.0)
+    with pytest.raises(RuntimeError):
+        native.NativeDatabase()
