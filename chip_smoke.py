@@ -7,15 +7,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the torch/CUDA versions, then builds the hand-written kernels from
      ldso_tpu_torch/csrc with nvcc and prints the build time;
   2. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes and more, with max |kernel - plain| == 0 required,
-     plus CUDA-event timings of both; then the two float scatters of the
-     path (the tracker-reference splat, the initializer's level
-     averaging) 20 times each on the same inputs, every output bitwise
-     equal;
+     main path's shapes and larger maps (KITTI's, 1280x1024 and 1920x1080
+     inputs, 1000x1000), with max |kernel - plain| == 0 required; at
+     240x320 and 540x960 the kernel's single-call CUDA-event time (the
+     record's `ms`, timed as the plain version's `plain_ms` is), its
+     device time per launch from queued launches (`device_ms`), the bound
+     and the share of it, and the wrapper's host time per call; then the
+     two float scatters of the path (the tracker-reference splat, the
+     initializer's level averaging) 20 times each on the same inputs,
+     every output bitwise equal;
   3. the pure-VO path: the synchronous monocular VO FullSystem at 640x480
      with the production Config and loop closing off on 64 synthetic uint8
-     frames of the bench trajectory; asserts tracking, >= 8 keyframes, the
-     kernel launched on every keyframe after the bootstrap, and a
+     frames of the bench trajectory, built with no device argument (the
+     card is the default); asserts tracking, >= 8 keyframes, the kernel
+     launched on every keyframe after the bootstrap, and a
      similarity-aligned ATE under 5 mm;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
@@ -42,9 +47,17 @@ ATE_BOUND_M = 0.005          # the JAX package's own bound (test_full_system)
 LOOP_FRAMES = 150            # tools/head_to_head.py --traj revisit --frames
 LOOP_ATE_BOUND_M = 0.020     # ~2x the JAX package's 10.19 mm on this scene
 DET_REPEATS = 20
-DIST_CASES = dict(shapes=((240, 320), (96, 128), (61, 97)),
+# the main path's map at 640x480, KITTI's (1241x376), 1280x1024 and
+# 1920x1080 inputs, and a 1000x1000 map
+DIST_CASES = dict(shapes=((240, 320), (96, 128), (61, 97), (188, 620),
+                          (512, 640), (540, 960), (1000, 1000)),
                   occupancy=(0.005, 0.02, 0.10, "empty", "full"),
-                  max_k=(18, 40))
+                  max_k=(1, 2, 18, 40))
+DIST_TIMED = ((240, 320), (540, 960))
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the float32
+# rate outside the tensor cores, taken for the map's integer compares
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 
 
 def _fail(msg: str) -> None:
@@ -67,6 +80,53 @@ def _median_event_ms(fn, reps: int = 50, warmup: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _queued_device_ms(fn, n: int = 20, reps: int = 30) -> float:
+    """Device time per call: n calls queued behind a sleeping kernel, so
+    they run back to back whatever the host costs, CUDA events around the
+    n; the median over reps."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(5_000_000)     # ~3 ms: the host queues the n calls
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def _host_us_per_call(fn, n: int = 2000) -> float:
+    """Synchronised wall time over n calls, divided by n."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e6
+
+
+def distance_bound_ms(occ, out, max_k: int):
+    """The least time for K1's function on these inputs: one read of the
+    occupancy bytes and one write of the float32 map, against the neighbour
+    tests this data needs (each cell still unreached before sweep k tests
+    its 4 neighbours, 8 on odd k). Returns (ms, "bytes" or "operations")."""
+    import torch
+    n_bytes = occ.numel() * (occ.element_size() + 4)
+    ops = sum((8 if k % 2 else 4) * int(torch.count_nonzero(out >= k))
+              for k in range(1, max_k))
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), bound_by
 
 
 def phase_device():
@@ -114,17 +174,39 @@ def phase_kernels():
                 if err != 0.0:
                     _fail(f"distance_transform {H}x{W} occ={occ_kind} "
                           f"max_k={max_k}: max|kernel - plain| = {err}")
-    occ = torch.from_numpy(rng.rand(240, 320) < 0.02).cuda()
-    ms = _median_event_ms(lambda: cuda_kernels.distance_transform(occ, 18))
-    plain_ms = _median_event_ms(lambda: distance_transform_ref(occ, 18))
     print(f"K1 distance_transform: {n_cases} cases, max|kernel - plain| = "
-          f"{worst}; at 240x320, max_k=18: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (median of 50, CUDA events); comparison "
-          f"launches {cuda_kernels.LAUNCHES['distance_transform']}", flush=True)
+          f"{worst}; comparison launches "
+          f"{cuda_kernels.LAUNCHES['distance_transform']}", flush=True)
+    timed = {}
+    for (H, W) in DIST_TIMED:
+        occ = torch.from_numpy(rng.rand(H, W) < 0.02).cuda()
+        kernel = lambda: cuda_kernels.distance_transform(occ, 18)  # noqa: E731,B023
+        t = dict(ms=_median_event_ms(kernel),
+                 device_ms=_queued_device_ms(kernel),
+                 plain_ms=_median_event_ms(
+                     lambda: distance_transform_ref(occ, 18)),  # noqa: B023
+                 host_us=_host_us_per_call(kernel))
+        t["bound_ms"], t["bound_by"] = distance_bound_ms(occ, kernel(), 18)
+        timed[(H, W)] = t
+        print(f"K1 at {H}x{W}, max_k=18, 2% occupied: kernel {t['ms']:.4f} ms "
+              f"per single call (median of 50, CUDA events, the wrapper's "
+              f"host time included), {t['device_ms']:.4f} ms of device time "
+              f"per launch (20 queued launches, median of 30); plain "
+              f"{t['plain_ms']:.4f} ms (single call, median of 50); bound "
+              f"{t['bound_ms'] * 1e3:.4f} us set by {t['bound_by']}, "
+              f"{100 * t['bound_ms'] / t['ms']:.2f}% of it reached per "
+              f"single call, {100 * t['bound_ms'] / t['device_ms']:.2f}% in "
+              f"device time; wrapper host {t['host_us']:.2f} us per call "
+              f"(2000 calls, synchronised wall)", flush=True)
+    main = timed[DIST_TIMED[0]]
+    # ms and plain_ms are both single-call CUDA-event medians (as in the
+    # earlier records); device_ms is the queued device time per launch
     return dict(name="distance_transform", route="cuda",
                 source="ldso_tpu_torch/csrc/distance_map.cu",
                 replaces="ldso_tpu/ops/pallas_kernels.py:63",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+                max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+                device_ms=main["device_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None)
 
 
 def phase_determinism(seed: int = 7):
@@ -221,7 +303,9 @@ def phase_main_path(n_frames: int = N_FRAMES):
         img, _ = scene.render(calib, T, device="cuda")
         images.append(torch.clamp(torch.round(img), 0, 255)
                       .to(torch.uint8).cpu().numpy())
-    fs = FullSystem(calib, cfg, device="cuda")
+    fs = FullSystem(calib, cfg)              # the card is the default
+    if fs.device.type != "cuda":
+        _fail(f"FullSystem(calib, cfg) runs on {fs.device}, not the card")
     torch.cuda.reset_peak_memory_stats()
     cuda_kernels.reset_launch_counts()
     frame_ms = []
@@ -331,7 +415,7 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     print(f"loop slice: vocabulary of {vocab.n_words} words trained in "
           f"{time.time() - t0:.2f} s", flush=True)
 
-    fs = FullSystem(calib, cfg, vocab=vocab, device="cuda")
+    fs = FullSystem(calib, cfg, vocab=vocab)
     lc = fs.loop_closing
     loop_ms, pgo_ms = [], []
     step, pgo = fs._loop_closing_step, lc.run_pose_graph_if_needed
@@ -365,7 +449,7 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     # (examples/run_common.py:200-203)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    posegraph.run_pose_graph(fs.global_map, device="cuda")
+    posegraph.run_pose_graph(fs.global_map)
     final_pgo_ms = (time.perf_counter() - t) * 1e3
 
     kfs = fs.global_map.get_all_kfs()
@@ -416,7 +500,7 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     if launches["distance_transform"] < post_boot:
         _fail(f"loop slice: K1 launched {launches['distance_transform']} "
               f"times for {post_boot} post-bootstrap keyframes")
-    return launches
+    return launches, post_boot
 
 
 def main() -> int:
@@ -425,11 +509,12 @@ def main() -> int:
     record = phase_kernels()
     phase_determinism()
     launches_vo = phase_main_path()
-    launches = phase_loop_slice()
+    launches, post_boot = phase_loop_slice()
     print(f"K1 launches: {launches_vo['distance_transform']} on the pure-VO "
           f"path, {launches['distance_transform']} on the loop slice",
           flush=True)
     record["launches"] = launches["distance_transform"]
+    record["launches_per_keyframe"] = launches["distance_transform"] / post_boot
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,14 @@ monocular visual odometry, LDSO-class) for one NVIDIA H100.
 The JAX package `ldso_tpu` is the reference; this package mirrors its
 module tree and function names, so each counterpart sits at the same path.
 It imports torch and numpy and never jax or ldso_tpu: the host helpers it
-needs (config, camera calibration, lie_np, slam_map, synthetic scenes) are
-carried as jax-free copies, pinned to their originals by the tests.
+needs (config, camera calibration, lie_np, slam_map, synthetic scenes, the
+native C++ source) are carried as its own copies, pinned to their
+originals by the tests.
 
-Device placement is explicit: `FullSystem(calib, cfg, device=...)` takes a
-device and passes it down; nothing here sets a global default device.
+Device placement: `FullSystem(calib, cfg)` runs on the CUDA card by default
+and raises where there is none; `device="cpu"` runs it on the CPU. The
+device is passed down to every constructor, none of which has a default of
+its own; nothing here sets a global default device.
 """
 
 import torch

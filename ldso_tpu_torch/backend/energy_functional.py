@@ -206,7 +206,7 @@ class EnergyFunctional:
     path."""
 
     def __init__(self, cfg: Config, calib, F: Optional[int] = None,
-                 P: Optional[int] = None, device="cpu"):
+                 P: Optional[int] = None, *, device):
         if not (cfg.ba_device_lm and cfg.force_accept_step) or (
                 cfg.solver_mode & _HOST_ONLY_MODES):
             raise NotImplementedError(

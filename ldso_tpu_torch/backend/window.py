@@ -86,7 +86,7 @@ class Window(NamedTuple):
         return self.pt_valid.shape[0]
 
 
-def empty_window(F: int, P: int, c_init, cfg, device="cpu") -> Window:
+def empty_window(F: int, P: int, c_init, cfg, device) -> Window:
     """Fresh window with intrinsics c_init = physical [fx fy cx cy]."""
     f32 = dict(dtype=torch.float32, device=device)
     b = dict(dtype=torch.bool, device=device)

@@ -368,7 +368,7 @@ class ImmatureArena(NamedTuple):
     host: torch.Tensor       # (N,) int32 window slot of each candidate; -1 dead
 
 
-def empty_arena(N: int, cfg: Config, device="cpu") -> ImmatureArena:
+def empty_arena(N: int, cfg: Config, device) -> ImmatureArena:
     f32 = dict(dtype=torch.float32, device=device)
     z = lambda *sh: torch.zeros((N,) + sh, **f32)  # noqa: E731
     pool = ImmaturePool(

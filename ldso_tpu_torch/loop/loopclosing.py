@@ -39,6 +39,7 @@ from ldso_tpu_torch.loop.pnp import pnp_ransac
 from ldso_tpu_torch.loop.sim3_solver import refine_sim3, umeyama_ransac
 from ldso_tpu_torch.loop.vocab import Vocabulary
 from ldso_tpu_torch.slam_map import FrameShell, GlobalMap
+from ldso_tpu_torch.utils.device import DEFAULT_DEVICE, entry_device
 
 MIN_BOW_MATCHES = 10    # nmatches gates (LoopClosing.cc:163,197,407)
 MIN_PNP_INLIERS = 10    # cntInliers < 10 (LoopClosing.cc:226)
@@ -49,12 +50,13 @@ FEAT_DEPTH_RADIUS = 1.5  # px: the reference's 1-px-dilated idepth map
 
 class LoopClosing:
     def __init__(self, calib: Calibration, cfg: Config, global_map: GlobalMap,
-                 vocab: Optional[Vocabulary] = None, device="cpu"):
+                 vocab: Optional[Vocabulary] = None,
+                 device=DEFAULT_DEVICE):
         self.calib = calib
         self.cfg = cfg
         self.global_map = global_map
         self.vocab = vocab
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         self.db: Optional[KeyframeDatabase] = (
             KeyframeDatabase(vocab) if vocab is not None else None)
         self._pending_train: list = []

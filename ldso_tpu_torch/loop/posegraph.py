@@ -32,6 +32,7 @@ import torch
 
 from ldso_tpu_torch.math import lie
 from ldso_tpu_torch.ops.scatter import segment_sum
+from ldso_tpu_torch.utils.device import DEFAULT_DEVICE, entry_device
 
 
 def _edge_residual(Si, Sj, Z_inv):
@@ -178,12 +179,14 @@ def _pow2(n: int, lo: int = 16) -> int:
     return max(lo, 1 << int(math.ceil(math.log2(max(n, 1)))))
 
 
-def run_pose_graph(global_map, iterations: int = 25, device="cpu"):
+def run_pose_graph(global_map, iterations: int = 25,
+                   device=DEFAULT_DEVICE):
     """Host wrapper over the GlobalMap poseRel edges (Map.cc:75-165):
     optimizes every keyframe's S_cw in float64 on `device` with the newest
     fixed, and writes the result back. Vertex and edge counts pad to
     power-of-two buckets as in the JAX package (padding vertices are
     fixed identities, padding edges masked self-edges on the newest)."""
+    device = entry_device(device)
     kfs = global_map.get_all_kfs()
     if len(kfs) < 3:
         return

@@ -309,7 +309,7 @@ class Vocabulary:
                           weight[leaves].astype(np.float32))
 
     # ------------------------------------------------------------ transform
-    def device_tables(self, device="cpu"):
+    def device_tables(self, device):
         """(node_desc int64, children int64, word_id int64) on `device`
         for `_transform_batch`."""
         return (torch.from_numpy(self.node_desc.astype(np.int64)).to(device),

@@ -1,14 +1,14 @@
-"""The native C++ host runtime, built from the JAX package's source.
+"""The native C++ host runtime of the loop-closing paths.
 
-The loop-closing host paths (vocabulary transform, inverted-index
-database, bucketed popcount matching, radius NMS) live in
-ldso_tpu/native/native.cpp, a plain C ABI with no JAX in it. This loader
-compiles that same file with g++ (the flags of ldso_tpu/native) into
-build/ldso_tpu_torch/native-<hash>/ at first use and binds it with
-ctypes; it never writes into ldso_tpu/native/ and keeps no copy of the
-source. The hash covers the source, the flags and the host CPU's feature
-flags (`-march=native`), so a library built on one machine is never
-loaded on another.
+The vocabulary transform, inverted-index database, bucketed popcount
+matching and radius NMS live in ldso_tpu_torch/csrc/native.cpp, a plain C
+ABI with no JAX in it: the port's own copy of the JAX package's
+ldso_tpu/native/native.cpp, byte for byte (tests/test_torch_host.py pins
+the two together). This loader compiles it with g++ (the flags of
+ldso_tpu/native) into build/ldso_tpu_torch/native-<hash>/ at first use
+and binds it with ctypes. The hash covers the source, the flags and the
+host CPU's feature flags (`-march=native`), so a library built on one
+machine is never loaded on another.
 
 There is no pure-Python fallback: when the library cannot be built or
 loaded, every entry point raises.
@@ -25,9 +25,9 @@ import threading
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_REPO, "ldso_tpu", "native", "native.cpp")
-BUILD_ROOT = os.path.join(_REPO, "build", "ldso_tpu_torch")
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "native.cpp")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "ldso_tpu_torch")
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()

@@ -35,10 +35,14 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "ldso_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# the dynamic shared memory a block may use without opting in to more
+SMEM_LIMIT = 48 * 1024
+
 LAUNCHES = {"distance_transform": 0}
 
 _lock = threading.Lock()
 _lib = None
+_n_sm = {}          # device index -> streaming multiprocessors
 
 
 def reset_launch_counts():
@@ -100,21 +104,43 @@ def _load():
             lib = ctypes.CDLL(build())
             lib.ldso_distance_transform.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.ldso_distance_transform.restype = ctypes.c_int
-            lib.ldso_distance_transform_max_smem.argtypes = [ctypes.c_int]
-            lib.ldso_distance_transform_max_smem.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
-def distance_transform(occupied: torch.Tensor, max_k: int = MAX_K) -> torch.Tensor:
+def distance_plan(H: int, W: int, max_k: int, n_sm: int):
+    """(band rows, dynamic shared memory bytes) of K1's launch on an (H, W)
+    map. The band starts as the fewest rows that keep the blocks, one per
+    band, within one per SM: a block's work is its band plus max_k - 1
+    halo rows on each side. Its state is two bit buffers of those rows (at
+    most H, the second with two spare words) and the band's words of max_k
+    sets. The band halves until that fits SMEM_LIMIT; ValueError when a
+    one-row band does not."""
+    band = -(-H // n_sm)
+    nw = (W + 31) // 32
+    while True:
+        smem = 4 * (nw * (2 * min(H, band + 2 * (max_k - 1)) + max_k * band)
+                    + 2)
+        if smem <= SMEM_LIMIT:
+            return band, smem
+        if band == 1:
+            raise ValueError(
+                f"distance_transform: a {W}-wide map at max_k={max_k} needs "
+                f"{smem} bytes of shared memory for a one-row band, more "
+                f"than the {SMEM_LIMIT} a block gets without opting in")
+        band //= 2
+
+
+def distance_transform(occupied: torch.Tensor,
+                       max_k: int = MAX_K) -> torch.Tensor:
     """Chamfer distance map of an (H, W) bool/uint8 occupancy map (see
     ops.distance_map.distance_transform_ref for the function).
 
     CPU tensor: the plain version. CUDA tensor: the hand-written kernel of
-    csrc/distance_map.cu, which keeps the map in one block's shared memory
-    as bytes; a map that does not fit raises ValueError."""
+    csrc/distance_map.cu, one block per band of output rows as
+    `distance_plan` chooses."""
     if occupied.device.type == "cpu":
         return distance_transform_ref(occupied, max_k)
     if occupied.device.type != "cuda":
@@ -123,29 +149,27 @@ def distance_transform(occupied: torch.Tensor, max_k: int = MAX_K) -> torch.Tens
     if occupied.dtype not in (torch.bool, torch.uint8):
         raise ValueError(f"distance_transform: occupancy must be bool or "
                          f"uint8, got {occupied.dtype}")
-    if occupied.dim() != 2:
-        raise ValueError(f"distance_transform: expected (H, W), got "
-                         f"{tuple(occupied.shape)}")
+    if occupied.dim() != 2 or occupied.numel() == 0:
+        raise ValueError(f"distance_transform: expected a non-empty (H, W) "
+                         f"map, got {tuple(occupied.shape)}")
     if not occupied.is_contiguous():
         raise ValueError("distance_transform: occupancy must be contiguous")
     if not 1 <= max_k <= 255:
-        raise ValueError(f"distance_transform: max_k must be in [1, 255] "
-                         f"(uint8 distances), got {max_k}")
+        raise ValueError(f"distance_transform: max_k must be in [1, 255], "
+                         f"got {max_k}")
     H, W = occupied.shape
+    dev = occupied.device
+    if dev.index not in _n_sm:
+        _n_sm[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    band, smem = distance_plan(H, W, max_k, _n_sm[dev.index])
     lib = _load()
-    limit = lib.ldso_distance_transform_max_smem(occupied.device.index or 0)
-    if limit < 0:
-        raise RuntimeError(f"cudaDeviceGetAttribute failed: error {-limit}")
-    if H * W > limit:
-        raise ValueError(
-            f"distance_transform: a {H}x{W} map needs {H * W} bytes of shared "
-            f"memory, more than the {limit} bytes one block may use on "
-            f"{torch.cuda.get_device_name(occupied.device)}")
-    out = torch.empty((H, W), dtype=torch.float32, device=occupied.device)
-    with torch.cuda.device(occupied.device):
-        stream = torch.cuda.current_stream(occupied.device).cuda_stream
+    out = torch.empty((H, W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ldso_distance_transform(
-            occupied.data_ptr(), out.data_ptr(), H, W, int(max_k), stream)
+            occupied.data_ptr(), out.data_ptr(), H, W, int(max_k), band,
+            smem, stream)
     if err != 0:
         raise RuntimeError(f"distance_transform kernel launch failed: CUDA "
                            f"error {err}")

@@ -197,7 +197,7 @@ class PixelSelector:
 
     _SYNC_CALLS = 4
 
-    def __init__(self, w: int, h: int, cfg, device="cpu"):
+    def __init__(self, w: int, h: int, cfg, device):
         self.cfg = cfg
         rng = np.random.RandomState(cfg.seed)
         self.random_pattern = torch.from_numpy(

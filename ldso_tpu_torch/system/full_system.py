@@ -18,9 +18,10 @@ the next frame enters.
                                inline at the end of make_keyframe
 
 The asynchronous pipeline and its tracking chain come later.
-`FullSystem(calib, cfg, device=...)` places every tensor on `device`; on a
-CUDA device the activation gate's distance map runs the hand-written
-kernel of ops/cuda_kernels.py.
+`FullSystem(calib, cfg)` places every tensor on the CUDA card (and raises
+where there is none); `device="cpu"` runs it on the CPU. On the card the
+activation gate's distance map runs the hand-written kernel of
+ops/cuda_kernels.py.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from ldso_tpu_torch.ops import select as select_ops
 from ldso_tpu_torch.ops.interp import bilinear
 from ldso_tpu_torch.ops.preprocess import FramePyramid, make_pyramid, upload_image
 from ldso_tpu_torch.slam_map import FrameShell, GlobalMap, MapPointRecord
+from ldso_tpu_torch.utils.device import DEFAULT_DEVICE, entry_device
 from ldso_tpu_torch.utils.static import nonzero_padded
 from ldso_tpu_torch.utils.timing import StageTimer
 
@@ -165,10 +167,10 @@ def _motion_hypotheses(lastF_2_slast, fh_2_slast):
 class FullSystem:
     def __init__(self, calib: Calibration, cfg: Config,
                  b_grad_lut: Optional[np.ndarray] = None, vocab=None,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         self.calib = calib
         self.cfg = cfg.validate()
-        self.device = torch.device(device)
+        self.device = entry_device(device)
         dev = self.device
         self.b_grad = (torch.as_tensor(np.asarray(b_grad_lut, np.float32),
                                        device=dev)

@@ -174,7 +174,7 @@ def test_optimize_device(window):
 
 
 def _port_ef(ef_j):
-    ef = EnergyFunctional(TCFG, ef_j.calib, F=ef_j.F, P=ef_j.P)
+    ef = EnergyFunctional(TCFG, ef_j.calib, F=ef_j.F, P=ef_j.P, device="cpu")
     ef.W = convert.window_to_torch(ef_j.W)
     ef.n_frames = ef_j.n_frames
     ef.HM, ef.bM = ef_j.HM.copy(), ef_j.bM.copy()

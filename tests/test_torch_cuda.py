@@ -22,29 +22,57 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(240, 320), (96, 128), (61, 97)])
+# the main path's map, KITTI's (1241x376 input), 1280x1024 and 1920x1080
+# inputs, a 1000x1000 map (above one block's shared memory as bytes), and
+# widths that are not a multiple of 32
+@pytest.mark.parametrize("shape", [(240, 320), (96, 128), (61, 97),
+                                   (188, 620), (512, 640), (540, 960),
+                                   (1000, 1000)])
 def test_distance_kernel_matches_plain(cuda, shape):
-    """Exact (atol 0) at every occupancy and both sweep counts."""
+    """Exact (atol 0) at every occupancy and sweep count."""
     from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.ops.distance_map import distance_transform_ref
     rng = np.random.RandomState(8)
     before = cuda_kernels.LAUNCHES["distance_transform"]
     for p in (0.0, 0.005, 0.02, 0.1, 1.0):
         occ = torch.from_numpy(rng.rand(*shape) < p).to(cuda)
-        for max_k in (18, 40):
+        for max_k in (1, 2, 18, 40):
             got = cuda_kernels.distance_transform(occ, max_k)
             want = distance_transform_ref(occ, max_k)
             assert torch.equal(got, want), (shape, p, max_k)
         got8 = cuda_kernels.distance_transform(occ.to(torch.uint8), 18)
         assert torch.equal(got8, distance_transform_ref(occ, 18))
-    assert cuda_kernels.LAUNCHES["distance_transform"] == before + 15
+    assert cuda_kernels.LAUNCHES["distance_transform"] == before + 25
+
+
+@pytest.mark.parametrize("band", [1, 2, 4, 8])
+def test_distance_kernel_any_band_is_exact(cuda, band):
+    """The band height changes only how the rows are split among blocks:
+    a map of band x (SM count) rows is planned at that band."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.ops.distance_map import distance_transform_ref
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    H, W = band * n_sm, 97
+    occ = torch.from_numpy(np.random.RandomState(9).rand(H, W) < 0.02)
+    for max_k in (2, 18, 40):
+        assert cuda_kernels.distance_plan(H, W, max_k, n_sm)[0] == band
+        got = cuda_kernels.distance_transform(occ.to(cuda), max_k)
+        assert torch.equal(got.cpu(), distance_transform_ref(occ, max_k))
 
 
 def test_distance_kernel_refuses_what_it_cannot_take(cuda):
     from ldso_tpu_torch.ops import cuda_kernels
-    with pytest.raises(ValueError, match="shared"):
+    from ldso_tpu_torch.ops.distance_map import distance_transform_ref
+    big = torch.zeros(1000, 1000, dtype=torch.bool, device=cuda)
+    big[500, 500] = True
+    assert torch.equal(cuda_kernels.distance_transform(big, 18),
+                       distance_transform_ref(big, 18))
+    with pytest.raises(ValueError, match="shared memory"):
         cuda_kernels.distance_transform(
-            torch.zeros(1000, 1000, dtype=torch.bool, device=cuda), 18)
+            torch.zeros(8, 100000, dtype=torch.bool, device=cuda), 40)
+    with pytest.raises(ValueError, match="non-empty"):
+        cuda_kernels.distance_transform(
+            torch.zeros(0, 8, dtype=torch.bool, device=cuda), 18)
     with pytest.raises(ValueError):
         cuda_kernels.distance_transform(
             torch.zeros(8, 8, dtype=torch.float32, device=cuda), 18)
@@ -54,6 +82,20 @@ def test_distance_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         cuda_kernels.distance_transform(
             torch.zeros(8, 16, dtype=torch.bool, device=cuda)[:, ::2], 18)
+
+
+def test_full_system_defaults_to_the_card(cuda):
+    """FullSystem(calib, cfg) with no device places its tensors on the
+    card, and so does its loop closer."""
+    from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.synthetic import default_calib
+    from ldso_tpu_torch.system.full_system import FullSystem
+    fs = FullSystem(default_calib(64, 48), Config())
+    assert fs.device.type == "cuda"
+    for t in (fs.ef.W.idepth, fs.imm_arena.pool.u, fs.dIs,
+              fs.selector.random_pattern):
+        assert t.device.type == "cuda"
+    assert fs.loop_closing.device.type == "cuda"
 
 
 def test_main_path_card_matches_cpu(cuda):

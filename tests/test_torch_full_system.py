@@ -31,7 +31,7 @@ def _centre(T):
 def runs():
     calib, poses, imgs, _ = plane_frames(N + 1, 256, 192)
     fj = jfs.FullSystem(calib, JC(**KW))
-    fp = tfs.FullSystem(calib, TC(**KW))
+    fp = tfs.FullSystem(calib, TC(**KW), device="cpu")
     for i in range(N):
         fj.add_active_frame(imgs[i], i, 1.0, i * 0.05)
         fp.add_active_frame(imgs[i], i, 1.0, i * 0.05)

@@ -39,6 +39,29 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_entry_points_default_to_the_card():
+    """FullSystem, LoopClosing and run_pose_graph run on the CUDA card
+    unless the caller passes device="cpu"; with no card the default
+    raises instead of running on the CPU."""
+    from ldso_tpu_torch.loop import posegraph
+    from ldso_tpu_torch.loop.loopclosing import LoopClosing
+    from ldso_tpu_torch.slam_map import GlobalMap
+    from ldso_tpu_torch.synthetic import default_calib
+    from ldso_tpu_torch.system.full_system import FullSystem
+    calib, cfg = default_calib(64, 48), tcfg.Config()
+    entry_points = (lambda: FullSystem(calib, cfg),
+                    lambda: LoopClosing(calib, cfg, GlobalMap()),
+                    lambda: posegraph.run_pose_graph(GlobalMap()))
+    if torch.cuda.is_available():
+        assert FullSystem(calib, cfg).ef.W.idepth.device.type == "cuda"
+        assert LoopClosing(calib, cfg, GlobalMap()).device.type == "cuda"
+    else:
+        for make in entry_points:
+            with pytest.raises(RuntimeError, match="no CUDA card"):
+                make()
+    assert FullSystem(calib, cfg, device="cpu").device.type == "cpu"
+
+
 def test_matmul_policy():
     import ldso_tpu_torch  # noqa: F401
     assert torch.get_float32_matmul_precision() == "highest"
@@ -171,13 +194,25 @@ def _tree_state(path):
                   for f in os.listdir(path))
 
 
+def test_native_cpp_copy_matches_original():
+    """csrc/native.cpp is a verbatim copy of the JAX package's (it never
+    used jax)."""
+    a = open(os.path.join(REPO, "ldso_tpu", "native", "native.cpp"),
+             "rb").read()
+    b = open(os.path.join(REPO, "ldso_tpu_torch", "csrc", "native.cpp"),
+             "rb").read()
+    assert a == b
+
+
 def test_native_loader_builds_into_build_dir():
-    """The port compiles ldso_tpu/native/native.cpp itself into
-    build/ldso_tpu_torch/native-<hash>/ and leaves ldso_tpu/native/ as it
-    found it; the library it loads is that build."""
+    """The port compiles its own copy, ldso_tpu_torch/csrc/native.cpp, into
+    build/ldso_tpu_torch/native-<hash>/ and leaves its source directory
+    and ldso_tpu/native/ as it found them; the library it loads is that
+    build."""
     from ldso_tpu_torch import native
-    src_dir = os.path.join(REPO, "ldso_tpu", "native")
-    before = _tree_state(src_dir)
+    src_dir = os.path.join(REPO, "ldso_tpu_torch", "csrc")
+    jax_dir = os.path.join(REPO, "ldso_tpu", "native")
+    before = _tree_state(src_dir), _tree_state(jax_dir)
     path = native.build()
     assert path == native.library_path()
     assert os.path.dirname(os.path.dirname(path)) == os.path.join(
@@ -191,7 +226,7 @@ def test_native_loader_builds_into_build_dir():
                                np.array([[1], [-1]], np.int32),
                                np.array([-1, 0], np.int32), 1, 1)
     equal(out, np.zeros(3, np.int32))
-    assert _tree_state(src_dir) == before
+    assert (_tree_state(src_dir), _tree_state(jax_dir)) == before
     assert not any(f.endswith(".cpp") for f in os.listdir(
         os.path.join(REPO, "ldso_tpu_torch")))
 

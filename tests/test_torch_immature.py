@@ -101,7 +101,7 @@ def test_arena_ops(seq):
     float fields compare within 1e-4 relative."""
     calib, poses, pj, pt, ideps, status = seq
     aj = jim.empty_arena(2 * CAP, JC())
-    at = tim.empty_arena(2 * CAP, TC())
+    at = tim.empty_arena(2 * CAP, TC(), "cpu")
     rng = np.random.RandomState(1)
     for host in (0, 1, 2):
         st = status * (rng.rand(*status.shape) < 0.7)
@@ -197,7 +197,7 @@ def test_overflow_drops_and_cap_truncation(seq):
     equal(qt.u, qj.u)
     equal(qt.v, qj.v)
     aj = jim.empty_arena(200, JC())
-    at = tim.empty_arena(200, TC())
+    at = tim.empty_arena(200, TC(), "cpu")
     for host in (0, 1):
         aj = jim.arena_add_from_status(aj, jnp.asarray(status), pj[host].dI[0],
                                        jnp.int32(host), CAP, JC())

@@ -93,10 +93,11 @@ def test_two_visit_loop_matches_jax(two_visits):
     calib, views, T_loop, frames = two_visits
     S_gt = T_loop @ np.linalg.inv(views[0])
     out = {}
-    for name, LC, Map, Cfg, make in (("jax", JLC, JMap, JC, _jax_kf),
-                                     ("port", TLC, TMap, TC, _port_kf)):
+    for name, LC, Map, Cfg, make, kw in (
+            ("jax", JLC, JMap, JC, _jax_kf, {}),
+            ("port", TLC, TMap, TC, _port_kf, {"device": "cpu"})):
         gm = Map()
-        lc = LC(calib, Cfg(loop_kf_gap=3), gm)
+        lc = LC(calib, Cfg(loop_kf_gap=3), gm, **kw)
         kfs = []
         for k, (T, img, idep) in enumerate(frames):
             kf = make(calib, k, T, img, idep)
@@ -138,7 +139,7 @@ def test_loop_closing_from_jax_state(two_visits):
     assert lc.vocab is not None
     tgm = convert.global_map_to_torch(gm)
     tlc = TLC(calib, TC(loop_kf_gap=3), tgm,
-              vocab=convert.vocabulary_to_torch(lc.vocab))
+              vocab=convert.vocabulary_to_torch(lc.vocab), device="cpu")
     for kid in lc._db_order:
         tlc._add_to_db(tgm.keyframes[kid])
     assert tlc._db_order == lc._db_order
@@ -154,7 +155,7 @@ def test_loop_closing_from_jax_state(two_visits):
 def test_default_config_constructs():
     """FullSystem(calib, Config()) builds with loop closing on."""
     from ldso_tpu_torch.synthetic import default_calib as tdc
-    fs = tfs.FullSystem(tdc(64, 48), TC())
+    fs = tfs.FullSystem(tdc(64, 48), TC(), device="cpu")
     assert fs.loop_closing is not None and fs.loop_closing.vocab is None
     assert fs.cfg.point_selection == 1
 
@@ -175,7 +176,7 @@ def test_point_selection_runs_like_jax(point_selection):
     calib, poses, imgs, _ = plane_frames(N_SEL, 256, 192)
     kw = dict(KW, point_selection=point_selection)
     fj = jfs.FullSystem(calib, JC(**kw))
-    fp = tfs.FullSystem(calib, TC(**kw))
+    fp = tfs.FullSystem(calib, TC(**kw), device="cpu")
     for i in range(N_SEL):
         fj.add_active_frame(imgs[i], i, 1.0, i * 0.05)
         fp.add_active_frame(imgs[i], i, 1.0, i * 0.05)

@@ -161,7 +161,7 @@ def test_vocab_transform_nodes_bow(vocabs):
     equal(wt, wj, "transform")
     wb = npy(j_transform_batch(jnp.asarray(q), *[jnp.asarray(x) for x in (
         vj.node_desc, vj.children, vj.is_leaf, vj.word_id)], vj.L, vj.k))
-    twin = t_transform_batch(tdet.desc_to_torch(q), *vt.device_tables(),
+    twin = t_transform_batch(tdet.desc_to_torch(q), *vt.device_tables("cpu"),
                              vt.L, vt.k)
     equal(np.where(valid, npy(twin), -1), wt, "torch twin vs native")
     equal(npy(twin), wb, "torch twin vs JAX _transform_batch")

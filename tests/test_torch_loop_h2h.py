@@ -36,7 +36,8 @@ def runs():
                        np.float32) * np.float32(gains[i])
             for i, T in enumerate(out_and_back(N_LOOP))]
     out = []
-    for fs in (JFS(calib, JC(**LOOP_KW)), TFS(calib, TC(**LOOP_KW))):
+    for fs in (JFS(calib, JC(**LOOP_KW)),
+               TFS(calib, TC(**LOOP_KW), device="cpu")):
         for i, img in enumerate(imgs):
             fs.add_active_frame(img, i, 1.0, i * 0.05)
             assert not fs.is_lost and not fs.init_failed, i

@@ -316,7 +316,7 @@ def test_run_pose_graph_drifted_map_matches():
                         is_loop=True)
     gt_port = global_map_to_torch(gm)
     jpg.run_pose_graph(gm, iterations=10)
-    tpg.run_pose_graph(gt_port, iterations=10)
+    tpg.run_pose_graph(gt_port, iterations=10, device="cpu")
     assert gt_port.latest_optimized_kf_id == gm.latest_optimized_kf_id
     for k in gm.keyframes:
         close(gt_port.keyframes[k].S_cw, gm.keyframes[k].S_cw, rtol=0,

@@ -60,7 +60,7 @@ def run():
     scene = PlaneScene(freq_hi=30.0, contrast=80.0, n_waves=32)
     poses = out_and_back(N_LOOP)
     gains = exposure_gains(N_LOOP)
-    fs = FullSystem(calib, Config(**LOOP_KW))
+    fs = FullSystem(calib, Config(**LOOP_KW), device="cpu")
     for i, T in enumerate(poses):
         img, _ = scene.render(calib, T)
         fs.add_active_frame(img.numpy() * float(gains[i]), i, 1.0, i * 0.05)
@@ -151,7 +151,7 @@ def test_pose_graph_corrects_injected_drift(run):
     assert ate_odo > 0.01, "drift injection too small to be meaningful"
     res_odo = loop_residual(lambda kf: kf.T_cw)
     pair_odo = loop_pair_err_vs_gt(lambda kf: kf.T_cw)
-    posegraph.run_pose_graph(fs.global_map)
+    posegraph.run_pose_graph(fs.global_map, device="cpu")
     ate_loop = ate([kf.get_S_cw() for kf in kfs])
     pair_loop = loop_pair_err_vs_gt(lambda kf: kf.get_S_cw())
     assert pair_loop < 0.3 * pair_odo, (pair_loop, pair_odo)

@@ -193,7 +193,7 @@ def test_selector_maps_exact():
         equal(st, sj, f"select pot={pot}")
         equal(ct, cj)
     jsel = js.PixelSelector(calib.w[0], calib.h[0], JC())
-    tsel = ts.PixelSelector(calib.w[0], calib.h[0], TC())
+    tsel = ts.PixelSelector(calib.w[0], calib.h[0], TC(), "cpu")
     equal(tsel.random_pattern, jsel.random_pattern)
     for density in (300.0, 800.0, 3000.0):
         sj, nj = jsel.make_maps(pj, density)
