@@ -18,8 +18,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      every output bitwise equal;
   3. the pure-VO path: the synchronous monocular VO FullSystem at 640x480
      with the production Config and loop closing off on 64 synthetic uint8
-     frames of the bench trajectory, built with no device argument (the
-     card is the default); asserts tracking, >= 8 keyframes, the kernel
+     frames of the bench trajectory, on the package's default device (the
+     card), timed by one wall clock from the first frame to a synchronise
+     after the last; asserts tracking, >= 8 keyframes, the kernel
      launched on every keyframe after the bootstrap, and a
      similarity-aligned ATE under 5 mm;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
@@ -27,7 +28,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
      asserts at least one return-leg -> out-leg loop, the pose graph ran,
      Sim(3) scales in (0.5, 2), odometry ATE < 5 mm, loop-closed ATE
-     < 20 mm and the kernel launched on every keyframe after the bootstrap.
+     < 20 mm and the kernel launched on every keyframe after the bootstrap;
+  5. the pipelines: phase 3's frames through DeterministicPipeline twice
+     and AsyncPipeline once, by phase 3's driver
+     (ldso_tpu_torch/examples/time_modes.run_mode, one wall clock per run,
+     drain included); asserts the two lookahead runs bitwise equal, >= 8
+     keyframes and ATE < 5 mm, the kernel launched once per post-bootstrap
+     keyframe in every mode and, in async, only on the mapping thread's
+     stream; one JSON line per mode;
+  6. the CLI: phase 3's frames written as a KITTI sequence with the port's
+     PNG writer, then run_common.run with pipeline=lookahead and with
+     pipeline=async; asserts both trajectory files of each run, orthonormal
+     rotations, keyframe ATE < 5 mm and the kernel's launches.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -263,86 +275,187 @@ def phase_determinism(seed: int = 7):
               f"results ({len(first)} outputs, {points} points)", flush=True)
 
 
-def bench_poses(n: int):
-    """The bench.py trajectory (bench.py:135-140), camera-from-world."""
-    from ldso_tpu_torch.math import lie_np
-    poses = []
-    for i in range(n):
-        t = np.array([0.03 * i, 0.01 * np.sin(0.2 * i), 0.004 * i])
-        w = np.array([0.0, 0.0018 * i, 0.0004 * i])
-        poses.append(np.linalg.inv(lie_np.se3_exp(np.concatenate([t, w]))))
-    return poses
-
-
-def sim_align_ate(est_poses, gt_poses):
-    """Umeyama similarity alignment -> RMSE of camera centres (m)."""
-    est_c = np.stack([np.linalg.inv(T)[:3, 3] for T in est_poses])
-    gt_c = np.stack([np.linalg.inv(T)[:3, 3] for T in gt_poses])
-    ec, gc = est_c - est_c.mean(0), gt_c - gt_c.mean(0)
-    s = np.sqrt((gc ** 2).sum() / max((ec ** 2).sum(), 1e-12))
-    U, _, Vt = np.linalg.svd(ec.T @ gc)
-    R = (U @ Vt).T
-    return float(np.sqrt(np.mean(np.sum((gc - s * (ec @ R.T)) ** 2, 1))))
-
-
 def phase_main_path(n_frames: int = N_FRAMES):
-    """Drive FullSystem.add_active_frame on the bench scene; returns the
-    main path's kernel launch counts."""
+    """Drive FullSystem.add_active_frame (strict) on the bench scene, on
+    the package's default device (the card); returns the main
+    path's kernel launch counts and the run's frames and numbers, which
+    phases 5 and 6 reuse."""
     import torch
-    from ldso_tpu_torch.config import Config
-    from ldso_tpu_torch.ops import cuda_kernels
-    from ldso_tpu_torch.synthetic import PlaneScene, default_calib
-    from ldso_tpu_torch.system.full_system import FullSystem
+    from ldso_tpu_torch.examples import time_modes
 
-    calib = default_calib(640, 480)
-    cfg = dataclasses.replace(Config(), enable_loop_closing=False)
-    scene = PlaneScene(freq_hi=25.0, contrast=80.0)
-    poses = bench_poses(n_frames)
-    images = []
-    for T in poses:           # rendering is set-up, not the measured path
-        img, _ = scene.render(calib, T, device="cuda")
-        images.append(torch.clamp(torch.round(img), 0, 255)
-                      .to(torch.uint8).cpu().numpy())
-    fs = FullSystem(calib, cfg)              # the card is the default
+    calib, poses, images = time_modes.bench_frames(n_frames)   # set-up
+    torch.cuda.reset_peak_memory_stats()
+    strict, fs = time_modes.run_mode("strict", calib, poses, images,
+                                     gpu=time_modes.gpu_facts())
     if fs.device.type != "cuda":
         _fail(f"FullSystem(calib, cfg) runs on {fs.device}, not the card")
-    torch.cuda.reset_peak_memory_stats()
-    cuda_kernels.reset_launch_counts()
-    frame_ms = []
-    for i, img in enumerate(images):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fs.add_active_frame(img, i, 1.0, i * 0.05)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if fs.is_lost or fs.init_failed:
-            _fail(f"main path: lost={fs.is_lost} init_failed={fs.init_failed} "
-                  f"at frame {i}")
-    launches = dict(cuda_kernels.LAUNCHES)
-
-    kf_ids = [f.id for f in fs.all_frames if f.kf_id >= 0]
-    post_boot = sum(1 for f in fs.all_frames if f.kf_id >= 2)
-    est_ids = [f.id for f in fs.all_frames if f.pose_valid]
-    _, est = fs.trajectory()
-    ate = sim_align_ate(est, [poses[i] for i in est_ids])
-    kf_ms = [frame_ms[i] for i in kf_ids if i > 0]
+    if strict["lost"] or strict["init_failed"]:
+        _fail(f"main path: lost={strict['lost']} "
+              f"init_failed={strict['init_failed']}")
+    launches = dict(distance_transform=strict["k1_launches"])
+    tracked = sum(1 for f in fs.all_frames if f.pose_valid)
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path: {n_frames} frames 640x480 uint8, {len(kf_ids)} keyframes "
-          f"{kf_ids}, {len(est_ids)} tracked, ATE {ate * 1e3:.4f} mm "
-          f"(sim3-aligned), median {np.median(frame_ms[-16:]):.2f} ms/frame over "
-          f"the last 16 frames, median {np.median(kf_ms):.2f} ms/keyframe, "
-          f"peak device memory {peak / 2**20:.1f} MiB, K1 launches "
-          f"{launches['distance_transform']} for {post_boot} post-bootstrap "
-          f"keyframes", flush=True)
-    print("stage timers (host wall, s):\n" + fs.timer.summary(), flush=True)
-    if len(kf_ids) < 8:
-        _fail(f"only {len(kf_ids)} keyframes (need >= 8)")
-    if not ate < ATE_BOUND_M:
-        _fail(f"ATE {ate * 1e3:.4f} mm >= {ATE_BOUND_M * 1e3} mm")
-    if launches["distance_transform"] < post_boot:
-        _fail(f"K1 launched {launches['distance_transform']} times for "
-              f"{post_boot} post-bootstrap keyframes")
-    return launches
+    print(f"main path: {n_frames} frames 640x480 uint8, "
+          f"{strict['keyframes']} keyframes {strict['kf_ids']}, {tracked} "
+          f"tracked, ATE {strict['ate_mm']:.4f} mm (sim3-aligned), "
+          f"{strict['ms_per_frame_wall']:.2f} ms/frame wall, median "
+          f"{strict['ms_per_frame_median']:.2f} ms per call, peak device "
+          f"memory {peak / 2**20:.1f} MiB, K1 launches "
+          f"{strict['k1_launches']} for {strict['post_bootstrap_keyframes']} "
+          f"post-bootstrap keyframes", flush=True)
+    if strict["keyframes"] < 8:
+        _fail(f"only {strict['keyframes']} keyframes (need >= 8)")
+    if not strict["ate_mm"] < ATE_BOUND_M * 1e3:
+        _fail(f"ATE {strict['ate_mm']:.4f} mm >= {ATE_BOUND_M * 1e3} mm")
+    if strict["k1_launches"] < strict["post_bootstrap_keyframes"]:
+        _fail(f"K1 launched {strict['k1_launches']} times for "
+              f"{strict['post_bootstrap_keyframes']} post-bootstrap keyframes")
+    return launches, calib, images, poses, strict
+
+
+def _mode_line(run: dict) -> str:
+    keys = ("mode", "frames", "keyframes", "ate_mm", "ms_per_frame_median",
+            "ms_per_frame_wall", "wall_s", "k1_launches", "k1_streams",
+            "post_bootstrap_keyframes", "retrack_trips", "lm_frames", "gpu")
+    return json.dumps({k: run[k] for k in keys})
+
+
+def phase_pipelines(calib, images, poses, strict: dict, device="cuda"):
+    """Phase 5: the phase-3 frames through DeterministicPipeline twice and
+    AsyncPipeline once, by phase 3's driver; prints one JSON line per mode
+    (strict is phase 3's run). Returns the runs."""
+    from ldso_tpu_torch.examples import time_modes
+    gpu = strict["gpu"]
+    runs, poses_of = [], []
+    for mode in ("lookahead", "lookahead", "async"):
+        run, fs = time_modes.run_mode(mode, calib, poses, images, gpu=gpu,
+                                      device=device)
+        if run["lost"] or run["init_failed"]:
+            _fail(f"pipelines: {mode}: lost={run['lost']} "
+                  f"init_failed={run['init_failed']}")
+        runs.append(run)
+        poses_of.append([f.T_cw.tobytes() for f in fs.all_frames])
+    look1, look2, asyn = runs
+    print(f"pipelines: lookahead keyframes {look1['kf_ids']} and "
+          f"{look2['kf_ids']}, async {asyn['kf_ids']}; K1 launches by "
+          f"stream in async {asyn['k1_streams']}", flush=True)
+    if look1["kf_ids"] != look2["kf_ids"] or poses_of[0] != poses_of[1]:
+        _fail("pipelines: two lookahead runs are not bitwise identical")
+    for run in (look1, asyn):
+        if run["keyframes"] < 8:
+            _fail(f"pipelines: {run['mode']} made {run['keyframes']} "
+                  f"keyframes (need >= 8)")
+        if not run["ate_mm"] < ATE_BOUND_M * 1e3:
+            _fail(f"pipelines: {run['mode']} ATE {run['ate_mm']:.4f} mm >= "
+                  f"{ATE_BOUND_M * 1e3} mm")
+    if device == "cuda":
+        for run in (strict, look1, look2, asyn):
+            if not (run["k1_launches"] == run["post_bootstrap_keyframes"]
+                    and run["k1_launches"] > 0):
+                _fail(f"pipelines: {run['mode']}: K1 launched "
+                      f"{run['k1_launches']} times for "
+                      f"{run['post_bootstrap_keyframes']} post-bootstrap "
+                      f"keyframes")
+        if asyn["k1_streams"] != {"mapping": asyn["k1_launches"]}:
+            _fail(f"pipelines: async K1 launches by stream "
+                  f"{asyn['k1_streams']}, not all on the mapping thread's")
+    for run in (strict, look1, look2, asyn):
+        print(_mode_line(run), flush=True)
+    return look1, look2, asyn
+
+
+def write_kitti_sequence(seq: str, calib, images):
+    """`images` as a KITTI sequence (image_0/%06d.png with the port's PNG
+    writer, times.txt, a pinhole camera.txt with `none` rectification)."""
+    import os
+    import shutil
+    from ldso_tpu_torch.io.png import write_png
+    shutil.rmtree(seq, ignore_errors=True)
+    os.makedirs(os.path.join(seq, "image_0"))
+    for i, img in enumerate(images):
+        write_png(os.path.join(seq, "image_0", f"{i:06d}.png"), img)
+    with open(os.path.join(seq, "times.txt"), "w") as f:
+        f.writelines(f"{i * 0.05:.6f}\n" for i in range(len(images)))
+    with open(os.path.join(seq, "camera.txt"), "w") as f:
+        f.write(f"Pinhole {calib.fx[0]} {calib.fy[0]} {calib.cx[0]} "
+                f"{calib.cy[0]} 0\n{calib.w[0]} {calib.h[0]}\nnone\n"
+                f"{calib.w[0]} {calib.h[0]}\n")
+
+
+def phase_cli(calib, images, poses, root: str, device="cuda"):
+    """Phase 6: the phase-3 frames written as a KITTI sequence with the
+    port's PNG writer, then the port's CLI run on it with pipeline=lookahead
+    and with pipeline=async (loop closing off, preset 0, the KITTI runner's
+    mode=1; the async reader hands the mapping thread frames made on the
+    card). Checks both trajectory files of each run, their rotations, the
+    keyframe ATE, and K1's launches (async: all on the mapping thread, on
+    one stream that is not the caller's). Returns K1's launches per mode."""
+    import os
+    import torch
+    from ldso_tpu_torch.examples import run_common, time_modes
+    from ldso_tpu_torch.io.trajectory import ate_rmse
+    from ldso_tpu_torch.ops import cuda_kernels
+    seq = os.path.join(root, "kitti_00")
+    t0 = time.time()
+    write_kitti_sequence(seq, calib, images)
+    print(f"cli: wrote {len(images)} PNG frames in {time.time() - t0:.2f} s",
+          flush=True)
+    caller = (torch.cuda.current_stream().cuda_stream if device == "cuda"
+              else None)
+    out_launches = {}
+    for pmode in ("lookahead", "async"):
+        out = os.path.join(seq, f"results_{pmode}.txt")
+        argv = [f"files={seq}", f"calib={os.path.join(seq, 'camera.txt')}",
+                "preset=0", "mode=1", "loopclosing=0", f"pipeline={pmode}",
+                "quiet=1", f"output={out}"]
+        t0 = time.time()
+        with time_modes.traced_k1() as k1:
+            cuda_kernels.reset_launch_counts()
+            fs = run_common.run(run_common.parse_args(argv), "kitti",
+                                kitti_output=True, device=device)
+            launches = cuda_kernels.LAUNCHES["distance_transform"]
+        wall = time.time() - t0
+        if fs.device.type != device:
+            _fail(f"cli {pmode}: ran on {fs.device}, not {device}")
+        if fs.is_lost:
+            _fail(f"cli {pmode}: lost")
+        for path in (out, out + ".noloop"):
+            if not os.path.exists(path):
+                _fail(f"cli {pmode}: {path} was not written")
+        rows = [r.split() for r in open(out) if r.strip()]
+        est, gt = [], []
+        for r in rows:
+            M = np.array([float(x) for x in r[1:]]).reshape(3, 4)
+            err = float(np.abs(M[:, :3] @ M[:, :3].T - np.eye(3)).max())
+            if not (len(r) == 13 and err < 1e-4):
+                _fail(f"cli {pmode}: row of frame {r[0]} is not a rotation "
+                      f"(|RR^T - I| = {err})")
+            T_wc = np.eye(4)
+            T_wc[:3] = M
+            est.append(np.linalg.inv(T_wc))
+            gt.append(poses[int(r[0])])
+        ate = ate_rmse(est, gt)
+        post_boot = sum(1 for kf in fs.global_map.get_all_kfs()
+                        if kf.kf_id >= 2)
+        print(f"cli {pmode}: {len(rows)} keyframe rows in {out} and "
+              f".noloop, keyframe ATE {ate * 1e3:.4f} mm, {wall:.2f} s, K1 "
+              f"launches {launches} for {post_boot} post-bootstrap keyframes, "
+              f"by (thread, stream) {dict(k1)}", flush=True)
+        if not ate < ATE_BOUND_M:
+            _fail(f"cli {pmode}: keyframe ATE {ate * 1e3:.4f} mm >= "
+                  f"{ATE_BOUND_M * 1e3} mm")
+        if device == "cuda":
+            if not launches == post_boot > 0:
+                _fail(f"cli {pmode}: K1 launched {launches} times for "
+                      f"{post_boot} post-bootstrap keyframes")
+            streams = {s for _, s in k1}
+            if pmode == "async" and not (
+                    {t for t, _ in k1} == {"ldso-mapping"}
+                    and len(streams) == 1 and caller not in streams):
+                _fail(f"cli async: K1 launches by (thread, stream) "
+                      f"{dict(k1)}, not all on the mapping thread's stream")
+        out_launches[pmode] = launches
+    return out_launches
 
 
 def revisit_poses(n: int):
@@ -392,6 +505,7 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     scene; returns the path's kernel launch counts."""
     import torch
     from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.io.trajectory import ate_rmse
     from ldso_tpu_torch.loop import posegraph
     from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.synthetic import PlaneScene, default_calib
@@ -456,8 +570,8 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     kf_frames = [kf.id for kf in kfs]
     post_boot = sum(1 for kf in kfs if kf.kf_id >= 2)
     gt = [poses[i] for i in kf_frames]
-    ate_odo = sim_align_ate([kf.T_cw for kf in kfs], gt)
-    ate_loop = sim_align_ate([kf.get_S_cw() for kf in kfs], gt)
+    ate_odo = ate_rmse([kf.T_cw for kf in kfs], gt)
+    ate_loop = ate_rmse([kf.get_S_cw() for kf in kfs], gt)
     scales = [float(np.cbrt(np.linalg.det(kf.get_S_cw()[:3, :3])))
               for kf in kfs]
     id_of = {kf.kf_id: kf.id for kf in kfs}
@@ -504,17 +618,25 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
 
 
 def main() -> int:
+    import os
     phase_device()
     import torch
     record = phase_kernels()
     phase_determinism()
-    launches_vo = phase_main_path()
+    launches_vo, calib, images, poses, strict = phase_main_path()
     launches, post_boot = phase_loop_slice()
-    print(f"K1 launches: {launches_vo['distance_transform']} on the pure-VO "
-          f"path, {launches['distance_transform']} on the loop slice",
-          flush=True)
+    look, _, asyn = phase_pipelines(calib, images, poses, strict)
+    cli = phase_cli(calib, images, poses, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke"))
+    by_path = dict(vo_strict=launches_vo["distance_transform"],
+                   loop=launches["distance_transform"],
+                   vo_lookahead=look["k1_launches"],
+                   vo_async=asyn["k1_launches"],
+                   cli_lookahead=cli["lookahead"], cli_async=cli["async"])
+    print(f"K1 launches per path: {by_path}", flush=True)
     record["launches"] = launches["distance_transform"]
     record["launches_per_keyframe"] = launches["distance_transform"] / post_boot
+    record["launches_by_path"] = by_path
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -356,10 +356,24 @@ class EnergyFunctional:
         """Point retirement (see _marg_points_fused): absorbs the survivors'
         Schur system into HM/bM and updates the host mirrors. Returns (rec
         (P,4) [u,v,idepth,idepth_H], really_marg, dropped) as host arrays."""
+        return self.marginalize_and_drop_consume(
+            self.marginalize_and_drop_dispatch(marg_cand, drop, dIs, img_w,
+                                               img_h))
+
+    def marginalize_and_drop_dispatch(self, marg_cand, drop, dIs, img_w: int,
+                                      img_h: int):
+        """The device half: updates the window and returns the device
+        results that marginalize_and_drop_consume reads."""
         cfg = self.cfg
-        self.W, H, b, nres, rec, really, dropped = _marg_points_fused(
+        self.W, *out = _marg_points_fused(
             self.W, marg_cand, drop, dIs, float(np.float32(cfg.min_idepth_h_marg)),
             float(np.float32(cfg.idepth_fix_prior_marg_fac)), cfg, img_w, img_h)
+        return out
+
+    def marginalize_and_drop_consume(self, out):
+        """The host half: the float64 prior update and the host mirrors."""
+        cfg = self.cfg
+        H, b, nres, rec, really, dropped = out
         really = really.cpu().numpy()
         dropped = dropped.cpu().numpy()
         rec = rec.cpu().numpy().astype(np.float64)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import threading
 import time
 from typing import Dict
 
@@ -19,6 +20,7 @@ class StageTimer:
         self.total: Dict[str, float] = collections.defaultdict(float)
         self.count: Dict[str, int] = collections.defaultdict(int)
         self._frame_log = None
+        self._lock = threading.Lock()   # the pipelines time from two threads
         log_path = os.environ.get("LDSO_TPU_TIME_LOG")
         if log_path:
             self._frame_log = open(log_path, "w")
@@ -30,8 +32,9 @@ class StageTimer:
             yield
         finally:
             dt = time.time() - t0
-            self.total[name] += dt
-            self.count[name] += 1
+            with self._lock:
+                self.total[name] += dt
+                self.count[name] += 1
 
     def log_frame(self, frame_id: int, ms: float):
         """Per-frame timing line (the reference's logs/time.txt)."""

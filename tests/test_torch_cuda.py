@@ -196,3 +196,172 @@ def test_loop_stack_card_matches_cpu(cuda):
     got = posegraph.optimize_pose_graph(*[t.to(cuda) for t in args],
                                         iterations=5)
     assert torch.allclose(got.cpu(), want, rtol=0, atol=1e-9)
+
+
+def test_cross_stream_handoff_matches_one_stream(cuda):
+    """A pyramid made on one stream and read on another, with the hand-off
+    of the pipelines (an event, and record_stream so that the producer's
+    next allocations do not reuse its memory), equals the same pyramid made
+    and read on one stream. The producer is kept busy (a sleeping kernel
+    ahead of the pyramid) so that a missing wait or a reused block would
+    show."""
+    from ldso_tpu_torch.ops.preprocess import make_pyramid
+    from ldso_tpu_torch.system.full_system import (record_event,
+                                                   use_on_current_stream)
+    g = torch.Generator(cuda).manual_seed(0)
+    img = torch.rand((480, 640), generator=g, device=cuda) * 255.0
+    want = [t.clone() for t in make_pyramid(img, 6).dI]
+    track, mapping = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    track.wait_stream(torch.cuda.current_stream(cuda))
+    for _ in range(5):
+        with torch.cuda.stream(track):
+            torch.cuda._sleep(20_000_000)
+            pyr = make_pyramid(img, 6)
+            ev = record_event(img.device)
+        with torch.cuda.stream(mapping):
+            use_on_current_stream(pyr, ev, img.device)
+            got = [t * 1.0 for t in pyr.dI]
+        del pyr
+        with torch.cuda.stream(track):
+            junk = [torch.full_like(t, -1.0) for t in want]  # noqa: F841
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _pipeline_frames(n):
+    from ldso_tpu_torch.math import lie_np
+    from ldso_tpu_torch.synthetic import PlaneScene, default_calib
+    calib = default_calib(192, 144)
+    scene = PlaneScene(freq_hi=25.0, contrast=80.0)
+    poses, imgs = [], []
+    for i in range(n):
+        t = np.array([0.035 * i, 0.01 * np.sin(0.2 * i), 0.003 * i,
+                      0.0, 0.0015 * i, 0.0])
+        T = np.linalg.inv(lie_np.se3_exp(t))
+        poses.append(T)
+        imgs.append(torch.clamp(torch.round(scene.render(calib, T)[0]), 0,
+                                255).to(torch.uint8).numpy())
+    return calib, poses, imgs
+
+
+def _pipeline_cfg():
+    from ldso_tpu_torch.config import Config
+    return Config(max_points=512, max_immature=512,
+                  tracker_caps=(4096, 2048, 1024, 512, 256, 128),
+                  desired_point_density=300, desired_immature_density=250,
+                  enable_loop_closing=False)
+
+
+def test_async_pipeline_on_the_card(cuda, monkeypatch):
+    """20 frames through AsyncPipeline on the card: not lost, >= 3
+    keyframes, ATE under 1 cm, and every distance-map kernel launched on
+    the mapping thread's stream."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system.full_system import FullSystem
+    from ldso_tpu_torch.system.pipeline import AsyncPipeline
+    calib, poses, imgs = _pipeline_frames(20)
+    fs = FullSystem(calib, _pipeline_cfg())
+    streams = []
+    kernel = cuda_kernels.distance_transform
+
+    def traced(occ, max_k=18):
+        streams.append(torch.cuda.current_stream(occ.device).cuda_stream)
+        return kernel(occ, max_k)
+    monkeypatch.setattr(cuda_kernels, "distance_transform", traced)
+    drv = AsyncPipeline(fs)
+    for i, im in enumerate(imgs):
+        drv.add_active_frame(im, i, 1.0, i * 0.05)
+    drv.block_until_mapping_is_finished()
+    assert fs.initialized and not fs.is_lost
+    kfs = fs.global_map.get_all_kfs()
+    assert len(kfs) >= 3
+    boot = sorted(k.id for k in kfs)[1]
+    # bootstrap keyframes run on the caller's thread under the mapping
+    # stream, the later ones on the mapping thread
+    assert streams and set(streams) == {drv.map_stream.cuda_stream}
+    assert all(f.pose_valid for f in fs.all_frames[boot:])
+    ate = _tracked_ate(fs, poses)
+    assert ate < 0.01, ate
+
+
+def _tracked_ate(fs, poses):
+    from ldso_tpu_torch.io.trajectory import ate_rmse
+    fr = [f for f in fs.all_frames if f.pose_valid]
+    return ate_rmse([f.T_cw for f in fr], [poses[f.id] for f in fr])
+
+
+def _late_card_frames(imgs, cuda):
+    """Each frame as a tensor on the card that the caller's stream writes
+    behind a sleeping kernel (~3 ms), over a zeroed block: a stream that
+    reads it without waiting for the caller's sees zeros. Each frame drops
+    the previous one, so the allocator may hand its block to the next
+    frame's zeros unless the readers' streams were recorded on it."""
+    for im in imgs:
+        src = torch.from_numpy(im).to(cuda)
+        img = torch.zeros_like(src)
+        torch.cuda._sleep(5_000_000)
+        img.copy_(src)
+        yield img
+        del img
+
+
+def test_async_pipeline_takes_card_frames_from_the_callers_stream(cuda):
+    """The CLI's async path: frames made on the card on the caller's stream
+    (as ImageFolderReader.get_image makes them) cross to the tracking and
+    mapping streams. 20 late frames through the threaded AsyncPipeline
+    track as well as the host frames of test_async_pipeline_on_the_card:
+    not lost, >= 3 keyframes, ATE under 1 cm."""
+    from ldso_tpu_torch.system.full_system import FullSystem
+    from ldso_tpu_torch.system.pipeline import AsyncPipeline
+    calib, poses, imgs = _pipeline_frames(20)
+    fs = FullSystem(calib, _pipeline_cfg())
+    drv = AsyncPipeline(fs)
+    for i, img in enumerate(_late_card_frames(imgs, cuda)):
+        drv.add_active_frame(img, i, 1.0, i * 0.05)
+    drv.block_until_mapping_is_finished()
+    assert fs.initialized and not fs.is_lost
+    assert len(fs.global_map.get_all_kfs()) >= 3
+    ate = _tracked_ate(fs, poses)
+    assert ate < 0.01, ate
+
+
+def test_linearized_async_on_late_card_frames_matches_one_stream(cuda):
+    """AsyncPipeline(linearize_operation=True) maps every frame on its
+    mapping stream; fed the late card frames, it gives bitwise the poses
+    and keyframes of the strict loop fed the same frames from the host on
+    the caller's stream."""
+    from ldso_tpu_torch.system.full_system import FullSystem
+    from ldso_tpu_torch.system.pipeline import AsyncPipeline
+    calib, _, imgs = _pipeline_frames(18)
+    one = FullSystem(calib, _pipeline_cfg())
+    for i, im in enumerate(imgs):
+        one.add_active_frame(im, i, 1.0, i * 0.05)
+    fs = FullSystem(calib, _pipeline_cfg())
+    drv = AsyncPipeline(fs, linearize_operation=True)
+    for i, img in enumerate(_late_card_frames(imgs, cuda)):
+        drv.add_active_frame(img, i, 1.0, i * 0.05)
+    drv.block_until_mapping_is_finished()
+    want = [(f.id, f.kf_id, f.T_cw.tobytes()) for f in one.all_frames]
+    got = [(f.id, f.kf_id, f.T_cw.tobytes()) for f in fs.all_frames]
+    assert got == want
+    assert sum(1 for _, k, _ in want if k >= 0) >= 3
+
+
+def test_lookahead_twice_bitwise_on_the_card(cuda):
+    """DeterministicPipeline's contract on the card: two runs of 18 frames
+    give the same keyframes and bitwise the same poses."""
+    from ldso_tpu_torch.system.full_system import FullSystem
+    from ldso_tpu_torch.system.pipeline import DeterministicPipeline
+    calib, poses, imgs = _pipeline_frames(18)
+    runs = []
+    for _ in range(2):
+        fs = FullSystem(calib, _pipeline_cfg())
+        drv = DeterministicPipeline(fs)
+        for i, im in enumerate(imgs):
+            drv.add_active_frame(im, i, 1.0, i * 0.05)
+        drv.block_until_mapping_is_finished()
+        assert not fs.is_lost
+        runs.append([(f.id, f.kf_id, f.T_cw.tobytes()) for f in fs.all_frames])
+    assert runs[0] == runs[1]
+    assert sum(1 for _, k, _ in runs[0] if k >= 0) >= 3

@@ -154,8 +154,8 @@ def test_retry_sweep_matches(runs):
     # the previous test replaced fp's window state: take it from fj again
     fp.ef.W = convert.window_to_torch(fj.ef.W)
     fp.imm_arena = convert.arena_to_torch(fj.imm_arena)
-    fp.tracker_ref = convert.tracker_ref_to_torch(fj.tracker_ref)
-    fp.tracker_ref_shell = fj.tracker_ref_shell
+    fp._publish_tracker_ref((convert.tracker_ref_to_torch(fj.tracker_ref),
+                             fj.tracker_ref_shell, None))
     fp.all_frames = list(fj.all_frames)
     fp.window_frames = list(fj.window_frames)
     for fs in (fj, fp):

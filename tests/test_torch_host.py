@@ -27,7 +27,15 @@ def test_port_imports_no_jax():
     """The port and its main entry point load without jax or ldso_tpu."""
     code = ("import sys, ldso_tpu_torch, ldso_tpu_torch.system.full_system, "
             "ldso_tpu_torch.utils.convert, ldso_tpu_torch.ops.cuda_kernels, "
-            "ldso_tpu_torch.loop.loopclosing, ldso_tpu_torch.native; "
+            "ldso_tpu_torch.loop.loopclosing, ldso_tpu_torch.native, "
+            "ldso_tpu_torch.system.pipeline, ldso_tpu_torch.io.datasets, "
+            "ldso_tpu_torch.io.png, ldso_tpu_torch.io.trajectory, "
+            "ldso_tpu_torch.ops.perturb, ldso_tpu_torch.camera.undistort, "
+            "ldso_tpu_torch.examples.run_common, "
+            "ldso_tpu_torch.examples.run_dso_kitti, "
+            "ldso_tpu_torch.examples.run_dso_tum_mono, "
+            "ldso_tpu_torch.examples.run_dso_euroc, "
+            "ldso_tpu_torch.examples.time_modes; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ldso_tpu' "
             "or m.startswith('ldso_tpu.')); print(bad); "
@@ -60,6 +68,54 @@ def test_entry_points_default_to_the_card():
             with pytest.raises(RuntimeError, match="no CUDA card"):
                 make()
     assert FullSystem(calib, cfg, device="cpu").device.type == "cpu"
+
+
+def test_cli_and_reader_default_to_the_card(tmp_path):
+    """The CLI's build_system and the dataset reader run on the card
+    unless given device="cpu"; with no card they raise."""
+    from ldso_tpu_torch.examples import run_common
+    from ldso_tpu_torch.io.datasets import ImageFolderReader
+    from ldso_tpu_torch.io.png import write_png
+    (tmp_path / "images").mkdir()
+    write_png(str(tmp_path / "images" / "0.png"), np.zeros((48, 64), np.uint8))
+    cam = tmp_path / "camera.txt"
+    cam.write_text("0.5 0.6 0.5 0.5 0\n64 48\nnone\n64 48\n")
+    opts = run_common.parse_args([f"files={tmp_path / 'images'}",
+                                  f"calib={cam}", "loopclosing=0"])
+    if torch.cuda.is_available():
+        assert run_common.build_system(opts, "tum")[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            run_common.build_system(opts, "tum")
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            ImageFolderReader(str(tmp_path / "images"), str(cam))
+    fs, reader, _, _ = run_common.build_system(opts, "tum", device="cpu")
+    assert fs.device.type == reader.device.type == "cpu"
+    assert reader.get_image(0)[0].device.type == "cpu"
+
+
+def test_stage_timer_counts_across_threads():
+    """The pipelines time stages from two threads: no update is lost."""
+    import threading
+    from ldso_tpu_torch.utils.timing import StageTimer
+    t = StageTimer()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+
+    def work():
+        for _ in range(2000):
+            with t.stage("s"):
+                pass
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert t.count["s"] == 16 * 2000
 
 
 def test_matmul_policy():
