@@ -22,13 +22,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      card), timed by one wall clock from the first frame to a synchronise
      after the last; asserts tracking, >= 8 keyframes, the kernel
      launched on every keyframe after the bootstrap, and a
-     similarity-aligned ATE under 5 mm;
+     similarity-aligned ATE under 5 mm; then, on phase 3's system:
+     3a. the captured tracker (frontend/track_graph.py) against the eager
+         masked tracker, bitwise, at batch 1 and at the retry batch, and
+         its device time per track;
+     3b. track_chain_dispatch under torch.cuda.set_sync_debug_mode("error")
+         behind ~50 ms of sleep queued on a tracking stream: it returns
+         well inside the sleep, its HostCopy not ready, its result bitwise
+         that of a dispatch without the sleep;
+     3c. the map checkpoint: save_all to .bin and .npz, load_all into a
+         fresh system, keyframe ids and T_cw bitwise equal;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
      asserts at least one return-leg -> out-leg loop, the pose graph ran,
      Sim(3) scales in (0.5, 2), odometry ATE < 5 mm, loop-closed ATE
      < 20 mm and the kernel launched on every keyframe after the bootstrap;
+     4b. the boxes scene (BoxScene, depth discontinuities and occlusion):
+         104 frames at 640x480 on the straight head-to-head trajectory,
+         strict, the CLI's mode=1 changes, loop closing off; keyframe ATE
+         under 5 mm and the kernel's launches;
   5. the pipelines: phase 3's frames through DeterministicPipeline twice
      and AsyncPipeline once, by phase 3's driver
      (ldso_tpu_torch/examples/time_modes.run_mode, one wall clock per run,
@@ -39,9 +52,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. the CLI: phase 3's frames written as a KITTI sequence with the port's
      PNG writer, then run_common.run with pipeline=lookahead and with
      pipeline=async; asserts both trajectory files of each run, orthonormal
-     rotations, keyframe ATE < 5 mm and the kernel's launches.
-The line before the last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}.
+     rotations, keyframe ATE < 5 mm and the kernel's launches; the
+     lookahead run has the live viewer on (nogui=0 viewer_port=0), whose
+     /state must count the keyframe rows of results.txt and whose /frame
+     must decode (io/png.py) to a frame of the input's shape.
+A JSON line of the captured tracker's numbers, then a JSON record of the
+kernels, then the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -59,6 +75,8 @@ ATE_BOUND_M = 0.005          # the JAX package's own bound (test_full_system)
 LOOP_FRAMES = 150            # tools/head_to_head.py --traj revisit --frames
 LOOP_ATE_BOUND_M = 0.020     # ~2x the JAX package's 10.19 mm on this scene
 DET_REPEATS = 20
+BOX_FRAMES = 104             # the boxes head-to-head (BASELINE.md:80-89)
+ORTHO_BOUND = 1e-3           # |RR^T - I| of a results.txt row
 # the main path's map at 640x480, KITTI's (1241x376), 1280x1024 and
 # 1920x1080 inputs, and a 1000x1000 map
 DIST_CASES = dict(shapes=((240, 320), (96, 128), (61, 97), (188, 620),
@@ -310,13 +328,244 @@ def phase_main_path(n_frames: int = N_FRAMES):
     if strict["k1_launches"] < strict["post_bootstrap_keyframes"]:
         _fail(f"K1 launched {strict['k1_launches']} times for "
               f"{strict['post_bootstrap_keyframes']} post-bootstrap keyframes")
-    return launches, calib, images, poses, strict
+    _no_capture_inside(strict)
+    return launches, calib, images, poses, strict, fs
+
+
+def _same(a, b) -> bool:
+    """Bitwise equality of two bool or 32-bit tensors, NaN payloads
+    included."""
+    import torch
+    if a.dtype == torch.bool:
+        return bool(torch.equal(a, b))
+    return a.dtype == b.dtype and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
+
+
+def _track_inputs(fs, images, k: int):
+    """The tracker's inputs for frame k of a run against fs's current
+    tracking reference: (ref, pyramid, T0, exposure, min_res_abort,
+    aff0)."""
+    import torch
+    from ldso_tpu_torch.ops.preprocess import make_pyramid, upload_image
+    ref, shell = fs._current_tracker_ref()
+    L = fs.calib.levels
+    pyr = make_pyramid(upload_image(images[k], fs.device), L, fs.b_grad)
+    f32 = dict(dtype=torch.float32, device=fs.device)
+    # the frame's tracked pose relative to the reference: a converged start
+    T0 = torch.as_tensor(fs.all_frames[k].T_cw @ np.linalg.inv(shell.T_cw),
+                         **f32)
+    return (ref, pyr, T0, torch.ones((), **f32),
+            torch.full((L,), 1e9, **f32), torch.zeros(2, **f32))
+
+
+def phase_tracker_graph(fs, images):
+    """The captured tracker (frontend/track_graph.py) against the eager
+    masked function on the card, bitwise, at batch 1 and at the retry
+    path's batch, on the last frame of phase 3 against phase 3's last
+    tracking reference; then its device time per track (replays queued
+    behind a sleeping kernel) beside the eager function's synchronised
+    wall time, and the aten operations of one eager track. Returns the
+    numbers."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from ldso_tpu_torch.frontend import track_graph, tracker
+    from ldso_tpu_torch.system.full_system import RETRY_K
+    calib, cfg = fs.calib, fs.cfg
+    ref, pyr, T_last, expo, abort, aff0 = _track_inputs(fs, images,
+                                                        len(images) - 1)
+    rng = np.random.RandomState(5)
+    T_b = T_last.expand(RETRY_K, 4, 4).clone()
+    T_b[1:, :3, 3] += torch.as_tensor(rng.randn(RETRY_K - 1, 3) * 0.01,
+                                      dtype=torch.float32, device=fs.device)
+    L = calib.levels
+    for name, T0 in (("batch 1", T_last[None]), (f"batch {RETRY_K}", T_b)):
+        graph = tracker.track_frame_hypotheses(ref, pyr, T0, aff0, expo, abort,
+                                               calib, cfg, L - 1)
+        eager = tracker._track_batch(ref, pyr, T0, aff0, expo, abort, calib,
+                                     cfg, L - 1)
+        torch.cuda.synchronize()
+        for i, (g, e) in enumerate(zip(graph, eager)):
+            if not _same(g, e):
+                _fail(f"tracker graph: {name}: output {i} differs from the "
+                      f"eager function")
+        print(f"tracker graph: {name}: graph replay equals the eager masked "
+              f"function bitwise (5 outputs)", flush=True)
+
+    def replay():
+        return tracker.track_frame(ref, pyr, T_last, aff0, expo, abort, calib,
+                                   cfg, L - 1)
+
+    def replay_b():
+        return tracker.track_frame_hypotheses(ref, pyr, T_b, aff0, expo, abort,
+                                              calib, cfg, L - 1)
+
+    def eager():
+        return tracker._track_batch(ref, pyr, T_last[None], aff0, expo, abort,
+                                    calib, cfg, L - 1)
+
+    class Count(TorchDispatchMode):
+        n = views = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            Count.views += int(func.is_view)
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        eager()
+    out = dict(device_ms=_queued_device_ms(replay, n=10, reps=7),
+               device_ms_batch=_queued_device_ms(replay_b, n=4, reps=5),
+               eager_ms=1e3 * _host_us_per_call(eager, n=3) / 1e6,
+               ops=Count.n, view_ops=Count.views,
+               captures=track_graph.CAPTURES["count"],
+               capture_s=track_graph.CAPTURES["s"])
+    print(f"tracker graph at {calib.w[0]}x{calib.h[0]}, {L} levels: "
+          f"{out['device_ms']:.4f} ms of device time per track (batch 1, 10 "
+          f"replays queued, median of 7), {out['device_ms_batch']:.4f} ms at "
+          f"batch {RETRY_K}; the eager masked function {out['eager_ms']:.2f} "
+          f"ms per track (synchronised wall, 3 calls); {out['ops']} aten "
+          f"operations per eager track, {out['view_ops']} of them views; "
+          f"{out['captures']} graphs captured so far in "
+          f"{out['capture_s']:.2f} s", flush=True)
+    return out
+
+
+def _sleep_cycles_per_ms() -> float:
+    import torch
+    torch.cuda._sleep(1_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    b.synchronize()
+    return 20_000_000 / a.elapsed_time(b)
+
+
+def phase_dispatch_ahead(fs, images, sleep_ms: float = 50.0):
+    """track_chain_dispatch runs ahead of the card: with ~50 ms of sleep
+    queued on a tracking stream, a dispatch under
+    torch.cuda.set_sync_debug_mode("error") returns in well under the sleep
+    with its HostCopy not ready, and its packed result equals bitwise a
+    dispatch of the same frame from the same chain with no sleep."""
+    import torch
+    from ldso_tpu_torch.slam_map import FrameShell
+    k = len(images) - 1
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    cycles = int(_sleep_cycles_per_ms() * sleep_ms)
+    with torch.cuda.stream(stream):
+        fs.chain_reset()
+        chain = fs.track_chain
+        _, first, _ = fs.track_chain_dispatch(FrameShell(id=k), images[k])
+        want = first.numpy().copy()
+        fs.track_chain = chain
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t = time.perf_counter()
+            _, packed, _ = fs.track_chain_dispatch(FrameShell(id=k), images[k])
+            call_ms = (time.perf_counter() - t) * 1e3
+            ready = packed.is_ready()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = packed.numpy()
+    torch.cuda.synchronize()
+    print(f"dispatch ahead: track_chain_dispatch returned in {call_ms:.3f} ms "
+          f"under set_sync_debug_mode('error') behind {sleep_ms:.0f} ms of "
+          f"queued sleep; HostCopy ready on return: {ready}; packed result "
+          f"bitwise equal to the dispatch without sleep: "
+          f"{got.tobytes() == want.tobytes()}", flush=True)
+    if not call_ms < sleep_ms / 2:
+        _fail(f"dispatch ahead: the call took {call_ms:.3f} ms")
+    if ready:
+        _fail("dispatch ahead: the HostCopy was ready before the sleep ended")
+    if got.tobytes() != want.tobytes():
+        _fail("dispatch ahead: the result differs from the one without sleep")
+    fs.chain_reset()
+    return call_ms
+
+
+def phase_checkpoint(fs, root: str):
+    """save_all to .bin (the reference's binary layout) and to .npz, then
+    load_all into a fresh system of the same configuration: keyframe ids and
+    T_cw must come back exactly (both formats store float64)."""
+    import os
+    from ldso_tpu_torch.system.full_system import FullSystem
+    os.makedirs(root, exist_ok=True)
+    kfs = fs.global_map.get_all_kfs()
+    for ext in (".bin", ".npz"):
+        path = os.path.join(root, "map" + ext)
+        fs.save_all(path)
+        back = FullSystem(fs.calib, fs.cfg, device=fs.device)
+        back.load_all(path)
+        got = back.global_map.get_all_kfs()
+        same = ([k.kf_id for k in got] == [k.kf_id for k in kfs]
+                and [k.id for k in got] == [k.id for k in kfs]
+                and all(a.T_cw.tobytes() == b.T_cw.tobytes()
+                        for a, b in zip(got, kfs)))
+        print(f"checkpoint: {ext} of {os.path.getsize(path)} bytes, "
+              f"{len(got)} keyframes back, ids and T_cw bitwise equal: "
+              f"{same}", flush=True)
+        if not same:
+            _fail(f"checkpoint: {ext} did not round-trip the keyframes")
+
+
+def phase_boxes(n_frames: int = BOX_FRAMES):
+    """The boxes scene (BoxScene, the multi-depth occlusion family) at
+    640x480 on the straight trajectory of the boxes head-to-head, strict,
+    with the CLI's mode=1 changes and loop closing off; keyframe ATE under
+    5 mm. Returns the run."""
+    from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.examples import time_modes
+    from ldso_tpu_torch.synthetic import default_calib, make_scene
+    import torch
+    calib = default_calib(640, 480)
+    scene = make_scene("boxes", freq_hi=25.0, contrast=80.0, n_waves=32)
+    poses = straight_poses(n_frames)
+    images = []
+    for T in poses:                      # rendering is set-up
+        img, _ = scene.render(calib, T, device="cuda")
+        images.append(torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
+                      .cpu().numpy())
+    cfg = dataclasses.replace(Config(), enable_loop_closing=False,
+                              photometric_calibration=0,
+                              affine_opt_mode_a=0.0, affine_opt_mode_b=0.0)
+    run, fs = time_modes.run_mode("strict", calib, poses, images, cfg=cfg,
+                                  gpu=time_modes.gpu_facts())
+    print(f"boxes: {n_frames} frames 640x480 uint8, {run['keyframes']} "
+          f"keyframes {run['kf_ids']}, keyframe ATE {run['ate_kf_mm']:.4f} mm, "
+          f"all-frames ATE {run['ate_mm']:.4f} mm (sim3-aligned), "
+          f"{run['ms_per_frame_wall']:.2f} ms/frame wall, K1 launches "
+          f"{run['k1_launches']} for {run['post_bootstrap_keyframes']} "
+          f"post-bootstrap keyframes", flush=True)
+    if run["lost"] or run["init_failed"]:
+        _fail(f"boxes: lost={run['lost']} init_failed={run['init_failed']}")
+    _no_capture_inside(run)
+    if not run["ate_kf_mm"] < ATE_BOUND_M * 1e3:
+        _fail(f"boxes: keyframe ATE {run['ate_kf_mm']:.4f} mm >= "
+              f"{ATE_BOUND_M * 1e3} mm")
+    if not run["k1_launches"] == run["post_bootstrap_keyframes"] > 0:
+        _fail(f"boxes: K1 launched {run['k1_launches']} times for "
+              f"{run['post_bootstrap_keyframes']} post-bootstrap keyframes")
+    return run
+
+
+def _no_capture_inside(run: dict) -> None:
+    """The tracker's graphs are captured when the FullSystem is built, never
+    inside a timed run."""
+    if run["graph_captures"]:
+        _fail(f"{run['mode']}: {run['graph_captures']} tracker graphs were "
+              f"captured inside the timed run")
 
 
 def _mode_line(run: dict) -> str:
     keys = ("mode", "frames", "keyframes", "ate_mm", "ms_per_frame_median",
             "ms_per_frame_wall", "wall_s", "k1_launches", "k1_streams",
-            "post_bootstrap_keyframes", "retrack_trips", "lm_frames", "gpu")
+            "post_bootstrap_keyframes", "retrack_trips", "lm_frames",
+            "graph_captures", "gpu")
     return json.dumps({k: run[k] for k in keys})
 
 
@@ -333,6 +582,7 @@ def phase_pipelines(calib, images, poses, strict: dict, device="cuda"):
         if run["lost"] or run["init_failed"]:
             _fail(f"pipelines: {mode}: lost={run['lost']} "
                   f"init_failed={run['init_failed']}")
+        _no_capture_inside(run)
         runs.append(run)
         poses_of.append([f.T_cw.tobytes() for f in fs.all_frames])
     look1, look2, asyn = runs
@@ -408,6 +658,8 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         argv = [f"files={seq}", f"calib={os.path.join(seq, 'camera.txt')}",
                 "preset=0", "mode=1", "loopclosing=0", f"pipeline={pmode}",
                 "quiet=1", f"output={out}"]
+        if pmode == "lookahead":
+            argv += ["nogui=0", "viewer_port=0"]    # the live viewer
         t0 = time.time()
         with time_modes.traced_k1() as k1:
             cuda_kernels.reset_launch_counts()
@@ -427,7 +679,9 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         for r in rows:
             M = np.array([float(x) for x in r[1:]]).reshape(3, 4)
             err = float(np.abs(M[:, :3] @ M[:, :3].T - np.eye(3)).max())
-            if not (len(r) == 13 and err < 1e-4):
+            # the poses are float32 products that compound along the
+            # keyframe chain: |RR^T - I| reaches ~1e-4 within 64 frames
+            if not (len(r) == 13 and err < ORTHO_BOUND):
                 _fail(f"cli {pmode}: row of frame {r[0]} is not a rotation "
                       f"(|RR^T - I| = {err})")
             T_wc = np.eye(4)
@@ -455,7 +709,46 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                 _fail(f"cli async: K1 launches by (thread, stream) "
                       f"{dict(k1)}, not all on the mapping thread's stream")
         out_launches[pmode] = launches
+        if fs.viewer is not None:
+            check_viewer(fs.viewer, len(rows), (calib.h[0], calib.w[0]))
     return out_launches
+
+
+def check_viewer(viewer, n_rows: int, shape):
+    """The CLI run's live viewer, over HTTP on localhost: /state counts the
+    keyframe rows of results.txt, /frame is a PNG of the frame's shape
+    (decoded by io/png.py). Stops the viewer."""
+    import urllib.request
+    from ldso_tpu_torch.io.png import decode_png
+    base = f"http://127.0.0.1:{viewer.port}"
+    try:
+        with urllib.request.urlopen(base + "/state", timeout=30) as r:
+            state = json.loads(r.read())
+        with urllib.request.urlopen(base + "/frame", timeout=30) as r:
+            frame = decode_png(r.read())
+    finally:
+        viewer.stop()
+    print(f"viewer: /state frame {state['frame_id']}, {state['n_kfs']} "
+          f"keyframes, {len(state['points'])} points, "
+          f"{len(state['traj_odo'])} poses; /frame a {frame.shape} "
+          f"{frame.dtype} PNG", flush=True)
+    if state["n_kfs"] != n_rows:
+        _fail(f"viewer: /state has {state['n_kfs']} keyframes, results.txt "
+              f"{n_rows} rows")
+    if frame.shape != shape:
+        _fail(f"viewer: /frame is {frame.shape}, not {shape}")
+
+
+def straight_poses(n: int):
+    """The straight head-to-head trajectory, camera-from-world (a copy of
+    tools/head_to_head.py:34-43, straight_poses)."""
+    from ldso_tpu_torch.math import lie_np
+    poses = []
+    for i in range(n):
+        t = np.array([0.03 * i, 0.01 * np.sin(0.2 * i), 0.004 * i])
+        w = np.array([0.0, 0.0018 * i, 0.0004 * i])
+        poses.append(np.linalg.inv(lie_np.se3_exp(np.concatenate([t, w]))))
+    return poses
 
 
 def revisit_poses(n: int):
@@ -623,13 +916,20 @@ def main() -> int:
     import torch
     record = phase_kernels()
     phase_determinism()
-    launches_vo, calib, images, poses, strict = phase_main_path()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    launches_vo, calib, images, poses, strict, fs = phase_main_path()
+    graph = phase_tracker_graph(fs, images)
+    phase_dispatch_ahead(fs, images)
+    phase_checkpoint(fs, root)
+    del fs
     launches, post_boot = phase_loop_slice()
+    boxes = phase_boxes()
     look, _, asyn = phase_pipelines(calib, images, poses, strict)
-    cli = phase_cli(calib, images, poses, os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke"))
+    cli = phase_cli(calib, images, poses, root)
     by_path = dict(vo_strict=launches_vo["distance_transform"],
                    loop=launches["distance_transform"],
+                   boxes=boxes["k1_launches"],
                    vo_lookahead=look["k1_launches"],
                    vo_async=asyn["k1_launches"],
                    cli_lookahead=cli["lookahead"], cli_async=cli["async"])
@@ -637,6 +937,7 @@ def main() -> int:
     record["launches"] = launches["distance_transform"]
     record["launches_per_keyframe"] = launches["distance_transform"] / post_boot
     record["launches_by_path"] = by_path
+    print(json.dumps({"tracker_graph": graph}))
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

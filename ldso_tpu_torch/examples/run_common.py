@@ -3,8 +3,10 @@ key=value arguments, presets, frame loop, init-failure reset, fps report
 and trajectory output (examples/run_dso_tum_mono.cc:91-471).
 
 Counterpart of examples/run_common.py. The system runs on the CUDA card
-unless `build_system`/`run` get another `device`. Not carried over: the
-live viewer (`nogui=0` raises) and the JAX profiler hook.
+unless `build_system`/`run` get another `device`. `nogui=0` starts the live
+HTTP viewer (viz_live.LiveViewer, port `viewerport=`, 0 for any free one);
+it keeps serving after `run` returns, as `fs.viewer`, until the process
+ends or the caller stops it. Not carried over: the JAX profiler hook.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ldso_tpu_torch.loop.vocab import Vocabulary
 from ldso_tpu_torch.system.full_system import FullSystem
 from ldso_tpu_torch.system.pipeline import AsyncPipeline, DeterministicPipeline
 from ldso_tpu_torch.utils.device import DEFAULT_DEVICE
+from ldso_tpu_torch.viz_live import LiveViewer
 
 PIPELINES = ("strict", "lookahead", "async")
 
@@ -64,8 +67,12 @@ def parse_args(argv):
         elif k == "quiet":
             opts["quiet"] = v not in ("0", "false", "False")
         elif k == "nogui":
+            # nogui=0 starts the live HTTP viewer (viz_live.py), the
+            # Pangolin-GUI equivalent (run_dso_tum_mono.cc:151-157)
             opts["nogui"] = v not in ("0", "false", "False")
-        elif k in ("viewerport", "nolog", "nomt", "save"):
+        elif k in ("viewerport", "viewer_port"):
+            opts["viewer_port"] = int(v)
+        elif k in ("nolog", "nomt", "save"):
             pass  # accepted for CLI parity; no-ops here
     return opts
 
@@ -77,9 +84,6 @@ def build_system(opts, dataset_type: str, device=DEFAULT_DEVICE):
               "[start=] [end=] [output=results.txt] [noise=px] [blur=sigma] "
               "[pipeline=strict|lookahead|async]")
         sys.exit(1)
-    if not opts.get("nogui", True):
-        raise NotImplementedError("viewer not ported yet (ROADMAP item 18)")
-
     cfg = make_preset(opts["preset"])
     # mode=1: photometric calibration absent (run_dso_kitti default)
     if opts["mode"] == 1:
@@ -132,6 +136,11 @@ def run(opts, dataset_type: str, kitti_output: bool = False,
     pmode = opts.get("pipeline") or (
         "async" if opts.get("speed", 0.0) > 0 else "strict")
     driver = make_driver(fs, pmode)
+    viewer = None
+    if not opts.get("nogui", True):
+        viewer = LiveViewer(port=opts.get("viewer_port", 8765)).start()
+        fs.set_viewer(viewer)
+        print(f"live viewer: http://127.0.0.1:{viewer.port}/")
     n = reader.num_images()
     lo, hi = opts["start"], min(opts["end"], n)
     print(f"dataset: {n} images, running [{lo}, {hi})  "
@@ -166,6 +175,8 @@ def run(opts, dataset_type: str, kitti_output: bool = False,
             print(f"init failed at frame {i}; resetting")
             fs, _, calib, cfg = build_system(opts, dataset_type, device)
             driver = make_driver(fs, pmode)
+            if viewer is not None:
+                fs.set_viewer(viewer)
         if fs.is_lost:
             print(f"LOST at frame {i}")
             break
@@ -207,6 +218,8 @@ def run(opts, dataset_type: str, kitti_output: bool = False,
     if len(pc):
         save_ply(os.path.join(os.path.dirname(out) or ".", "pointcloud.ply"), pc)
     print(f"wrote {out} (+.noloop), {len(pc)} map points")
+    if viewer is not None:
+        viewer.publish_keyframes(fs.global_map)   # final refresh
     return fs
 
 

@@ -11,10 +11,12 @@ the wall clock from the first frame to the end of the drain (with a
 synchronise) per frame (`ms_per_frame_wall`), the median host time of one
 add_active_frame call from the bootstrap on (`ms_per_frame_median`), the
 keyframes, the ATE, K1's launches and the streams they went to, the
-retrack-gate trips, how many frames the tracker LM ran on (a pipeline
-re-tracks its frames in flight after each keyframe) and the host time in
-it, and the card's name and power limit. Needs the card; the stage timers
-of each run go to stderr.
+retrack-gate trips, how many frames the tracker ran on (a pipeline
+re-tracks its frames in flight after each keyframe) and the host time of
+those calls (on the card a graph replay that does not wait for the
+track), the tracker graphs captured inside the run (0: the FullSystem
+captures them when it is built), and the card's name and power limit.
+Needs the card; the stage timers of each run go to stderr.
 
 `bench_frames` and `run_mode` are also the driver of `chip_smoke.py`'s
 phases 3 and 5.
@@ -37,7 +39,7 @@ import torch
 
 from ldso_tpu_torch.config import Config
 from ldso_tpu_torch.examples.run_common import PIPELINES, make_driver
-from ldso_tpu_torch.frontend import tracker
+from ldso_tpu_torch.frontend import track_graph, tracker
 from ldso_tpu_torch.io.trajectory import ate_rmse
 from ldso_tpu_torch.math import lie_np
 from ldso_tpu_torch.ops import cuda_kernels
@@ -98,12 +100,13 @@ def _sync(device):
 
 
 def run_mode(mode: str, calib, poses, images, gpu=None,
-             device=DEFAULT_DEVICE):
-    """One run of `mode` over `images` with `Config()`, loop closing off,
-    K1's counts set to 0 just before the first frame and read after the
-    drain. No synchronise per frame (it would stall the mapping thread).
-    Returns (the run's numbers, the FullSystem)."""
-    cfg = dataclasses.replace(Config(), enable_loop_closing=False)
+             device=DEFAULT_DEVICE, cfg=None):
+    """One run of `mode` over `images` with `cfg` (default `Config()` with
+    loop closing off), K1's counts set to 0 just before the first frame and
+    read after the drain. No synchronise per frame (it would stall the
+    mapping thread). Returns (the run's numbers, the FullSystem)."""
+    if cfg is None:
+        cfg = dataclasses.replace(Config(), enable_loop_closing=False)
     fs = FullSystem(calib, cfg, device=device)
     drv = make_driver(fs, mode)
     on_card = fs.device.type == "cuda"
@@ -112,19 +115,20 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
     mapping = getattr(drv, "map_stream", None)
     mapping = mapping.cuda_stream if mapping is not None else None
     lm = dict(frames=0, s=0.0)
-    track_batch = tracker._track_batch
+    track_frame = tracker.track_frame
 
-    def counted(ref, pyr, T_init, *a):
+    def counted(*a):
         t = time.perf_counter()
-        out = track_batch(ref, pyr, T_init, *a)
-        lm["frames"] += int(T_init.shape[0] == 1)   # not the retry batches
+        out = track_frame(*a)           # not the retry batches
+        lm["frames"] += 1
         lm["s"] += time.perf_counter() - t
         return out
-    tracker._track_batch = counted
+    tracker.track_frame = counted
     try:
         with traced_k1() as k1:
             _sync(fs.device)
             cuda_kernels.reset_launch_counts()
+            captures = track_graph.CAPTURES["count"]
             call_ms = []
             t0 = time.perf_counter()
             for i, img in enumerate(images):
@@ -138,8 +142,9 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
             _sync(fs.device)
             wall = time.perf_counter() - t0
             launches = cuda_kernels.LAUNCHES["distance_transform"]
+            captures = track_graph.CAPTURES["count"] - captures
     finally:
-        tracker._track_batch = track_batch
+        tracker.track_frame = track_frame
     streams = collections.Counter()
     for (_, s), n in k1.items():
         streams["mapping" if s == mapping else
@@ -148,15 +153,17 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
     kf_ids = [kf.id for kf in kfs]
     est = [f for f in fs.all_frames if f.pose_valid]
     ate = ate_rmse([f.T_cw for f in est], [poses[f.id] for f in est])
+    ate_kf = (ate_rmse([kf.T_cw for kf in kfs], [poses[i] for i in kf_ids])
+              if len(kfs) >= 3 else float("nan"))
     print(f"--- {mode}\n{fs.timer.summary()}", file=sys.stderr, flush=True)
     run = dict(mode=mode, frames=len(images), keyframes=len(kfs),
-               kf_ids=kf_ids, ate_mm=ate * 1e3,
+               kf_ids=kf_ids, ate_mm=ate * 1e3, ate_kf_mm=ate_kf * 1e3,
                ms_per_frame_wall=wall * 1e3 / len(images), wall_s=wall,
                ms_per_frame_median=float(np.median(call_ms[kf_ids[1]:]))
                if len(kf_ids) > 1 else None,
                k1_launches=launches, k1_streams=dict(streams),
                post_bootstrap_keyframes=sum(1 for kf in kfs if kf.kf_id >= 2),
-               lm_frames=lm["frames"], lm_s=lm["s"],
+               lm_frames=lm["frames"], lm_s=lm["s"], graph_captures=captures,
                retrack_trips=getattr(drv, "retrack_trips",
                                      fs._n_retry_sweeps),
                lost=fs.is_lost, init_failed=fs.init_failed, gpu=gpu)

@@ -11,9 +11,13 @@ src/frontend/CoarseTracker.cc):
     retries (FullSystem.cc:189-311) as a leading batch dimension.
 
 Every function here runs on a batch of poses: the JAX package's
-`lax.while_loop` LMs become Python loops over a batch whose finished
-members are frozen by masks, which is what `vmap` of a while loop does.
-The per-level iteration caps and abort rules are the reference's.
+`lax.while_loop` LMs become Python loops of fixed trip counts over a batch
+whose finished members are frozen by masks, which is what `vmap` of a
+while loop does. Nothing in `track_frame`, `track_frame_hypotheses` or
+`rank_hypotheses` reads the host, so on the card `track_frame` is one
+CUDA graph replay (frontend/track_graph.py) and returns before the frame
+is tracked. The per-level iteration caps and abort rules are the
+reference's.
 
 Parameter order: [tx ty tz wx wy wz a b] with SCALE_XI_ROT on slots 0-2
 and SCALE_XI_TRANS on 3-5 (CoarseTracker.cc:141-145).
@@ -28,7 +32,7 @@ import torch
 from ldso_tpu_torch.config import (Config, SCALE_A, SCALE_B, SCALE_XI_ROT,
                                    SCALE_XI_TRANS)
 from ldso_tpu_torch.camera.calib import Calibration
-from ldso_tpu_torch.frontend import affine
+from ldso_tpu_torch.frontend import affine, track_graph
 from ldso_tpu_torch.math import lie
 from ldso_tpu_torch.ops.interp import bilinear
 from ldso_tpu_torch.ops.preprocess import FramePyramid
@@ -36,6 +40,10 @@ from ldso_tpu_torch.ops.scatter import segment_sum
 from ldso_tpu_torch.utils.static import nonzero_padded
 
 _LAMBDA_EXTRAPOLATION_LIMIT = 0.001
+# the cutoff doubles from 1 while under 50 (CoarseTracker.cc:89-94): at
+# most 6 times, 1 -> 64
+_CUTOFF_LIMIT = 50.0
+_CUTOFF_TRIPS = 6
 
 
 class TrackerRef(NamedTuple):
@@ -159,8 +167,23 @@ def make_tracker_ref_from_idepth(idepth_map, pyr: FramePyramid,
 # trackNewestCoarse, batched over B poses
 # ---------------------------------------------------------------------------
 
+_consts = {}
+
+
+def _const(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A constant tensor on `device`, uploaded at its first use and kept:
+    the captured tracker (frontend/track_graph.py) may not copy from the
+    host while it records, and its eager warm-up run makes every constant
+    of the path first."""
+    key = (values, str(device), dtype)
+    t = _consts.get(key)
+    if t is None:
+        t = _consts[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
 def _Ki(calib: Calibration, lvl: int, device):
-    return torch.tensor(calib.Ki(lvl), dtype=torch.float32, device=device)
+    return _const(tuple(map(tuple, calib.Ki(lvl).tolist())), device)
 
 
 def _calc_res(ref: TrackerRef, pyr_new: FramePyramid, lvl: int, T, aff_new,
@@ -251,9 +274,8 @@ def _calc_res(ref: TrackerRef, pyr_new: FramePyramid, lvl: int, T, aff_new,
 
 
 def _scale_vec(device):
-    return torch.tensor([SCALE_XI_ROT] * 3 + [SCALE_XI_TRANS] * 3
-                        + [SCALE_A, SCALE_B], dtype=torch.float32,
-                        device=device)
+    return _const((SCALE_XI_ROT,) * 3 + (SCALE_XI_TRANS,) * 3
+                  + (SCALE_A, SCALE_B), device)
 
 
 def _calc_gs(bufs, lvl, ref: TrackerRef, aff_new, new_exposure,
@@ -309,7 +331,7 @@ def _solve_inc(H, b, lam, cfg: Config):
         idx = list(range(7))
     else:
         idx = [0, 1, 2, 3, 4, 5, 7]
-    ix = torch.tensor(idx, device=H.device)
+    ix = _const(tuple(idx), H.device, torch.int64)
     Hs = Hl[:, ix][:, :, ix] + eye[:len(idx), :len(idx)]
     sol = torch.linalg.solve_ex(Hs, -b[:, ix])[0]
     return zeros.index_copy(1, ix, sol)
@@ -323,7 +345,12 @@ def _where(mask, a, b):
 def _level_block(ref, pyr_new, lvl, state, run, new_exposure, min_res_abort,
                  calib, cfg: Config, max_iterations: int):
     """One pyramid level for the batch members in `run`: cutoff adaptation
-    + LM loop. Returns the updated state and the per-member repeat flag."""
+    + LM loop. Returns the updated state and the per-member repeat flag.
+
+    Both loops run their full trip counts, each trip masked per member (a
+    member that is done or not running keeps T, aff, H, b, stats and lam),
+    as `lax.while_loop` under `vmap` runs them: the results are those of
+    loops that stop early, and nothing here reads the host."""
     T, aff, ok_flag, last_res, flow = state
     flow_here = lvl == 0
     B = T.shape[0]
@@ -335,10 +362,8 @@ def _level_block(ref, pyr_new, lvl, state, run, new_exposure, min_res_abort,
     cutoff_rep = torch.ones(B, dtype=torch.float32, device=dev)
     bufs, stats = _calc_res(ref, pyr_new, lvl, T, aff, new_exposure,
                             base_cut, calib, cfg, compute_flow=flow_here)
-    while True:
-        more = (stats[:, 5] > 0.6) & (cutoff_rep < 50.0) & run
-        if not bool(more.any()):
-            break
+    for _ in range(_CUTOFF_TRIPS):
+        more = (stats[:, 5] > 0.6) & (cutoff_rep < _CUTOFF_LIMIT) & run
         cutoff_rep = torch.where(more, cutoff_rep * 2.0, cutoff_rep)
         bufs_n, stats_n = _calc_res(ref, pyr_new, lvl, T, aff, new_exposure,
                                     base_cut * cutoff_rep, calib, cfg,
@@ -350,9 +375,8 @@ def _level_block(ref, pyr_new, lvl, state, run, new_exposure, min_res_abort,
 
     H, b, scale = _calc_gs(bufs, lvl, ref, aff, new_exposure, calib)
     lam = torch.full((B,), 0.01, dtype=torch.float32, device=dev)
-    it = 0
     done = ~run
-    while it < max_iterations and not bool(done.all()):
+    for _ in range(max_iterations):
         live = ~done
         inc = _solve_inc(H, b, lam, cfg)
         extrap = torch.where(
@@ -382,7 +406,6 @@ def _level_block(ref, pyr_new, lvl, state, run, new_exposure, min_res_abort,
             accept, lam * 0.5,
             torch.clamp(lam * 4.0, min=_LAMBDA_EXTRAPOLATION_LIMIT)), lam)
         done = done | (torch.linalg.norm(inc, dim=1) <= 1e-3)
-        it += 1
 
     # zero surviving terms score inf, not 0 (FullSystem.cc:117-123)
     rms = torch.where(stats[:, 1] > 0,
@@ -400,16 +423,14 @@ def _level_block(ref, pyr_new, lvl, state, run, new_exposure, min_res_abort,
 def _track_batch(ref: TrackerRef, pyr_new: FramePyramid, T_init, aff_init,
                  new_exposure, min_res_abort, calib: Calibration, cfg: Config,
                  coarsest: int):
-    """Coarse-to-fine LM for a batch of initial poses T_init (B,4,4)."""
+    """Coarse-to-fine LM for a batch of initial poses T_init (B,4,4), with
+    aff_init (2,), new_exposure () and min_res_abort (L,) tensors on T's
+    device. A fixed sequence of kernels for given shapes: the level repeat
+    always runs, masked to the members that want it."""
     dev = T_init.device
     T = T_init.to(torch.float32)
     B = T.shape[0]
-    aff = torch.as_tensor(aff_init, dtype=torch.float32,
-                          device=dev).expand(B, 2).clone()
-    new_exposure = torch.as_tensor(new_exposure, dtype=torch.float32,
-                                   device=dev)
-    min_res_abort = torch.as_tensor(min_res_abort, dtype=torch.float32,
-                                    device=dev)
+    aff = aff_init.to(torch.float32).expand(B, 2).clone()
     nlv = calib.levels
     state = (T, aff, torch.ones(B, dtype=torch.bool, device=dev),
              torch.full((B, nlv), float("nan"), dtype=torch.float32, device=dev),
@@ -425,10 +446,9 @@ def _track_batch(ref: TrackerRef, pyr_new: FramePyramid, T_init, aff_init,
         # repeat the level once if the cutoff had to be raised
         # (CoarseTracker.cc:192-195)
         rerun = repeat & ~have_repeated & state[2]
-        if bool(rerun.any()):
-            state, _ = _level_block(ref, pyr_new, lvl, state, rerun,
-                                    new_exposure, min_res_abort, calib, cfg,
-                                    max_it)
+        state, _ = _level_block(ref, pyr_new, lvl, state, rerun,
+                                new_exposure, min_res_abort, calib, cfg,
+                                max_it)
         have_repeated = have_repeated | repeat
 
     T, aff, ok, last_res, flow = state
@@ -453,17 +473,52 @@ def _track_batch(ref: TrackerRef, pyr_new: FramePyramid, T_init, aff_init,
     return T, aff, ok, last_res, flow
 
 
+def _on(x, device) -> torch.Tensor:
+    """x as a float32 tensor on `device`. A value that is not already there
+    would be a synchronous upload, which only the CPU may take."""
+    if isinstance(x, torch.Tensor) and x.device == device:
+        return x.to(torch.float32)
+    if device.type != "cpu":
+        raise TypeError(f"the tracker takes its inputs as tensors on {device}; "
+                        f"got {type(x).__name__}")
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _track(ref: TrackerRef, pyr_new: FramePyramid, T_inits, aff_init,
+           new_exposure, min_res_abort, calib: Calibration, cfg: Config,
+           coarsest: int):
+    """_track_batch on the CPU; on the card, its CUDA graph for these
+    shapes (frontend/track_graph.py), captured at the first call."""
+    dev = ref.ref_aff.device
+    args = (_on(T_inits, dev), _on(aff_init, dev), _on(new_exposure, dev),
+            _on(min_res_abort, dev))
+    if dev.type == "cpu":
+        return _track_batch(ref, pyr_new, *args, calib, cfg, coarsest)
+    L, P = len(ref.points), len(pyr_new.dI)
+
+    def program(*xs):
+        r = TrackerRef(points=xs[:L], valid=xs[L:2 * L], ref_exposure=xs[2 * L],
+                       ref_aff=xs[2 * L + 1])
+        pyr = FramePyramid(dI=xs[2 * L + 2:2 * L + 2 + P], abs_grad=())
+        return _track_batch(r, pyr, *xs[2 * L + 2 + P:], calib, cfg, coarsest)
+
+    inputs = (*ref.points, *ref.valid, ref.ref_exposure, ref.ref_aff,
+              *pyr_new.dI, *args)
+    return track_graph.replay((calib, cfg, coarsest, L, P), program, inputs)
+
+
 def track_frame(ref: TrackerRef, pyr_new: FramePyramid, T_init, aff_init,
                 new_exposure, min_res_abort, calib: Calibration, cfg: Config,
                 coarsest: int):
-    """Full coarse-to-fine direct alignment of one frame.
+    """Full coarse-to-fine direct alignment of one frame. On the card the
+    inputs are tensors on it, and the call returns before the frame is
+    tracked: nothing reads the host.
 
     Returns (T (4,4), aff (2,), ok, last_residuals (L,), flow (3,)); T maps
     the reference KF camera to the new camera (refToNew)."""
-    T_init = torch.as_tensor(T_init, dtype=torch.float32,
-                             device=ref.ref_aff.device)
-    out = _track_batch(ref, pyr_new, T_init[None], aff_init, new_exposure,
-                       min_res_abort, calib, cfg, coarsest)
+    T_init = _on(T_init, ref.ref_aff.device)
+    out = _track(ref, pyr_new, T_init[None], aff_init, new_exposure,
+                 min_res_abort, calib, cfg, coarsest)
     return tuple(o[0] for o in out)
 
 
@@ -471,8 +526,8 @@ def track_frame_hypotheses(ref: TrackerRef, pyr_new: FramePyramid, T_inits,
                            aff_init, new_exposure, min_res_abort,
                            calib: Calibration, cfg: Config, coarsest: int):
     """Track a batch of motion hypotheses T_inits (M,4,4) at once."""
-    return _track_batch(ref, pyr_new, T_inits, aff_init, new_exposure,
-                        min_res_abort, calib, cfg, coarsest)
+    return _track(ref, pyr_new, T_inits, aff_init, new_exposure,
+                  min_res_abort, calib, cfg, coarsest)
 
 
 def rank_hypotheses(ref: TrackerRef, pyr_new: FramePyramid, T_inits,
@@ -480,16 +535,15 @@ def rank_hypotheses(ref: TrackerRef, pyr_new: FramePyramid, T_inits,
                     coarsest: int):
     """Initial coarsest-level mean Huber energy of each hypothesis (one warp
     pass, no LM); hypotheses with <= 10 in-bounds points rank inf."""
-    dev = T_inits.device
+    dev = ref.ref_aff.device
+    T_inits = _on(T_inits, dev)
     M = T_inits.shape[0]
-    aff = torch.as_tensor(aff_init, dtype=torch.float32,
-                          device=dev).expand(M, 2)
+    aff = _on(aff_init, dev).expand(M, 2)
     cut = torch.full((M,), cfg.coarse_cutoff_th, dtype=torch.float32,
                      device=dev)
-    _, stats = _calc_res(ref, pyr_new, coarsest, T_inits.to(torch.float32),
-                         aff, torch.as_tensor(new_exposure, dtype=torch.float32,
-                                              device=dev),
-                         cut, calib, cfg, compute_flow=False)
+    _, stats = _calc_res(ref, pyr_new, coarsest, T_inits, aff,
+                         _on(new_exposure, dev), cut, calib, cfg,
+                         compute_flow=False)
     E, num = stats[:, 0], stats[:, 1]
     return torch.where(num > 10.0, E / torch.clamp(num, min=1.0),
                        torch.full_like(E, float("inf")))

@@ -114,8 +114,11 @@ def se3(R, t):
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
     top = torch.cat([R.expand(batch + (3, 3)),
                      t.expand(batch + (3,))[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # the [0 0 0 1] row from fills, not an upload: a CUDA graph capture
+    # (frontend/track_graph.py) may not copy from the host
+    like = dict(dtype=R.dtype, device=R.device)
+    bottom = torch.cat([torch.zeros(batch + (1, 3), **like),
+                        torch.ones(batch + (1, 1), **like)], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 

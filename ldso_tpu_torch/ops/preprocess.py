@@ -81,16 +81,26 @@ def _to_intensity(img: torch.Tensor) -> torch.Tensor:
     return img.to(torch.float32)
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`. To the card it goes through pinned memory
+    with non_blocking=True, so the caller does not wait for the copy (a
+    pageable copy waits for the stream); the caching host allocator keeps
+    the pinned buffer until the copy has run."""
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def upload_image(image, device) -> torch.Tensor:
     """Host -> device upload keeping uint8/uint16 compact (decoded on the
     device by _to_intensity); float images are cast to float32. A tensor
     input is moved to `device` as it is."""
     if isinstance(image, torch.Tensor):
-        return image.to(device)
+        return to_device(image, device)
     image = np.asarray(image)
     if image.dtype not in (np.uint8, np.uint16):
         image = image.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(image)).to(device)
+    return to_device(torch.from_numpy(np.ascontiguousarray(image)), device)
 
 
 def make_pyramid(img: torch.Tensor, levels: int, b_grad_lut=None) -> FramePyramid:

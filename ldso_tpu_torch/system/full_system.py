@@ -44,12 +44,14 @@ from ldso_tpu_torch.backend.energy_functional import (EnergyFunctional,
 from ldso_tpu_torch.backend.window import (RES_IN, RES_OOB, RES_OUTLIER,
                                            Window, aff_g2l, current_poses)
 from ldso_tpu_torch.frontend import detector, immature, initializer, tracker
+from ldso_tpu_torch.io.ldso_binary import load_ldso_binary, save_ldso_binary
 from ldso_tpu_torch.loop.loopclosing import LoopClosing
 from ldso_tpu_torch.math import lie_np
 from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.ops import select as select_ops
 from ldso_tpu_torch.ops.interp import bilinear
-from ldso_tpu_torch.ops.preprocess import FramePyramid, make_pyramid, upload_image
+from ldso_tpu_torch.ops.preprocess import (FramePyramid, make_pyramid,
+                                           to_device, upload_image)
 from ldso_tpu_torch.slam_map import FrameShell, GlobalMap, MapPointRecord
 from ldso_tpu_torch.utils.device import DEFAULT_DEVICE, entry_device
 from ldso_tpu_torch.utils.static import nonzero_padded
@@ -319,9 +321,16 @@ class FullSystem:
         self._marg_priors = None
         self._marg_deltas = None
         self._n_retry_sweeps = 0
+        # live viewer hooks (FullSystem::setViewer; viz_live.LiveViewer)
+        self.viewer = None
+        if dev.type == "cuda":
+            self.warm_retrack_programs()
 
     def _f32(self, a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        """A host value as float32 on the system's device, without waiting
+        for the copy (ops/preprocess.to_device)."""
+        return to_device(torch.from_numpy(np.asarray(a, np.float32)),
+                         self.device)
 
     @property
     def tracker_ref(self) -> Optional[tracker.TrackerRef]:
@@ -363,6 +372,9 @@ class FullSystem:
         if not ok:
             self.is_lost = True
             return shell
+        if self.viewer is not None:
+            self.viewer.publish_cam_pose(shell)
+            self.viewer.publish_frame(image)
         if self._keyframe_decision(shell):
             with self.timer.stage("keyframe"):
                 self.make_keyframe(shell, pyr)
@@ -463,8 +475,8 @@ class FullSystem:
         no_abort = torch.full((nlv,), 1e9, dtype=torch.float32,
                               device=self.device)
         T, aff, ok, res, flow = tracker.track_frame(
-            ref, pyr, T0, aff0, exposure, no_abort, self.calib, self.cfg,
-            nlv - 1)
+            ref, pyr, T0, aff0, self._f32(exposure), no_abort, self.calib,
+            self.cfg, nlv - 1)
         packed = torch.cat([T.reshape(-1), aff, ok.to(torch.float32)[None],
                             torch.zeros(1, device=self.device), res, flow])
         return pyr, packed
@@ -472,15 +484,18 @@ class FullSystem:
     def track_chain_dispatch(self, shell: FrameShell, image):
         """Track a frame from the chain's motion hypothesis and advance the
         chain on the device. Returns (pyr, packed result as a HostCopy,
-        ref_shell used). The tracker's LM reads the host once per
-        iteration, so this returns once the frame is tracked; the packed
-        result's copy home does not block."""
+        ref_shell used). Nothing here waits for the card: the uploads go
+        through pinned memory and the tracker is one graph replay, so the
+        call returns before the frame is tracked, and the HostCopy turns
+        ready once it is (the JAX package's dispatch, pipeline.py:95-98)."""
         ref, ref_shell = self._current_tracker_ref()
         T_ref = self._f32(ref_shell.T_cw)
         T0, aff0, _ = _chain_prep(self.track_chain, T_ref)
         pyr, packed = self._frame_step_chain(upload_image(image, self.device),
                                              ref, T0, aff0, shell.exposure)
         self.track_chain = _chain_update(self.track_chain, packed, T0, T_ref)
+        if self.viewer is not None:
+            self.viewer.publish_frame(image)
         return pyr, HostCopy(packed), ref_shell
 
     def track_chain_consume(self, shell: FrameShell, packed,
@@ -511,19 +526,54 @@ class FullSystem:
             self.first_coarse_rmse = res0
         self._last_flow = flow.copy()
         self._last_rmse = res0
+        if self.viewer is not None:
+            self.viewer.publish_cam_pose(shell)
         return True
 
+    def set_viewer(self, viewer):
+        """Attach a live viewer (FullSystem::setViewer; viz_live.LiveViewer):
+        each tracked pose and frame (the pipelines' dispatch publishes the
+        frame too, which the JAX package's does not), and the map after each
+        keyframe. The hooks take host values, and a frame as it is."""
+        self.viewer = viewer
+
     def warm_retrack_programs(self):
-        """Load what a pipelined run would otherwise first load mid-run: K1's
-        library (built from source on first use) and, with loop closing,
-        the native host library. Repeat calls are free."""
+        """Build what a run would otherwise first build mid-run: K1's
+        library (compiled from source on first use), the tracker's CUDA
+        graphs for one frame and for the retry batch (frontend/track_graph,
+        captured on placeholder inputs of this system's shapes) and, with
+        loop closing, the native host library. The constructor calls it on
+        the card; repeat calls are free."""
         if self._retrack_warm:
             return
         if self.device.type == "cuda":
             cuda_kernels._load()
+            self._capture_tracker()
         if self.loop_closing is not None:
             native.get_lib()
         self._retrack_warm = True
+
+    def _capture_tracker(self):
+        """Track placeholder inputs of this system's shapes at batch 1 and
+        RETRY_K, so both tracker graphs exist before the first frame."""
+        calib, dev = self.calib, self.device
+        caps = self.cfg.tracker_caps[:calib.levels]
+        f32 = dict(dtype=torch.float32, device=dev)
+        ref = tracker.TrackerRef(
+            points=tuple(torch.zeros(c, 4, **f32) for c in caps),
+            valid=tuple(torch.zeros(c, dtype=torch.bool, device=dev)
+                        for c in caps),
+            ref_exposure=torch.ones((), **f32), ref_aff=torch.zeros(2, **f32))
+        pyr = FramePyramid(dI=tuple(torch.zeros(calib.h[lvl], calib.w[lvl], 3,
+                                                **f32)
+                                    for lvl in range(calib.levels)),
+                           abs_grad=())
+        for batch in (1, RETRY_K):
+            tracker.track_frame_hypotheses(
+                ref, pyr, torch.eye(4, **f32).expand(batch, 4, 4),
+                torch.zeros(2, **f32), torch.ones((), **f32),
+                torch.full((calib.levels,), 1e9, **f32), calib, self.cfg,
+                calib.levels - 1)
 
     # ---------------------------------------------------------------- tracking
     def _frame_step(self, img, ref, T0, aff0, exposure: float, T_ref_cw,
@@ -537,7 +587,8 @@ class FullSystem:
         pyr = make_pyramid(upload_image(img, dev), nlv, self.b_grad)
         no_abort = torch.full((nlv,), 1e9, dtype=torch.float32, device=dev)
         T, aff, ok, res, flow = tracker.track_frame(
-            ref, pyr, T0, aff0, exposure, no_abort, calib, cfg, nlv - 1)
+            ref, pyr, T0, aff0, self._f32(exposure), no_abort, calib, cfg,
+            nlv - 1)
         out = torch.cat([T.reshape(-1), aff, ok.to(torch.float32)[None], res,
                          flow]).cpu().numpy()
         T_np, aff_np, ok_np = out[:16].reshape(4, 4), out[16:18], out[18] > 0.5
@@ -626,13 +677,14 @@ class FullSystem:
             # rank all retry initializations with one coarsest-level warp,
             # then LM-refine the best RETRY_K as one batch
             self._n_retry_sweeps += 1
+            expo = self._f32(shell.exposure)
             rest = tries[1:]
             res_best = res0 if best is not None else np.inf
             min_abort = self._f32(np.where(np.isfinite(achieved), achieved, 1e9))
             with self.timer.stage("track.sweep_rank"):
                 scores = tracker.rank_hypotheses(
                     tracker_ref, pyr, self._f32(np.stack(rest)), aff0,
-                    shell.exposure, calib, cfg, coarsest).cpu().numpy()
+                    expo, calib, cfg, coarsest).cpu().numpy()
             order = np.argsort(scores)[:RETRY_K]
             chunk = [rest[int(i)] for i in order]
             while len(chunk) < RETRY_K:
@@ -640,7 +692,7 @@ class FullSystem:
             with self.timer.stage("track.sweep"):
                 Tb, affb, okb, resb, flowb = tracker.track_frame_hypotheses(
                     tracker_ref, pyr, self._f32(np.stack(chunk)), aff0,
-                    shell.exposure, min_abort, calib, cfg, coarsest)
+                    expo, min_abort, calib, cfg, coarsest)
                 pk = torch.cat([Tb.reshape(-1, 16), affb,
                                 okb.to(torch.float32)[:, None], resb, flowb],
                                dim=1).cpu().numpy().astype(np.float64)
@@ -1004,6 +1056,9 @@ class FullSystem:
                     else:
                         i += 1
             self.global_map.add_keyframe(shell)
+            if self.viewer is not None:
+                self.viewer.publish_keyframes(self.global_map,
+                                              self.window_frames)
             if self.loop_closing is not None:
                 with self.timer.stage("kf.loop"):
                     self._loop_closing_step(shell, pyr)
@@ -1162,6 +1217,30 @@ class FullSystem:
         self.dIs = self.dIs[torch.tensor(keep, device=self.device)]
 
     # ------------------------------------------------------------------ output
+    def save_all(self, path: str):
+        """Map snapshot (FullSystem::saveAll, FullSystem.cc:1872-1893).
+        `.bin`/`.map` paths take the reference's byte-compatible binary
+        layout (io/ldso_binary.py); anything else the richer npz snapshot
+        of GlobalMap.save."""
+        if path.endswith((".bin", ".map")):
+            save_ldso_binary(self.global_map, path)
+        else:
+            self.global_map.save(path)
+
+    def load_all(self, path: str):
+        """Reload a map snapshot (FullSystem::loadAll, :1895-1918); with
+        loop closing, the retrieval database is refilled from it."""
+        if path.endswith((".bin", ".map")):
+            self.global_map = load_ldso_binary(path)
+        else:
+            self.global_map = GlobalMap.load(path)
+        if self.loop_closing is not None:
+            self.loop_closing.global_map = self.global_map
+            if self.loop_closing.vocab is not None:
+                for kf in self.global_map.get_all_kfs():
+                    if kf.feat_desc is not None and len(kf.feat_desc):
+                        self.loop_closing._add_to_db(kf)
+
     def trajectory(self, keyframes_only: bool = False):
         """(timestamps, poses T_cw) of all (key)frames."""
         frames = [f for f in self.all_frames

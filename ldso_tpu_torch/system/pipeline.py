@@ -169,9 +169,9 @@ class AsyncPipeline:
     KETCHUP_THRESHOLD = 3
     # backpressure bound: each queued frame holds its pyramid on the device
     MAX_QUEUE = 32
-    # frames tracked ahead of the consume; the port's tracker reads the host
-    # on every LM iteration, so a dispatched frame is already tracked and
-    # the bound only caps how far consumption may lag
+    # frames dispatched ahead of the consume (a dispatch returns before the
+    # card has tracked the frame): the bound caps how stale the tracking
+    # reference of a frame in flight can get, as in the JAX package
     CHAIN_DEPTH = 12
 
     def __init__(self, fs: FullSystem, linearize_operation: bool = False,

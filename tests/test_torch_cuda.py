@@ -365,3 +365,116 @@ def test_lookahead_twice_bitwise_on_the_card(cuda):
         runs.append([(f.id, f.kf_id, f.T_cw.tobytes()) for f in fs.all_frames])
     assert runs[0] == runs[1]
     assert sum(1 for _, k, _ in runs[0] if k >= 0) >= 3
+
+
+def _same(a, b):
+    """Bitwise equality, NaN payloads included."""
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _tracked_system(n=12):
+    """A card FullSystem over the first n pipeline frames, and the inputs
+    of one more track against its tracking reference."""
+    from ldso_tpu_torch.frontend import track_graph
+    from ldso_tpu_torch.ops.preprocess import make_pyramid, upload_image
+    from ldso_tpu_torch.system.full_system import FullSystem
+    calib, poses, imgs = _pipeline_frames(n + 1)
+    before = dict(track_graph.CAPTURES)
+    fs = FullSystem(calib, _pipeline_cfg())
+    built = track_graph.CAPTURES["count"]
+    for i, im in enumerate(imgs[:n]):
+        fs.add_active_frame(im, i, 1.0, i * 0.05)
+    assert fs.initialized and not fs.is_lost
+    # the constructor captured what the run needed, the run captured nothing
+    assert built >= before["count"]
+    assert track_graph.CAPTURES["count"] == built
+    ref, shell = fs._current_tracker_ref()
+    L = calib.levels
+    f32 = dict(dtype=torch.float32, device=fs.device)
+    # start from the last tracked frame's pose, as the strict loop's
+    # identity-velocity guess would
+    T0 = torch.as_tensor(fs.all_frames[-1].T_cw @ np.linalg.inv(shell.T_cw),
+                         **f32)
+    pyr = make_pyramid(upload_image(imgs[n], fs.device), L)
+    args = (torch.zeros(2, **f32), torch.ones((), **f32),
+            torch.full((L,), 1e9, **f32))
+    return fs, imgs, ref, pyr, T0, args
+
+
+def test_tracker_graph_equals_eager_on_the_card(cuda):
+    """The captured tracker replays bitwise what the eager masked function
+    computes, at batch 1 and at the retry path's batch."""
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.system.full_system import RETRY_K
+    fs, _, ref, pyr, T0, args = _tracked_system()
+    Tb = T0.expand(RETRY_K, 4, 4).clone()
+    Tb[1:, 0, 3] += torch.linspace(-0.02, 0.02, RETRY_K - 1, device=cuda)
+    L = fs.calib.levels
+    for T in (T0[None], Tb):
+        got = tracker.track_frame_hypotheses(ref, pyr, T, *args, fs.calib,
+                                             fs.cfg, L - 1)
+        want = tracker._track_batch(ref, pyr, T, *args, fs.calib, fs.cfg,
+                                    L - 1)
+        for g, w in zip(got, want):
+            assert _same(g, w)
+    assert bool(got[2][0])
+
+
+def test_tracker_graph_shared_by_two_streams(cuda):
+    """Two streams replay one graph at once, the first behind a sleeping
+    kernel: each result equals its own eager track (the replay waits for
+    the other stream's use of the graph's buffers)."""
+    from ldso_tpu_torch.frontend import tracker
+    fs, _, ref, pyr, T0, args = _tracked_system()
+    L = fs.calib.levels
+    T1 = T0.clone()
+    T1[0, 3] += 0.01
+    want = [tracker._track_batch(ref, pyr, T[None], *args, fs.calib, fs.cfg,
+                                 L - 1) for T in (T0, T1)]
+    a, b = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    a.wait_stream(torch.cuda.current_stream(cuda))
+    b.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(a):
+        torch.cuda._sleep(50_000_000)
+        got_a = tracker.track_frame(ref, pyr, T0, *args, fs.calib, fs.cfg,
+                                    L - 1)
+    with torch.cuda.stream(b):
+        got_b = tracker.track_frame(ref, pyr, T1, *args, fs.calib, fs.cfg,
+                                    L - 1)
+    torch.cuda.synchronize()
+    for got, w in ((got_a, want[0]), (got_b, want[1])):
+        for g, x in zip(got, w):
+            assert _same(g, x[0])
+
+
+def test_dispatch_runs_ahead_of_the_card(cuda):
+    """track_chain_dispatch behind ~50 ms of sleep on a tracking stream,
+    under set_sync_debug_mode("error"): it returns before the sleep ends
+    (its HostCopy not ready), and its packed result equals bitwise the
+    dispatch of the same frame from the same chain without the sleep."""
+    import time
+    from ldso_tpu_torch.slam_map import FrameShell
+    fs, imgs, *_ = _tracked_system()
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    k = len(imgs) - 1
+    with torch.cuda.stream(stream):
+        fs.chain_reset()
+        chain = fs.track_chain
+        want = fs.track_chain_dispatch(FrameShell(id=k), imgs[k])[1].numpy()
+        fs.track_chain = chain
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t = time.perf_counter()
+            packed = fs.track_chain_dispatch(FrameShell(id=k), imgs[k])[1]
+            ms = (time.perf_counter() - t) * 1e3
+            ready = packed.is_ready()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not ready, ms
+    assert packed.numpy().tobytes() == want.tobytes()

@@ -35,7 +35,10 @@ def test_port_imports_no_jax():
             "ldso_tpu_torch.examples.run_dso_kitti, "
             "ldso_tpu_torch.examples.run_dso_tum_mono, "
             "ldso_tpu_torch.examples.run_dso_euroc, "
-            "ldso_tpu_torch.examples.time_modes; "
+            "ldso_tpu_torch.examples.time_modes, "
+            "ldso_tpu_torch.frontend.track_graph, ldso_tpu_torch.viz_live, "
+            "ldso_tpu_torch.viz, ldso_tpu_torch.io.ldso_binary, "
+            "ldso_tpu_torch.synthetic; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ldso_tpu' "
             "or m.startswith('ldso_tpu.')); print(bad); "
@@ -303,3 +306,37 @@ def test_native_loader_raises_when_the_build_fails(tmp_path, monkeypatch):
                           np.ones(2, np.float32), 5.0)
     with pytest.raises(RuntimeError):
         native.NativeDatabase()
+
+
+def _read(*parts):
+    with open(os.path.join(REPO, *parts), encoding="utf-8") as f:
+        return f.read()
+
+
+def test_ldso_binary_copy_matches_original():
+    """io/ldso_binary.py differs from the JAX package's only in the package
+    name (it never imported jax)."""
+    assert _read("ldso_tpu_torch", "io", "ldso_binary.py") == _read(
+        "ldso_tpu", "io", "ldso_binary.py").replace(
+        "from ldso_tpu.slam_map", "from ldso_tpu_torch.slam_map")
+
+
+def test_viewer_copies_match_originals():
+    """viz_live.LiveViewer and viz.py are the JAX package's code except
+    where the port takes other inputs: the viewer's frame path (PNG by
+    io/png.py, encoded when /frame asks, a card tensor kept with an event:
+    __init__'s frame slot, start's /frame branch, publish_frame,
+    _encoded_frame) and plot_depth_map (the port's Window of tensors)."""
+    import inspect
+    from ldso_tpu import viz as jviz, viz_live as jlive
+    from ldso_tpu_torch import viz as tviz, viz_live as tlive
+    for name in ("publish_cam_pose", "publish_keyframes", "stop", "port"):
+        a = getattr(jlive.LiveViewer, name)
+        b = getattr(tlive.LiveViewer, name)
+        if isinstance(a, property):
+            a, b = a.fget, b.fget
+        assert inspect.getsource(a) == inspect.getsource(b), name
+    assert tlive._PAGE == jlive._PAGE
+    assert tlive._MAX_VIEW_POINTS == jlive._MAX_VIEW_POINTS
+    assert inspect.getsource(tviz.plot_trajectory) == inspect.getsource(
+        jviz.plot_trajectory)

@@ -429,11 +429,32 @@ def test_cli_modes_match_jax_strict(kitti_seq, jax_cli_rows, pipeline):
 
 
 def test_cli_refuses_the_viewer(kitti_seq):
+    """The viewer is ported: nogui=0 starts it (viewerport=, or
+    viewer_port=, 0 for any free port) and it serves the run's map after
+    run() returns, with every keyframe row of results.txt. What the CLI
+    still refuses is an unknown pipeline."""
+    import json
+    import urllib.request
     from ldso_tpu_torch.examples import run_common as trc
-    _, files, cam, _ = kitti_seq
-    opts = trc.parse_args([f"files={files}", f"calib={cam}", "nogui=0"])
-    with pytest.raises(NotImplementedError, match="viewer not ported"):
-        trc.build_system(opts, "kitti", device="cpu")
+    from ldso_tpu_torch.io.png import decode_png
+    tmp, files, cam, _ = kitti_seq
+    out = tmp / "viewer.txt"
+    opts = trc.parse_args([f"files={files}", f"calib={cam}", "nogui=0",
+                           "viewer_port=0", "preset=3", "mode=1",
+                           "loopclosing=0", "quiet=1", f"output={out}"])
+    assert opts["nogui"] is False and opts["viewer_port"] == 0
+    assert trc.parse_args(["viewerport=8766"])["viewer_port"] == 8766
+    fs = trc.run(opts, "kitti", kitti_output=True, device="cpu")
+    try:
+        base = f"http://127.0.0.1:{fs.viewer.port}"
+        with urllib.request.urlopen(base + "/state", timeout=30) as r:
+            state = json.loads(r.read())
+        with urllib.request.urlopen(base + "/frame", timeout=30) as r:
+            frame = decode_png(r.read())
+    finally:
+        fs.viewer.stop()
+    assert state["n_kfs"] == len(_kitti_rows(out))
+    assert frame.shape == (120, 192)
     with pytest.raises(ValueError, match="pipeline=fast"):
         trc.parse_args(["pipeline=fast"])
 

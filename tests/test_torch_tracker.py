@@ -157,3 +157,107 @@ def test_convert_tracker_ref_roundtrip(scene):
         equal(back.valid[lvl], rj.valid[lvl])
     d = convert.tracker_ref_to_numpy(back)
     equal(d["ref_aff"], rj.ref_aff)
+
+
+_HOST_READS = ("__bool__", "item", "tolist", "cpu", "numpy")
+
+
+def test_tracker_never_reads_the_host(scene, monkeypatch):
+    """track_frame, track_frame_hypotheses and rank_hypotheses with every
+    tensor method that reads a value to the host patched to raise, and
+    torch.tensor and torch.as_tensor of a value that is not a tensor too
+    (after a first call has made the tracker's constants): on the card the same calls are one graph replay
+    that returns before the frame is tracked. The results equal an
+    unpatched run bitwise."""
+    calib, poses, pj, pt, ideps = scene
+    _, rt = _refs(scene)
+    cj = calib.levels - 1
+    Ts = t32(np.stack([np.eye(4)] * 3))
+    Ts[1, 0, 3] = 0.02
+    args = (t32([0, 0]), t32(1.0), t32(np.full(calib.levels, 1e9)))
+
+    def run():
+        one = ttr.track_frame(rt, pt[1], torch.eye(4), *args, calib, TC(), cj)
+        many = ttr.track_frame_hypotheses(rt, pt[2], Ts, *args, calib, TC(), cj)
+        rank = ttr.rank_hypotheses(rt, pt[2], Ts, args[0], args[1], calib,
+                                   TC(), cj)
+        return list(one) + list(many) + [rank]
+
+    want = run()
+
+    def refuse(*a, **k):
+        raise AssertionError("the tracker read a value to the host")
+    for name in _HOST_READS:
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    as_tensor = torch.as_tensor
+
+    def tensors_only(x, *a, **k):
+        if not isinstance(x, torch.Tensor):
+            refuse()
+        return as_tensor(x, *a, **k)
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch, "as_tensor", tensors_only)
+    got = run()
+    monkeypatch.undo()
+    for g, w in zip(got, want):
+        equal(g, w)
+
+
+def _track_both(scene, k, T0, jc, tc):
+    calib, poses, pj, pt, ideps = scene
+    rj, rt = _refs(scene)
+    no_abort = np.full(calib.levels, 1e9, np.float32)
+    oj = jtr.track_frame(rj, pj[k], j32(T0), j32([0, 0]), jnp.float32(1.0),
+                         j32(no_abort), calib, jc, calib.levels - 1)
+    ot = ttr.track_frame(rt, pt[k], t32(T0), t32([0, 0]), t32(1.0),
+                         t32(no_abort), calib, tc, calib.levels - 1)
+    return oj, ot
+
+
+def _repeats(monkeypatch):
+    """Record each _level_block call's repeat flags and running members."""
+    seen = []
+    block = ttr._level_block
+
+    def recorded(*a, **k):
+        state, repeat = block(*a, **k)
+        seen.append((bool(a[4].any()), bool(repeat.any())))
+        return state, repeat
+    monkeypatch.setattr(ttr, "_level_block", recorded)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["lm_trip_limit", "cutoff_and_repeat"])
+def test_track_frame_masked_trips_match_jax(scene, monkeypatch, case):
+    """The fixed-trip loops against JAX's while loops where they stop on
+    their limits: an LM that runs out of iterations (3 per level from a
+    pose 2 cm off), and a cutoff of 5 that has to double from a pose 5 cm
+    off (so the level repeats). The existing tolerances of
+    test_track_frame."""
+    calib, poses, pj, pt, ideps = scene
+    T0 = (poses[1] @ np.linalg.inv(poses[0])).astype(np.float32)
+    if case == "lm_trip_limit":
+        T0[0, 3] += 0.02
+        kw = dict(coarse_lm_iterations=(3,) * 6)
+    else:
+        T0[0, 3] += 0.05
+        kw = dict(coarse_cutoff_th=5.0)
+    seen = _repeats(monkeypatch)
+    oj, ot = _track_both(scene, 1, T0, JC(**kw), TC(**kw))
+    close(ot[0], oj[0], 0, 1e-4, "T")
+    close(ot[1], oj[1], 0, 1e-3, "aff")
+    equal(ot[2], oj[2], "ok")
+    close(ot[3], oj[3], 1e-3, 1e-4, "residuals")
+    close(ot[4], oj[4], 1e-3, 1e-4, "flow")
+    # every level ran, then its repeat block (masked off unless wanted)
+    assert len(seen) == 2 * calib.levels
+    if case == "cutoff_and_repeat":
+        assert any(rep for _, rep in seen[0::2])
+        assert any(ran for ran, _ in seen[1::2])
+        assert bool(ot[2])
+    else:
+        # the iteration cap binds: more iterations land elsewhere
+        free = ttr.track_frame(*_refs(scene)[1:], pt[1], t32(T0), t32([0, 0]),
+                               t32(1.0), t32(np.full(calib.levels, 1e9)),
+                               calib, TC(), calib.levels - 1)
+        assert not torch.equal(free[0], ot[0])
