@@ -55,13 +55,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      rotations, keyframe ATE < 5 mm and the kernel's launches; the
      lookahead run has the live viewer on (nogui=0 viewer_port=0), whose
      /state must count the keyframe rows of results.txt and whose /frame
-     must decode (io/png.py) to a frame of the input's shape.
-A JSON line of the captured tracker's numbers, then a JSON record of the
-kernels, then the last line {"ok": true, "device": {...}}.
+     must decode (io/png.py) to a frame of the input's shape;
+  7. the modules of the later slice, on the card:
+     7a. phase 3's frames, strict, through the host-orchestrated BA
+         (ba_device_lm=False) and then the accept/reject LM
+         (force_accept_step=False): >= 8 keyframes, ATE < 5 mm, the
+         median BA call beside phase 3's;
+     7b. the same with the reference's trace search (trace_packed=False);
+     7c. 8 sequences tracked in lockstep (parallel/replay's batched
+         tracker, one CUDA graph) against 8 single tracks, and the device
+         ms of each;
+     7d. the sharded build system and the sharded PCG through one NCCL
+         group of world size 1, against the unsharded functions on phase
+         3's final window and phase 4's final pose graph.
+One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
+captured tracker's numbers, then a JSON record of the kernels, then the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -907,36 +921,278 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     if launches["distance_transform"] < post_boot:
         _fail(f"loop slice: K1 launched {launches['distance_transform']} "
               f"times for {post_boot} post-bootstrap keyframes")
-    return launches, post_boot
+    return launches, post_boot, fs.global_map
+
+
+@contextlib.contextmanager
+def ba_times():
+    """Wall ms of every EnergyFunctional.optimize call while inside; both
+    BA paths end with a host read of their result, so a call's wall time
+    covers its device work."""
+    from ldso_tpu_torch.backend.energy_functional import EnergyFunctional
+    optimize = EnergyFunctional.optimize
+    ms = []
+
+    def timed(self, *a, **k):
+        t = time.perf_counter()
+        out = optimize(self, *a, **k)
+        if self.n_frames >= 2:
+            ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    EnergyFunctional.optimize = timed
+    try:
+        yield ms
+    finally:
+        EnergyFunctional.optimize = optimize
+
+
+def phase_variants(calib, images, poses, phase3_ba_ms, device="cuda"):
+    """7a: phase 3's 64 frames, strict, through the host-orchestrated BA
+    (ba_device_lm=False: the float64 host solve under force-accept), then
+    the reference's accept/reject LM (force_accept_step=False); 7b: the
+    same frames with the reference's trace search (trace_packed=False,
+    bilinear over the rotated pattern). Each: >= 8 keyframes, ATE over all
+    tracked frames < 5 mm, K1 launched on every post-bootstrap keyframe;
+    prints the median ms of a BA call beside phase 3's. Returns the runs."""
+    from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.examples import time_modes
+    base = np.median(phase3_ba_ms)
+    runs = {}
+    for name, kw in (("7a host_ba", dict(ba_device_lm=False)),
+                     ("7a accept_reject", dict(force_accept_step=False)),
+                     ("7b reference_trace", dict(trace_packed=False))):
+        cfg = dataclasses.replace(Config(), enable_loop_closing=False, **kw)
+        with ba_times() as ms:
+            run, _ = time_modes.run_mode("strict", calib, poses, images,
+                                         cfg=cfg, device=device,
+                                         gpu=time_modes.gpu_facts())
+        run.update(phase=name, config=kw, ba_ms_median=float(np.median(ms)),
+                   ba_calls=len(ms), phase3_ba_ms_median=float(base))
+        print(f"{name} {kw}: {run['keyframes']} keyframes {run['kf_ids']}, "
+              f"ATE {run['ate_mm']:.4f} mm over all tracked frames "
+              f"(sim3-aligned), {run['ms_per_frame_wall']:.2f} ms/frame "
+              f"wall, BA median {run['ba_ms_median']:.2f} ms over "
+              f"{len(ms)} calls (phase 3's device LM: {base:.2f} ms), K1 "
+              f"launches {run['k1_launches']} for "
+              f"{run['post_bootstrap_keyframes']} post-bootstrap keyframes",
+              flush=True)
+        if run["lost"] or run["init_failed"]:
+            _fail(f"{name}: lost={run['lost']} "
+                  f"init_failed={run['init_failed']}")
+        _no_capture_inside(run)
+        if run["keyframes"] < 8:
+            _fail(f"{name}: only {run['keyframes']} keyframes (need >= 8)")
+        if not run["ate_mm"] < ATE_BOUND_M * 1e3:
+            _fail(f"{name}: ATE {run['ate_mm']:.4f} mm >= "
+                  f"{ATE_BOUND_M * 1e3} mm")
+        if run["k1_launches"] < run["post_bootstrap_keyframes"]:
+            _fail(f"{name}: K1 launched {run['k1_launches']} times for "
+                  f"{run['post_bootstrap_keyframes']} post-bootstrap "
+                  f"keyframes")
+        runs[name] = run
+    return runs
+
+
+BATCH_SEQUENCES = 8
+BATCH_T_TOL = 1e-4           # the tracker's parity tolerances
+BATCH_RES_RTOL = 1e-3
+
+
+def phase_batched_tracker(S: int = BATCH_SEQUENCES):
+    """7c: S sequences of the bench scene at 640x480 (one reference view,
+    S distinct motions, as bench.py's _bench_batched_tracking) tracked in
+    lockstep by parallel/replay.make_batched_tracker (the vmapped masked
+    tracker in one CUDA graph), held against S single track_frame calls:
+    T within BATCH_T_TOL, residuals within BATCH_RES_RTOL relative, the
+    same ok flags. Device ms per batched replay and per single track from
+    replays queued behind a sleeping kernel. Returns the numbers."""
+    import torch
+    from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.math import lie_np
+    from ldso_tpu_torch.ops.preprocess import FramePyramid, make_pyramid
+    from ldso_tpu_torch.parallel import replay
+    from ldso_tpu_torch.synthetic import PlaneScene, default_calib
+    calib = default_calib(640, 480)
+    cfg = Config()
+    L = calib.levels
+    scene = PlaneScene(freq_hi=25.0, contrast=80.0)
+    img0, idep0 = scene.render(calib, np.eye(4), device="cuda")
+    ref = tracker.make_tracker_ref_from_idepth(
+        idep0, make_pyramid(img0, L), calib, cfg.tracker_caps[:L], stride=2)
+    pyrs = []
+    for b in range(S):
+        xi = np.array([0.02 + 0.002 * b, -0.01 + 0.002 * b, 0.005,
+                       0.002, 0.004 - 0.001 * b, -0.001])
+        img, _ = scene.render(calib, lie_np.se3_exp(xi), device="cuda")
+        pyrs.append(make_pyramid(img, L))
+    refs = replay._tree_map(
+        lambda x: x[None].expand((S,) + tuple(x.shape)).contiguous(), ref)
+    pyr_b = FramePyramid(dI=tuple(torch.stack([p.dI[lv] for p in pyrs])
+                                  for lv in range(L)), abs_grad=())
+    f32 = dict(dtype=torch.float32, device="cuda")
+    T0 = torch.eye(4, **f32).expand(S, 4, 4).contiguous()
+    aff0 = torch.zeros((S, 2), **f32)
+    expo = torch.ones(S, **f32)
+    noab = torch.full((S, L), 1e9, **f32)
+    step = replay.make_batched_tracker(calib, cfg, L - 1)
+    t = time.perf_counter()
+    out = step(refs, pyr_b, T0, aff0, expo, noab)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+
+    def single(b):
+        return tracker.track_frame(ref, pyrs[b], T0[b], aff0[b], expo[b],
+                                   noab[b], calib, cfg, L - 1)
+
+    singles = [single(b) for b in range(S)]
+    t_err = max(float(torch.max(torch.abs(out[0][b] - singles[b][0])))
+                for b in range(S))
+    r_err = max(float(torch.max(torch.abs(out[3][b] - singles[b][3])
+                                / torch.clamp(torch.abs(singles[b][3]),
+                                              min=1e-3)))
+                for b in range(S))
+    ok_same = all(bool(out[2][b] == singles[b][2]) for b in range(S))
+    res = dict(phase="7c batched_tracker", sequences=S,
+               first_call_s=first_s,
+               device_ms_batched=_queued_device_ms(
+                   lambda: step(refs, pyr_b, T0, aff0, expo, noab), n=2,
+                   reps=5),
+               device_ms_single=_queued_device_ms(lambda: single(0), n=4,
+                                                  reps=5),
+               max_T_err=t_err, max_res_rel_err=r_err,
+               ok=[bool(o) for o in out[2].cpu()])
+    print(f"7c batched tracker: {S} sequences 640x480 in lockstep, first "
+          f"call (capture + replay) {first_s:.2f} s; vs {S} single tracks: "
+          f"max |T - T_single| {t_err:.3g} (tol {BATCH_T_TOL}), max residual "
+          f"rel err {r_err:.3g} (tol {BATCH_RES_RTOL}), ok {res['ok']}; "
+          f"device ms per batched replay {res['device_ms_batched']:.2f}, per "
+          f"single track {res['device_ms_single']:.2f} (replays queued behind "
+          f"a sleep)", flush=True)
+    if not (ok_same and all(res["ok"])):
+        _fail(f"7c: ok flags {res['ok']} differ from the single tracks or "
+              f"a sequence failed")
+    if not (t_err <= BATCH_T_TOL and r_err <= BATCH_RES_RTOL):
+        _fail(f"7c: batched vs single: T err {t_err}, residual rel err "
+              f"{r_err}")
+    return res
+
+
+SHARDED_H_RTOL = 1e-6        # of each block's scale
+SHARDED_PCG_ATOL = 1e-8      # float64, every vertex
+PCG_ITERS = 5                # Gauss-Newton steps of the 7d comparison
+
+
+def phase_sharded(W, global_map):
+    """7d: the point-sharded build system and the edge-sharded PCG through
+    one NCCL process group of world size 1 on a localhost store: the
+    sharded build system against ba.build_system on phase 3's final window
+    (within SHARDED_H_RTOL of each block's scale, nres exact), the sharded
+    PCG against optimize_pose_graph_cg on phase 4's final pose graph
+    (PCG_ITERS Gauss-Newton steps of 100 CG steps each, within
+    SHARDED_PCG_ATOL). One card, so this shows the NCCL path
+    launches and reduces; the multi-rank sums are the CPU tests' (gloo, 2
+    and 4 ranks). Returns the numbers."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.loop import posegraph
+    from ldso_tpu_torch.parallel import replay
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        t = time.perf_counter()
+        got = replay.make_sharded_build_system()(W)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t) * 1e3
+        full = ba.build_system(W)
+        want = full[:6] + (full[8],)
+        h_err = max(float(torch.max(torch.abs(a - b))) / max(
+            float(torch.max(torch.abs(b))), 1e-30)
+            for a, b in zip(got[:6], want[:6]))
+        nres_same = int(got[6]) == int(want[6])
+        graph, kfs = posegraph.pose_graph_arrays(global_map)
+        args = [torch.as_tensor(a, device="cuda") for a in graph]
+        args = [a.to(torch.float64) if a.is_floating_point() else a
+                for a in args]
+        S_cg = posegraph.optimize_pose_graph_cg(*args, iterations=PCG_ITERS)
+        t = time.perf_counter()
+        S_sh = posegraph.optimize_pose_graph_cg_sharded(
+            *args, iterations=PCG_ITERS)
+        torch.cuda.synchronize()
+        pcg_ms = (time.perf_counter() - t) * 1e3
+        pcg_err = float(torch.max(torch.abs(S_sh - S_cg)))
+    finally:
+        dist.destroy_process_group()
+    res = dict(phase="7d sharded", backend="nccl", world_size=1,
+               build_max_rel_err=h_err, nres_equal=nres_same,
+               build_ms=build_ms, pcg_vertices=len(kfs),
+               pcg_edges=int(graph[6].sum()), pcg_max_abs_err=pcg_err,
+               pcg_ms=pcg_ms)
+    print(f"7d sharded over NCCL (world size 1): build system vs "
+          f"ba.build_system max rel err {h_err:.3g} (tol {SHARDED_H_RTOL}), "
+          f"nres equal {nres_same}, {build_ms:.2f} ms; PCG on phase 4's "
+          f"graph ({len(kfs)} keyframes, {res['pcg_edges']} edges) vs "
+          f"optimize_pose_graph_cg max |dS| {pcg_err:.3g} (tol "
+          f"{SHARDED_PCG_ATOL}), {PCG_ITERS} Gauss-Newton steps in "
+          f"{pcg_ms:.2f} ms", flush=True)
+    if not (h_err <= SHARDED_H_RTOL and nres_same):
+        _fail(f"7d: sharded build system: rel err {h_err}, nres equal "
+              f"{nres_same}")
+    if not pcg_err <= SHARDED_PCG_ATOL:
+        _fail(f"7d: sharded PCG: max abs err {pcg_err}")
+    return res
 
 
 def main() -> int:
     import os
+    t_start = time.perf_counter()
     phase_device()
     import torch
     record = phase_kernels()
     phase_determinism()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
-    launches_vo, calib, images, poses, strict, fs = phase_main_path()
+    with ba_times() as phase3_ba_ms:
+        launches_vo, calib, images, poses, strict, fs = phase_main_path()
     graph = phase_tracker_graph(fs, images)
     phase_dispatch_ahead(fs, images)
     phase_checkpoint(fs, root)
+    window3 = fs.ef.W
     del fs
-    launches, post_boot = phase_loop_slice()
+    launches, post_boot, map4 = phase_loop_slice()
     boxes = phase_boxes()
     look, _, asyn = phase_pipelines(calib, images, poses, strict)
     cli = phase_cli(calib, images, poses, root)
+    variants = phase_variants(calib, images, poses, phase3_ba_ms)
+    batched = phase_batched_tracker()
+    sharded = phase_sharded(window3, map4)
     by_path = dict(vo_strict=launches_vo["distance_transform"],
                    loop=launches["distance_transform"],
                    boxes=boxes["k1_launches"],
                    vo_lookahead=look["k1_launches"],
                    vo_async=asyn["k1_launches"],
-                   cli_lookahead=cli["lookahead"], cli_async=cli["async"])
+                   cli_lookahead=cli["lookahead"], cli_async=cli["async"],
+                   **{name.split()[1]: run["k1_launches"]
+                      for name, run in variants.items()})
     print(f"K1 launches per path: {by_path}", flush=True)
     record["launches"] = launches["distance_transform"]
     record["launches_per_keyframe"] = launches["distance_transform"] / post_boot
     record["launches_by_path"] = by_path
+    print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    for name, run in variants.items():
+        print(json.dumps({k: run[k] for k in (
+            "phase", "config", "keyframes", "kf_ids", "ate_mm",
+            "ms_per_frame_wall", "ba_ms_median", "ba_calls",
+            "phase3_ba_ms_median", "k1_launches", "gpu")}))
+    print(json.dumps(batched))
+    print(json.dumps(sharded))
     print(json.dumps({"tracker_graph": graph}))
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {

@@ -438,14 +438,16 @@ def _stitch_top(acc, pc: Precalc, W: Window, use_prior: bool):
         torch.sum(cb, dim=(0, 1)),
         torch.sum(b_h, dim=1) + torch.sum(b_t, dim=0), F, dev)
 
-    if use_prior:
-        delta_prior = W.state[:, :8]        # priorZero == 0 (FrameHessian.h:156-158)
-        pdiag = W.prior * W.frame_valid[:, None]
-        dvec = torch.cat([W.c_prior, pdiag.reshape(-1)])
-        H = H + torch.diag(dvec)
-        b = b + torch.cat([W.c_prior * pc.c_delta,
-                           (pdiag * delta_prior).reshape(-1)])
-    return H, b
+    return _add_priors(H, b, W, pc) if use_prior else (H, b)
+
+
+def _add_priors(H, b, W: Window, pc: Precalc):
+    """The calib and frame priors on the diagonal of a stitched system."""
+    delta_prior = W.state[:, :8]        # priorZero == 0 (FrameHessian.h:156-158)
+    pdiag = W.prior * W.frame_valid[:, None]
+    dvec = torch.cat([W.c_prior, pdiag.reshape(-1)])
+    return H + torch.diag(dvec), b + torch.cat(
+        [W.c_prior * pc.c_delta, (pdiag * delta_prior).reshape(-1)])
 
 
 def _accumulate_sc(W: Window, pc: Precalc, Hdd_tot, bd_tot, Hcd_tot,
@@ -522,10 +524,16 @@ def build_system(W: Window):
     HL, bL = _stitch_top(accL, pc, W, use_prior=True)
     Hsc, bsc, aux = _accumulate_sc(W, pc, HddA + HddL, bdA + bdL,
                                    HcdA + HcdL, shift_prior=True)
-    delta = torch.cat([pc.c_delta,
-                       ((W.state - W.state_zero)[:, :8]
-                        * W.frame_valid[:, None]).reshape(-1)])
-    return HA, bA, HL, bL, Hsc, bsc, aux, delta, nresA
+    return HA, bA, HL, bL, Hsc, bsc, aux, stitched_delta(W, pc), nresA
+
+
+def stitched_delta(W: Window, pc: Precalc = None):
+    """The (4+8F) offset of the state from its linearization point, the
+    `delta` that build_system returns (calib, then each frame's 8)."""
+    pc = make_precalc(W) if pc is None else pc
+    return torch.cat([pc.c_delta,
+                      ((W.state - W.state_zero)[:, :8]
+                       * W.frame_valid[:, None]).reshape(-1)])
 
 
 def resubstitute(W: Window, x, aux_HdiF, aux_bdSum, aux_Hcd,
@@ -578,6 +586,38 @@ def do_step(W: Window, stepfac_c, stepfac_t, stepfac_r, stepfac_a, stepfac_d):
     sumB = torch.sum(fv[:, 0] * W.frame_step[:, 7] ** 2) / nf
     sumT = torch.sum(fv * W.frame_step[:, 0:3] ** 2) / nf
     sumR = torch.sum(fv * W.frame_step[:, 3:6] ** 2) / nf
+    nid = torch.clamp(torch.sum(act), min=1)
+    sumNID = torch.sum(act * torch.abs(W.idepth_backup)) / nid
+
+    W = W._replace(state=torch.where(fvb[:, None], new_state, W.state),
+                   c_value=new_c, idepth=new_id,
+                   idepth_zero=torch.where(act, new_id, W.idepth_zero))
+    th = 0.00005 * 1.2  # setting_thOptIterations = 1.2
+    canbreak = ((torch.sqrt(sumA) < 0.0005 * 1.2) & (torch.sqrt(sumB) < th)
+                & (torch.sqrt(sumR) < th) & (torch.sqrt(sumT) * sumNID < th))
+    return W, canbreak
+
+
+def do_step_momentum(W: Window, prev_frame_step, prev_pt_step):
+    """doStepFromBackup, SOLVER_MOMENTUM branch (FullSystem.cc:1557-1584):
+    the applied step adds half the previous iteration's raw step on the
+    pose head and the point idepths; calib and affine take the raw step.
+    Returns (new W, canbreak) with the break test on the blended step."""
+    step = W.frame_step.clone()
+    step[:, :6] = step[:, :6] + 0.5 * prev_frame_step[:, :6]
+    new_state = W.state_backup + step
+    new_c = W.c_backup + W.c_step
+    pstep = W.pt_step + 0.5 * prev_pt_step
+    act = W.pt_valid
+    new_id = torch.where(act, W.idepth_backup + pstep, W.idepth)
+
+    fvb = W.frame_valid
+    fv = fvb[:, None].to(torch.float32)
+    nf = torch.clamp(torch.sum(fvb), min=1)
+    sumA = torch.sum(fv[:, 0] * step[:, 6] ** 2) / nf
+    sumB = torch.sum(fv[:, 0] * step[:, 7] ** 2) / nf
+    sumT = torch.sum(fv * step[:, 0:3] ** 2) / nf
+    sumR = torch.sum(fv * step[:, 3:6] ** 2) / nf
     nid = torch.clamp(torch.sum(act), min=1)
     sumNID = torch.sum(act * torch.abs(W.idepth_backup)) / nid
 

@@ -122,6 +122,45 @@ def _commit(W: Window) -> Window:
     )
 
 
+def refix_newest(W: Window, newest: int) -> Window:
+    """Move the newest frame's evaluation point to its current pose,
+    keeping (a, b) (FullSystem.cc:833-841)."""
+    new_zero = torch.zeros(10, dtype=torch.float32, device=W.state.device)
+    new_zero[6:8] = W.state[newest, 6:8]
+    T_eval = W.T_eval.clone()
+    T_eval[newest] = current_poses(W)[newest]
+    state = W.state.clone()
+    state[newest] = new_zero
+    state_zero = W.state_zero.clone()
+    state_zero[newest] = new_zero
+    return W._replace(T_eval=T_eval, state=state, state_zero=state_zero)
+
+
+def _finalize_linearization(W: Window) -> Window:
+    """applyRes(true) + drop dead residuals + per-point stats (the
+    fixLinearization path of linearizeAll, FullSystem.cc:1466-1543)."""
+    mask = ba._lin_mask(W)
+    W = _commit(W)
+    pc = ba.make_precalc(W)
+    KRKi = pc.KRKi[W.pt_host]
+    Kt = pc.Kt[W.pt_host]
+    p1 = torch.stack([W.pt_u, W.pt_v, torch.ones_like(W.pt_u)], -1)
+    ptp_inf = torch.einsum("pfij,pj->pfi", KRKi, p1)
+    ptp = ptp_inf + Kt * W.idepth[:, None, None]
+    pi = ptp_inf[..., :2] / ptp_inf[..., 2:3]
+    pp = ptp[..., :2] / ptp[..., 2:3]
+    rel_bs = 0.01 * torch.linalg.norm(pi - pp, dim=-1)
+    act_now = W.res_active & mask
+    return W._replace(
+        pt_max_rel_baseline=torch.maximum(
+            W.pt_max_rel_baseline,
+            torch.amax(torch.where(act_now, rel_bs, torch.zeros_like(rel_bs)),
+                       dim=1)),
+        pt_num_good_res=W.pt_num_good_res + torch.sum(act_now, dim=1).to(torch.int32),
+        res_exist=W.res_exist & ~(mask & ~W.res_active),
+    )
+
+
 def optimize_device(W: Window, dIs, HM, bM, newest: int, cfg: Config,
                     img_w: int, img_h: int, max_iterations: int):
     """The default-mode LM loop. dIs: (F,H,W,3) window images; HM/bM: the
@@ -151,46 +190,14 @@ def optimize_device(W: Window, dIs, HM, bM, newest: int, cfg: Config,
         if bool(canbreak) and it + 1 >= cfg.min_opt_iterations:
             break
 
-    # re-fix the newest frame's evaluation point keeping (a, b)
-    T_cur = current_poses(W)
-    new_zero = torch.zeros(10, dtype=torch.float32, device=eP.device)
-    new_zero[6:8] = W.state[newest, 6:8]
-    T_eval = W.T_eval.clone()
-    T_eval[newest] = T_cur[newest]
-    state = W.state.clone()
-    state[newest] = new_zero
-    state_zero = W.state_zero.clone()
-    state_zero[newest] = new_zero
-    W = W._replace(T_eval=T_eval, state=state, state_zero=state_zero)
-
+    W = refix_newest(W, newest)
     if cfg.ba_finalize_sliced:
         W, eP = ba.linearize_target(W, dIs, cfg, img_w, img_h, newest)
     else:
         W = _reset_oob_dev(W)
         W, eP = ba.linearize_all(W, dIs, cfg, img_w, img_h)
     W = ba.set_new_frame_energy_th(W, newest, cfg)
-
-    # finalize: commit + per-point stats + drop dead residuals
-    mask = ba._lin_mask(W)
-    W = _commit(W)
-    pc = ba.make_precalc(W)
-    KRKi = pc.KRKi[W.pt_host]
-    Kt = pc.Kt[W.pt_host]
-    p1 = torch.stack([W.pt_u, W.pt_v, torch.ones_like(W.pt_u)], -1)
-    ptp_inf = torch.einsum("pfij,pj->pfi", KRKi, p1)
-    ptp = ptp_inf + Kt * W.idepth[:, None, None]
-    pi = ptp_inf[..., :2] / ptp_inf[..., 2:3]
-    pp = ptp[..., :2] / ptp[..., 2:3]
-    rel_bs = 0.01 * torch.linalg.norm(pi - pp, dim=-1)
-    act_now = W.res_active & mask
-    W = W._replace(
-        pt_max_rel_baseline=torch.maximum(
-            W.pt_max_rel_baseline,
-            torch.amax(torch.where(act_now, rel_bs, torch.zeros_like(rel_bs)),
-                       dim=1)),
-        pt_num_good_res=W.pt_num_good_res + torch.sum(act_now, dim=1).to(torch.int32),
-        res_exist=W.res_exist & ~(mask & ~W.res_active),
-    )
+    W = _finalize_linearization(W)
     nres = nresA.to(torch.float32)
     rmse = torch.sqrt(eP / torch.clamp(8.0 * nres, min=1.0))
     return W, torch.stack([eP, nres, rmse])

@@ -6,8 +6,11 @@ EnergyFunctional.cc plus the optimization driver of FullSystem.cc:725-864):
     reference keeps its stitched algebra in double);
   * frame slots: active frames always occupy slots [0, nf);
   * the default BA (`ba_device_lm=True`, force-accept, no momentum) runs
-    through backend/ba_device.optimize_device. The host-orchestrated LM
-    (`ba_device_lm=False`) is not ported yet.
+    through backend/ba_device.optimize_device; every other configuration
+    runs the host-orchestrated LM `_optimize_host`: the accept/reject
+    loop, each solve assembled on the device and solved in float64 numpy
+    (`solve_system`, with every SOLVER_* branch), the momentum modes and
+    the nullspace orthogonalizations.
 """
 
 from __future__ import annotations
@@ -17,18 +20,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ldso_tpu_torch.config import (CPARS, Config, SCALE_A, SCALE_B,
-                                   SOLVER_MOMENTUM, SOLVER_ORTHOGONALIZE_FULL,
-                                   SOLVER_ORTHOGONALIZE_POINTMARG,
-                                   SOLVER_ORTHOGONALIZE_SYSTEM,
-                                   SOLVER_REMOVE_POSEPRIOR)
+from ldso_tpu_torch.config import (
+    CPARS, Config, SCALE_A, SCALE_B, SCALE_XI_ROT, SCALE_XI_TRANS,
+    SOLVER_FIX_LAMBDA, SOLVER_MOMENTUM, SOLVER_ORTHOGONALIZE_FULL,
+    SOLVER_ORTHOGONALIZE_POINTMARG, SOLVER_ORTHOGONALIZE_SYSTEM,
+    SOLVER_ORTHOGONALIZE_X, SOLVER_ORTHOGONALIZE_X_LATER,
+    SOLVER_REMOVE_POSEPRIOR, SOLVER_STEPMOMENTUM, SOLVER_SVD, SOLVER_SVD_CUT7,
+    SOLVER_USE_GN)
 from ldso_tpu_torch.backend import ba, ba_device
+from ldso_tpu_torch.backend.ba_device import (_finalize_linearization,
+                                              _reset_oob_dev as _reset_oob,
+                                              refix_newest)
 from ldso_tpu_torch.backend.window import (RES_IN, RES_OUTLIER, Window,
-                                           empty_window)
-
-# solver modes that only the host-orchestrated LM (not ported) implements
-_HOST_ONLY_MODES = (SOLVER_MOMENTUM | SOLVER_ORTHOGONALIZE_SYSTEM
-                    | SOLVER_ORTHOGONALIZE_POINTMARG | SOLVER_ORTHOGONALIZE_FULL)
+                                           aff_g2l_zero, empty_window)
+from ldso_tpu_torch.math import lie
 
 
 def _set_at(t, i, v):
@@ -207,12 +212,6 @@ class EnergyFunctional:
 
     def __init__(self, cfg: Config, calib, F: Optional[int] = None,
                  P: Optional[int] = None, *, device):
-        if not (cfg.ba_device_lm and cfg.force_accept_step) or (
-                cfg.solver_mode & _HOST_ONLY_MODES):
-            raise NotImplementedError(
-                "ldso_tpu_torch ports the device BA path only "
-                "(ba_device_lm=True, force_accept_step=True, no momentum "
-                "or system orthogonalization)")
         self.cfg = cfg
         self.calib = calib
         self.device = torch.device(device)
@@ -351,6 +350,40 @@ class EnergyFunctional:
         self.pt_host_np[free[:k]] = host
         return free[:k]
 
+    def marginalize_points(self, pt_mask):
+        """Flagged points: boost their prior, accumulate and Schur them onto
+        HM/bM, then remove them (marginalizePointsF, :165-222). pt_mask:
+        (P,) bool tensor on the window's device."""
+        mask_np = pt_mask.cpu().numpy()
+        if not mask_np.any():
+            return
+        Wb = _boost_prior_dev(self.W, pt_mask,
+                              float(np.float32(self.cfg.idepth_fix_prior_marg_fac)))
+        H, b, nres = ba.accumulate_marg(Wb, pt_mask)
+        self.W = _drop_points_dev(Wb, pt_mask)
+        self._absorb_points(H, b, nres)
+        self.pt_valid_np &= ~mask_np
+
+    def _has_first_frame(self) -> bool:
+        """The pose-prior-carrying first keyframe is still in the window."""
+        return any(getattr(f, "kf_id", -1) == 0 for f in self.window_shells)
+
+    def _absorb_points(self, H, b, nres):
+        """Add a marginalized point system (device H, b) to HM/bM with the
+        orthogonalizations of EnergyFunctional.cc:205-212."""
+        cfg = self.cfg
+        n = CPARS + 8 * self.n_frames
+        H = H.cpu().numpy().astype(np.float64)
+        b = b.cpu().numpy().astype(np.float64)
+        if (cfg.solver_mode & SOLVER_ORTHOGONALIZE_POINTMARG
+                and not self._has_first_frame()):
+            self.HM, self.bM = self._orthogonalize_system(self.HM, self.bM)
+        self.HM += cfg.marg_weight_fac * H[:n, :n]
+        self.bM += cfg.marg_weight_fac * b[:n]
+        if cfg.solver_mode & SOLVER_ORTHOGONALIZE_FULL:
+            self.HM, self.bM = self._orthogonalize_system(self.HM, self.bM)
+        self.res_in_m += int(nres)
+
     def marginalize_and_drop(self, marg_cand, drop, dIs, img_w: int,
                              img_h: int):
         """Point retirement (see _marg_points_fused): absorbs the survivors'
@@ -372,25 +405,151 @@ class EnergyFunctional:
 
     def marginalize_and_drop_consume(self, out):
         """The host half: the float64 prior update and the host mirrors."""
-        cfg = self.cfg
         H, b, nres, rec, really, dropped = out
         really = really.cpu().numpy()
         dropped = dropped.cpu().numpy()
         rec = rec.cpu().numpy().astype(np.float64)
         if really.any():
-            n = CPARS + 8 * self.n_frames
-            H = H.cpu().numpy().astype(np.float64)
-            b = b.cpu().numpy().astype(np.float64)
-            self.HM += cfg.marg_weight_fac * H[:n, :n]
-            self.bM += cfg.marg_weight_fac * b[:n]
-            self.res_in_m += int(nres)
+            self._absorb_points(H, b, nres)
         self.pt_valid_np &= ~(really | dropped)
         return rec, really, dropped
+
+    # ------------------------------------------------------------------ solving
+    def _nullspaces(self) -> np.ndarray:
+        """Columns: 6 pose + 2 affine + 1 scale global null directions
+        (getNullspaces, FullSystem.cc:1711-1760)."""
+        nf = self.n_frames
+        n = CPARS + 8 * nf
+        W = self.W
+        adj = lie.se3_adj(W.T_eval[:nf]).cpu().numpy().astype(np.float64)
+        T_eval = W.T_eval[:nf].cpu().numpy().astype(np.float64)
+        aff0 = aff_g2l_zero(W)[:nf].cpu().numpy()
+        expo = W.exposure[:nf].cpu().numpy()
+        N = np.zeros((n, 9))
+        for f in range(nf):
+            o = CPARS + 8 * f
+            N[o:o + 3, :6] = adj[f][0:3] / SCALE_XI_TRANS
+            N[o + 3:o + 6, :6] = adj[f][3:6] / SCALE_XI_ROT
+            N[o + 6, 6] = 1.0 / SCALE_A
+            N[o + 7, 7] = np.exp(aff0[f, 0]) * expo[f] / SCALE_B
+            N[o:o + 3, 8] = T_eval[f][:3, 3] / SCALE_XI_TRANS
+        return N
+
+    @staticmethod
+    def _orthogonalize(vec: np.ndarray, N: np.ndarray,
+                       delta: float = 1e-5) -> np.ndarray:
+        """x -= N (N^T N)^+ N^T x via SVD (EnergyFunctional.cc:685-717)."""
+        Nn = N / np.maximum(np.linalg.norm(N, axis=0, keepdims=True), 1e-12)
+        U, S, Vt = np.linalg.svd(Nn, full_matrices=False)
+        Sinv = np.where(S > delta * S.max(), 1.0 / S, 0.0)
+        Npi = U * Sinv[None, :] @ Vt
+        NNpiT = Nn @ Npi.T
+        return vec - 0.5 * (NNpiT + NNpiT.T) @ vec
+
+    def _orth_nullspaces(self) -> np.ndarray:
+        """The pose (6) and scale (1) columns, the set the reference's
+        orthogonalize() uses (EnergyFunctional.cc:687-689)."""
+        return self._nullspaces()[:, [0, 1, 2, 3, 4, 5, 8]]
+
+    def _orthogonalize_system(self, H: np.ndarray, b: np.ndarray):
+        """b -= Q b; H -= Q H Q with Q = N (N^T N)^+ N^T
+        (EnergyFunctional::orthogonalize with a system argument)."""
+        N = self._orth_nullspaces()
+        Nn = N / np.maximum(np.linalg.norm(N, axis=0, keepdims=True), 1e-12)
+        U, S, Vt = np.linalg.svd(Nn, full_matrices=False)
+        Sinv = np.where(S > self.cfg.solver_mode_delta * S.max(),
+                        1.0 / np.maximum(S, 1e-20), 0.0)
+        Q = Nn @ (U * Sinv[None, :] @ Vt).T
+        Q = 0.5 * (Q + Q.T)
+        return H - Q @ H @ Q, b - Q @ b
+
+    def solve_system(self, iteration: int, lam: float):
+        """solveSystemF (EnergyFunctional.cc:240-351): the system assembled
+        on the device, solved in float64 on the host, the step
+        resubstituted on the device."""
+        cfg = self.cfg
+        if cfg.solver_mode & SOLVER_USE_GN:
+            lam = 0.0
+        if cfg.solver_mode & SOLVER_FIX_LAMBDA:
+            lam = 1e-5
+        HA, bA, HL, bL, Hsc, bsc, aux, delta, nresA = ba.build_system(self.W)
+        n = CPARS + 8 * self.n_frames
+        f64 = lambda t: t.cpu().numpy().astype(np.float64)  # noqa: E731
+        HA, HL, Hsc = (f64(t)[:n, :n] for t in (HA, HL, Hsc))
+        bA, bL, bsc, delta = (f64(t)[:n] for t in (bA, bL, bsc, delta))
+        self.res_in_a = int(nresA)
+
+        bM_top = self.bM + self.HM @ delta
+        didx = np.diag_indices(n)
+        if cfg.solver_mode & SOLVER_ORTHOGONALIZE_SYSTEM:
+            # orthogonalize the active system before adding the prior
+            # (EnergyFunctional.cc:262-281), unless frame 0 is in the window
+            HT = HL + HA - Hsc
+            bT = bL + bA - bsc
+            if not self._has_first_frame():
+                HT, bT = self._orthogonalize_system(HT, bT)
+            HFinal = HT + self.HM
+            bFinal = bT + bM_top
+            HFinal[didx] *= (1.0 + lam)
+        else:
+            HFinal = HL + self.HM + HA
+            bFinal = bL + bM_top + bA - bsc
+            HFinal[didx] *= (1.0 + lam)
+            HFinal = HFinal - Hsc * (1.0 / (1.0 + lam))
+
+        if cfg.solver_mode & SOLVER_SVD:
+            # scaled SVD solve with singular-value gating (:296-324)
+            SVecI = 1.0 / np.sqrt(np.abs(np.diag(HFinal)) + 1e-12)
+            Hs = SVecI[:, None] * HFinal * SVecI[None, :]
+            U, S, Vt = np.linalg.svd(Hs)
+            Ub = U.T @ (SVecI * bFinal)
+            max_sv = S.max() if len(S) else 1.0
+            for i in range(len(Ub)):
+                if S[i] < cfg.solver_mode_delta * max_sv:
+                    Ub[i] = 0.0
+                if (cfg.solver_mode & SOLVER_SVD_CUT7) and i >= len(Ub) - 7:
+                    Ub[i] = 0.0
+                else:
+                    Ub[i] /= max(S[i], 1e-20)
+            x = SVecI * (Vt.T @ Ub)
+        else:
+            SVecI = 1.0 / np.sqrt(np.abs(np.diag(HFinal)) + 10.0)
+            Hs = SVecI[:, None] * HFinal * SVecI[None, :]
+            x = SVecI * np.linalg.solve(Hs, SVecI * bFinal)
+
+        if (cfg.solver_mode & SOLVER_ORTHOGONALIZE_X) or (
+                iteration >= 2 and cfg.solver_mode & SOLVER_ORTHOGONALIZE_X_LATER):
+            x = self._orthogonalize(x, self._orth_nullspaces(),
+                                    cfg.solver_mode_delta)
+
+        xf = np.zeros(CPARS + 8 * self.F, np.float32)
+        xf[:n] = x
+        self.W = ba.resubstitute(self.W, torch.from_numpy(xf).to(self.device),
+                                 aux["HdiF"], aux["bdSum"], aux["Hcd"],
+                                 aux["JpJdF"])
+        self.W = self.W._replace(
+            pt_idepth_hessian=1.0 / torch.clamp(aux["HdiF"], min=1e-12))
+        self.last_x = x
+        return x
+
+    def calc_M_energy(self) -> float:
+        if self.cfg.force_accept_step:
+            return 0.0
+        n = CPARS + 8 * self.n_frames
+        d = ba.stitched_delta(self.W).cpu().numpy().astype(np.float64)[:n]
+        return float(d @ (2.0 * self.bM + self.HM @ d))
+
+    def calc_L_energy(self) -> float:
+        if self.cfg.force_accept_step:
+            return 0.0
+        return float(ba.calc_L_energy(self.W))
 
     # ------------------------------------------------------------------ optimize
     def optimize(self, dIs, max_iterations: int, img_w: int, img_h: int) -> float:
         """The windowed BA (FullSystem::optimize, :725-864). Returns the final
-        RMSE; sets self.is_lost on divergence."""
+        RMSE; sets self.is_lost on divergence. The default mode
+        (ba_device_lm, force-accept, no momentum) runs on the device
+        (backend/ba_device.py); every other mode runs `_optimize_host`."""
         cfg = self.cfg
         nf = self.n_frames
         if nf < 2:
@@ -399,6 +558,10 @@ class EnergyFunctional:
             max_iterations = 20
         elif nf < 4:
             max_iterations = 15
+        momentum = bool(cfg.solver_mode & SOLVER_MOMENTUM)
+        if not (cfg.ba_device_lm and cfg.force_accept_step and not momentum):
+            return self._optimize_host(dIs, max_iterations, img_w, img_h,
+                                       nf - 1, momentum)
         n_full = CPARS + 8 * self.F
         n = CPARS + 8 * nf
         HMp = np.zeros((n_full, n_full), np.float32)
@@ -414,3 +577,83 @@ class EnergyFunctional:
         if not np.isfinite(stats[0]):
             self.is_lost = True
         return float(stats[2])
+
+    def _linearize(self, dIs, img_w, img_h, newest) -> float:
+        """linearizeAll without fixing (FullSystem.cc:1442-1543): returns
+        the energy, read on the host."""
+        self.W, eP = ba.linearize_all(self.W, dIs, self.cfg, img_w, img_h)
+        self.W = ba.set_new_frame_energy_th(self.W, newest, self.cfg)
+        return float(eP)
+
+    def _optimize_host(self, dIs, max_iterations, img_w, img_h, newest,
+                       momentum):
+        """The reference's LM (FullSystem::optimize): accept a step when
+        energy + L + M drops (always under force_accept_step), damping x0.25
+        after an accepted step and x1e2 after a rejected one. The host
+        reads three scalars per iteration."""
+        cfg = self.cfg
+        self.W = _reset_oob(self.W)
+        last_energy = self._linearize(dIs, img_w, img_h, newest)
+        lastL = self.calc_L_energy()
+        lastM = self.calc_M_energy()
+        self.W = ba.apply_res(self.W)
+
+        lam = 1e-1
+        stepsize = 1.0
+        prev_x = None
+        for iteration in range(max_iterations):
+            self.W = ba.backup_state(self.W)
+            if momentum:
+                # backupState(iteration != 0) (FullSystem.cc:1627-1650): the
+                # previous raw step is what the blended update mixes in
+                if iteration != 0:
+                    prev_fstep, prev_pstep = self.W.frame_step, self.W.pt_step
+                else:
+                    prev_fstep = torch.zeros_like(self.W.frame_step)
+                    prev_pstep = torch.zeros_like(self.W.pt_step)
+            self.solve_system(iteration, lam)
+            # step-direction momentum (FullSystem.cc:781-793): grow the
+            # step when successive increments align, shrink when they oppose
+            if (cfg.solver_mode & SOLVER_STEPMOMENTUM) and prev_x is not None:
+                inc = ((1e-20 + prev_x @ self.last_x)
+                       / (1e-20 + np.linalg.norm(prev_x)
+                          * np.linalg.norm(self.last_x)))
+                if np.isfinite(inc):
+                    if inc < 0 and stepsize > 1:
+                        stepsize = 1.0
+                    new_ss = np.exp(inc * 1.4)
+                    stepsize = float(np.clip(
+                        np.sqrt(np.sqrt(new_ss * stepsize ** 3)), 0.25, 2.0))
+            prev_x = self.last_x
+            if momentum:
+                self.W, canbreak = ba.do_step_momentum(self.W, prev_fstep,
+                                                       prev_pstep)
+            else:
+                self.W, canbreak = ba.do_step(self.W, stepsize, stepsize,
+                                              stepsize, stepsize, stepsize)
+            canbreak = bool(canbreak)
+
+            new_energy = self._linearize(dIs, img_w, img_h, newest)
+            newL = self.calc_L_energy()
+            newM = self.calc_M_energy()
+            if cfg.force_accept_step or (new_energy + newL + newM
+                                         < last_energy + lastL + lastM):
+                self.W = ba.apply_res(self.W)
+                last_energy, lastL, lastM = new_energy, newL, newM
+                lam *= 0.25
+            else:
+                self.W = ba.load_backup(self.W)
+                last_energy = self._linearize(dIs, img_w, img_h, newest)
+                lastL = self.calc_L_energy()
+                lastM = self.calc_M_energy()
+                lam *= 1e2
+
+            if canbreak and iteration >= cfg.min_opt_iterations:
+                break
+
+        self.W = _reset_oob(refix_newest(self.W, newest))
+        last_energy = self._linearize(dIs, img_w, img_h, newest)
+        self.W = _finalize_linearization(self.W)
+        if not np.isfinite(last_energy):
+            self.is_lost = True
+        return float(np.sqrt(last_energy / max(8 * self.res_in_a, 1)))

@@ -11,11 +11,18 @@ src/internal/ImmaturePoint.cc):
   * the flat candidate arena: every host keyframe's candidates in one (N,)
     pool plus a per-candidate host slot.
 
-The JAX default `trace_packed=True` changes one result, and the port keeps
-it: the discrete search samples the UNROTATED integer pattern bilinearly,
-with every tap of a step sharing the step's fractional part and each tap
-row/column clamped to the image (`_search_samples`). The packing that
-implemented it on the TPU is not ported.
+The trace's discrete search has the JAX package's three samplings, chosen
+by `trace_packed` and `trace_search_nearest`:
+  * packed (the default): the UNROTATED integer pattern sampled
+    bilinearly, every tap of a step sharing the step's fractional part and
+    each tap row/column clamped to the image (`_search_samples`);
+  * not packed: the reference's search, bilinear over the rotated pattern
+    (ImmaturePoint.cc:182-205);
+  * nearest: one tap per pattern pixel, over the unrotated integer pattern
+    when packed (`_nearest_samples`) or the rotated one when not, followed
+    by a bilinear re-score of the +-`trace_refine_steps` neighbourhood.
+The packing that implemented the packed samplings on the TPU is not
+ported; the functions it computes are.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch
 
 from ldso_tpu_torch.config import Config, PATTERN
 from ldso_tpu_torch.camera.calib import Calibration
-from ldso_tpu_torch.ops.interp import bilinear
+from ldso_tpu_torch.ops.interp import bilinear, nearest
 from ldso_tpu_torch.utils.static import nonzero_padded
 
 IPS_GOOD = 0
@@ -141,6 +148,24 @@ def _search_samples(img, x, y, patt_int):
             + (1.0 - dx - dy + dxdy) * v00)
 
 
+def _nearest_samples(img, x, y, patt_int):
+    """img[round(y) + pat_y, round(x) + pat_x] for the integer pattern, the
+    rounded centre clamped to the image and then each tap clamped to it:
+    what the JAX package computes with `nearest_packed_pattern(
+    pack_pattern(img, PATTERN), ...)`. Rounds half to even, as jnp.round.
+    img (H, W); x, y (...); patt_int (P, 2) int64. Returns (..., P)."""
+    H, W = img.shape
+    xr = torch.round(x)
+    yr = torch.round(y)
+    xi = torch.clamp(torch.where(torch.isnan(xr), torch.zeros_like(xr), xr),
+                     0, W - 1).long()
+    yi = torch.clamp(torch.where(torch.isnan(yr), torch.zeros_like(yr), yr),
+                     0, H - 1).long()
+    cx = torch.clamp(xi[..., None] + patt_int[:, 0], 0, W - 1)
+    cy = torch.clamp(yi[..., None] + patt_int[:, 1], 0, H - 1)
+    return img.reshape(-1)[cy * W + cx]
+
+
 def _huber_w(ar, cfg):
     return torch.where(ar < cfg.huber_th, torch.ones_like(ar),
                        cfg.huber_th / torch.clamp(ar, min=1e-12))
@@ -152,10 +177,6 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
 
     KRKi (3,3) or (N,3,3) = K R_target<-host K^-1; Kt (3,) or (N,3); aff
     (2,) or (N,2) host->target brightness transfer."""
-    if cfg.trace_search_nearest or not cfg.trace_packed:
-        raise NotImplementedError(
-            "ldso_tpu_torch traces with the default search only "
-            "(trace_packed=True, trace_search_nearest=False)")
     W, H = calib.w[0], calib.h[0]
     dev = pool.u.device
     max_pix_search = (W + H) * cfg.max_pix_search
@@ -237,16 +258,29 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
     steps = torch.arange(n_cap, dtype=torch.float32, device=dev)
     sx = ptx0[:, None] + steps[None, :] * dxn[:, None]              # (N,S)
     sy = pty0[:, None] + steps[None, :] * dyn[:, None]
-    # the default search (trace_packed, bilinear): the unrotated integer
-    # pattern around each step
-    hit = _search_samples(dI_target[..., 0], sx, sy,
-                          torch.tensor(PATTERN, dtype=torch.int64, device=dev))
-    res = hit - (aff[:, None, None, 0] * pool.color[:, None, :]
-                 + aff[:, None, None, 1])
-    hw = _huber_w(torch.abs(res), cfg)
-    e_pix = torch.where(torch.isfinite(hit), hw * res * res * (2.0 - hw),
-                        torch.full_like(res, 1e5))
-    energies = torch.sum(e_pix, dim=-1)                             # (N,S)
+    img0 = dI_target[..., 0]
+    patt_int = torch.tensor(PATTERN, dtype=torch.int64, device=dev)
+    if cfg.trace_search_nearest:
+        hit = (_nearest_samples(img0, sx, sy, patt_int) if cfg.trace_packed
+               else nearest(img0, sx[:, :, None] + rot_patt[:, None, :, 0],
+                            sy[:, :, None] + rot_patt[:, None, :, 1]))
+    elif cfg.trace_packed:
+        # the default: the unrotated integer pattern around each step
+        hit = _search_samples(img0, sx, sy, patt_int)
+    else:
+        hit = bilinear(img0, sx[:, :, None] + rot_patt[:, None, :, 0],
+                       sy[:, :, None] + rot_patt[:, None, :, 1])    # (N,S,8)
+
+    def pattern_energy(h):
+        """Huber SSD of each step's pattern samples h (N, S, 8)."""
+        res = h - (aff[:, None, None, 0] * pool.color[:, None, :]
+                   + aff[:, None, None, 1])
+        hw = _huber_w(torch.abs(res), cfg)
+        e_pix = torch.where(torch.isfinite(h), hw * res * res * (2.0 - hw),
+                            torch.full_like(res, 1e5))
+        return torch.sum(e_pix, dim=-1)
+
+    energies = pattern_energy(hit)                                  # (N,S)
     step_live = steps[None, :] < n_steps[:, None].to(torch.float32)
     energies = torch.where(step_live, energies,
                            torch.full_like(energies, 1e10))
@@ -263,6 +297,25 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
     new_q = second / torch.clamp(best_energy, min=1e-12)
     quality = torch.where((new_q < pool.quality) | (n_steps > 10), new_q,
                           pool.quality)
+
+    # nearest search: re-score the +-K steps around its argmin with the
+    # reference's bilinear energy (rotated pattern), which recovers the
+    # bilinear argmin the rounded taps can miss by a step or two
+    if cfg.trace_search_nearest and cfg.trace_refine_steps > 0:
+        K = cfg.trace_refine_steps
+        offs = torch.arange(-K, K + 1, dtype=torch.float32, device=dev)
+        cand = best_idx[:, None].to(torch.float32) + offs[None, :]
+        cand_live = (cand >= 0) & (cand < n_steps[:, None].to(torch.float32))
+        cu = ptx0[:, None] + cand * dxn[:, None]
+        cv = pty0[:, None] + cand * dyn[:, None]
+        re_sum = pattern_energy(bilinear(
+            img0, cu[:, :, None] + rot_patt[:, None, :, 0],
+            cv[:, :, None] + rot_patt[:, None, :, 1]))
+        re_sum = torch.where(cand_live, re_sum, torch.full_like(re_sum, 1e10))
+        j = torch.argmin(re_sum, dim=-1)
+        best_energy = torch.amin(re_sum, dim=-1)
+        best_u = torch.gather(cu, 1, j[:, None])[:, 0]
+        best_v = torch.gather(cv, 1, j[:, None])[:, 0]
 
     # GN refinement along the line (:223-275)
     def gn_energy_Hb(bu, bv):

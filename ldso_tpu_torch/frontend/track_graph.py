@@ -10,12 +10,13 @@ the host pays one graph launch per track and the caller returns before
 the card has tracked the frame (the JAX package's one device program per
 `track_frame`, `ldso_tpu/frontend/tracker.py:406`).
 
-One graph per key (the device, the tracker's static arguments and the
-inputs' shapes and dtypes), shared by every FullSystem of the process and
-by every stream. A replay runs under the graph's lock on the caller's
-current stream: wait for the graph's previous replay (an event, whatever
-stream it ran on), copy the inputs into the graph's static buffers,
-replay, clone the outputs out of its static buffers and record the event.
+One graph per key (the device, the tracker's static arguments, the Config
+fields it reads, and the inputs' shapes and dtypes), shared by every
+FullSystem of the process and by every stream. A replay runs under the
+graph's lock on the caller's current stream: wait for the graph's
+previous replay (an event, whatever stream it ran on), copy the inputs
+into the graph's static buffers, replay, clone the outputs out of its
+static buffers and record the event.
 So two streams (a pipeline's tracking stream and its mapping stream) never
 use the buffers at once, and each result is a fresh tensor that the next
 replay cannot overwrite.

@@ -411,8 +411,8 @@ def _level_block(ref, pyr_new, lvl, state, run, new_exposure, min_res_abort,
     rms = torch.where(stats[:, 1] > 0,
                       torch.sqrt(stats[:, 0] / torch.clamp(stats[:, 1], min=1.0)),
                       torch.full_like(stats[:, 0], float("inf")))
-    new_last = last_res.clone()
-    new_last[:, lvl] = rms
+    new_last = torch.cat([last_res[:, :lvl], rms[:, None],
+                          last_res[:, lvl + 1:]], dim=1)
     new_ok = ok_flag & (rms <= 1.5 * min_res_abort[lvl])
     new_state = (T, aff, new_ok, new_last, stats[:, 2:5])
     out = tuple(_where(run, n, o) for n, o in
@@ -463,14 +463,23 @@ def _track_batch(ref: TrackerRef, pyr_new: FramePyramid, T_init, aff_init,
     if cfg.affine_opt_mode_b == 0:
         ok = ok & (torch.abs(rel[:, 1]) <= 200.0)
     if cfg.affine_opt_mode_a < 0:
-        aff = aff.clone()
-        aff[:, 0] = 0.0
+        aff = torch.stack([torch.zeros_like(aff[:, 0]), aff[:, 1]], dim=1)
     if cfg.affine_opt_mode_b < 0:
-        aff = aff.clone()
-        aff[:, 1] = 0.0
+        aff = torch.stack([aff[:, 0], torch.zeros_like(aff[:, 1])], dim=1)
     touched = min(coarsest, calib.levels - 1) + 1
     ok = ok & torch.all(torch.isfinite(last_res[:, :touched]), dim=1)
     return T, aff, ok, last_res, flow
+
+
+# the Config fields the tracker reads: its CUDA graphs are keyed on these,
+# so FullSystems whose configs differ elsewhere (a BA or trace knob) share
+# them (tests/test_torch_tracker.py checks the tracker reads no other)
+CONFIG_FIELDS = ("affine_opt_mode_a", "affine_opt_mode_b", "coarse_cutoff_th",
+                 "coarse_lm_iterations", "huber_th")
+
+
+def graph_key(cfg: Config) -> tuple:
+    return tuple(getattr(cfg, f) for f in CONFIG_FIELDS)
 
 
 def _on(x, device) -> torch.Tensor:
@@ -504,7 +513,8 @@ def _track(ref: TrackerRef, pyr_new: FramePyramid, T_inits, aff_init,
 
     inputs = (*ref.points, *ref.valid, ref.ref_exposure, ref.ref_aff,
               *pyr_new.dI, *args)
-    return track_graph.replay((calib, cfg, coarsest, L, P), program, inputs)
+    return track_graph.replay((calib, graph_key(cfg), coarsest, L, P),
+                              program, inputs)
 
 
 def track_frame(ref: TrackerRef, pyr_new: FramePyramid, T_init, aff_init,

@@ -17,10 +17,13 @@ linearization:
     exactly;
   * matrix-free PCG (`optimize_pose_graph_cg`): H applied edge-wise from
     the cached 7x7 blocks, block-Jacobi preconditioner, O(E) memory.
+  * edge-sharded PCG (`optimize_pose_graph_cg_sharded`): the edges split
+    over the ranks of a `torch.distributed` group, one reduction per CG
+    step.
 `run_pose_graph` takes the dense path up to `_DENSE_MAX_VERTICES` padded
-vertices and PCG above. The pose graph runs in float64 (the reference's g2o
-works in double); the edge-sharded multi-device solver comes with the
-multi-device port.
+vertices, and PCG above: sharded when a process group of more than one
+rank divides the padded edge count. The pose graph runs in float64 (the
+reference's g2o works in double).
 """
 
 from __future__ import annotations
@@ -120,6 +123,44 @@ def optimize_pose_graph_cg(S_init: torch.Tensor, fixed: torch.Tensor,
     """The Gauss-Newton loop of `optimize_pose_graph`, each linear solve a
     matrix-free preconditioned CG from x = 0 (block-Jacobi
     preconditioner from the (N,7,7) diagonal blocks)."""
+    return _pcg_gauss_newton(S_init, fixed, e_i, e_j, Z, info, edge_valid,
+                             iterations, damping, cg_iters, lambda x: x)
+
+
+def optimize_pose_graph_cg_sharded(S_init: torch.Tensor, fixed: torch.Tensor,
+                                   e_i: torch.Tensor, e_j: torch.Tensor,
+                                   Z: torch.Tensor, info: torch.Tensor,
+                                   edge_valid: torch.Tensor, group=None,
+                                   iterations: int = 25,
+                                   damping: float = 1e-6,
+                                   cg_iters: int = 100) -> torch.Tensor:
+    """`optimize_pose_graph_cg` with the EDGES sharded over the ranks of a
+    `torch.distributed` group (the default group when None) and the
+    vertices replicated. Every rank passes the whole graph and linearizes
+    its contiguous slice of the edges; each edge-to-vertex scatter is
+    followed by one reduction over the group (in the CG loop, one per
+    step), summed in rank order (parallel/replay.all_reduce_ordered), so
+    every rank runs the same scalar recurrences on the same bits. The edge
+    count must be divisible by the group size (run_pose_graph pads it to a
+    power of two)."""
+    import torch.distributed as dist
+    from ldso_tpu_torch.parallel.replay import all_reduce_ordered
+    R = dist.get_world_size(group)
+    E = e_i.shape[0]
+    if E % R:
+        raise ValueError(f"{E} edges do not split over {R} ranks")
+    lo = dist.get_rank(group) * (E // R)
+    sl = slice(lo, lo + E // R)
+    return _pcg_gauss_newton(
+        S_init, fixed, e_i[sl], e_j[sl], Z[sl], info[sl], edge_valid[sl],
+        iterations, damping, cg_iters,
+        lambda x: all_reduce_ordered(x, group))
+
+
+def _pcg_gauss_newton(S_init, fixed, e_i, e_j, Z, info, edge_valid,
+                      iterations, damping, cg_iters, reduce):
+    """The PCG Gauss-Newton loop over the given edges; `reduce` sums a
+    vertex-space array over the edge shards (identity when unsharded)."""
     N = S_init.shape[0]
     dt = S_init.dtype
     dev = S_init.device
@@ -131,8 +172,9 @@ def optimize_pose_graph_cg(S_init: torch.Tensor, fixed: torch.Tensor,
     for _ in range(iterations):
         Hii, Hjj, Hij, bi, bj = _linearize(S, e_i, e_j, Z_inv, info,
                                            edge_valid)
-        b = -segment_sum(torch.cat([bi, bj]), torch.cat([e_i, e_j]), N) * free
-        D = segment_sum(torch.cat([Hii, Hjj]), torch.cat([e_i, e_j]), N)
+        b = -reduce(segment_sum(torch.cat([bi, bj]), torch.cat([e_i, e_j]),
+                                N)) * free
+        D = reduce(segment_sum(torch.cat([Hii, Hjj]), torch.cat([e_i, e_j]), N))
         D = D + damping * eye7
         D = torch.where(free[:, :, None] > 0, D, eye7)
         Minv = torch.linalg.inv(D)
@@ -145,7 +187,8 @@ def optimize_pose_graph_cg(S_init: torch.Tensor, fixed: torch.Tensor,
                   + torch.einsum("eij,ej->ei", Hij, xj))
             yj = (torch.einsum("eji,ej->ei", Hij, xi)
                   + torch.einsum("eij,ej->ei", Hjj, xj))
-            y = segment_sum(torch.cat([yi, yj]), torch.cat([e_i, e_j]), N)
+            y = reduce(segment_sum(torch.cat([yi, yj]), torch.cat([e_i, e_j]),
+                                   N))
             return (y + damping * xm) * free
 
         def pc(r):
@@ -179,17 +222,16 @@ def _pow2(n: int, lo: int = 16) -> int:
     return max(lo, 1 << int(math.ceil(math.log2(max(n, 1)))))
 
 
-def run_pose_graph(global_map, iterations: int = 25,
-                   device=DEFAULT_DEVICE):
-    """Host wrapper over the GlobalMap poseRel edges (Map.cc:75-165):
-    optimizes every keyframe's S_cw in float64 on `device` with the newest
-    fixed, and writes the result back. Vertex and edge counts pad to
-    power-of-two buckets as in the JAX package (padding vertices are
-    fixed identities, padding edges masked self-edges on the newest)."""
-    device = entry_device(device)
+def pose_graph_arrays(global_map):
+    """The GlobalMap's poseRel edges as the solvers' padded numpy inputs
+    (S, fixed, e_i, e_j, Z, info, edge_valid) and the keyframes, or None
+    with fewer than 3 keyframes or no edge. Vertex and edge counts pad to
+    power-of-two buckets as in the JAX package (padding vertices are fixed
+    identities, padding edges masked self-edges on the newest, which stays
+    fixed, Map.cc:110)."""
     kfs = global_map.get_all_kfs()
     if len(kfs) < 3:
-        return
+        return None
     id_to_idx = {kf.kf_id: k for k, kf in enumerate(kfs)}
     N = len(kfs)
     ei, ej, Zs, infos = [], [], [], []
@@ -202,14 +244,13 @@ def run_pose_graph(global_map, iterations: int = 25,
             Zs.append(S_rel)
             infos.append(info)
     if not ei:
-        return
+        return None
     E = len(ei)
-
     Nb = _pow2(N)
     S = np.tile(np.eye(4), (Nb, 1, 1))
     S[:N] = np.stack([kf.get_S_cw() for kf in kfs])
     fixed = np.ones(Nb, bool)
-    fixed[:N - 1] = False   # newest KF (index N-1) stays pinned (Map.cc:110)
+    fixed[:N - 1] = False
     Eb = _pow2(E)
     eip = np.full(Eb, N - 1, np.int64)
     ejp = np.full(Eb, N - 1, np.int64)
@@ -221,12 +262,33 @@ def run_pose_graph(global_map, iterations: int = 25,
     Zp[:E] = np.stack(Zs)
     infop[:E] = np.stack(infos)
     valid[:E] = True
+    return (S, fixed, eip, ejp, Zp, infop, valid), kfs
+
+
+def run_pose_graph(global_map, iterations: int = 25,
+                   device=DEFAULT_DEVICE):
+    """Host wrapper over the GlobalMap poseRel edges (Map.cc:75-165):
+    optimizes every keyframe's S_cw in float64 on `device` with the newest
+    fixed, and writes the result back (inputs from pose_graph_arrays)."""
+    device = entry_device(device)
+    graph = pose_graph_arrays(global_map)
+    if graph is None:
+        return
+    (S, fixed, eip, ejp, Zp, infop, valid), kfs = graph
+    Nb, Eb = S.shape[0], eip.shape[0]
 
     def f64(a):
         return torch.as_tensor(np.asarray(a, np.float64), device=device)
 
-    solver = (optimize_pose_graph if Nb <= _DENSE_MAX_VERTICES
-              else optimize_pose_graph_cg)
+    import torch.distributed as dist
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    if Nb <= _DENSE_MAX_VERTICES:
+        solver = optimize_pose_graph
+    elif ranks > 1 and Eb % ranks == 0:
+        # a big graph and a process group: shard the edges
+        solver = optimize_pose_graph_cg_sharded
+    else:
+        solver = optimize_pose_graph_cg
     S_new = solver(f64(S), torch.as_tensor(fixed, device=device),
                    torch.as_tensor(eip, device=device),
                    torch.as_tensor(ejp, device=device), f64(Zp), f64(infop),

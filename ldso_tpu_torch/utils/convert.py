@@ -158,3 +158,85 @@ def global_map_to_torch(gm) -> GlobalMap:
     for k in sorted(gm.keyframes):
         out.keyframes[k] = frame_shell_to_torch(gm.keyframes[k])
     return out
+
+
+def full_system_to_torch(jfs, cfg, device="cpu"):
+    """A JAX-package FullSystem between frames -> a port FullSystem in the
+    same state, on `device`, under the port Config `cfg`: the energy
+    functional (window, HM/bM, frame count, host mirrors), the frame shells
+    (one port shell per JAX shell, so all_frames, the window, the global
+    map and the tracking reference share them as in the JAX system), the
+    window's pyramids and image stack, the tracking reference, the
+    candidate arena, the pipelined chain and the last-pose state, and the
+    random generator. Reads the JAX system's attributes only.
+
+    Loop closing is not carried (its database and vocabulary live in the
+    LoopClosing object); the system must run with it off."""
+    from ldso_tpu_torch.system.full_system import FullSystem, TrackChain
+    if jfs.loop_closing is not None or cfg.enable_loop_closing:
+        raise ValueError("full_system_to_torch carries systems with loop "
+                         "closing off")
+    tfs = FullSystem(jfs.calib, cfg, device=device)
+    dev = tfs.device
+    shells = {}
+
+    def shell(sh):
+        if sh is None:
+            return None
+        if id(sh) not in shells:
+            shells[id(sh)] = frame_shell_to_torch(sh)
+        return shells[id(sh)]
+
+    def pyr(p):
+        return None if p is None else pyramid_to_torch(p, dev)
+
+    ef, jef = tfs.ef, jfs.ef
+    ef.W = window_to_torch(jef.W, dev)
+    ef.n_frames = jef.n_frames
+    ef.HM, ef.bM = np.array(jef.HM), np.array(jef.bM)
+    ef.res_in_a, ef.res_in_m = jef.res_in_a, jef.res_in_m
+    ef.is_lost = jef.is_lost
+    ef.pt_valid_np = np.array(jef.pt_valid_np)
+    ef.pt_host_np = np.array(jef.pt_host_np, np.int64)
+
+    tfs.all_frames[:] = [shell(s) for s in jfs.all_frames]
+    tfs.window_frames[:] = [shell(s) for s in jfs.window_frames]
+    tfs.window_pyrs = [pyr(p) for p in jfs.window_pyrs]
+    tfs.marg_flags = list(jfs.marg_flags)
+    tfs.imm_live = list(jfs.imm_live)
+    tfs.imm_arena = arena_to_torch(jfs.imm_arena, dev)
+    tfs.dIs = window_images_to_torch(jfs.dIs, dev)
+    tfs.global_map = GlobalMap()
+    tfs.global_map.latest_optimized_kf_id = jfs.global_map.latest_optimized_kf_id
+    for k in sorted(jfs.global_map.keyframes):
+        tfs.global_map.keyframes[k] = shell(jfs.global_map.keyframes[k])
+
+    tfs.initialized = jfs.initialized
+    tfs.is_lost = jfs.is_lost
+    tfs.init_failed = jfs.init_failed
+    tfs.init_state = (None if jfs.init_state is None
+                      else init_state_to_torch(jfs.init_state, dev))
+    tfs.first_pyr = pyr(jfs.first_pyr)
+    tfs.first_shell = shell(jfs.first_shell)
+    ref, ref_shell = jfs._tracker_ref_pair
+    if ref is None:
+        ref, ref_shell = jfs.tracker_ref, jfs.tracker_ref_shell
+    tfs._tracker_ref_pair = (
+        None if ref is None else tracker_ref_to_torch(ref, dev),
+        shell(ref_shell), None)
+    if jfs.track_chain is not None:
+        tfs.track_chain = TrackChain(*[_t("", a, dev) for a in jfs.track_chain])
+    tfs._traced_this_frame = bool(getattr(jfs, "_traced_this_frame", False))
+    tfs._frame_pyr = pyr(jfs._frame_pyr)
+    tfs.last_coarse_rmse = np.array(jfs.last_coarse_rmse, np.float64)
+    tfs.first_coarse_rmse = jfs.first_coarse_rmse
+    tfs.current_min_act_dist = jfs.current_min_act_dist
+    tfs.rng.set_state(jfs.rng.get_state())
+    tfs._n_retry_sweeps = getattr(jfs, "_n_retry_sweeps", 0)
+    for k in ("_marg_priors", "_marg_deltas", "_last_flow", "_last_rmse"):
+        v = getattr(jfs, k, None)
+        setattr(tfs, k, copy.deepcopy(v) if v is None or np.isscalar(v)
+                else np.array(v))
+    if hasattr(jfs, "_last_track_ref"):
+        tfs._last_track_ref = shell(jfs._last_track_ref)
+    return tfs

@@ -145,6 +145,37 @@ def test_motion_hypotheses_match():
         equal(x, y)
 
 
+def test_full_system_carried_between_frames(runs):
+    """utils/convert.full_system_to_torch: a JAX FullSystem stopped after
+    frame 15 becomes a port FullSystem in the same state (window, HM/bM,
+    shells shared by the window, the map and the tracking reference,
+    arena, counters), and both then step frames 16-21 alike: the same
+    keyframe decisions, camera centres within 5 um (a few float32
+    roundings of a 35 mm/frame trajectory)."""
+    from ldso_tpu_torch.utils.convert import full_system_to_torch
+    calib, poses, imgs, _, _ = runs
+    fj = jfs.FullSystem(calib, JC(**KW))
+    for i in range(16):
+        fj.add_active_frame(imgs[i], i, 1.0, i * 0.05)
+    fp = full_system_to_torch(fj, TC(**KW), "cpu")
+    equal(fp.ef.W.res_exist, fj.ef.W.res_exist)
+    equal(fp.ef.W.idepth, fj.ef.W.idepth)
+    equal(fp.imm_arena.pool.idepth_max, fj.imm_arena.pool.idepth_max)
+    equal(fp.ef.HM, fj.ef.HM)
+    assert [f.id for f in fp.window_frames] == [f.id for f in fj.window_frames]
+    assert fp.ef.window_shells is fp.window_frames
+    assert all(any(w is a for a in fp.all_frames) for w in fp.window_frames)
+    assert fp.tracker_ref_shell is fp.window_frames[-1]
+    assert fp.global_map.keyframes[fp.window_frames[-1].kf_id] is \
+        fp.window_frames[-1]
+    for i in range(16, 22):
+        sj = fj.add_active_frame(imgs[i], i, 1.0, i * 0.05)
+        st = fp.add_active_frame(imgs[i], i, 1.0, i * 0.05)
+        assert (sj.kf_id >= 0) == (st.kf_id >= 0), i
+        assert np.linalg.norm(_centre(sj.T_cw) - _centre(st.T_cw)) < 5e-6, i
+    assert [f.id for f in fp.window_frames] == [f.id for f in fj.window_frames]
+
+
 def test_retry_sweep_matches(runs):
     """Force the retrack gate on both systems (an impossibly good last
     RMSE) and compare the rank-then-refine sweep's pose."""

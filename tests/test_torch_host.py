@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
             "ldso_tpu_torch.examples.time_modes, "
             "ldso_tpu_torch.frontend.track_graph, ldso_tpu_torch.viz_live, "
             "ldso_tpu_torch.viz, ldso_tpu_torch.io.ldso_binary, "
-            "ldso_tpu_torch.synthetic; "
+            "ldso_tpu_torch.synthetic, ldso_tpu_torch.parallel.replay, "
+            "ldso_tpu_torch.loop.posegraph, "
+            "ldso_tpu_torch.backend.energy_functional; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'ldso_tpu' "
             "or m.startswith('ldso_tpu.')); print(bad); "

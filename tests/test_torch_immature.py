@@ -64,6 +64,23 @@ def test_search_samples_match_packed_pattern():
     close(got, ref, 0, 0, "search samples")
 
 
+def test_nearest_samples_match_packed_pattern():
+    """The nearest search's unrotated integer-pattern taps equal the JAX
+    packed implementation exactly: half-to-even rounding, the centre clamp
+    and each tap's border clamp (pack_pattern's edge repeat)."""
+    from ldso_tpu.ops.interp import nearest_packed_pattern, pack_pattern
+    rng = np.random.RandomState(1)
+    img = (rng.rand(40, 50) * 255).astype(np.float32)
+    x = rng.uniform(-2, 52, (30, 20)).astype(np.float32)
+    y = rng.uniform(-2, 42, (30, 20)).astype(np.float32)
+    x[0, :4] = [2.5, 3.5, -0.5, 48.5]          # ties round to even
+    y[0, :4] = [2.5, 3.5, 39.5, 0.5]
+    ref = nearest_packed_pattern(pack_pattern(j32(img), PATTERN), j32(x), j32(y))
+    got = tim._nearest_samples(t32(img), t32(x), t32(y),
+                               torch.tensor(PATTERN, dtype=torch.int64))
+    close(got, ref, 0, 0, "nearest samples")
+
+
 def _pools(seq):
     calib, poses, pj, pt, ideps, status = seq
     qj = jim.make_pool(jnp.asarray(status), pj[0].dI[0], CAP, JC())
@@ -90,6 +107,35 @@ def test_trace_twice(seq):
         # quality is a ratio of two SSD minima; each sum carries ~1e-5
         # relative rounding (XLA contracts the Huber terms into FMAs) and
         # near-equal minima amplify it
+        close(qt.quality, qj.quality, 2e-3, 1e-4, f"quality frame {tgt}")
+    assert (npy(qt.status) == jim.IPS_GOOD).sum() > 50
+
+
+@pytest.mark.parametrize("packed,nearest,refine", [
+    (False, False, 0), (True, True, 0), (True, True, 2), (False, True, 0),
+    (False, True, 2)])
+def test_trace_searches(seq, packed, nearest, refine):
+    """The trace's other discrete searches (the reference's bilinear search
+    over the rotated pattern; nearest over the unrotated or the rotated
+    pattern, with and without the bilinear re-score of +-refine steps),
+    each trace started from the same JAX state: statuses equal, intervals
+    within 1e-4 relative, quality within 2e-3, as test_trace_twice."""
+    import dataclasses
+    calib, poses, pj, pt, ideps, status = seq
+    kw = dict(trace_packed=packed, trace_search_nearest=nearest,
+              trace_refine_steps=refine)
+    jc, tc = dataclasses.replace(JC(), **kw), dataclasses.replace(TC(), **kw)
+    qj, _ = _pools(seq)
+    for tgt in (1, 3):
+        KRKi, Kt, _ = _transforms(calib, poses, 0, tgt)
+        aff = np.array([1.0, 0.0], np.float32)
+        qt = convert.pool_to_torch(qj)
+        qj = jim.trace(qj, pj[tgt].dI[0], j32(KRKi), j32(Kt), j32(aff), calib, jc)
+        qt = tim.trace(qt, pt[tgt].dI[0], t32(KRKi), t32(Kt), t32(aff), calib, tc)
+        equal(qt.status, qj.status, f"status after frame {tgt}")
+        for f in ("idepth_min", "idepth_max", "last_u", "last_v",
+                  "last_interval"):
+            close(getattr(qt, f), getattr(qj, f), 1e-4, 1e-4, f"{f} frame {tgt}")
         close(qt.quality, qj.quality, 2e-3, 1e-4, f"quality frame {tgt}")
     assert (npy(qt.status) == jim.IPS_GOOD).sum() > 50
 

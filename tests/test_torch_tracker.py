@@ -162,6 +162,32 @@ def test_convert_tracker_ref_roundtrip(scene):
 _HOST_READS = ("__bool__", "item", "tolist", "cpu", "numpy")
 
 
+def test_tracker_reads_only_its_graph_key_fields(scene):
+    """The tracker's CUDA graphs are keyed on tracker.CONFIG_FIELDS, not
+    the whole Config, so a FullSystem with another BA or trace knob shares
+    them: the whole tracker path (full track, batch, ranking) reads no
+    other Config field."""
+    calib, poses, pj, pt, ideps = scene
+    _, rt = _refs(scene)
+
+    class Recorded:
+        seen = set()
+
+        def __getattr__(self, name):
+            Recorded.seen.add(name)
+            return getattr(TC(), name)
+
+    cfg = Recorded()
+    Ts = t32(np.stack([np.eye(4)] * 2))
+    args = (t32([0, 0]), t32(1.0), t32(np.full(calib.levels, 1e9)))
+    ttr.track_frame_hypotheses(rt, pt[1], Ts, *args, calib, cfg,
+                               calib.levels - 1)
+    ttr.rank_hypotheses(rt, pt[1], Ts, args[0], args[1], calib, cfg,
+                        calib.levels - 1)
+    assert Recorded.seen and Recorded.seen <= set(ttr.CONFIG_FIELDS), \
+        Recorded.seen
+
+
 def test_tracker_never_reads_the_host(scene, monkeypatch):
     """track_frame, track_frame_hypotheses and rank_hypotheses with every
     tensor method that reads a value to the host patched to raise, and
