@@ -38,6 +38,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      asserts at least one return-leg -> out-leg loop, the pose graph ran,
      Sim(3) scales in (0.5, 2), odometry ATE < 5 mm, loop-closed ATE
      < 20 mm and the kernel launched on every keyframe after the bootstrap;
+     prints one JSON line (phase "4 loop_slice") with every keyframe's
+     frame id, every loop pair (frame -> frame), the loop count, both ATEs
+     and the dtype of the pose graph's S_cw;
      4b. the boxes scene (BoxScene, depth discontinuities and occlusion):
          104 frames at 640x480 on the straight head-to-head trajectory,
          strict, the CLI's mode=1 changes, loop closing off; keyframe ATE
@@ -901,6 +904,11 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
           f"{launches['distance_transform']} for {post_boot} post-bootstrap "
           f"keyframes", flush=True)
     print("stage timers (host wall, s):\n" + fs.timer.summary(), flush=True)
+    print(json.dumps(dict(
+        phase="4 loop_slice", kf_ids=kf_frames, loop_pairs=pairs,
+        loops=lc.n_loops_closed, ate_odometry_mm=ate_odo * 1e3,
+        ate_loop_mm=ate_loop * 1e3,
+        pose_graph_dtype=str(np.asarray(kfs[0].S_cw).dtype))), flush=True)
     if lc.n_loops_closed < 1:
         _fail("loop slice: no loop closed")
     bad = [p for p in pairs if not (p[0] >= half and p[1] < half)]

@@ -17,8 +17,9 @@ As in the JAX package, a failed PnP seed falls back to Umeyama RANSAC on
 mutual-depth 3D-3D matches (PARITY.md).
 
 The orchestration is host code; features, PnP, Umeyama and the Sim(3)
-refinement run in float32 on `device` (the casts of the JAX module), the
-pose graph in float64. RANSAC hypotheses come from one torch.Generator on
+refinement run in float32 on `device` (the casts of the JAX module), and
+so does the pose graph (posegraph.run_pose_graph, as the JAX package's CLI
+runs it). RANSAC hypotheses come from one torch.Generator on
 the device seeded with cfg.seed, in place of the JAX module's PRNG key.
 """
 

@@ -265,6 +265,19 @@ class HostCopy:
         return self._host.numpy()
 
 
+def loop_feature_depths(W: Window, newest: int) -> Optional[np.ndarray]:
+    """(n, 3) [u, v, idepth] rows the new keyframe's ORB features take
+    their depths from: every window point with an inlier residual in the
+    newest frame at its centre projection there, then the points the
+    newest frame hosts at their own pixels; None if there are none."""
+    m = (W.pt_valid & W.res_exist[:, newest]
+         & (W.res_state[:, newest] == RES_IN))
+    mh = W.pt_valid & (W.pt_host == newest)
+    pui = torch.cat([W.center_proj[:, newest][m],
+                     torch.stack([W.pt_u, W.pt_v, W.idepth], 1)[mh]])
+    return pui.cpu().numpy() if len(pui) else None
+
+
 class FullSystem:
     def __init__(self, calib: Calibration, cfg: Config,
                  b_grad_lut: Optional[np.ndarray] = None, vocab=None,
@@ -1078,14 +1091,7 @@ class FullSystem:
         every window point projected into the new keyframe through the
         BA's centre projections (LoopClosing.cc:281-283 reads the same
         idepth map), plus the points it hosts at their own pixels."""
-        W = self.ef.W
-        newest = len(self.window_frames) - 1
-        m = (W.pt_valid & W.res_exist[:, newest]
-             & (W.res_state[:, newest] == RES_IN))
-        mh = W.pt_valid & (W.pt_host == newest)
-        pui = torch.cat([W.center_proj[:, newest][m],
-                         torch.stack([W.pt_u, W.pt_v, W.idepth], 1)[mh]])
-        pui = pui.cpu().numpy() if len(pui) else None
+        pui = loop_feature_depths(self.ef.W, len(self.window_frames) - 1)
         self.loop_closing.make_kf_record(shell, pyr, pui)
         window_ids = [f.kf_id for f in self.window_frames]
         if self.loop_closing.insert_keyframe(shell, window_ids):

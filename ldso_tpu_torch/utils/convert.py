@@ -3,8 +3,9 @@
 The JAX package's state goes in as numpy arrays (`np.asarray` of each JAX
 field) and comes out as the port's tensors on a given device, and back.
 Covered: Window, TrackerRef, ImmaturePool / ImmatureArena, FramePyramid,
-InitializerState, and for loop closing a Vocabulary and a GlobalMap with
-its FrameShells (features, descriptors, pose_rel edges, S_cw). Index fields the port uses to index tensors
+InitializerState, and for loop closing a Vocabulary, a GlobalMap with
+its FrameShells (features, descriptors, pose_rel edges, S_cw) and the
+LoopClosing with its database. Index fields the port uses to index tensors
 (`pt_host`, the initializer's `neighbours` / `parent`) widen from int32 to
 int64 on the way in and narrow back on the way out.
 
@@ -160,6 +161,30 @@ def global_map_to_torch(gm) -> GlobalMap:
     return out
 
 
+def loop_closing_to_torch(lc, global_map: GlobalMap, cfg, device="cpu"):
+    """A JAX-package LoopClosing -> the port's, on the port GlobalMap
+    `global_map` (which must hold the carried shells of the JAX map: their
+    features, descriptors, BoW vectors, pose_rel edges and S_cw come with
+    them). Carries the vocabulary, the retrieval database (rebuilt by
+    `_add_to_db` in the JAX `_db_order`, so the native index holds the same
+    entries in the same order), the vocabulary's pending training
+    corpus, `n_loops_closed`, `loop_pairs` and `need_pose_graph`.
+
+    The JAX PRNG key cannot become a torch.Generator: the port's generator
+    starts from cfg.seed, so later RANSAC hypotheses differ from the JAX
+    package's unless a caller supplies the JAX draws."""
+    from ldso_tpu_torch.loop.loopclosing import LoopClosing
+    vocab = None if lc.vocab is None else vocabulary_to_torch(lc.vocab)
+    out = LoopClosing(lc.calib, cfg, global_map, vocab=vocab, device=device)
+    out._pending_train = [np.array(d) for d in lc._pending_train]
+    for kf_id in lc._db_order:
+        out._add_to_db(global_map.keyframes[kf_id])
+    out.n_loops_closed = lc.n_loops_closed
+    out.loop_pairs = [tuple(p) for p in lc.loop_pairs]
+    out.need_pose_graph = lc.need_pose_graph
+    return out
+
+
 def full_system_to_torch(jfs, cfg, device="cpu"):
     """A JAX-package FullSystem between frames -> a port FullSystem in the
     same state, on `device`, under the port Config `cfg`: the energy
@@ -167,15 +192,13 @@ def full_system_to_torch(jfs, cfg, device="cpu"):
     (one port shell per JAX shell, so all_frames, the window, the global
     map and the tracking reference share them as in the JAX system), the
     window's pyramids and image stack, the tracking reference, the
-    candidate arena, the pipelined chain and the last-pose state, and the
-    random generator. Reads the JAX system's attributes only.
-
-    Loop closing is not carried (its database and vocabulary live in the
-    LoopClosing object); the system must run with it off."""
+    candidate arena, the pipelined chain and the last-pose state, the
+    random generator and, with loop closing on, the LoopClosing
+    (`loop_closing_to_torch`). Reads the JAX system's attributes only."""
     from ldso_tpu_torch.system.full_system import FullSystem, TrackChain
-    if jfs.loop_closing is not None or cfg.enable_loop_closing:
-        raise ValueError("full_system_to_torch carries systems with loop "
-                         "closing off")
+    if (jfs.loop_closing is not None) != bool(cfg.enable_loop_closing):
+        raise ValueError("the port Config's enable_loop_closing must match "
+                         "the JAX system's")
     tfs = FullSystem(jfs.calib, cfg, device=device)
     dev = tfs.device
     shells = {}
@@ -210,6 +233,9 @@ def full_system_to_torch(jfs, cfg, device="cpu"):
     tfs.global_map.latest_optimized_kf_id = jfs.global_map.latest_optimized_kf_id
     for k in sorted(jfs.global_map.keyframes):
         tfs.global_map.keyframes[k] = shell(jfs.global_map.keyframes[k])
+    if jfs.loop_closing is not None:
+        tfs.loop_closing = loop_closing_to_torch(
+            jfs.loop_closing, tfs.global_map, cfg, dev)
 
     tfs.initialized = jfs.initialized
     tfs.is_lost = jfs.is_lost

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_utils import close, equal, npy
+from torch_port_utils import close, equal, jax_picks, npy
 
 from ldso_tpu.loop import pnp as jpnp
 from ldso_tpu.loop import posegraph as jpg
@@ -20,6 +20,7 @@ from ldso_tpu_torch.loop import posegraph as tpg
 from ldso_tpu_torch.loop import sim3_solver as tsim
 from ldso_tpu_torch.math import lie as tlie
 from ldso_tpu_torch.ops.scatter import segment_sum
+from ldso_tpu_torch.utils.convert import global_map_to_torch
 
 KEY = jax.random.PRNGKey(0)
 
@@ -123,16 +124,6 @@ def test_segment_sum_matches_index_add(trailing):
     equal(segment_sum(v[:0], idx[:0], 4), torch.zeros((4,) + trailing))
 
 
-def _jax_picks(valid, n_hyp, k, key):
-    """The hypothesis draws of pnp_ransac / umeyama_ransac (pnp.py:57-60,
-    sim3_solver.py:58-61)."""
-    probs = jnp.asarray(valid).astype(jnp.float32)
-    probs = probs / jnp.maximum(probs.sum(), 1e-9)
-    return npy(jax.random.categorical(
-        key, jnp.log(probs + 1e-12)[None, :].repeat(n_hyp * k, 0))
-        .reshape(n_hyp, k)).astype(np.int64)
-
-
 def _pnp_problem(seed=0):
     rng = np.random.RandomState(seed)
     X = (rng.randn(80, 3) * np.array([1, 0.8, 0.5])
@@ -155,7 +146,7 @@ def test_pnp_ransac_given_picks_matches():
     X, uv, valid, K = _pnp_problem()
     Tj, mj, nj = jpnp.pnp_ransac(jnp.asarray(X), jnp.asarray(uv),
                                  jnp.asarray(valid), K, KEY, inlier_px=8.0)
-    picks = torch.from_numpy(_jax_picks(valid, 256, 6, KEY))
+    picks = torch.from_numpy(jax_picks(valid, 256, 6, KEY))
     Tt, mt, nt = tpnp.pnp_ransac_from_picks(
         torch.from_numpy(X), torch.from_numpy(uv), torch.from_numpy(valid),
         K, picks, inlier_px=8.0)
@@ -215,7 +206,7 @@ def test_umeyama_ransac_given_picks_matches():
     valid[::17] = False
     Sj, mj, nj = jsim.umeyama_ransac(jnp.asarray(P), jnp.asarray(Qo),
                                      jnp.asarray(valid), KEY)
-    picks = torch.from_numpy(_jax_picks(valid, 256, 3, KEY))
+    picks = torch.from_numpy(jax_picks(valid, 256, 3, KEY))
     St, mt, nt = tsim.umeyama_ransac_from_picks(
         torch.from_numpy(P), torch.from_numpy(Qo), torch.from_numpy(valid),
         picks)
@@ -298,13 +289,32 @@ def test_pose_graph_solvers_match(solver):
     close(St, Sj, rtol=0, atol=1e-8, what=solver)
 
 
-def test_run_pose_graph_drifted_map_matches():
-    """run_pose_graph on the drifted GlobalMap of tests/test_posegraph.py
-    (odometry edges from the drifted estimates, one loop edge from ground
-    truth), carried into the port with utils/convert: S_cw float64 atol
-    1e-8 and the same latest_optimized_kf_id."""
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_pose_graph_solvers_match_float32(solver):
+    """float32 inputs, which the JAX package's CLI solves (x64 off narrows
+    run_pose_graph's arrays to float32): both packages keep the input's
+    dtype, vertices within atol 1e-4 (the loop slice's float32 pose
+    tolerance). The port's jacfwd once promoted the 0-dim scale of a
+    single increment to float64 and raised on float32 input."""
+    _, _, args = _circle_system()
+    a32 = [a.astype(np.float32) if a.dtype == np.float64 else a
+           for a in args]
+    if solver == "dense":
+        Sj = jpg.optimize_pose_graph(*map(jnp.asarray, a32), iterations=10)
+        St = tpg.optimize_pose_graph(*map(torch.from_numpy, a32),
+                                     iterations=10)
+    else:
+        Sj = jpg.optimize_pose_graph_cg(*map(jnp.asarray, a32),
+                                        iterations=6, cg_iters=60)
+        St = tpg.optimize_pose_graph_cg(*map(torch.from_numpy, a32),
+                                        iterations=6, cg_iters=60)
+    assert St.dtype == torch.float32 and Sj.dtype == jnp.float32
+    close(St, Sj, rtol=0, atol=1e-4, what=solver)
+
+
+def _drifted_map():
+    """The drifted GlobalMap of tests/test_posegraph.py (JAX package)."""
     from ldso_tpu.slam_map import FrameShell, GlobalMap
-    from ldso_tpu_torch.utils.convert import global_map_to_torch
     gt, est, _ = _circle_system(n=20, sigma=0.004)
     gm = GlobalMap()
     for k in range(len(gt)):
@@ -314,10 +324,37 @@ def test_run_pose_graph_drifted_map_matches():
         kfs[k].add_pose_rel(k - 1, est[k] @ np.linalg.inv(est[k - 1]))
     kfs[0].add_pose_rel(len(gt) - 1, gt[0] @ np.linalg.inv(gt[-1]),
                         is_loop=True)
+    return gm
+
+
+def test_run_pose_graph_drifted_map_matches():
+    """run_pose_graph on the drifted GlobalMap of tests/test_posegraph.py
+    (odometry edges from the drifted estimates, one loop edge from ground
+    truth), carried into the port with utils/convert: S_cw float64 atol
+    1e-8 and the same latest_optimized_kf_id."""
+    gm = _drifted_map()
     gt_port = global_map_to_torch(gm)
     jpg.run_pose_graph(gm, iterations=10)
-    tpg.run_pose_graph(gt_port, iterations=10, device="cpu")
+    tpg.run_pose_graph(gt_port, iterations=10, device="cpu",
+                       dtype=torch.float64)
     assert gt_port.latest_optimized_kf_id == gm.latest_optimized_kf_id
     for k in gm.keyframes:
         close(gt_port.keyframes[k].S_cw, gm.keyframes[k].S_cw, rtol=0,
               atol=1e-8, what=f"kf {k}")
+
+
+def test_run_pose_graph_float32_as_the_jax_cli():
+    """run_pose_graph's default precision is the JAX package's as its CLI
+    runs it: with x64 off, `jnp.asarray` narrows the host arrays, so the
+    JAX solve and its S_cw are float32. The port's default matches, S_cw
+    float32 within atol 1e-4 (the float32 pose tolerance)."""
+    gm = _drifted_map()
+    gt_port = global_map_to_torch(gm)
+    with jax.enable_x64(False):
+        jpg.run_pose_graph(gm, iterations=10)
+    tpg.run_pose_graph(gt_port, iterations=10, device="cpu")
+    for k in gm.keyframes:
+        assert gm.keyframes[k].S_cw.dtype == np.float32
+        assert gt_port.keyframes[k].S_cw.dtype == np.float32
+        close(gt_port.keyframes[k].S_cw, gm.keyframes[k].S_cw, rtol=0,
+              atol=1e-4, what=f"kf {k}")

@@ -17,14 +17,16 @@ alone, as tests or as a script that prints one JSON line per system (or
 per module and frame with --bisect):
 
     python -m pytest -q -m slow tests/test_torch_parity.py
-    python tests/test_torch_parity.py [--frames 104] [--scene boxes]
-                                      [--host-ba] [--bisect 33 38]
+    python tests/test_torch_parity.py [--frames 104]
+        [--scene plane|boxes|bench] [--host-ba] [--bisect 33 38]
+        [--config KEY=VALUE ...] [--threads N] [--packages jax port]
 """
 
 import argparse
 import contextlib
 import dataclasses
 import json
+import sys
 import time
 import types
 
@@ -38,10 +40,14 @@ MODE1 = dict(enable_loop_closing=False, photometric_calibration=0,
 
 
 def _frames(n, scene="plane"):
+    """The straight trajectory over the parity scene ("plane", "boxes") or
+    the bench scene of chip_smoke.py's phase 3 ("bench":
+    PlaneScene(freq_hi=25, contrast=80), time_modes.bench_frames)."""
     from ldso_tpu.math import lie
-    from ldso_tpu.synthetic import default_calib, make_scene
+    from ldso_tpu.synthetic import PlaneScene, default_calib, make_scene
     calib = default_calib(640, 480)
-    sc = make_scene(scene, freq_hi=25.0, contrast=80.0, n_waves=32)
+    sc = (PlaneScene(freq_hi=25.0, contrast=80.0) if scene == "bench"
+          else make_scene(scene, freq_hi=25.0, contrast=80.0, n_waves=32))
     poses, images = [], []
     for i in range(n):
         t = np.array([0.03 * i, 0.01 * np.sin(0.2 * i), 0.004 * i])
@@ -57,8 +63,8 @@ def _frames(n, scene="plane"):
 def _configs(**kw):
     from ldso_tpu.config import Config as JC
     from ldso_tpu_torch.config import Config as TC
-    return (dataclasses.replace(JC(), **MODE1, **kw),
-            dataclasses.replace(TC(), **MODE1, **kw))
+    kw = {**MODE1, **kw}
+    return dataclasses.replace(JC(), **kw), dataclasses.replace(TC(), **kw)
 
 
 def _summary(name, fs, poses, n, t0):
@@ -76,23 +82,29 @@ def _summary(name, fs, poses, n, t0):
         wall_s=time.time() - t0)
 
 
-def run_both(n: int = 104, scene: str = "plane", **cfg_kw):
-    """Both FullSystems on the same frames; returns one dict per package:
-    keyframe frame ids, keyframe ATE (sim3-aligned, mm), all-frames ATE,
-    wall seconds. cfg_kw go to both Configs (e.g. ba_device_lm=False)."""
+def run_both(n: int = 104, scene: str = "plane",
+             packages=("jax", "port"), **cfg_kw):
+    """Both FullSystems (or those named in `packages`) on the same frames;
+    returns one dict per package: keyframe frame ids, keyframe ATE
+    (sim3-aligned, mm), all-frames ATE, wall seconds. cfg_kw go to both
+    Configs (e.g. ba_device_lm=False)."""
     from ldso_tpu.system.full_system import FullSystem as JFS
     from ldso_tpu_torch.system.full_system import FullSystem as TFS
     calib, poses, images = _frames(n, scene)
     jc, tc = _configs(**cfg_kw)
     out = []
-    for name, fs in (("jax", JFS(calib, jc)),
-                     ("port", TFS(calib, tc, device="cpu"))):
+    make = dict(jax=lambda: JFS(calib, jc),
+                port=lambda: TFS(calib, tc, device="cpu"))
+    for name in packages:
+        fs = make[name]()
         t0 = time.time()
         for i, img in enumerate(images):
             fs.add_active_frame(img, i, 1.0, i * 0.05)
             if fs.is_lost:
                 break
         out.append(_summary(name, fs, poses, n, t0))
+        if name == "port":
+            out[-1]["torch_threads"] = torch.get_num_threads()
     return out
 
 
@@ -177,6 +189,43 @@ def _trace_f64_oracle(arena, dI, transforms, n, calib, jcfg, pj, pt, tols):
                 out_of_tolerance=pairs, f64_oracle=stats)
 
 
+def _activate_f64(arena, idm, sane, tables, masks, dIs, calib, jcfg):
+    """The JAX activation in float64 on the same inputs: (n, 3) rows
+    [idepth, ok, n_good]."""
+    import jax
+    from ldso_tpu.frontend import immature as jim
+    with jax.enable_x64(True):
+        f64 = lambda a: (jnp.asarray(np.asarray(a, np.float64))  # noqa: E731
+                         if np.asarray(a).dtype == np.float32
+                         else jnp.asarray(np.asarray(a)))
+        return np.asarray(jim.activate_arena(
+            jim.ImmatureArena(pool=jim.ImmaturePool(*map(f64, arena.pool)),
+                              host=f64(arena.host)),
+            f64(idm), jnp.asarray(sane), *map(f64, tables), jnp.asarray(masks),
+            f64(dIs), calib, jcfg))
+
+
+def _activate_counts_oracle(a64, actj, actt, sane):
+    """Where the activation's discrete outputs (ok, n_good) differ: the
+    float64 activation's, candidate by candidate. As for the trace,
+    rounding leaves either package the one that agrees with float64 at
+    random, a port fault leaves the port the one that disagrees on nearly
+    all: `rounding` is True when the port agrees with float64 on at least
+    a third of the differing candidates. Lanes that are not candidates
+    (not `sane`) carry no result anyone reads and are not counted."""
+    diff = sane & (((actj[:, 1] > 0.5) != (actt[:, 1] > 0.5))
+                   | (actj[:, 2] != actt[:, 2]))
+    ref = a64[diff]
+    port_agrees = int(np.sum(((actt[diff, 1] > 0.5) == (ref[:, 1] > 0.5))
+                             & (actt[diff, 2] == ref[:, 2])))
+    n = int(diff.sum())
+    return dict(rounding=3 * port_agrees >= n, differing_candidates=n,
+                port_agrees_with_f64=port_agrees,
+                jax_agrees_with_f64=int(np.sum(
+                    ((actj[diff, 1] > 0.5) == (ref[:, 1] > 0.5))
+                    & (actj[diff, 2] == ref[:, 2]))))
+
+
 def _activate_f64_oracle(arena, idm, sane, tables, masks, dIs, calib, jcfg,
                          actj, actt, both):
     """Where the activation's idepths leave their tolerance: the JAX
@@ -185,24 +234,19 @@ def _activate_f64_oracle(arena, idm, sane, tables, masks, dIs, calib, jcfg,
     tolerance, is no larger than the JAX package's own largest float32
     distance from it over every optimized candidate: the port stays
     inside the rounding envelope the JAX package shows on this input."""
-    import jax
-    from ldso_tpu.frontend import immature as jim
-    with jax.enable_x64(True):
-        f64 = lambda a: (jnp.asarray(np.asarray(a, np.float64))  # noqa: E731
-                         if np.asarray(a).dtype == np.float32
-                         else jnp.asarray(np.asarray(a)))
-        a64 = np.asarray(jim.activate_arena(
-            jim.ImmatureArena(pool=jim.ImmaturePool(*map(f64, arena.pool)),
-                              host=f64(arena.host)),
-            f64(idm), jnp.asarray(sane), *map(f64, tables), jnp.asarray(masks),
-            f64(dIs), calib, jcfg))[:, 0]
+    a64 = _activate_f64(arena, idm, sane, tables, masks, dIs, calib,
+                        jcfg)[:, 0]
     j, t = actj[:, 0].astype(np.float64), actt[:, 0].astype(np.float64)
     out = both & (np.abs(t - j) > 1e-6 + 1e-4 * np.abs(j))
     ok = both & np.isfinite(a64)
     port_err = float(np.max(np.abs(t - a64)[out & ok], initial=0.0))
     jax_env = float(np.max(np.abs(j - a64)[ok], initial=0.0))
+    sel = out & ok
     return dict(rounding=bool(port_err <= jax_env),
-                port_vs_f64_max=port_err, jax_vs_f64_envelope=jax_env)
+                port_vs_f64_max=port_err, jax_vs_f64_envelope=jax_env,
+                out_of_tolerance=int(sel.sum()),
+                port_closer=int(np.sum(np.abs(t - a64)[sel]
+                                       < np.abs(j - a64)[sel])))
 
 
 def _rank_unbatched_oracle(ref, pyr, T_inits, aff, exposure, calib, jcfg,
@@ -414,6 +458,10 @@ def module_hooks(jfs, tcfg, rows, frame):
             row.update(_activate_f64_oracle(
                 arena_n, gj[:, 2], sane, (Rs, ts, affs_a), masks, dIs,
                 calib_, cfg, actj, actt, both))
+        elif not row["within"]:
+            row.update(_activate_counts_oracle(_activate_f64(
+                arena_n, gj[:, 2], sane, (Rs, ts, affs_a), masks, dIs,
+                calib_, cfg), actj, actt, sane))
         rows.append(row)
         return out
 
@@ -578,25 +626,53 @@ def test_bisect_plane():
     assert not bad, bad
 
 
+def config_overrides(pairs):
+    """`key=value` strings -> Config keyword arguments (Python literals,
+    else strings): `--config force_accept_step=False`."""
+    import ast
+    out = {}
+    for p in pairs:
+        k, v = p.split("=", 1)
+        try:
+            out[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            out[k] = v
+    return out
+
+
 if __name__ == "__main__":
     import jax
     jax.config.update("jax_platforms", "cpu")
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=104)
-    ap.add_argument("--scene", default="plane", choices=("plane", "boxes"))
+    ap.add_argument("--scene", default="plane",
+                    choices=("plane", "boxes", "bench"))
     ap.add_argument("--host-ba", action="store_true",
                     help="ba_device_lm=False in both packages")
+    ap.add_argument("--config", nargs="+", default=[], metavar="KEY=VALUE",
+                    help="Config fields set in both packages, after the "
+                         "mode=1 changes")
+    ap.add_argument("--threads", type=int, default=None,
+                    help="torch's intra-op thread count for the port")
+    ap.add_argument("--packages", nargs="+", default=["jax", "port"],
+                    choices=("jax", "port"))
     ap.add_argument("--bisect", type=int, nargs=2, metavar=("FIRST", "LAST"))
     args = ap.parse_args()
+    if args.threads:
+        torch.set_num_threads(args.threads)
     kw = dict(ba_device_lm=False) if args.host_ba else {}
+    kw.update(config_overrides(args.config))
     if args.bisect:
         rows, frames = bisect(*args.bisect, scene=args.scene, **kw)
         for r in rows + frames:
             print(json.dumps(r), flush=True)
     else:
-        jax_run, port_run = run_both(args.frames, args.scene, **kw)
-        for r in (jax_run, port_run):
-            print(json.dumps(r), flush=True)
+        runs = run_both(args.frames, args.scene, args.packages, **kw)
+        for r in runs:
+            print(json.dumps(dict(r, config=kw)), flush=True)
+        if len(runs) < 2:
+            sys.exit(0)
+        jax_run, port_run = runs
         gaps = centre_gaps_mm(jax_run, port_run)
         first = next((k for k, g in enumerate(gaps) if g > 4.2e-3), None)
         print(json.dumps(dict(

@@ -233,7 +233,7 @@ def test_run_pose_graph_single_process_reference(inputs, monkeypatch):
         kfs[k].add_pose_rel(k - 1, est[k] @ np.linalg.inv(est[k - 1]))
     kfs[0].add_pose_rel(len(est) - 1, gt[0] @ np.linalg.inv(gt[-1]),
                         is_loop=True)
-    tpg.run_pose_graph(gm, iterations=10, device="cpu")
+    tpg.run_pose_graph(gm, iterations=10, device="cpu", dtype=torch.float64)
     S = np.stack([kf.S_cw for kf in gm.get_all_kfs()])
     for world in (2, 4):
         close(_ranks(inputs, world)[0]["run_pose_graph"], S, 0, 1e-8,

@@ -50,7 +50,8 @@ def sharded_rank(rank: int, world: int, port: int, in_path: str,
     for k in range(1, len(est)):
         kfs[k].add_pose_rel(k - 1, est[k] @ np.linalg.inv(est[k - 1]))
     kfs[0].add_pose_rel(len(est) - 1, loop, is_loop=True)
-    posegraph.run_pose_graph(gm, iterations=10, device="cpu")
+    posegraph.run_pose_graph(gm, iterations=10, device="cpu",
+                             dtype=torch.float64)
     out["run_pose_graph"] = np.stack([kf.S_cw for kf in gm.get_all_kfs()])
     out["sharded_calls"] = len(calls)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
