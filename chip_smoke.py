@@ -11,11 +11,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      inputs, 1000x1000), with max |kernel - plain| == 0 required; at
      240x320 and 540x960 the kernel's single-call CUDA-event time (the
      record's `ms`, timed as the plain version's `plain_ms` is), its
-     device time per launch from queued launches (`device_ms`), the bound
+     device time per launch from 20 launches in one CUDA graph
+     (`device_ms`), the bound
      and the share of it, and the wrapper's host time per call; then the
      two float scatters of the path (the tracker-reference splat, the
      initializer's level averaging) 20 times each on the same inputs,
-     every output bitwise equal;
+     every output bitwise equal. K3 (the tracker trip, csrc/tracker_trip.cu)
+     against its plain version (frontend/tracker.tracker_trip_ref) at every
+     level of a 640x480 scene, batch 1 and 8, on the scene and on four edge
+     cases (every point out of bounds, a saturating cutoff, a NaN patch in
+     the intensity and in all three channels), stats within 1e-4 relative
+     with numTerms exact, H and b within 1e-3 relative or 1e-5 of their
+     scale; 20 launches bitwise equal; then, right after phase 3, the same
+     comparison on phase 3's last frame and reference at every level and
+     batch, with K3's times (`ms`, `plain_ms`, `device_ms`) and bound;
   3. the pure-VO path: the synchronous monocular VO FullSystem at 640x480
      with the production Config and loop closing off on 64 synthetic uint8
      frames of the bench trajectory, on the package's default device (the
@@ -46,12 +55,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
          strict, the CLI's mode=1 changes, loop closing off; keyframe ATE
          under 5 mm and the kernel's launches;
   5. the pipelines: phase 3's frames through DeterministicPipeline twice
-     and AsyncPipeline once, by phase 3's driver
+     and AsyncPipeline twice, by phase 3's runner
      (ldso_tpu_torch/examples/time_modes.run_mode, one wall clock per run,
-     drain included); asserts the two lookahead runs bitwise equal, >= 8
-     keyframes and ATE < 5 mm, the kernel launched once per post-bootstrap
-     keyframe in every mode and, in async, only on the mapping thread's
-     stream; one JSON line per mode;
+     drain included): async as fast as the caller takes the frames, then
+     fed at the rate strict sustained in phase 3 (its wall ms per frame);
+     asserts the two lookahead runs bitwise equal, >= 8 keyframes
+     (lookahead and the paced async; unpaced, async's keyframes fall as
+     tracking outruns mapping, and it is held to the 3 its pipeline
+     guarantees) and ATE < 5 mm, the kernel launched
+     once per post-bootstrap keyframe in every mode and, in async, only on
+     the mapping thread's stream; one JSON line per run;
   6. the CLI: phase 3's frames written as a KITTI sequence with the port's
      PNG writer, then run_common.run with pipeline=lookahead and with
      pipeline=async; asserts both trajectory files of each run, orthonormal
@@ -71,6 +84,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      7d. the sharded build system and the sharded PCG through one NCCL
          group of world size 1, against the unsharded functions on phase
          3's final window and phase 4's final pose graph.
+Every phase that tracks (3, 3a, 3b, 4, 4b, 5, 6, 7a-7c) asserts K3's
+launches, counted through graph replays: exactly
+tracker.trips_per_track (316 at 640x480) per track and per graph capture,
+plus one per rank_hypotheses call.
 One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
 captured tracker's numbers, then a JSON record of the kernels, then the
 last line {"ok": true, "device": {...}}.
@@ -89,6 +106,9 @@ import numpy as np
 
 N_FRAMES = 64
 ATE_BOUND_M = 0.005          # the JAX package's own bound (test_full_system)
+# async's keyframes whatever its queue: the first frame, the initializer's
+# and the first tracked one (the mapping loop's num_frames() <= 2 branch)
+ASYNC_BOOTSTRAP_KEYFRAMES = 3
 LOOP_FRAMES = 150            # tools/head_to_head.py --traj revisit --frames
 LOOP_ATE_BOUND_M = 0.020     # ~2x the JAX package's 10.19 mm on this scene
 DET_REPEATS = 20
@@ -105,6 +125,17 @@ DIST_TIMED = ((240, 320), (540, 960))
 # rate outside the tensor cores, taken for the map's integer compares
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+
+
+def _kernel_checks():
+    """tests/torch_kernel_checks.py: how K3 is held against its plain
+    version (tolerances, edge cases), shared with the tests."""
+    import importlib
+    import os
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module("torch_kernel_checks")
 
 
 def _fail(msg: str) -> None:
@@ -132,7 +163,8 @@ def _median_event_ms(fn, reps: int = 50, warmup: int = 5) -> float:
 def _queued_device_ms(fn, n: int = 20, reps: int = 30) -> float:
     """Device time per call: n calls queued behind a sleeping kernel, so
     they run back to back whatever the host costs, CUDA events around the
-    n; the median over reps."""
+    n; the median over reps. For a call that replays a CUDA graph itself
+    (the captured tracker), which `_graph_device_ms` cannot capture."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -144,6 +176,36 @@ def _queued_device_ms(fn, n: int = 20, reps: int = 30) -> float:
         a.record()
         for _ in range(n):
             fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def _graph_device_ms(fn, n: int = 20, reps: int = 30) -> float:
+    """Device time per call: n calls captured in one CUDA graph, the graph
+    replayed between CUDA events reps times, the median over n. What the
+    host spends per call (the operator's dispatch, the wrapper's checks)
+    drops out, as it does where the captured tracker runs the kernel."""
+    import torch
+    from ldso_tpu_torch.ops import cuda_kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with cuda_kernels.recording_launches(), torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
@@ -229,7 +291,7 @@ def phase_kernels():
         occ = torch.from_numpy(rng.rand(H, W) < 0.02).cuda()
         kernel = lambda: cuda_kernels.distance_transform(occ, 18)  # noqa: E731,B023
         t = dict(ms=_median_event_ms(kernel),
-                 device_ms=_queued_device_ms(kernel),
+                 device_ms=_graph_device_ms(kernel),
                  plain_ms=_median_event_ms(
                      lambda: distance_transform_ref(occ, 18)),  # noqa: B023
                  host_us=_host_us_per_call(kernel))
@@ -238,7 +300,7 @@ def phase_kernels():
         print(f"K1 at {H}x{W}, max_k=18, 2% occupied: kernel {t['ms']:.4f} ms "
               f"per single call (median of 50, CUDA events, the wrapper's "
               f"host time included), {t['device_ms']:.4f} ms of device time "
-              f"per launch (20 queued launches, median of 30); plain "
+              f"per launch (20 in a CUDA graph, median of 30); plain "
               f"{t['plain_ms']:.4f} ms (single call, median of 50); bound "
               f"{t['bound_ms'] * 1e3:.4f} us set by {t['bound_by']}, "
               f"{100 * t['bound_ms'] / t['ms']:.2f}% of it reached per "
@@ -247,7 +309,7 @@ def phase_kernels():
               f"(2000 calls, synchronised wall)", flush=True)
     main = timed[DIST_TIMED[0]]
     # ms and plain_ms are both single-call CUDA-event medians (as in the
-    # earlier records); device_ms is the queued device time per launch
+    # earlier records); device_ms is the device time per launch in a graph
     return dict(name="distance_transform", route="cuda",
                 source="ldso_tpu_torch/csrc/distance_map.cu",
                 replaces="ldso_tpu/ops/pallas_kernels.py:63",
@@ -310,6 +372,265 @@ def phase_determinism(seed: int = 7):
               f"results ({len(first)} outputs, {points} points)", flush=True)
 
 
+TRIP_BATCHES = (1, 8)
+# float operations per point of K3's function (csrc/tracker_trip.cu),
+# counted from its code by what the point reaches: every valid point is
+# warped and bounds-tested; an ok one is sampled (3 channels, 4 taps) and
+# scored; at level 0 it adds the two flow sums; a good one forms J, its
+# 36 H and 8 b products
+TRIP_OPS = dict(valid=30, ok=50, flow=66, good=124)
+
+
+def trip_taps(ref, pyr, lvl, T, aff, expo, cut, calib, cfg):
+    """The distinct pixels of level `lvl` that K3 gathers on these inputs:
+    the four bilinear taps (ops/interp.bilinear's clamp and floor) of
+    every valid, in-bounds point of every member, counted once."""
+    import torch
+    from ldso_tpu_torch.frontend import tracker
+    bufs, _ = tracker._calc_res(ref, pyr, lvl, T, aff, expo, cut, calib,
+                                cfg, False)
+    h, w = pyr.dI[lvl].shape[:2]
+    Ku = calib.fx[lvl] * bufs["u"] + calib.cx[lvl]
+    Kv = calib.fy[lvl] * bufs["v"] + calib.cy[lvl]
+    inb = (ref.valid[lvl][None, :] & (Ku > 2) & (Kv > 2) & (Ku < w - 3)
+           & (Kv < h - 3) & (bufs["idepth"] > 0))
+    x0 = torch.floor(torch.clamp(Ku[inb], 0.0, w - 1.001)).long()
+    y0 = torch.floor(torch.clamp(Kv[inb], 0.0, h - 1.001)).long()
+    idx = y0 * w + x0
+    taps = torch.cat([idx, idx + 1, idx + w, idx + w + 1])
+    return int(torch.unique(taps).numel())
+
+
+def trip_bound_ms(args, stats):
+    """The least time for K3's function on these inputs (`args` as
+    tracker_trip takes them, `stats` its result): the bytes it must move,
+    each once (every point's mask byte and each valid point's 16 bytes,
+    the 12 bytes of I, dx and dy at each distinct level pixel its in-bounds
+    points gather, trip_taps; the poses, affines, cutoffs and the 78
+    output floats per member), against the operations this data needs
+    (TRIP_OPS per valid, ok and good point). Returns (ms, "bytes" or
+    "operations", the distinct pixels gathered)."""
+    import torch
+    ref, pyr, lvl, T = args[:4]
+    flow = args[-1]
+    B = T.shape[0]
+    N = ref.points[lvl].shape[0]
+    n_valid = int(ref.valid[lvl].sum())
+    n_px = trip_taps(*args[:-1])
+    n_bytes = (N + n_valid * 16 + n_px * 12 + B * (64 + 8 + 4) + 8
+               + B * 78 * 4)
+    num = stats[:, 1]
+    sat = torch.round(stats[:, 5] * torch.clamp(num, min=1.0))
+    ops = (B * n_valid * TRIP_OPS["valid"]
+           + float(num.sum()) * (TRIP_OPS["ok"] + flow * TRIP_OPS["flow"])
+           + float((num - sat).sum()) * TRIP_OPS["good"])
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", n_px)
+
+
+def trip_poses(T0, B: int):
+    """B poses about T0: T0 and B - 1 translations of up to 1 cm."""
+    import torch
+    T = T0.expand(B, 4, 4).clone()
+    off = np.random.RandomState(5).randn(max(B - 1, 0), 3) * 0.01
+    T[1:, :3, 3] += torch.as_tensor(off, dtype=T.dtype, device=T.device)
+    return T
+
+
+def phase_trip_edges():
+    """K3 against its plain version on a 640x480 scene at every level and
+    at batch 1 and 8, on the scene itself and on the edge cases (a pose
+    that puts every point out of bounds, a cutoff that saturates most
+    terms, a NaN patch in the level's intensity, and one in all three
+    channels; with a NaN the plain version's H and b are NaN, and K3 is
+    held there to the plain arithmetic with the masked rows dropped); then
+    20 launches on the same inputs, bitwise equal. Returns the worst
+    errors."""
+    import torch
+    from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.math import lie_np
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.ops.preprocess import make_pyramid
+    from ldso_tpu_torch.synthetic import PlaneScene, default_calib
+    kc = _kernel_checks()
+    calib, cfg = default_calib(640, 480), Config()
+    L = calib.levels
+    scene = PlaneScene(freq_hi=25.0, contrast=80.0)
+    img0, idep0 = scene.render(calib, np.eye(4), device="cuda")
+    ref = tracker.make_tracker_ref_from_idepth(
+        idep0, make_pyramid(img0, L), calib, cfg.tracker_caps[:L], stride=2)
+    T_true = lie_np.se3_exp(np.array([0.02, -0.01, 0.005, 0.002, 0.004,
+                                      -0.001]))
+    img1, _ = scene.render(calib, T_true, device="cuda")
+    pyr = make_pyramid(img1, L)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    expo = torch.ones((), **f32)
+    worst = dict(abs=0.0, share=0.0)
+    for case in kc.TRIP_CASES:
+        head = None
+        for lvl in range(L):
+            for B in TRIP_BATCHES:
+                p, T, aff, cut, plain = kc.trip_case(
+                    case, pyr, lvl, trip_poses(torch.as_tensor(T_true, **f32),
+                                               B),
+                    torch.tensor([[0.01, 0.5]], **f32).expand(B, 2), cfg)
+                args = (ref, p, lvl, T, aff, expo, cut, calib, cfg, lvl == 0)
+                got = cuda_kernels.tracker_trip(*args)
+                want = plain(*args)
+                err, share, same_n = kc.trip_err(got, want,
+                                                 kc.trip_allowance(*args))
+                worst["abs"] = max(worst["abs"], err)
+                worst["share"] = max(worst["share"], share)
+                if not (share <= 1.0 and same_n):
+                    _fail(f"K3 {case} level {lvl} batch {B}: max|kernel - "
+                          f"plain| {err}, {share:.3g} of the tolerance, "
+                          f"numTerms equal {same_n}")
+                n = got[0][:, 1]
+                if head is None:
+                    head = (float(n[0]), float(got[0][0, 5]))
+                if case == "out_of_bounds" and bool(torch.any(n != 0)):
+                    _fail(f"K3 out_of_bounds level {lvl}: numTerms {n}")
+                if case.startswith("nan") and not bool(
+                        torch.isfinite(got[1]).all()):
+                    _fail(f"K3 {case} level {lvl}: H not finite")
+        print(f"K3 tracker_trip {case}: {L} levels x batch {TRIP_BATCHES} "
+              f"within tolerance; level 0, batch 1: numTerms {head[0]}, "
+              f"saturated share {head[1]:.4f}", flush=True)
+    T = trip_poses(torch.as_tensor(T_true, **f32), 8)
+    aff = torch.tensor([[0.01, 0.5]], **f32).expand(8, 2)
+    cut = torch.full((8,), 20.0, **f32)
+    first = [x.clone() for x in cuda_kernels.tracker_trip(
+        ref, pyr, 0, T, aff, expo, cut, calib, cfg, True)]
+    for rep in range(1, DET_REPEATS):
+        again = cuda_kernels.tracker_trip(ref, pyr, 0, T, aff, expo, cut,
+                                          calib, cfg, True)
+        for a, b in zip(first, again):
+            if not _same(a, b):
+                _fail(f"K3: launch {rep} differs from launch 0")
+    print(f"K3 tracker_trip: {len(kc.TRIP_CASES)} cases x {L} levels x 2 "
+          f"batches, max|kernel - plain| {worst['abs']:.6g}, at most "
+          f"{worst['share']:.4f} of the tolerance; {DET_REPEATS} launches "
+          f"bitwise equal (level 0, batch 8)", flush=True)
+    return worst
+
+
+def phase_trip_frame(fs, images, edges):
+    """K3 on phase 3's last frame against phase 3's last tracking
+    reference, at every level and batch 1 and 8, from the previous frame's
+    pose (the batch adds the retry batch's offsets): its error against the
+    plain version; the wrapper's single-call time (`ms`, CUDA events,
+    median of 50, host time included, as the plain version's `plain_ms`),
+    the kernel's device time per launch (`device_ms`), the bound
+    (trip_bound_ms) and its share. Returns K3's kernel record, headed by
+    level 0 at batch 1.
+
+    Why not the frame's own pose: phase 3's last frame is its last
+    keyframe, so that pose is the identity, where the points on the
+    reference's border pixels land exactly on the bounds (Ku = 2, Kv =
+    h - 3) and each version's rounding decides them; and at a converged
+    pose the pose entries of b are float32 noise in either version.
+
+    `device_ms` is 20 launches of the operator captured in one CUDA graph
+    (the captured tracker's setting), so the operator's host dispatch,
+    which can exceed the kernel, does not enter it; `host_us` is the
+    wrapper's synchronised wall time per call."""
+    import torch
+    from ldso_tpu_torch.frontend import affine, tracker
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kernel_checks()
+    calib, cfg = fs.calib, fs.cfg
+    k = len(images) - 1
+    ref, pyr, _, expo, _, aff0 = _track_inputs(fs, images, k)
+    shell = fs._current_tracker_ref()[1]
+    T_start = torch.as_tensor(
+        fs.all_frames[k - 1].T_cw @ np.linalg.inv(shell.T_cw),
+        dtype=torch.float32, device=fs.device)
+    rows, worst, bad = [], dict(edges), []
+    for lvl in range(calib.levels):
+        for B in TRIP_BATCHES:
+            T = trip_poses(T_start, B)
+            aff = aff0.expand(B, 2)
+            cut = torch.full((B,), cfg.coarse_cutoff_th, dtype=torch.float32,
+                             device=T.device)
+            flow = lvl == 0
+            args = (ref, pyr, lvl, T, aff, expo, cut, calib, cfg, flow)
+            got = cuda_kernels.tracker_trip(*args)
+            want = tracker.tracker_trip_ref(*args)
+            err, share, same_n = kc.trip_err(got, want,
+                                             kc.trip_allowance(*args))
+            worst["abs"] = max(worst["abs"], err)
+            worst["share"] = max(worst["share"], share)
+            if not (share <= 1.0 and same_n):
+                bad.append(f"level {lvl} batch {B}: max|kernel - plain| "
+                           f"{err}, {share:.3g} of the tolerance, numTerms "
+                           f"{got[0][:, 1].tolist()} against "
+                           f"{want[0][:, 1].tolist()}")
+            rel = affine.from_to(ref.ref_exposure, expo, ref.ref_aff, aff)
+            op_args = (ref.points[lvl], ref.valid[lvl], pyr.dI[lvl], T, rel,
+                       cut, ref.ref_aff,
+                       cuda_kernels.trip_params(calib, lvl, cfg.huber_th),
+                       flow)
+            row = dict(
+                level=lvl, batch=B, points=int(ref.points[lvl].shape[0]),
+                valid=int(ref.valid[lvl].sum()),
+                num_terms=[int(x) for x in got[0][:, 1].tolist()],
+                max_abs_err=err, err_share=share,
+                ms=_median_event_ms(
+                    lambda: cuda_kernels.tracker_trip(*args)),  # noqa: B023
+                device_ms=_graph_device_ms(
+                    lambda: torch.ops.ldso_tpu_torch.tracker_trip(  # noqa: B023
+                        *op_args)),
+                host_us=_host_us_per_call(
+                    lambda: cuda_kernels.tracker_trip(*args),  # noqa: B023
+                    n=200),
+                plain_ms=_median_event_ms(
+                    lambda: tracker.tracker_trip_ref(*args)))  # noqa: B023
+            row["bound_ms"], row["bound_by"], row["pixels"] = trip_bound_ms(
+                args, want[0])
+            rows.append(row)
+            print(f"K3 at level {lvl} ({pyr.dI[lvl].shape[1]}x"
+                  f"{pyr.dI[lvl].shape[0]}, {row['valid']} of "
+                  f"{row['points']} points valid), batch {B}: "
+                  f"max|kernel - plain| {err:.6g} ({share:.4f} of the "
+                  f"tolerance); kernel {row['ms']:.4f} ms per single call "
+                  f"(wrapper, CUDA events, median of 50), "
+                  f"{row['device_ms']:.4f} ms of device time per launch (20 "
+                  f"in a CUDA graph, median of 30), wrapper host "
+                  f"{row['host_us']:.1f} us per call; plain "
+                  f"{row['plain_ms']:.4f} ms; "
+                  f"bound {row['bound_ms'] * 1e3:.4f} us set by "
+                  f"{row['bound_by']} ({row['pixels']} level pixels "
+                  f"gathered), {100 * row['bound_ms'] / row['ms']:.2f}% "
+                  f"of it per single call, "
+                  f"{100 * row['bound_ms'] / row['device_ms']:.2f}% in device "
+                  f"time", flush=True)
+    if bad:
+        _fail("K3 on phase 3's last frame: " + "; ".join(bad))
+    head = rows[0]
+    return dict(name="tracker_trip", route="cuda",
+                source="ldso_tpu_torch/csrc/tracker_trip.cu",
+                replaces="ldso_tpu/frontend/tracker.py:168",
+                max_abs_err=worst["abs"], max_err_share=worst["share"],
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                device_ms=head["device_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=None, by_level=rows)
+
+
+def _k3_check(what: str, launches: int, expected: int) -> None:
+    """K3 ran on this path (its launches counted through graph replays),
+    exactly as often as the path's tracker calls imply."""
+    if not launches == expected > 0:
+        _fail(f"{what}: K3 launched {launches} times, the tracker calls "
+              f"imply {expected}")
+
+
+def _k3_run_check(run: dict) -> None:
+    _k3_check(f"{run.get('phase', run['mode'])}", run["k3_launches"],
+              run["k3_expected"])
+
+
 def phase_main_path(n_frames: int = N_FRAMES):
     """Drive FullSystem.add_active_frame (strict) on the bench scene, on
     the package's default device (the card); returns the main
@@ -327,7 +648,8 @@ def phase_main_path(n_frames: int = N_FRAMES):
     if strict["lost"] or strict["init_failed"]:
         _fail(f"main path: lost={strict['lost']} "
               f"init_failed={strict['init_failed']}")
-    launches = dict(distance_transform=strict["k1_launches"])
+    launches = dict(distance_transform=strict["k1_launches"],
+                    tracker_trip=strict["k3_launches"])
     tracked = sum(1 for f in fs.all_frames if f.pose_valid)
     peak = torch.cuda.max_memory_allocated()
     print(f"main path: {n_frames} frames 640x480 uint8, "
@@ -337,7 +659,9 @@ def phase_main_path(n_frames: int = N_FRAMES):
           f"{strict['ms_per_frame_median']:.2f} ms per call, peak device "
           f"memory {peak / 2**20:.1f} MiB, K1 launches "
           f"{strict['k1_launches']} for {strict['post_bootstrap_keyframes']} "
-          f"post-bootstrap keyframes", flush=True)
+          f"post-bootstrap keyframes, K3 launches {strict['k3_launches']} "
+          f"for {strict['tracks']} tracks and {strict['rank_calls']} "
+          f"rankings", flush=True)
     if strict["keyframes"] < 8:
         _fail(f"only {strict['keyframes']} keyframes (need >= 8)")
     if not strict["ate_mm"] < ATE_BOUND_M * 1e3:
@@ -346,6 +670,7 @@ def phase_main_path(n_frames: int = N_FRAMES):
         _fail(f"K1 launched {strict['k1_launches']} times for "
               f"{strict['post_bootstrap_keyframes']} post-bootstrap keyframes")
     _no_capture_inside(strict)
+    _k3_run_check(strict)
     return launches, calib, images, poses, strict, fs
 
 
@@ -387,6 +712,7 @@ def phase_tracker_graph(fs, images):
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from ldso_tpu_torch.frontend import track_graph, tracker
+    from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.system.full_system import RETRY_K
     calib, cfg = fs.calib, fs.cfg
     ref, pyr, T_last, expo, abort, aff0 = _track_inputs(fs, images,
@@ -396,18 +722,26 @@ def phase_tracker_graph(fs, images):
     T_b[1:, :3, 3] += torch.as_tensor(rng.randn(RETRY_K - 1, 3) * 0.01,
                                       dtype=torch.float32, device=fs.device)
     L = calib.levels
+    trips = tracker.trips_per_track(cfg, L, L - 1)
     for name, T0 in (("batch 1", T_last[None]), (f"batch {RETRY_K}", T_b)):
+        cuda_kernels.reset_launch_counts()
         graph = tracker.track_frame_hypotheses(ref, pyr, T0, aff0, expo, abort,
                                                calib, cfg, L - 1)
+        _k3_check(f"3a {name} graph replay",
+                  cuda_kernels.LAUNCHES["tracker_trip"], trips)
+        cuda_kernels.reset_launch_counts()
         eager = tracker._track_batch(ref, pyr, T0, aff0, expo, abort, calib,
                                      cfg, L - 1)
+        _k3_check(f"3a {name} eager", cuda_kernels.LAUNCHES["tracker_trip"],
+                  trips)
         torch.cuda.synchronize()
         for i, (g, e) in enumerate(zip(graph, eager)):
             if not _same(g, e):
                 _fail(f"tracker graph: {name}: output {i} differs from the "
                       f"eager function")
         print(f"tracker graph: {name}: graph replay equals the eager masked "
-              f"function bitwise (5 outputs)", flush=True)
+              f"function bitwise (5 outputs); K3 launched {trips} times in "
+              f"each", flush=True)
 
     def replay():
         return tracker.track_frame(ref, pyr, T_last, aff0, expo, abort, calib,
@@ -467,8 +801,11 @@ def phase_dispatch_ahead(fs, images, sleep_ms: float = 50.0):
     with its HostCopy not ready, and its packed result equals bitwise a
     dispatch of the same frame from the same chain with no sleep."""
     import torch
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.slam_map import FrameShell
     k = len(images) - 1
+    cuda_kernels.reset_launch_counts()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     cycles = int(_sleep_cycles_per_ms() * sleep_ms)
@@ -490,6 +827,10 @@ def phase_dispatch_ahead(fs, images, sleep_ms: float = 50.0):
             torch.cuda.set_sync_debug_mode(0)
         got = packed.numpy()
     torch.cuda.synchronize()
+    L = fs.calib.levels
+    _k3_check("3b dispatch ahead (two dispatches)",
+              cuda_kernels.LAUNCHES["tracker_trip"],
+              2 * tracker.trips_per_track(fs.cfg, L, L - 1))
     print(f"dispatch ahead: track_chain_dispatch returned in {call_ms:.3f} ms "
           f"under set_sync_debug_mode('error') behind {sleep_ms:.0f} ms of "
           f"queued sleep; HostCopy ready on return: {ready}; packed result "
@@ -557,10 +898,13 @@ def phase_boxes(n_frames: int = BOX_FRAMES):
           f"all-frames ATE {run['ate_mm']:.4f} mm (sim3-aligned), "
           f"{run['ms_per_frame_wall']:.2f} ms/frame wall, K1 launches "
           f"{run['k1_launches']} for {run['post_bootstrap_keyframes']} "
-          f"post-bootstrap keyframes", flush=True)
+          f"post-bootstrap keyframes, K3 launches {run['k3_launches']}",
+          flush=True)
     if run["lost"] or run["init_failed"]:
         _fail(f"boxes: lost={run['lost']} init_failed={run['init_failed']}")
     _no_capture_inside(run)
+    run["phase"] = "4b boxes"
+    _k3_run_check(run)
     if not run["ate_kf_mm"] < ATE_BOUND_M * 1e3:
         _fail(f"boxes: keyframe ATE {run['ate_kf_mm']:.4f} mm >= "
               f"{ATE_BOUND_M * 1e3} mm")
@@ -579,8 +923,10 @@ def _no_capture_inside(run: dict) -> None:
 
 
 def _mode_line(run: dict) -> str:
-    keys = ("mode", "frames", "keyframes", "ate_mm", "ms_per_frame_median",
+    keys = ("mode", "interval_ms", "frames", "keyframes", "ate_mm",
+            "ms_per_frame_median",
             "ms_per_frame_wall", "wall_s", "k1_launches", "k1_streams",
+            "k3_launches", "tracks", "rank_calls",
             "post_bootstrap_keyframes", "retrack_trips", "lm_frames",
             "graph_captures", "gpu")
     return json.dumps({k: run[k] for k in keys})
@@ -588,47 +934,66 @@ def _mode_line(run: dict) -> str:
 
 def phase_pipelines(calib, images, poses, strict: dict, device="cuda"):
     """Phase 5: the phase-3 frames through DeterministicPipeline twice and
-    AsyncPipeline once, by phase 3's driver; prints one JSON line per mode
-    (strict is phase 3's run). Returns the runs."""
+    AsyncPipeline twice, by phase 3's runner: as fast as the caller takes
+    them, and then one frame per strict's wall time per frame in phase 3,
+    the rate at which this card maps every frame. Async's keyframes depend
+    on how far tracking runs ahead of mapping (a frame becomes a keyframe
+    only when the mapping queue is empty behind it, FullSystem.cc:1825-
+    1864), so the paced run is the one held to >= 8 keyframes, and the
+    unpaced run to the ASYNC_BOOTSTRAP_KEYFRAMES that the pipeline
+    guarantees whatever the queue (tests/async_keyframe_witness.py: with
+    tracking ahead, the JAX package's AsyncPipeline keeps just those on
+    32 frames). Prints one JSON line per run (strict is phase 3's).
+    Returns (lookahead, lookahead, async, paced async)."""
     from ldso_tpu_torch.examples import time_modes
     gpu = strict["gpu"]
     runs, poses_of = [], []
-    for mode in ("lookahead", "lookahead", "async"):
+    strict_s = strict["ms_per_frame_wall"] / 1e3
+    for mode, interval_s in (("lookahead", 0.0), ("lookahead", 0.0),
+                             ("async", 0.0), ("async", strict_s)):
         run, fs = time_modes.run_mode(mode, calib, poses, images, gpu=gpu,
-                                      device=device)
+                                      device=device, interval_s=interval_s)
         if run["lost"] or run["init_failed"]:
             _fail(f"pipelines: {mode}: lost={run['lost']} "
                   f"init_failed={run['init_failed']}")
         _no_capture_inside(run)
+        if device == "cuda":
+            _k3_run_check(run)
         runs.append(run)
         poses_of.append([f.T_cw.tobytes() for f in fs.all_frames])
-    look1, look2, asyn = runs
+    look1, look2, asyn, paced = runs
     print(f"pipelines: lookahead keyframes {look1['kf_ids']} and "
-          f"{look2['kf_ids']}, async {asyn['kf_ids']}; K1 launches by "
-          f"stream in async {asyn['k1_streams']}", flush=True)
+          f"{look2['kf_ids']}, async {asyn['kf_ids']}, async fed every "
+          f"{paced['interval_ms']:.2f} ms {paced['kf_ids']}; K1 launches by stream in async "
+          f"{asyn['k1_streams']} and {paced['k1_streams']}", flush=True)
     if look1["kf_ids"] != look2["kf_ids"] or poses_of[0] != poses_of[1]:
         _fail("pipelines: two lookahead runs are not bitwise identical")
-    for run in (look1, asyn):
-        if run["keyframes"] < 8:
-            _fail(f"pipelines: {run['mode']} made {run['keyframes']} "
-                  f"keyframes (need >= 8)")
+    for run, floor in ((look1, 8), (paced, 8),
+                       (asyn, ASYNC_BOOTSTRAP_KEYFRAMES)):
+        if run["keyframes"] < floor:
+            _fail(f"pipelines: {run['mode']} (fed every "
+                  f"{run['interval_ms']:.2f} ms) made {run['keyframes']} "
+                  f"keyframes (need >= {floor})")
+    for run in (look1, asyn, paced):
         if not run["ate_mm"] < ATE_BOUND_M * 1e3:
             _fail(f"pipelines: {run['mode']} ATE {run['ate_mm']:.4f} mm >= "
                   f"{ATE_BOUND_M * 1e3} mm")
     if device == "cuda":
-        for run in (strict, look1, look2, asyn):
+        for run in (strict, look1, look2, asyn, paced):
             if not (run["k1_launches"] == run["post_bootstrap_keyframes"]
                     and run["k1_launches"] > 0):
                 _fail(f"pipelines: {run['mode']}: K1 launched "
                       f"{run['k1_launches']} times for "
                       f"{run['post_bootstrap_keyframes']} post-bootstrap "
                       f"keyframes")
-        if asyn["k1_streams"] != {"mapping": asyn["k1_launches"]}:
-            _fail(f"pipelines: async K1 launches by stream "
-                  f"{asyn['k1_streams']}, not all on the mapping thread's")
-    for run in (strict, look1, look2, asyn):
+        for run in (asyn, paced):
+            if run["k1_streams"] != {"mapping": run["k1_launches"]}:
+                _fail(f"pipelines: async K1 launches by stream "
+                      f"{run['k1_streams']}, not all on the mapping "
+                      f"thread's")
+    for run in (strict, look1, look2, asyn, paced):
         print(_mode_line(run), flush=True)
-    return look1, look2, asyn
+    return look1, look2, asyn, paced
 
 
 def write_kitti_sequence(seq: str, calib, images):
@@ -678,11 +1043,13 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         if pmode == "lookahead":
             argv += ["nogui=0", "viewer_port=0"]    # the live viewer
         t0 = time.time()
-        with time_modes.traced_k1() as k1:
+        with time_modes.traced_k1() as k1, \
+                time_modes.counted_tracks() as tracks:
             cuda_kernels.reset_launch_counts()
             fs = run_common.run(run_common.parse_args(argv), "kitti",
                                 kitti_output=True, device=device)
             launches = cuda_kernels.LAUNCHES["distance_transform"]
+            k3 = cuda_kernels.LAUNCHES["tracker_trip"]
         wall = time.time() - t0
         if fs.device.type != device:
             _fail(f"cli {pmode}: ran on {fs.device}, not {device}")
@@ -711,11 +1078,15 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         print(f"cli {pmode}: {len(rows)} keyframe rows in {out} and "
               f".noloop, keyframe ATE {ate * 1e3:.4f} mm, {wall:.2f} s, K1 "
               f"launches {launches} for {post_boot} post-bootstrap keyframes, "
-              f"by (thread, stream) {dict(k1)}", flush=True)
+              f"by (thread, stream) {dict(k1)}; K3 launches {k3} for "
+              f"{tracks['tracks']} tracks, {tracks['ranks']} rankings and "
+              f"{tracks['captures']} captures", flush=True)
         if not ate < ATE_BOUND_M:
             _fail(f"cli {pmode}: keyframe ATE {ate * 1e3:.4f} mm >= "
                   f"{ATE_BOUND_M * 1e3} mm")
         if device == "cuda":
+            _k3_check(f"cli {pmode}", k3, time_modes.k3_expected(
+                tracks, fs.cfg, fs.calib.levels))
             if not launches == post_boot > 0:
                 _fail(f"cli {pmode}: K1 launched {launches} times for "
                       f"{post_boot} post-bootstrap keyframes")
@@ -726,6 +1097,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                 _fail(f"cli async: K1 launches by (thread, stream) "
                       f"{dict(k1)}, not all on the mapping thread's stream")
         out_launches[pmode] = launches
+        out_launches[f"k3_{pmode}"] = k3
         if fs.viewer is not None:
             check_viewer(fs.viewer, len(rows), (calib.h[0], calib.w[0]))
     return out_launches
@@ -815,6 +1187,7 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     scene; returns the path's kernel launch counts."""
     import torch
     from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.examples import time_modes
     from ldso_tpu_torch.io.trajectory import ate_rmse
     from ldso_tpu_torch.loop import posegraph
     from ldso_tpu_torch.ops import cuda_kernels
@@ -857,18 +1230,21 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     fs._loop_closing_step = timed(step, loop_ms)
     lc.run_pose_graph_if_needed = timed(pgo, pgo_ms)
     torch.cuda.reset_peak_memory_stats()
-    cuda_kernels.reset_launch_counts()
     frame_ms = []
-    for i, img in enumerate(images):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fs.add_active_frame(img, i, 1.0, i * 0.05)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t) * 1e3)
-        if fs.is_lost or fs.init_failed:
-            _fail(f"loop slice: lost={fs.is_lost} "
-                  f"init_failed={fs.init_failed} at frame {i}")
-    launches = dict(cuda_kernels.LAUNCHES)
+    with time_modes.counted_tracks() as tracks:
+        cuda_kernels.reset_launch_counts()
+        for i, img in enumerate(images):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fs.add_active_frame(img, i, 1.0, i * 0.05)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            if fs.is_lost or fs.init_failed:
+                _fail(f"loop slice: lost={fs.is_lost} "
+                      f"init_failed={fs.init_failed} at frame {i}")
+        launches = dict(cuda_kernels.LAUNCHES)
+    _k3_check("4 loop slice", launches["tracker_trip"],
+              time_modes.k3_expected(tracks, cfg, calib.levels))
     # the CLI's strict-mode final pose-graph pass before results.txt
     # (examples/run_common.py:200-203)
     torch.cuda.synchronize()
@@ -902,7 +1278,9 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
           f"[{min(scales):.4f}, {max(scales):.4f}], peak device memory "
           f"{peak / 2**20:.1f} MiB, K1 launches "
           f"{launches['distance_transform']} for {post_boot} post-bootstrap "
-          f"keyframes", flush=True)
+          f"keyframes, K3 launches {launches['tracker_trip']} for "
+          f"{tracks['tracks']} tracks and {tracks['ranks']} rankings",
+          flush=True)
     print("stage timers (host wall, s):\n" + fs.timer.summary(), flush=True)
     print(json.dumps(dict(
         phase="4 loop_slice", kf_ids=kf_frames, loop_pairs=pairs,
@@ -988,6 +1366,8 @@ def phase_variants(calib, images, poses, phase3_ba_ms, device="cuda"):
             _fail(f"{name}: lost={run['lost']} "
                   f"init_failed={run['init_failed']}")
         _no_capture_inside(run)
+        if device == "cuda":
+            _k3_run_check(run)
         if run["keyframes"] < 8:
             _fail(f"{name}: only {run['keyframes']} keyframes (need >= 8)")
         if not run["ate_mm"] < ATE_BOUND_M * 1e3:
@@ -1018,6 +1398,7 @@ def phase_batched_tracker(S: int = BATCH_SEQUENCES):
     from ldso_tpu_torch.config import Config
     from ldso_tpu_torch.frontend import tracker
     from ldso_tpu_torch.math import lie_np
+    from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.ops.preprocess import FramePyramid, make_pyramid
     from ldso_tpu_torch.parallel import replay
     from ldso_tpu_torch.synthetic import PlaneScene, default_calib
@@ -1053,7 +1434,19 @@ def phase_batched_tracker(S: int = BATCH_SEQUENCES):
         return tracker.track_frame(ref, pyrs[b], T0[b], aff0[b], expo[b],
                                    noab[b], calib, cfg, L - 1)
 
+    # one replay launches K3 once per trip for all S sequences
+    trips = tracker.trips_per_track(cfg, L, L - 1)
+    cuda_kernels.reset_launch_counts()
+    again = step(refs, pyr_b, T0, aff0, expo, noab)
+    k3_launches = cuda_kernels.LAUNCHES["tracker_trip"]
+    _k3_check("7c batched replay", k3_launches, trips)
+    torch.cuda.synchronize()
+    if not all(_same(a, b) for a, b in zip(out, again)):
+        _fail("7c: a second batched replay differs from the first")
+    cuda_kernels.reset_launch_counts()
     singles = [single(b) for b in range(S)]
+    _k3_check(f"7c {S} single tracks", cuda_kernels.LAUNCHES["tracker_trip"],
+              S * trips)
     t_err = max(float(torch.max(torch.abs(out[0][b] - singles[b][0])))
                 for b in range(S))
     r_err = max(float(torch.max(torch.abs(out[3][b] - singles[b][3])
@@ -1069,6 +1462,7 @@ def phase_batched_tracker(S: int = BATCH_SEQUENCES):
                device_ms_single=_queued_device_ms(lambda: single(0), n=4,
                                                   reps=5),
                max_T_err=t_err, max_res_rel_err=r_err,
+               k3_launches=k3_launches,
                ok=[bool(o) for o in out[2].cpu()])
     print(f"7c batched tracker: {S} sequences 640x480 in lockstep, first "
           f"call (capture + replay) {first_s:.2f} s; vs {S} single tracks: "
@@ -1163,11 +1557,13 @@ def main() -> int:
     phase_device()
     import torch
     record = phase_kernels()
+    trip_edges = phase_trip_edges()
     phase_determinism()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
     with ba_times() as phase3_ba_ms:
         launches_vo, calib, images, poses, strict, fs = phase_main_path()
+    trip_record = phase_trip_frame(fs, images, trip_edges)
     graph = phase_tracker_graph(fs, images)
     phase_dispatch_ahead(fs, images)
     phase_checkpoint(fs, root)
@@ -1175,7 +1571,7 @@ def main() -> int:
     del fs
     launches, post_boot, map4 = phase_loop_slice()
     boxes = phase_boxes()
-    look, _, asyn = phase_pipelines(calib, images, poses, strict)
+    look, _, asyn, paced = phase_pipelines(calib, images, poses, strict)
     cli = phase_cli(calib, images, poses, root)
     variants = phase_variants(calib, images, poses, phase3_ba_ms)
     batched = phase_batched_tracker()
@@ -1185,6 +1581,7 @@ def main() -> int:
                    boxes=boxes["k1_launches"],
                    vo_lookahead=look["k1_launches"],
                    vo_async=asyn["k1_launches"],
+                   vo_async_paced=paced["k1_launches"],
                    cli_lookahead=cli["lookahead"], cli_async=cli["async"],
                    **{name.split()[1]: run["k1_launches"]
                       for name, run in variants.items()})
@@ -1192,6 +1589,20 @@ def main() -> int:
     record["launches"] = launches["distance_transform"]
     record["launches_per_keyframe"] = launches["distance_transform"] / post_boot
     record["launches_by_path"] = by_path
+    k3_by_path = dict(vo_strict=launches_vo["tracker_trip"],
+                      loop=launches["tracker_trip"],
+                      boxes=boxes["k3_launches"],
+                      vo_lookahead=look["k3_launches"],
+                      vo_async=asyn["k3_launches"],
+                      vo_async_paced=paced["k3_launches"],
+                      cli_lookahead=cli["k3_lookahead"],
+                      cli_async=cli["k3_async"],
+                      **{name.split()[1]: run["k3_launches"]
+                         for name, run in variants.items()},
+                      batched_replay=batched["k3_launches"])
+    print(f"K3 launches per path: {k3_by_path}", flush=True)
+    trip_record["launches"] = launches["tracker_trip"]
+    trip_record["launches_by_path"] = k3_by_path
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for name, run in variants.items():
@@ -1202,7 +1613,7 @@ def main() -> int:
     print(json.dumps(batched))
     print(json.dumps(sharded))
     print(json.dumps({"tracker_graph": graph}))
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, trip_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

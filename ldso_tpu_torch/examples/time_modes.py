@@ -10,7 +10,8 @@ during the call falls on every mode alike. Each run prints one JSON line:
 the wall clock from the first frame to the end of the drain (with a
 synchronise) per frame (`ms_per_frame_wall`), the median host time of one
 add_active_frame call from the bootstrap on (`ms_per_frame_median`), the
-keyframes, the ATE, K1's launches and the streams they went to, the
+keyframes, the ATE, K1's launches and the streams they went to, K3's
+launches beside the count the run's tracker calls imply, the
 retrack-gate trips, how many frames the tracker ran on (a pipeline
 re-tracks its frames in flight after each keyframe) and the host time of
 those calls (on the card a graph replay that does not wait for the
@@ -94,17 +95,62 @@ def traced_k1():
         cuda_kernels.distance_transform = kernel
 
 
+@contextlib.contextmanager
+def counted_tracks():
+    """Count the tracker's entry calls while inside and yield the counts:
+    tracks (track_frame and track_frame_hypotheses calls), ranks
+    (rank_hypotheses calls), captures (tracker graphs captured, each of
+    which also runs its program once eagerly), and lm_frames and lm_s, the
+    track_frame calls (not the retry batches) and their host seconds."""
+    counts = dict(tracks=0, ranks=0, lm_frames=0, lm_s=0.0)
+    captures = track_graph.CAPTURES["count"]
+    saved = {name: getattr(tracker, name) for name in
+             ("track_frame", "track_frame_hypotheses", "rank_hypotheses")}
+
+    def wrap(fn, key, timed=False):
+        def counted(*a, **k):
+            counts[key] += 1
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if timed:
+                counts["lm_frames"] += 1
+                counts["lm_s"] += time.perf_counter() - t
+            return out
+        return counted
+    tracker.track_frame = wrap(saved["track_frame"], "tracks", timed=True)
+    tracker.track_frame_hypotheses = wrap(saved["track_frame_hypotheses"],
+                                          "tracks")
+    tracker.rank_hypotheses = wrap(saved["rank_hypotheses"], "ranks")
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(tracker, name, fn)
+        counts["captures"] = track_graph.CAPTURES["count"] - captures
+
+
+def k3_expected(counts: dict, cfg, levels: int) -> int:
+    """The K3 launches that `counted_tracks`' counts imply: one track's
+    trips (tracker.trips_per_track, from the coarsest level as FullSystem
+    tracks) per track and per capture, and one per rank."""
+    trips = tracker.trips_per_track(cfg, levels, levels - 1)
+    return trips * (counts["tracks"] + counts["captures"]) + counts["ranks"]
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def run_mode(mode: str, calib, poses, images, gpu=None,
-             device=DEFAULT_DEVICE, cfg=None):
+             device=DEFAULT_DEVICE, cfg=None, interval_s: float = 0.0):
     """One run of `mode` over `images` with `cfg` (default `Config()` with
-    loop closing off), K1's counts set to 0 just before the first frame and
-    read after the drain. No synchronise per frame (it would stall the
-    mapping thread). Returns (the run's numbers, the FullSystem)."""
+    loop closing off), the kernels' counts set to 0 just before the first
+    frame and read after the drain. No synchronise per frame (it would
+    stall the mapping thread). Frames go in as fast as the caller takes
+    them, or with `interval_s` > 0 no earlier than i * interval_s after
+    the first, as a camera of that period delivers them.
+    Returns (the run's numbers, the FullSystem)."""
     if cfg is None:
         cfg = dataclasses.replace(Config(), enable_loop_closing=False)
     fs = FullSystem(calib, cfg, device=device)
@@ -114,37 +160,25 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
               else None)
     mapping = getattr(drv, "map_stream", None)
     mapping = mapping.cuda_stream if mapping is not None else None
-    lm = dict(frames=0, s=0.0)
-    track_frame = tracker.track_frame
-
-    def counted(*a):
-        t = time.perf_counter()
-        out = track_frame(*a)           # not the retry batches
-        lm["frames"] += 1
-        lm["s"] += time.perf_counter() - t
-        return out
-    tracker.track_frame = counted
-    try:
-        with traced_k1() as k1:
-            _sync(fs.device)
-            cuda_kernels.reset_launch_counts()
-            captures = track_graph.CAPTURES["count"]
-            call_ms = []
-            t0 = time.perf_counter()
-            for i, img in enumerate(images):
-                t = time.perf_counter()
-                drv.add_active_frame(img, i, 1.0, i * 0.05)
-                call_ms.append((time.perf_counter() - t) * 1e3)
-                if fs.is_lost or fs.init_failed:
-                    break
-            if drv is not fs:
-                drv.block_until_mapping_is_finished()
-            _sync(fs.device)
-            wall = time.perf_counter() - t0
-            launches = cuda_kernels.LAUNCHES["distance_transform"]
-            captures = track_graph.CAPTURES["count"] - captures
-    finally:
-        tracker.track_frame = track_frame
+    with traced_k1() as k1, counted_tracks() as tracks:
+        _sync(fs.device)
+        cuda_kernels.reset_launch_counts()
+        call_ms = []
+        t0 = time.perf_counter()
+        for i, img in enumerate(images):
+            if interval_s > 0:
+                time.sleep(max(0.0, t0 + i * interval_s
+                               - time.perf_counter()))
+            t = time.perf_counter()
+            drv.add_active_frame(img, i, 1.0, i * 0.05)
+            call_ms.append((time.perf_counter() - t) * 1e3)
+            if fs.is_lost or fs.init_failed:
+                break
+        if drv is not fs:
+            drv.block_until_mapping_is_finished()
+        _sync(fs.device)
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_kernels.LAUNCHES)
     streams = collections.Counter()
     for (_, s), n in k1.items():
         streams["mapping" if s == mapping else
@@ -156,14 +190,21 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
     ate_kf = (ate_rmse([kf.T_cw for kf in kfs], [poses[i] for i in kf_ids])
               if len(kfs) >= 3 else float("nan"))
     print(f"--- {mode}\n{fs.timer.summary()}", file=sys.stderr, flush=True)
-    run = dict(mode=mode, frames=len(images), keyframes=len(kfs),
+    run = dict(mode=mode, interval_ms=interval_s * 1e3, frames=len(images),
+               keyframes=len(kfs),
                kf_ids=kf_ids, ate_mm=ate * 1e3, ate_kf_mm=ate_kf * 1e3,
                ms_per_frame_wall=wall * 1e3 / len(images), wall_s=wall,
                ms_per_frame_median=float(np.median(call_ms[kf_ids[1]:]))
                if len(kf_ids) > 1 else None,
-               k1_launches=launches, k1_streams=dict(streams),
+               k1_launches=launches["distance_transform"],
+               k1_streams=dict(streams),
+               k3_launches=launches["tracker_trip"],
+               k3_expected=k3_expected(tracks, cfg, calib.levels),
+               tracks=tracks["tracks"],
+               rank_calls=tracks["ranks"],
                post_bootstrap_keyframes=sum(1 for kf in kfs if kf.kf_id >= 2),
-               lm_frames=lm["frames"], lm_s=lm["s"], graph_captures=captures,
+               lm_frames=tracks["lm_frames"], lm_s=tracks["lm_s"],
+               graph_captures=tracks["captures"],
                retrack_trips=getattr(drv, "retrack_trips",
                                      fs._n_retry_sweeps),
                lost=fs.is_lost, init_failed=fs.init_failed, gpu=gpu)

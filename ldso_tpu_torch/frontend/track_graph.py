@@ -24,6 +24,11 @@ replay cannot overwrite.
 A capture begins with `torch.cuda.graph`'s device synchronise; it happens
 at a key's first call, which `FullSystem.warm_retrack_programs` makes
 before a run starts.
+
+The hand-written kernels in the program (K3, the tracker trip) count their
+launches in Python, which a replay does not run: the capture records each
+kernel's launches (`cuda_kernels.recording_launches`) and every replay
+adds them to `cuda_kernels.LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import time
 from typing import Callable, Dict, Tuple
 
 import torch
+
+from ldso_tpu_torch.ops import cuda_kernels
 
 _lock = threading.Lock()
 _graphs: Dict[tuple, "_Captured"] = {}
@@ -53,9 +60,11 @@ class _Captured:
             # workspaces, the tracker's device constants
             program(*self.static_in)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode="thread_local"):
+        with cuda_kernels.recording_launches() as launches, \
+                torch.cuda.graph(self.graph, stream=side,
+                                 capture_error_mode="thread_local"):
             self.static_out = tuple(program(*self.static_in))
+        self.launches = launches       # kernel launches of one replay
         caller.wait_stream(side)
         self.lock = threading.Lock()
         self.done = None
@@ -68,6 +77,7 @@ class _Captured:
             for s, x in zip(self.static_in, inputs):
                 s.copy_(x)
             self.graph.replay()
+            cuda_kernels.add_launches(self.launches)
             out = tuple(o.clone() for o in self.static_out)
             self.done = torch.cuda.Event()
             self.done.record(stream)

@@ -164,7 +164,10 @@ def make_batched_tracker(calib: Calibration, cfg: Config, coarsest: int):
 
     It is the masked tracker (`tracker._track_batch`) under
     `torch.func.vmap`; on the card one CUDA graph per (S, shapes) replays
-    it (frontend/track_graph.py), so nothing reads the host."""
+    it (frontend/track_graph.py), so nothing reads the host. Each trip is
+    one launch of K3 for all S sequences: the vmap rule of the operator
+    `ldso_tpu_torch::tracker_trip` (ops/cuda_kernels.py) hands the kernel
+    the vmapped axis as its sequence axis."""
 
     def single(ref, pyr, T, aff, expo, min_abort):
         out = tracker._track_batch(ref, pyr, T[None], aff, expo, min_abort,

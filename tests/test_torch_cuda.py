@@ -478,3 +478,175 @@ def test_dispatch_runs_ahead_of_the_card(cuda):
             torch.cuda.set_sync_debug_mode(0)
     assert not ready, ms
     assert packed.numpy().tobytes() == want.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# K3, the tracker trip (csrc/tracker_trip.cu)
+# ---------------------------------------------------------------------------
+
+_TRIP_SCENE = {}
+
+
+def _trip_scene():
+    """A 640x480 scene (4 pyramid levels, as the main path's) on the card:
+    the tracking reference from the rendered idepth, the frame rendered at
+    a known motion, and that motion."""
+    if not _TRIP_SCENE:
+        from ldso_tpu_torch.config import Config
+        from ldso_tpu_torch.frontend import tracker
+        from ldso_tpu_torch.math import lie_np
+        from ldso_tpu_torch.ops.preprocess import make_pyramid
+        from ldso_tpu_torch.synthetic import PlaneScene, default_calib
+        calib, cfg = default_calib(640, 480), Config()
+        L = calib.levels
+        scene = PlaneScene(freq_hi=25.0, contrast=80.0)
+        img0, idep0 = scene.render(calib, np.eye(4), device="cuda")
+        ref = tracker.make_tracker_ref_from_idepth(
+            idep0, make_pyramid(img0, L), calib, cfg.tracker_caps[:L],
+            stride=2)
+        T_true = lie_np.se3_exp(np.array([0.02, -0.01, 0.005, 0.002, 0.004,
+                                          -0.001]))
+        img1, _ = scene.render(calib, T_true, device="cuda")
+        _TRIP_SCENE.update(calib=calib, cfg=cfg, ref=ref,
+                           pyr=make_pyramid(img1, L),
+                           T=torch.as_tensor(T_true, dtype=torch.float32,
+                                             device="cuda"))
+    return _TRIP_SCENE
+
+
+def _trip_batch(T0, B):
+    T = T0.expand(B, 4, 4).clone()
+    T[1:, :3, 3] += torch.linspace(-0.01, 0.01, 3 * (B - 1),
+                                   device=T.device).reshape(B - 1, 3)
+    aff = torch.tensor([[0.01, 0.5]], device=T.device).expand(B, 2)
+    return T, aff
+
+
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_trip_kernel_matches_plain(cuda, lvl):
+    """K3 against tracker_trip_ref at this level, batch 1 and 8, on the
+    scene and on the edge cases (every point out of bounds, most terms
+    saturated, a NaN patch in the intensity or in all channels, where K3
+    skips the masked points and is held to the plain arithmetic with them
+    dropped), within torch_kernel_checks' tolerances; one launch each."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    import torch_kernel_checks as kc
+    sc = _trip_scene()
+    expo = torch.ones((), device=cuda)
+    before = cuda_kernels.LAUNCHES["tracker_trip"]
+    for case in kc.TRIP_CASES:
+        for B in (1, 8):
+            p, T, aff, cut, plain = kc.trip_case(
+                case, sc["pyr"], lvl, *_trip_batch(sc["T"], B), sc["cfg"])
+            args = (sc["ref"], p, lvl, T, aff, expo, cut, sc["calib"],
+                    sc["cfg"], lvl == 0)
+            got = cuda_kernels.tracker_trip(*args)
+            err, share, same_n = kc.trip_err(got, plain(*args),
+                                             kc.trip_allowance(*args))
+            assert share <= 1.0 and same_n, (case, B, err, share)
+            assert all(bool(torch.isfinite(x).all()) for x in got), case
+            if case == "out_of_bounds":
+                assert not bool(got[0][:, 1].any())
+            elif case == "saturating":
+                assert bool((got[0][:, 5] > 0.5).all())
+    assert cuda_kernels.LAUNCHES["tracker_trip"] == before + 10
+
+
+def test_trip_kernel_repeats_bitwise(cuda):
+    """20 launches on the same inputs give the same bits: no float atomics,
+    a reduction order fixed by the code."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    sc = _trip_scene()
+    T, aff = _trip_batch(sc["T"], 8)
+    args = (sc["ref"], sc["pyr"], 0, T, aff, torch.ones((), device=cuda),
+            torch.full((8,), 20.0, device=cuda), sc["calib"], sc["cfg"], True)
+    first = [x.clone() for x in cuda_kernels.tracker_trip(*args)]
+    for _ in range(19):
+        for a, b in zip(first, cuda_kernels.tracker_trip(*args)):
+            assert _same(a, b)
+
+
+def test_trip_kernel_under_vmap_is_one_launch(cuda):
+    """The operator under torch.func.vmap launches K3 once with the vmapped
+    axis as its sequence axis, and each sequence gets the bits of its own
+    single launch."""
+    from ldso_tpu_torch.frontend import affine
+    from ldso_tpu_torch.ops import cuda_kernels
+    sc = _trip_scene()
+    ref, calib = sc["ref"], sc["calib"]
+    S, lvl = 3, 1
+    T, aff = _trip_batch(sc["T"], S)
+    T = T[:, None]                                       # (S, B=1, 4, 4)
+    rel = affine.from_to(ref.ref_exposure, torch.ones((), device=cuda),
+                         ref.ref_aff, aff)[:, None]
+    cut = torch.full((1,), 20.0, device=cuda)
+    dI = torch.stack([sc["pyr"].dI[lvl]] * S)
+    dI[1] = dI[1] * 1.1
+    params = cuda_kernels.trip_params(calib, lvl, sc["cfg"].huber_th)
+
+    def one(d, t, r):
+        return torch.ops.ldso_tpu_torch.tracker_trip(
+            ref.points[lvl], ref.valid[lvl], d, t, r, cut, ref.ref_aff,
+            params, False)
+    before = cuda_kernels.LAUNCHES["tracker_trip"]
+    got = torch.func.vmap(one)(dI, T, rel)
+    assert cuda_kernels.LAUNCHES["tracker_trip"] == before + 1
+    for s in range(S):
+        for g, w in zip(got, one(dI[s], T[s], rel[s])):
+            assert _same(g[s], w)
+
+
+def test_batched_replay_runs_the_kernel(cuda):
+    """parallel/replay's batched tracker (vmap in one CUDA graph) launches
+    K3 once per trip for all S sequences, counted at each replay, and
+    matches S single tracks within T 1e-4 (7c's tolerance)."""
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.ops.preprocess import FramePyramid
+    from ldso_tpu_torch.parallel import replay
+    sc = _trip_scene()
+    ref, pyr, calib, cfg = sc["ref"], sc["pyr"], sc["calib"], sc["cfg"]
+    S, L = 3, calib.levels
+    f32 = dict(dtype=torch.float32, device=cuda)
+    refs = replay._tree_map(
+        lambda x: x[None].expand((S,) + tuple(x.shape)).contiguous(), ref)
+    pyrs = [FramePyramid(dI=tuple(d * (1.0 + 0.05 * s) for d in pyr.dI),
+                         abs_grad=()) for s in range(S)]
+    pyr_b = FramePyramid(dI=tuple(torch.stack([p.dI[lv] for p in pyrs])
+                                  for lv in range(L)), abs_grad=())
+    T0 = torch.eye(4, **f32).expand(S, 4, 4).contiguous()
+    aff0, expo = torch.zeros((S, 2), **f32), torch.ones(S, **f32)
+    noab = torch.full((S, L), 1e9, **f32)
+    step = replay.make_batched_tracker(calib, cfg, L - 1)
+    step(refs, pyr_b, T0, aff0, expo, noab)              # capture
+    cuda_kernels.reset_launch_counts()
+    out = step(refs, pyr_b, T0, aff0, expo, noab)
+    assert cuda_kernels.LAUNCHES["tracker_trip"] == tracker.trips_per_track(
+        cfg, L, L - 1)
+    for s in range(S):
+        one = tracker.track_frame(ref, pyrs[s], T0[s], aff0[s], expo[s],
+                                  noab[s], calib, cfg, L - 1)
+        assert float(torch.max(torch.abs(out[0][s] - one[0]))) <= 1e-4
+        assert bool(out[2][s] == one[2])
+
+
+def test_trip_launches_count_through_graph_replays(cuda):
+    """A replayed track counts K3's trips_per_track launches, though no
+    Python runs at a replay; the eager function counts the same."""
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.ops import cuda_kernels
+    sc = _trip_scene()
+    calib, cfg = sc["calib"], sc["cfg"]
+    L = calib.levels
+    f32 = dict(dtype=torch.float32, device=cuda)
+    args = (sc["ref"], sc["pyr"], sc["T"], torch.zeros(2, **f32),
+            torch.ones((), **f32), torch.full((L,), 1e9, **f32), calib, cfg,
+            L - 1)
+    trips = tracker.trips_per_track(cfg, L, L - 1)
+    tracker.track_frame(*args)                           # capture if new
+    for run in (lambda: tracker.track_frame(*args),
+                lambda: tracker._track_batch(args[0], args[1], args[2][None],
+                                             *args[3:])):
+        cuda_kernels.reset_launch_counts()
+        run()
+        assert cuda_kernels.LAUNCHES["tracker_trip"] == trips

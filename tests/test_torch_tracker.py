@@ -1,11 +1,15 @@
 """frontend/tracker: the port against the JAX coarse tracker on the same
 reference keyframe and frames."""
 
+import contextlib
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import torch_kernel_checks as kernel_checks
 from torch_port_utils import close, equal, j32, npy, plane_frames, t32
 
 from ldso_tpu.config import Config as JC
@@ -287,3 +291,351 @@ def test_track_frame_masked_trips_match_jax(scene, monkeypatch, case):
                                t32(1.0), t32(np.full(calib.levels, 1e9)),
                                calib, TC(), calib.levels - 1)
         assert not torch.equal(free[0], ot[0])
+
+
+# ---------------------------------------------------------------------------
+# K3, the tracker trip: its plain version against the JAX package, its
+# wrapper on the CPU, and the launch bookkeeping of the captured tracker
+# ---------------------------------------------------------------------------
+
+CAPS4 = (4096, 2048, 1024, 512)
+TRIP_CASES = ("out_of_bounds", "saturating", "nan_patch")
+
+
+@pytest.fixture(scope="module")
+def scene4():
+    """640x480, the size whose pyramid has 4 levels, as the main path's."""
+    calib, poses, imgs, ideps = plane_frames(2, 640, 480)
+    assert calib.levels == 4
+    pj = [jmp(jnp.asarray(im), calib.levels) for im in imgs]
+    pt = [tmp(t32(im), calib.levels) for im in imgs]
+    rj = jtr.make_tracker_ref_from_idepth(j32(ideps[0]), pj[0], calib, CAPS4,
+                                          stride=2)
+    rt = ttr.make_tracker_ref_from_idepth(t32(ideps[0]), pt[0], calib, CAPS4,
+                                          stride=2)
+    return calib, poses, pj[1], pt[1], rj, rt
+
+
+def _trip_inputs(poses, batch, case=None):
+    """(T, aff, cutoff) as numpy float32: `batch` poses about the true
+    motion (member m a few mm off), affines per member and the production
+    cutoff; the edge cases as kernel_checks.trip_case makes them."""
+    rng = np.random.RandomState(11)
+    T_gt = poses[1] @ np.linalg.inv(poses[0])
+    T = np.stack([T_gt] * batch).astype(np.float32)
+    T[1:, :3, 3] += rng.randn(batch - 1, 3).astype(np.float32) * 0.005
+    aff = np.stack([[0.02 * m, 1.5 - 0.3 * m] for m in range(batch)])
+    cut = np.full(batch, TC().coarse_cutoff_th)
+    if case == "out_of_bounds":      # off the image, or behind the camera
+        T[0::2, 0, 3] += 100.0
+        T[1::2, 2, 3] -= 100.0
+    elif case == "saturating":       # most residuals beyond the cutoff
+        aff[:, 1] += 40.0
+    return T, aff.astype(np.float32), cut.astype(np.float32)
+
+
+def _nan_patch(pj, pt, lvl):
+    """Both pyramids with a NaN patch in all three channels of level lvl."""
+    h, w = pt.dI[lvl].shape[:2]
+    sl = (slice(0, h // 2), slice(w // 4, w // 2))      # as trip_case's
+    dj = np.array(pj.dI[lvl])
+    dj[sl] = np.nan
+    dt = pt.dI[lvl].clone()
+    dt[sl] = float("nan")
+    pj = pj._replace(dI=tuple(jnp.asarray(dj) if i == lvl else d
+                              for i, d in enumerate(pj.dI)))
+    pt = pt._replace(dI=tuple(dt if i == lvl else d
+                              for i, d in enumerate(pt.dI)))
+    return pj, pt
+
+
+def _jax_trip(rj, pj, lvl, T, aff, cut, calib, flow):
+    """The JAX package's _calc_res then _calc_gs, member by member."""
+    out = [[], [], []]
+    for m in range(T.shape[0]):
+        bj, sj = jtr._calc_res(rj, pj, lvl, j32(T[m]), j32(aff[m]),
+                               jnp.float32(1.0), jnp.float32(cut[m]), calib,
+                               JC(), compute_flow=flow)
+        Hj, gj, _ = jtr._calc_gs(bj, lvl, rj, j32(aff[m]), jnp.float32(1.0),
+                                 calib)
+        for o, x in zip(out, (sj, Hj, gj)):
+            o.append(np.asarray(x))
+    return [np.stack(o) for o in out]
+
+
+def _close_trip(port, jax_out, what, allowance=None):
+    """Within torch_kernel_checks' tolerances (stats 1e-4 with numTerms
+    exact; H 1e-3 relative or 1e-5 of its largest entry, as
+    test_calc_res_and_gs holds it; b 1e-3 relative or 1e-4 of its largest
+    entry) plus the allowance for points at the cutoff."""
+    err, share, same_n = kernel_checks.trip_err(
+        port, [torch.from_numpy(x) for x in jax_out], allowance)
+    assert same_n and share <= 1.0, (what, err, share, same_n)
+
+
+@pytest.mark.parametrize("flow", [True, False])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_tracker_trip_ref_matches_jax(scene4, lvl, batch, flow):
+    """tracker_trip_ref (the plain version of K3) against the JAX package's
+    _calc_res followed by _calc_gs, at every level of the 4-level pyramid,
+    at batch 1 and 8, with the flow sums on and off."""
+    calib, poses, pj, pt, rj, rt = scene4
+    T, aff, cut = _trip_inputs(poses, batch)
+    got = ttr.tracker_trip_ref(rt, pt, lvl, t32(T), t32(aff), t32(1.0),
+                               t32(cut), calib, TC(), compute_flow=flow)
+    _close_trip(got, _jax_trip(rj, pj, lvl, T, aff, cut, calib, flow),
+                f"level {lvl} batch {batch} flow {flow}")
+    assert float(got[0][0, 1]) > 0
+    if not flow:
+        assert not npy(got[0][:, [2, 4]]).any()
+
+
+@pytest.mark.parametrize("case", TRIP_CASES)
+def test_tracker_trip_ref_edge_cases_match_jax(scene4, case):
+    """The edge cases at every level, batch 8: a pose that puts every point
+    out of bounds (numTerms 0), a brightness offset that saturates most
+    terms at the production cutoff, and a NaN patch in the level (both
+    packages' H and b turn NaN there; the stats, which select with
+    `where`, stay finite and agree)."""
+    calib, poses, pj0, pt0, rj, rt = scene4
+    T, aff, cut = _trip_inputs(poses, 8, case)
+    for lvl in range(calib.levels):
+        pj, pt = (_nan_patch(pj0, pt0, lvl) if case == "nan_patch"
+                  else (pj0, pt0))
+        args = (rt, pt, lvl, t32(T), t32(aff), t32(1.0), t32(cut), calib,
+                TC(), lvl == 0)
+        got = ttr.tracker_trip_ref(*args)
+        _close_trip(got, _jax_trip(rj, pj, lvl, T, aff, cut, calib, lvl == 0),
+                    f"{case} level {lvl}", kernel_checks.trip_allowance(*args))
+        n = npy(got[0][:, 1])
+        if case == "out_of_bounds":
+            assert not n.any()
+        elif case == "saturating":
+            assert (npy(got[0][:, 5]) > 0.5).all()
+        else:
+            assert np.isfinite(npy(got[0])).all() and n.all()
+
+
+def test_tracker_trip_wrapper_is_the_plain_version_on_the_cpu(scene4):
+    """On CPU tensors ops/cuda_kernels.tracker_trip returns the plain
+    version's result bitwise (NaN payloads included) and launches
+    nothing."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    calib, poses, pj, pt, rj, rt = scene4
+    before = dict(cuda_kernels.LAUNCHES)
+    for case in (None,) + TRIP_CASES:
+        T, aff, cut = _trip_inputs(poses, 8, case)
+        p = _nan_patch(pj, pt, 0)[1] if case == "nan_patch" else pt
+        for lvl in (0, 3):
+            args = (rt, p, lvl, t32(T), t32(aff), t32(1.0), t32(cut), calib,
+                    TC(), lvl == 0)
+            for g, w in zip(cuda_kernels.tracker_trip(*args),
+                            ttr.tracker_trip_ref(*args)):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert cuda_kernels.LAUNCHES == before
+
+
+def test_tracker_trip_members_are_independent(scene4):
+    """Each member's stats, H and b come from its own rows alone: member m
+    of a batch of 8 has the same bits whatever the other members' poses
+    and cutoffs. So the cutoff loop may select H and b per member (as
+    `_level_block` does) instead of recomputing them from the selected
+    residuals."""
+    calib, poses, pj, pt, rj, rt = scene4
+    T, aff, cut = _trip_inputs(poses, 8)
+    T2, cut2 = T.copy(), cut * 2.0
+    T2[:, 0, 3] += 0.01
+    for lvl in range(calib.levels):
+        a = ttr.tracker_trip_ref(rt, pt, lvl, t32(T), t32(aff), t32(1.0),
+                                 t32(cut), calib, TC(), lvl == 0)
+        for m in (0, 5):
+            Tm, cm = T2.copy(), cut2.copy()
+            Tm[m], cm[m] = T[m], cut[m]
+            b = ttr.tracker_trip_ref(rt, pt, lvl, t32(Tm), t32(aff),
+                                     t32(1.0), t32(cm), calib, TC(), lvl == 0)
+            for x, y in zip(a, b):
+                equal(x[m], y[m], f"level {lvl} member {m}")
+                assert not torch.equal(x[m - 1], y[m - 1])
+
+
+def test_track_batch_runs_every_trip_through_the_wrapper(scene4, monkeypatch):
+    """_track_batch calls the K3 wrapper trips_per_track times (316 at
+    640x480: per level 7 cutoff trips and coarse_lm_iterations LM trips,
+    twice with the level repeat) and rank_hypotheses once, and on the CPU
+    its results are those of the plain version called directly."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    calib, poses, pj, pt, rj, rt = scene4
+    T, aff, _ = _trip_inputs(poses, 2)
+    L = calib.levels
+    args = (rt, pt, t32(T), t32([0, 0]), t32(1.0), t32(np.full(L, 1e9)),
+            calib, TC(), L - 1)
+    calls = []
+    wrapper = cuda_kernels.tracker_trip
+
+    def counted(*a, **k):
+        calls.append(a[2])
+        return wrapper(*a, **k)
+    monkeypatch.setattr(cuda_kernels, "tracker_trip", counted)
+    got = ttr._track_batch(*args)
+    rank = ttr.rank_hypotheses(rt, pt, t32(T), t32([0, 0]), t32(1.0), calib,
+                               TC(), L - 1)
+    assert ttr.trips_per_track(TC(), L, L - 1) == 316
+    assert len(calls) == 316 + 1 and calls[-1] == L - 1
+    assert sorted(set(calls)) == list(range(L))
+    monkeypatch.setattr(cuda_kernels, "tracker_trip", ttr.tracker_trip_ref)
+    for g, w in zip(list(got) + [rank], list(ttr._track_batch(*args))
+                    + [ttr.rank_hypotheses(rt, pt, t32(T), t32([0, 0]),
+                                           t32(1.0), calib, TC(), L - 1)]):
+        equal(g, w)
+
+
+class _FakeGraph:
+    def replay(self):
+        pass
+
+
+@contextlib.contextmanager
+def _fake_capture(graph, stream=None, **kw):
+    yield
+
+
+def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
+    """track_graph._Captured with the CUDA pieces faked on the CPU and a
+    program that counts launches as a kernel wrapper does: the eager
+    warm-up counts as launches, the capture only into the graph's tally,
+    and each replay adds the tally to LAUNCHES; a launch on another thread
+    during a capture counts as usual."""
+    from ldso_tpu_torch.frontend import track_graph
+    from ldso_tpu_torch.ops import cuda_kernels
+
+    class _Stream:
+        def __init__(self, *a, **k):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+        def wait_event(self, event):
+            pass
+
+    class _Event:
+        def record(self, stream=None):
+            pass
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    seen_elsewhere = []
+
+    def program(x):
+        for _ in range(3):
+            cuda_kernels._count("tracker_trip")
+        cuda_kernels._count("distance_transform")
+        if not seen_elsewhere:
+            t = threading.Thread(
+                target=lambda: cuda_kernels._count("distance_transform"))
+            t.start()
+            t.join()
+            seen_elsewhere.append(True)
+        return (x + 1,)
+
+    cuda_kernels.reset_launch_counts()
+    g = track_graph._Captured(program, (torch.zeros(2),))
+    # warm-up: 3 + 1 launches; the thread's launch during the warm-up: 1
+    assert cuda_kernels.LAUNCHES == {"distance_transform": 2,
+                                     "tracker_trip": 3}
+    assert g.launches == {"tracker_trip": 3, "distance_transform": 1}
+    for k in range(1, 3):
+        out = g.replay((torch.ones(2),))
+        assert cuda_kernels.LAUNCHES == {"distance_transform": 2 + k,
+                                         "tracker_trip": 3 + 3 * k}
+    assert torch.equal(out[0], torch.full((2,), 1.0))
+    cuda_kernels.reset_launch_counts()
+    with cuda_kernels.recording_launches() as tally:
+        cuda_kernels._count("tracker_trip")
+        t = threading.Thread(target=lambda: cuda_kernels._count("tracker_trip"))
+        t.start()
+        t.join()
+    assert tally == {"tracker_trip": 1}
+    assert cuda_kernels.LAUNCHES["tracker_trip"] == 1
+
+
+def test_tracker_trip_vmap_rule_launches_once_for_the_vmapped_axis(
+        monkeypatch):
+    """torch.func.vmap over the K3 operator (as parallel/replay's batched
+    tracker runs it) reaches one launch with the vmapped axis as the
+    sequence axis, inputs without that axis repeated along it. The
+    launcher is faked on the CPU by one that computes, per sequence and
+    member, sums that depend on every input."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    launched = []
+
+    def fake(points, valid, dI, T, rel, cutoff, ref_aff, params, flow):
+        launched.append(points.shape[0])
+        S, B = T.shape[:2]
+        base = (points.sum((1, 2)) * valid.sum(1) + dI.sum((1, 2, 3))
+                + ref_aff[:, 1])[:, None]
+        e = base + T.sum((2, 3)) + rel.sum(2) + cutoff + params[0] + flow
+        stats = e[..., None].expand(S, B, 6).clone()
+        return stats, T.repeat(1, 1, 2, 2) * e[..., None, None], rel.repeat(
+            1, 1, 4) * e[..., None]
+    monkeypatch.setattr(cuda_kernels, "_trip_launch", fake)
+    rng = np.random.RandomState(3)
+    S, N, B = 3, 10, 2
+    pts, dI = t32(rng.rand(S, N, 4)), t32(rng.rand(S, 9, 8, 3))
+    valid = torch.from_numpy(rng.rand(S, N) > 0.3)
+    T, rel = t32(rng.rand(S, B, 4, 4)), t32(rng.rand(S, B, 2))
+    cut, ref_aff = t32(rng.rand(B)), t32(rng.rand(S, 2))
+    params = [2.0] + [0.0] * 21
+
+    def one(p, v, d, t, r, ra):
+        return torch.ops.ldso_tpu_torch.tracker_trip(p, v, d, t, r, cut, ra,
+                                                     params, True)
+    got = torch.func.vmap(one)(pts, valid, dI, T, rel, ref_aff)
+    assert launched == [S]
+    for s in range(S):
+        want = one(pts[s], valid[s], dI[s], T[s], rel[s], ref_aff[s])
+        for g, w in zip(got, want):
+            equal(g[s], w)
+    # an axis other than the first, and an unbatched level
+    got = torch.func.vmap(one, in_dims=(1, 1, None, 0, 0, 0))(
+        pts.transpose(0, 1), valid.t().contiguous(), dI[0], T, rel, ref_aff)
+    for s in range(S):
+        want = one(pts[s], valid[s], dI[0], T[s], rel[s], ref_aff[s])
+        for g, w in zip(got, want):
+            equal(g[s], w)
+
+
+def test_tracker_trip_float32_against_float64(scene4, monkeypatch):
+    """What float32 costs the trip at 640x480: the port's plain version and
+    the JAX package's, both in float32, against the port's plain version
+    in float64 on the same inputs, at every level. H agrees to 1e-6 of
+    its largest entry; b's pose entries are off by up to 5e-5 of max|b|
+    in either package, which sets _close_trip's tolerance for b."""
+    from ldso_tpu_torch.ops.preprocess import FramePyramid
+    calib, poses, pj, pt, rj, rt = scene4
+    T, aff, cut = _trip_inputs(poses, 1)
+    d = torch.float64
+    rt64 = ttr.TrackerRef(points=tuple(p.to(d) for p in rt.points),
+                          valid=rt.valid, ref_exposure=rt.ref_exposure.to(d),
+                          ref_aff=rt.ref_aff.to(d))
+    pt64 = FramePyramid(dI=tuple(x.to(d) for x in pt.dI), abs_grad=())
+    const = ttr._const
+    for lvl in range(calib.levels):
+        args = (lvl, t32(T), t32(aff), t32(1.0), t32(cut), calib, TC(),
+                lvl == 0)
+        s32, H32, b32 = ttr.tracker_trip_ref(rt, pt, *args)
+        monkeypatch.setattr(ttr, "_const", lambda v, dev, dtype=d: const(
+            v, dev, d if dtype == torch.float32 else dtype))
+        s64, H64, b64 = ttr.tracker_trip_ref(
+            rt64, pt64, lvl, *(a.to(d) for a in args[1:5]), *args[5:])
+        monkeypatch.setattr(ttr, "_const", const)
+        _, Hj, bj = _jax_trip(rj, pj, lvl, T, aff, cut, calib, lvl == 0)
+        H64, b64 = npy(H64), npy(b64)
+        for H, b, who in ((npy(H32), npy(b32), "port"), (Hj, bj, "jax")):
+            assert np.abs(H - H64).max() <= 1e-6 * np.abs(H64).max(), who
+            assert np.abs(b - b64).max() <= 5e-5 * np.abs(b64).max(), who
+        close(s32, npy(s64), 1e-5, 1e-5, f"stats level {lvl}")
