@@ -1,6 +1,7 @@
 """Time the three modes of the port against each other, in one process.
 
     python -m ldso_tpu_torch.examples.time_modes [--frames 64] [--reps 2]
+        [--async-paces PACE ...]
 
 Renders `chip_smoke.py`'s phase-3 scene (the bench trajectory, 640x480
 uint8 PlaneScene frames, `Config()` with loop closing off) and drives it
@@ -16,7 +17,12 @@ retrack-gate trips, how many frames the tracker ran on (a pipeline
 re-tracks its frames in flight after each keyframe) and the host time of
 those calls (on the card a graph replay that does not wait for the
 track), the tracker graphs captured inside the run (0: the FullSystem
-captures them when it is built), and the card's name and power limit.
+captures them when it is built), the host time of the mapping stages per
+frame (`mapping_ms_per_frame`), and the card's name and power limit.
+With `--async-paces`, each turn then feeds async one frame per PACE times
+its strict run's `ms_per_frame_wall`, for each PACE (async keeps a
+keyframe only when its mapping queue is empty, so its keyframes depend on
+that rate).
 Needs the card; the stage timers of each run go to stderr.
 
 `bench_frames` and `run_mode` are also the driver of `chip_smoke.py`'s
@@ -47,6 +53,12 @@ from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.synthetic import PlaneScene, default_calib
 from ldso_tpu_torch.system.full_system import FullSystem
 from ldso_tpu_torch.utils.device import DEFAULT_DEVICE
+
+
+# the stage timers of the mapping side: strict's, and a pipeline's mapping
+# thread's
+MAPPING_STAGES = ("keyframe", "non_keyframe", "pipe.map_kf", "pipe.map_nonkf",
+                  "pipe.map_kf_finish")
 
 
 def gpu_facts() -> dict:
@@ -179,6 +191,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
         _sync(fs.device)
         wall = time.perf_counter() - t0
         launches = dict(cuda_kernels.LAUNCHES)
+        k3_by_mode = dict(cuda_kernels.TRIP_LAUNCHES)
     streams = collections.Counter()
     for (_, s), n in k1.items():
         streams["mapping" if s == mapping else
@@ -194,11 +207,15 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                keyframes=len(kfs),
                kf_ids=kf_ids, ate_mm=ate * 1e3, ate_kf_mm=ate_kf * 1e3,
                ms_per_frame_wall=wall * 1e3 / len(images), wall_s=wall,
+               mapping_ms_per_frame=sum(
+                   fs.timer.total.get(s, 0.0) for s in MAPPING_STAGES)
+               * 1e3 / len(images),
                ms_per_frame_median=float(np.median(call_ms[kf_ids[1]:]))
                if len(kf_ids) > 1 else None,
                k1_launches=launches["distance_transform"],
                k1_streams=dict(streams),
                k3_launches=launches["tracker_trip"],
+               k3_by_mode=k3_by_mode,
                k3_expected=k3_expected(tracks, cfg, calib.levels),
                tracks=tracks["tracks"],
                rank_calls=tracks["ranks"],
@@ -215,6 +232,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--async-paces", type=float, nargs="*", default=(),
+                    help="after each turn, async fed one frame per PACE "
+                    "times the turn's strict wall ms per frame, for each "
+                    "PACE")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_modes: needs a CUDA card", file=sys.stderr)
@@ -227,6 +248,12 @@ def main(argv=None) -> int:
         for mode in (PIPELINES if r % 2 == 0 else PIPELINES[::-1]):
             run, _ = run_mode(mode, calib, poses, images, gpu)
             print(json.dumps(run), flush=True)
+            if mode == "strict":
+                strict_ms = run["ms_per_frame_wall"]
+        for pace in args.async_paces:
+            run, _ = run_mode("async", calib, poses, images, gpu,
+                              interval_s=pace * strict_ms / 1e3)
+            print(json.dumps(dict(run, pace=pace)), flush=True)
     return 0
 
 

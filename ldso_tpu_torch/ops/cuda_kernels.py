@@ -15,13 +15,15 @@ ints), so a run can show that its main path went through the kernels. A
 launch recorded into a CUDA graph runs at each replay, not at the capture:
 while a thread captures (`recording_launches`), its counts go to the
 capture's tally, and the graph adds the tally to `LAUNCHES` at every replay
-(frontend/track_graph.py).
+(frontend/track_graph.py). K3's launches are also counted by mode in
+`TRIP_LAUNCHES`, the same way.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,7 +36,6 @@ import torch
 
 from ldso_tpu_torch.config import (SCALE_A, SCALE_B, SCALE_XI_ROT,
                                    SCALE_XI_TRANS)
-from ldso_tpu_torch.frontend import affine
 from ldso_tpu_torch.ops.distance_map import MAX_K, distance_transform_ref
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,6 +49,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SMEM_LIMIT = 48 * 1024
 
 LAUNCHES = {"distance_transform": 0, "tracker_trip": 0}
+# K3's launches by mode (TRIP_MODES); each is also one of LAUNCHES's
+TRIP_LAUNCHES = {"trip": 0, "cutoff": 0, "lm": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -58,19 +61,34 @@ _n_sm = {}          # device index -> streaming multiprocessors
 
 def reset_launch_counts():
     with _count_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, TRIP_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
-def _count(name: str) -> None:
-    """One launch of `name`'s kernel by its wrapper: into LAUNCHES, or into
-    the tally of the graph capture this thread is recording."""
+def _add(key: str, n: int) -> None:
+    """n launches under `key`: a kernel's name, or "tracker_trip.<mode>"
+    for K3's count by mode."""
+    name, _, mode = key.partition(".")
+    if mode:
+        TRIP_LAUNCHES[mode] += n
+    else:
+        LAUNCHES[name] += n
+
+
+def _count(name: str, mode: str = "") -> None:
+    """One launch of `name`'s kernel (in `mode`, for K3) by its wrapper:
+    into LAUNCHES (and TRIP_LAUNCHES), or into the tally of the graph
+    capture this thread is recording."""
+    keys = (name, f"{name}.{mode}") if mode else (name,)
     tally = getattr(_recording, "tally", None)
     if tally is not None:
-        tally[name] = tally.get(name, 0) + 1
+        for key in keys:
+            tally[key] = tally.get(key, 0) + 1
         return
     with _count_lock:
-        LAUNCHES[name] += 1
+        for key in keys:
+            _add(key, 1)
 
 
 @contextlib.contextmanager
@@ -91,8 +109,8 @@ def recording_launches():
 def add_launches(tally: Dict[str, int]) -> None:
     """A replay of a captured graph: its recorded launches run again."""
     with _count_lock:
-        for name, n in tally.items():
-            LAUNCHES[name] += n
+        for key, n in tally.items():
+            _add(key, n)
 
 
 def _nvcc() -> str:
@@ -179,7 +197,8 @@ def _load():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.ldso_distance_transform.restype = ctypes.c_int
             lib.ldso_tracker_trip.argtypes = (
-                [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+                + [ctypes.c_int] * 5
                 + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                    ctypes.c_void_p])
             lib.ldso_tracker_trip.restype = ctypes.c_int
@@ -254,22 +273,63 @@ def distance_transform(occupied: torch.Tensor,
     return out
 
 
+
+
 # ---------------------------------------------------------------------------
-# K3: one trip of the coarse tracker (csrc/tracker_trip.cu)
+# K3: one trip of the coarse tracker with its LM control
+# (csrc/tracker_trip.cu)
 # ---------------------------------------------------------------------------
 
-TRIP_CHUNK = 512     # points per first-pass block (kChunk in the source)
-TRIP_SUMS = 50       # sums per partial slot (kAcc)
+# the kernel's modes: a plain trip, a trip of the cutoff adaptation, an LM
+# iteration (frontend/tracker.tracker_trip_ref, cutoff_trip_ref, lm_trip_ref)
+TRIP_MODES = ("trip", "cutoff", "lm")
 _TRIP_SCALE = ((SCALE_XI_ROT,) * 3 + (SCALE_XI_TRANS,) * 3
                + (SCALE_A, SCALE_B))
+_TRIP_PARAMS = 31
+# the operators' tensor arguments, in order: those of every mode, then the
+# mode's state; and each mode's outputs
+_TRIP_COMMON = ("points", "valid", "dI", "T", "aff", "ref_aff",
+                "ref_exposure", "new_exposure")
+_TRIP_STATE = {"trip": ("cutoff",),
+               "cutoff": ("stats", "H", "b", "cutoff_rep", "run"),
+               "lm": ("stats", "H", "b", "lam", "done", "cutoff")}
+TRIP_OUTPUTS = {"trip": ("stats", "H", "b"),
+                "cutoff": ("stats", "H", "b", "cutoff_rep"),
+                "lm": ("T", "aff", "stats", "H", "b", "lam", "done")}
+# the kernel's pointer slots (Args in the source)
+_TRIP_SLOTS = ("points", "valid", "dI", "T", "aff", "ref_aff",
+               "ref_exposure", "new_exposure", "cutoff", "stats", "H", "b",
+               "scalar", "flag", "out_stats", "out_H", "out_b", "out_scalar",
+               "out_T", "out_aff", "out_done")
+_TRIP_BOOL = ("valid", "run", "done")
+TRIP_OPS = {"trip": "tracker_trip", "cutoff": "cutoff_trip", "lm": "lm_trip"}
 
 
-def trip_params(calib, lvl: int, huber_th: float) -> Tuple[float, ...]:
-    """The kernel's launch arguments for pyramid level `lvl`: fx, fy, cx,
-    cy, K^-1 (row-major), the Huber threshold and the 8 parameter scales."""
+@functools.lru_cache(maxsize=None)
+def _params(calib, lvl: int, huber_th: float, cutoff_th: float, opt_a: bool,
+            opt_b: bool) -> Tuple[float, ...]:
     return tuple(float(v) for v in (
         calib.fx[lvl], calib.fy[lvl], calib.cx[lvl], calib.cy[lvl],
-        *calib.Ki(lvl).reshape(-1).tolist(), huber_th, *_TRIP_SCALE))
+        *calib.Ki(lvl).reshape(-1).tolist(), huber_th, *_TRIP_SCALE,
+        cutoff_th, *(1.0,) * 6, float(opt_a), float(opt_b)))
+
+
+def trip_params(calib, lvl: int, cfg) -> Tuple[float, ...]:
+    """The kernel's launch arguments for pyramid level `lvl`: fx, fy, cx,
+    cy, K^-1 (row-major), the Huber threshold, the 8 parameter scales,
+    coarse_cutoff_th and the 8 flags of the parameters the LM solves for
+    (a and b by affine_opt_mode_a/b >= 0, as `_solve_inc`)."""
+    return _params(calib, lvl, float(cfg.huber_th),
+                   float(cfg.coarse_cutoff_th), cfg.affine_opt_mode_a >= 0,
+                   cfg.affine_opt_mode_b >= 0)
+
+
+def _level(ref, pyr_new, lvl: int, T, aff, new_exposure):
+    """The operators' leading arguments for one level."""
+    if T.device.type != "cuda":
+        raise ValueError(f"tracker trip: unsupported device {T.device}")
+    return (ref.points[lvl], ref.valid[lvl], pyr_new.dI[lvl], T, aff,
+            ref.ref_aff, ref.ref_exposure, new_exposure)
 
 
 def tracker_trip(ref, pyr_new, lvl: int, T, aff_new, new_exposure, cutoff,
@@ -279,8 +339,8 @@ def tracker_trip(ref, pyr_new, lvl: int, T, aff_new, new_exposure, cutoff,
     function). T (B,4,4), aff_new (B,2), cutoff (B,). Returns (stats (B,6)
     = [E, numTerms, flowT, 0, flowRT, satRatio], H (B,8,8), b (B,8)).
 
-    CPU tensors: the plain version. CUDA tensors: the hand-written kernel
-    of csrc/tracker_trip.cu on the current stream, through the operator
+    CPU tensors: the plain version. CUDA tensors: K3 (csrc/tracker_trip.cu)
+    in its trip mode on the current stream, through the operator
     `ldso_tpu_torch::tracker_trip`, whose vmap rule launches it once with
     the vmapped axis as its sequence axis. It reads nothing back and
     allocates with torch.empty only, so a CUDA graph can capture it."""
@@ -288,92 +348,185 @@ def tracker_trip(ref, pyr_new, lvl: int, T, aff_new, new_exposure, cutoff,
         from ldso_tpu_torch.frontend.tracker import tracker_trip_ref
         return tracker_trip_ref(ref, pyr_new, lvl, T, aff_new, new_exposure,
                                 cutoff, calib, cfg, compute_flow)
-    if T.device.type != "cuda":
-        raise ValueError(f"tracker_trip: unsupported device {T.device}")
-    rel = affine.from_to(ref.ref_exposure, new_exposure, ref.ref_aff, aff_new)
     return torch.ops.ldso_tpu_torch.tracker_trip(
-        ref.points[lvl], ref.valid[lvl], pyr_new.dI[lvl], T, rel, cutoff,
-        ref.ref_aff, trip_params(calib, lvl, cfg.huber_th), compute_flow)
+        *_level(ref, pyr_new, lvl, T, aff_new, new_exposure), cutoff,
+        trip_params(calib, lvl, cfg), compute_flow)
 
 
-def _trip_launch(points, valid, dI, T, rel, cutoff, ref_aff,
+def cutoff_trip(ref, pyr_new, lvl: int, T, aff, new_exposure, stats, H, b,
+                cutoff_rep, run, calib, cfg, compute_flow: bool = True):
+    """One trip of `_level_block`'s cutoff adaptation
+    (frontend/tracker.cutoff_trip_ref is the function): a member that is
+    `run`, more than 60% saturated and under the cutoff limit doubles
+    cutoff_rep and takes the trip's stats, H and b at coarse_cutoff_th
+    times it; the others keep theirs. Returns (stats, H, b, cutoff_rep).
+
+    CPU tensors: the plain version. CUDA tensors: K3 in its cutoff mode,
+    one launch, through the operator `ldso_tpu_torch::cutoff_trip` (a vmap
+    rule as tracker_trip's)."""
+    if T.device.type == "cpu":
+        from ldso_tpu_torch.frontend.tracker import cutoff_trip_ref
+        return cutoff_trip_ref(ref, pyr_new, lvl, T, aff, new_exposure, stats,
+                               H, b, cutoff_rep, run, calib, cfg,
+                               compute_flow)
+    return torch.ops.ldso_tpu_torch.cutoff_trip(
+        *_level(ref, pyr_new, lvl, T, aff, new_exposure), stats, H, b,
+        cutoff_rep, run, trip_params(calib, lvl, cfg), compute_flow)
+
+
+def lm_trip(ref, pyr_new, lvl: int, T, aff, new_exposure, stats, H, b, lam,
+            done, cutoff, calib, cfg, compute_flow: bool = True):
+    """One LM iteration of `_level_block` (frontend/tracker.lm_trip_ref is
+    the function): for a member that is not done, the damped step from H,
+    b and lam, the trip at the new pose and the accept test; a done member
+    keeps its state. Returns (T, aff, stats, H, b, lam, done).
+
+    CPU tensors: the plain version. CUDA tensors: K3 in its lm mode, one
+    launch, through the operator `ldso_tpu_torch::lm_trip` (a vmap rule as
+    tracker_trip's)."""
+    if T.device.type == "cpu":
+        from ldso_tpu_torch.frontend.tracker import lm_trip_ref
+        return lm_trip_ref(ref, pyr_new, lvl, T, aff, new_exposure, stats, H,
+                           b, lam, done, cutoff, calib, cfg, compute_flow)
+    return torch.ops.ldso_tpu_torch.lm_trip(
+        *_level(ref, pyr_new, lvl, T, aff, new_exposure), stats, H, b, lam,
+        done, cutoff, trip_params(calib, lvl, cfg), compute_flow)
+
+
+def _trip_launch(mode: str, x: Dict[str, torch.Tensor],
                  params: Sequence[float], compute_flow: bool):
-    """Launch K3 on S sequences: points (S,N,4), valid (S,N) bool, dI
-    (S,h,w,3), T (S,B,4,4), rel (S,B,2), cutoff (S,B), ref_aff (S,2).
-    Returns (stats (S,B,6), H (S,B,8,8), b (S,B,8))."""
-    S, N = points.shape[0], points.shape[1]
-    B = T.shape[1]
-    h, w = dI.shape[1], dI.shape[2]
-    want = (("points", points, (S, N, 4), torch.float32),
-            ("valid", valid, (S, N), torch.bool),
-            ("dI", dI, (S, h, w, 3), torch.float32),
-            ("T", T, (S, B, 4, 4), torch.float32),
-            ("rel", rel, (S, B, 2), torch.float32),
-            ("cutoff", cutoff, (S, B), torch.float32),
-            ("ref_aff", ref_aff, (S, 2), torch.float32))
-    dev = points.device
-    for name, x, shape, dtype in want:
-        if x.device != dev or dev.type != "cuda":
-            raise ValueError(f"tracker_trip: {name} on {x.device}; every "
-                             f"input must be on one CUDA device")
-        if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(f"tracker_trip: {name} is {tuple(x.shape)} "
-                             f"{x.dtype}, expected {shape} {dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"tracker_trip: {name} must be contiguous")
-    if N < 1 or min(h, w) < 7 or len(params) != 22:
-        raise ValueError(f"tracker_trip: {N} points on a {h}x{w} level with "
+    """Launch K3 in `mode` on S sequences. x holds the mode's tensors by
+    name (_TRIP_COMMON, then _TRIP_STATE[mode]), each with a leading
+    sequence axis: points (S,N,4), valid (S,N) bool, dI (S,h,w,3), T
+    (S,B,4,4), aff (S,B,2), ref_aff (S,2), ref_exposure and new_exposure
+    (S,), cutoff, cutoff_rep, lam (S,B), run, done (S,B) bool, stats
+    (S,B,6), H (S,B,8,8), b (S,B,8). Returns TRIP_OUTPUTS[mode], new
+    tensors with the same leading axes."""
+    S, N = x["points"].shape[0], x["points"].shape[1]
+    B = x["T"].shape[1]
+    h, w = x["dI"].shape[1], x["dI"].shape[2]
+    shapes = dict(points=(S, N, 4), valid=(S, N), dI=(S, h, w, 3),
+                  T=(S, B, 4, 4), aff=(S, B, 2), ref_aff=(S, 2),
+                  ref_exposure=(S,), new_exposure=(S,), cutoff=(S, B),
+                  stats=(S, B, 6), H=(S, B, 8, 8), b=(S, B, 8),
+                  cutoff_rep=(S, B), lam=(S, B), run=(S, B), done=(S, B))
+    dev = x["points"].device
+    for name in _TRIP_COMMON + _TRIP_STATE[mode]:
+        t = x[name]
+        dtype = torch.bool if name in _TRIP_BOOL else torch.float32
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"tracker trip ({mode}): {name} on {t.device}; "
+                             f"every input must be on one CUDA device")
+        if tuple(t.shape) != shapes[name] or t.dtype != dtype:
+            raise ValueError(f"tracker trip ({mode}): {name} is "
+                             f"{tuple(t.shape)} {t.dtype}, expected "
+                             f"{shapes[name]} {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"tracker trip ({mode}): {name} must be "
+                             f"contiguous")
+    if N < 1 or min(h, w) < 7 or len(params) != _TRIP_PARAMS:
+        raise ValueError(f"tracker trip: {N} points on a {h}x{w} level with "
                          f"{len(params)} parameters (need >= 1 point, a "
-                         f"level of at least 7x7 and 22 parameters)")
+                         f"level of at least 7x7 and {_TRIP_PARAMS} "
+                         f"parameters)")
+    if x["points"].data_ptr() % 16:
+        raise ValueError("tracker trip: points must be 16-byte aligned")
     lib = _load()
-    n_chunks = -(-N // TRIP_CHUNK)
     f32 = dict(dtype=torch.float32, device=dev)
-    partial = torch.empty(S * B * n_chunks * TRIP_SUMS, **f32)
-    stats = torch.empty((S, B, 6), **f32)
-    H = torch.empty((S, B, 8, 8), **f32)
-    b = torch.empty((S, B, 8), **f32)
+    out = dict(stats=torch.empty((S, B, 6), **f32),
+               H=torch.empty((S, B, 8, 8), **f32),
+               b=torch.empty((S, B, 8), **f32))
+    if mode == "cutoff":
+        out["cutoff_rep"] = torch.empty((S, B), **f32)
+    elif mode == "lm":
+        out.update(T=torch.empty((S, B, 4, 4), **f32),
+                   aff=torch.empty((S, B, 2), **f32),
+                   lam=torch.empty((S, B), **f32),
+                   done=torch.empty((S, B), dtype=torch.bool, device=dev))
+    slot = dict(x)
+    slot["scalar"] = x.get("cutoff_rep", x.get("lam"))
+    slot["flag"] = x.get("run", x.get("done"))
+    for name, t in out.items():
+        key = {"cutoff_rep": "scalar", "lam": "scalar"}.get(name, name)
+        slot["out_" + key] = t
+    ptrs = (ctypes.c_void_p * len(_TRIP_SLOTS))(
+        *(slot[k].data_ptr() if slot.get(k) is not None else None
+          for k in _TRIP_SLOTS))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ldso_tracker_trip(
-            points.data_ptr(), valid.data_ptr(), dI.data_ptr(), T.data_ptr(),
-            rel.data_ptr(), cutoff.data_ptr(), ref_aff.data_ptr(),
-            partial.data_ptr(), stats.data_ptr(), H.data_ptr(), b.data_ptr(),
-            S, B, N, w, h, n_chunks, (ctypes.c_float * 22)(*params),
-            int(bool(compute_flow)), stream)
+            TRIP_MODES.index(mode), ptrs, S, B, N, w, h,
+            (ctypes.c_float * _TRIP_PARAMS)(*params), int(bool(compute_flow)),
+            stream)
     if err != 0:
-        raise RuntimeError(f"tracker_trip kernel launch failed: CUDA error "
-                           f"{err}")
-    _count("tracker_trip")
-    return stats, H, b
+        raise RuntimeError(f"tracker trip ({mode}) kernel launch failed: "
+                           f"CUDA error {err}")
+    _count("tracker_trip", mode)
+    return tuple(out[name] for name in TRIP_OUTPUTS[mode])
+
+
+def _one_sequence(mode: str, tensors, params, compute_flow):
+    """An operator's call on one sequence: a sequence axis of 1."""
+    names = _TRIP_COMMON + _TRIP_STATE[mode]
+    x = {n: t.contiguous()[None] for n, t in zip(names, tensors)}
+    return tuple(o[0] for o in _trip_launch(mode, x, params, compute_flow))
+
+
+def _vmap_rule(mode: str):
+    """vmap over a K3 operator (parallel/replay.make_batched_tracker): the
+    vmapped axis becomes the kernel's sequence axis, one launch for all of
+    it. An input without that axis is repeated along it."""
+    names = _TRIP_COMMON + _TRIP_STATE[mode]
+
+    def rule(info, in_dims, *args):
+        S = info.batch_size
+        x = {}
+        for name, t, d in zip(names, args, in_dims):
+            t = (t.expand((S,) + tuple(t.shape)) if d is None
+                 else t.movedim(d, 0))
+            x[name] = t.contiguous()
+        params, compute_flow = args[len(names):]
+        out = _trip_launch(mode, x, params, compute_flow)
+        return out, (0,) * len(out)
+    return rule
+
+
+_T = torch.Tensor
 
 
 @torch.library.custom_op("ldso_tpu_torch::tracker_trip", mutates_args=())
-def _trip_op(points: torch.Tensor, valid: torch.Tensor, dI: torch.Tensor,
-             T: torch.Tensor, rel: torch.Tensor, cutoff: torch.Tensor,
-             ref_aff: torch.Tensor, params: Sequence[float],
-             compute_flow: bool
-             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K3 on one sequence (points (N,4), T (B,4,4), ...): a sequence axis
-    of 1. An operator so that vmap reaches the kernel through its rule."""
-    stats, H, b = _trip_launch(
-        points[None], valid[None], dI[None], T[None], rel[None],
-        cutoff[None], ref_aff[None], params, compute_flow)
-    return stats[0], H[0], b[0]
+def _trip_op(points: _T, valid: _T, dI: _T, T: _T, aff: _T, ref_aff: _T,
+             ref_exposure: _T, new_exposure: _T, cutoff: _T,
+             params: Sequence[float], compute_flow: bool
+             ) -> Tuple[_T, _T, _T]:
+    """K3's trip mode on one sequence (points (N,4), T (B,4,4), ...). An
+    operator so that vmap reaches the kernel through its rule."""
+    return _one_sequence("trip", (points, valid, dI, T, aff, ref_aff,
+                                  ref_exposure, new_exposure, cutoff),
+                         params, compute_flow)
 
 
-def _trip_vmap(info, in_dims, points, valid, dI, T, rel, cutoff, ref_aff,
-               params, compute_flow):
-    """vmap over K3 (parallel/replay.make_batched_tracker): the vmapped
-    axis becomes the kernel's sequence axis, one launch for all of it. An
-    input without that axis is repeated along it."""
-    S = info.batch_size
-
-    def lead(x, d):
-        x = x.expand((S,) + tuple(x.shape)) if d is None else x.movedim(d, 0)
-        return x.contiguous()
-    args = [lead(x, d) for x, d in
-            zip((points, valid, dI, T, rel, cutoff, ref_aff), in_dims[:7])]
-    return _trip_launch(*args, params, compute_flow), (0, 0, 0)
+@torch.library.custom_op("ldso_tpu_torch::cutoff_trip", mutates_args=())
+def _cutoff_op(points: _T, valid: _T, dI: _T, T: _T, aff: _T, ref_aff: _T,
+               ref_exposure: _T, new_exposure: _T, stats: _T, H: _T, b: _T,
+               cutoff_rep: _T, run: _T, params: Sequence[float],
+               compute_flow: bool) -> Tuple[_T, _T, _T, _T]:
+    """K3's cutoff mode on one sequence."""
+    return _one_sequence("cutoff", (points, valid, dI, T, aff, ref_aff,
+                                    ref_exposure, new_exposure, stats, H, b,
+                                    cutoff_rep, run), params, compute_flow)
 
 
-torch.library.register_vmap("ldso_tpu_torch::tracker_trip", _trip_vmap)
+@torch.library.custom_op("ldso_tpu_torch::lm_trip", mutates_args=())
+def _lm_op(points: _T, valid: _T, dI: _T, T: _T, aff: _T, ref_aff: _T,
+           ref_exposure: _T, new_exposure: _T, stats: _T, H: _T, b: _T,
+           lam: _T, done: _T, cutoff: _T, params: Sequence[float],
+           compute_flow: bool) -> Tuple[_T, _T, _T, _T, _T, _T, _T]:
+    """K3's lm mode on one sequence."""
+    return _one_sequence("lm", (points, valid, dI, T, aff, ref_aff,
+                                ref_exposure, new_exposure, stats, H, b, lam,
+                                done, cutoff), params, compute_flow)
+
+
+for _mode, _name in TRIP_OPS.items():
+    torch.library.register_vmap(f"ldso_tpu_torch::{_name}", _vmap_rule(_mode))

@@ -566,34 +566,99 @@ def test_trip_kernel_repeats_bitwise(cuda):
             assert _same(a, b)
 
 
-def test_trip_kernel_under_vmap_is_one_launch(cuda):
-    """The operator under torch.func.vmap launches K3 once with the vmapped
-    axis as its sequence axis, and each sequence gets the bits of its own
-    single launch."""
-    from ldso_tpu_torch.frontend import affine
+@pytest.mark.parametrize("mode", ["trip", "cutoff", "lm"])
+def test_trip_kernel_under_vmap_is_one_launch(cuda, mode):
+    """Each K3 operator under torch.func.vmap launches the kernel once with
+    the vmapped axis as its sequence axis, and each sequence gets the bits
+    of its own single launch."""
+    from ldso_tpu_torch.frontend import tracker
     from ldso_tpu_torch.ops import cuda_kernels
+    import torch_kernel_checks as kc
     sc = _trip_scene()
-    ref, calib = sc["ref"], sc["calib"]
+    ref, calib, cfg = sc["ref"], sc["calib"], sc["cfg"]
     S, lvl = 3, 1
     T, aff = _trip_batch(sc["T"], S)
-    T = T[:, None]                                       # (S, B=1, 4, 4)
-    rel = affine.from_to(ref.ref_exposure, torch.ones((), device=cuda),
-                         ref.ref_aff, aff)[:, None]
+    T, aff = T[:, None], aff[:, None].contiguous()       # (S, B=1, ...)
+    expo = torch.ones((), device=cuda)
     cut = torch.full((1,), 20.0, device=cuda)
     dI = torch.stack([sc["pyr"].dI[lvl]] * S)
     dI[1] = dI[1] * 1.1
-    params = cuda_kernels.trip_params(calib, lvl, sc["cfg"].huber_th)
+    params = cuda_kernels.trip_params(calib, lvl, cfg)
+    states = []
+    for s_ in range(S):
+        st = kc.mode_state(tracker.tracker_trip_ref, ref, sc["pyr"], lvl,
+                           T[s_], aff[s_], expo, cut, calib, cfg, False)
+        states.append(st)
+    stats, H, b, rep, run, lam, done = (torch.stack(x) for x in zip(*states))
+    op = getattr(torch.ops.ldso_tpu_torch, cuda_kernels.TRIP_OPS[mode])
 
-    def one(d, t, r):
-        return torch.ops.ldso_tpu_torch.tracker_trip(
-            ref.points[lvl], ref.valid[lvl], d, t, r, cut, ref.ref_aff,
-            params, False)
+    def one(d, t, a, st, h, bb, sc_, fl):
+        state = {"trip": (cut,), "cutoff": (st, h, bb, sc_, fl),
+                 "lm": (st, h, bb, sc_, fl, cut)}[mode]
+        return op(ref.points[lvl], ref.valid[lvl], d, t, a, ref.ref_aff,
+                  ref.ref_exposure, expo, *state, params, False)
+    scal = rep if mode == "cutoff" else lam
+    flag = run if mode == "cutoff" else done
+    seq = (dI, T, aff, stats, H, b, scal, flag)
     before = cuda_kernels.LAUNCHES["tracker_trip"]
-    got = torch.func.vmap(one)(dI, T, rel)
+    got = torch.func.vmap(one)(*seq)
     assert cuda_kernels.LAUNCHES["tracker_trip"] == before + 1
-    for s in range(S):
-        for g, w in zip(got, one(dI[s], T[s], rel[s])):
-            assert _same(g[s], w)
+    for s_ in range(S):
+        for g, w in zip(got, one(*(x[s_] for x in seq))):
+            assert _same(g[s_], w)
+
+
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_trip_modes_match_plain(cuda, lvl):
+    """K3's cutoff and lm modes against their plain versions at this
+    level, batch 1 and 8, on the scene and on the edge cases, from a state
+    with live, done and not-run members (torch_kernel_checks.mode_errs:
+    idle members bit for bit, the step within the solve's rounding, the
+    trip at the kernel's new pose within the trip's tolerances, the accept
+    and done decisions equal unless their margins are within rounding);
+    one launch per call."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    import torch_kernel_checks as kc
+    sc = _trip_scene()
+    expo = torch.ones((), device=cuda)
+    for case in kc.TRIP_CASES:
+        for B in (1, 8):
+            p, T, aff, cut, plain = kc.trip_case(
+                case, sc["pyr"], lvl, *_trip_batch(sc["T"], B), sc["cfg"])
+            before = cuda_kernels.LAUNCHES["tracker_trip"]
+            err, share, faults, _ = kc.mode_errs(
+                cuda_kernels.cutoff_trip, cuda_kernels.lm_trip, plain,
+                sc["ref"], p, lvl, T, aff, expo, cut, sc["calib"], sc["cfg"],
+                lvl == 0)
+            # the cutoff call, the lm call and its candidate
+            assert cuda_kernels.LAUNCHES["tracker_trip"] == before + 3
+            assert not faults and share <= 1.0, (case, B, err, faults)
+
+
+def test_trip_modes_repeat_bitwise(cuda):
+    """20 launches of the cutoff and of the lm mode on the same inputs give
+    the same bits, idle members included."""
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.ops import cuda_kernels
+    import torch_kernel_checks as kc
+    sc = _trip_scene()
+    calib, cfg = sc["calib"], sc["cfg"]
+    T, aff = _trip_batch(sc["T"], 8)
+    expo = torch.ones((), device=cuda)
+    cut = torch.full((8,), 20.0, device=cuda)
+    stats, H, b, rep, run, lam, done = kc.mode_state(
+        tracker.tracker_trip_ref, sc["ref"], sc["pyr"], 0, T, aff, expo, cut,
+        calib, cfg, True)
+    for call in (lambda: cuda_kernels.cutoff_trip(
+            sc["ref"], sc["pyr"], 0, T, aff, expo, stats, H, b, rep, run,
+            calib, cfg, True),
+            lambda: cuda_kernels.lm_trip(
+                sc["ref"], sc["pyr"], 0, T, aff, expo, stats, H, b, lam, done,
+                cut, calib, cfg, True)):
+        first = [x.clone() for x in call()]
+        for _ in range(19):
+            for a, b_ in zip(first, call()):
+                assert _same(a, b_)
 
 
 def test_batched_replay_runs_the_kernel(cuda):

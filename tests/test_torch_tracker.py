@@ -460,10 +460,12 @@ def test_tracker_trip_members_are_independent(scene4):
 
 
 def test_track_batch_runs_every_trip_through_the_wrapper(scene4, monkeypatch):
-    """_track_batch calls the K3 wrapper trips_per_track times (316 at
-    640x480: per level 7 cutoff trips and coarse_lm_iterations LM trips,
-    twice with the level repeat) and rank_hypotheses once, and on the CPU
-    its results are those of the plain version called directly."""
+    """_track_batch calls the K3 wrappers trips_per_track times (316 at
+    640x480: per level 1 trip, 6 cutoff trips and coarse_lm_iterations LM
+    trips, twice with the level repeat: 8 tracker_trip, 48 cutoff_trip and
+    260 lm_trip calls, each one launch on the card) and rank_hypotheses
+    calls tracker_trip once, and on the CPU its results are those of the
+    plain versions called directly, bit for bit."""
     from ldso_tpu_torch.ops import cuda_kernels
     calib, poses, pj, pt, rj, rt = scene4
     T, aff, _ = _trip_inputs(poses, 2)
@@ -471,23 +473,39 @@ def test_track_batch_runs_every_trip_through_the_wrapper(scene4, monkeypatch):
     args = (rt, pt, t32(T), t32([0, 0]), t32(1.0), t32(np.full(L, 1e9)),
             calib, TC(), L - 1)
     calls = []
-    wrapper = cuda_kernels.tracker_trip
+    names = ("tracker_trip", "cutoff_trip", "lm_trip")
+    wrappers = {n: getattr(cuda_kernels, n) for n in names}
 
-    def counted(*a, **k):
-        calls.append(a[2])
-        return wrapper(*a, **k)
-    monkeypatch.setattr(cuda_kernels, "tracker_trip", counted)
+    def counted(name):
+        def call(*a, **k):
+            calls.append((name, a[2]))
+            return wrappers[name](*a, **k)
+        return call
+    for n in names:
+        monkeypatch.setattr(cuda_kernels, n, counted(n))
     got = ttr._track_batch(*args)
     rank = ttr.rank_hypotheses(rt, pt, t32(T), t32([0, 0]), t32(1.0), calib,
                                TC(), L - 1)
     assert ttr.trips_per_track(TC(), L, L - 1) == 316
-    assert len(calls) == 316 + 1 and calls[-1] == L - 1
-    assert sorted(set(calls)) == list(range(L))
+    by_mode = {n: sum(1 for c in calls if c[0] == n) for n in names}
+    assert by_mode == {"tracker_trip": 8 + 1, "cutoff_trip": 48,
+                       "lm_trip": 260}
+    assert len(calls) == 316 + 1 and calls[-1] == ("tracker_trip", L - 1)
+    assert sorted({lvl for _, lvl in calls}) == list(range(L))
     monkeypatch.setattr(cuda_kernels, "tracker_trip", ttr.tracker_trip_ref)
+    monkeypatch.setattr(cuda_kernels, "cutoff_trip", ttr.cutoff_trip_ref)
+    monkeypatch.setattr(cuda_kernels, "lm_trip", ttr.lm_trip_ref)
     for g, w in zip(list(got) + [rank], list(ttr._track_batch(*args))
                     + [ttr.rank_hypotheses(rt, pt, t32(T), t32([0, 0]),
                                            t32(1.0), calib, TC(), L - 1)]):
-        equal(g, w)
+        assert _bits(g, w)
+
+
+def _bits(a, b):
+    """Bitwise equality of two tensors, NaN payloads included."""
+    if a.dtype == torch.bool:
+        return torch.equal(a, b)
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 class _FakeGraph:
@@ -563,50 +581,92 @@ def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
     assert cuda_kernels.LAUNCHES["tracker_trip"] == 1
 
 
+def test_trip_launches_are_counted_by_mode():
+    """A K3 launch in a mode counts once in LAUNCHES["tracker_trip"] and
+    once in TRIP_LAUNCHES[mode], directly and through a graph's tally at
+    each replay."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    cuda_kernels.reset_launch_counts()
+    cuda_kernels._count("tracker_trip", "lm")
+    with cuda_kernels.recording_launches() as tally:
+        cuda_kernels._count("tracker_trip", "cutoff")
+        cuda_kernels._count("tracker_trip", "trip")
+    assert tally == {"tracker_trip": 2, "tracker_trip.cutoff": 1,
+                     "tracker_trip.trip": 1}
+    assert cuda_kernels.LAUNCHES["tracker_trip"] == 1
+    assert cuda_kernels.TRIP_LAUNCHES == {"trip": 0, "cutoff": 0, "lm": 1}
+    for _ in range(2):
+        cuda_kernels.add_launches(tally)
+    assert cuda_kernels.LAUNCHES["tracker_trip"] == 5
+    assert cuda_kernels.TRIP_LAUNCHES == {"trip": 2, "cutoff": 2, "lm": 1}
+    cuda_kernels.reset_launch_counts()
+    assert cuda_kernels.TRIP_LAUNCHES == {"trip": 0, "cutoff": 0, "lm": 0}
+
+
+@pytest.mark.parametrize("mode", ["trip", "cutoff", "lm"])
 def test_tracker_trip_vmap_rule_launches_once_for_the_vmapped_axis(
-        monkeypatch):
-    """torch.func.vmap over the K3 operator (as parallel/replay's batched
-    tracker runs it) reaches one launch with the vmapped axis as the
+        monkeypatch, mode):
+    """torch.func.vmap over each K3 operator (as parallel/replay's batched
+    tracker runs them) reaches one launch with the vmapped axis as the
     sequence axis, inputs without that axis repeated along it. The
     launcher is faked on the CPU by one that computes, per sequence and
-    member, sums that depend on every input."""
+    member, outputs that depend on every input."""
     from ldso_tpu_torch.ops import cuda_kernels
     launched = []
 
-    def fake(points, valid, dI, T, rel, cutoff, ref_aff, params, flow):
-        launched.append(points.shape[0])
-        S, B = T.shape[:2]
-        base = (points.sum((1, 2)) * valid.sum(1) + dI.sum((1, 2, 3))
-                + ref_aff[:, 1])[:, None]
-        e = base + T.sum((2, 3)) + rel.sum(2) + cutoff + params[0] + flow
-        stats = e[..., None].expand(S, B, 6).clone()
-        return stats, T.repeat(1, 1, 2, 2) * e[..., None, None], rel.repeat(
-            1, 1, 4) * e[..., None]
+    def fake(mode_, x, params, flow):
+        launched.append((mode_, x["points"].shape[0]))
+        S, B = x["T"].shape[:2]
+        e = ((x["points"].sum((1, 2)) * x["valid"].sum(1)
+              + x["dI"].sum((1, 2, 3)) + x["ref_aff"][:, 1]
+              + x["ref_exposure"] + 2.0 * x["new_exposure"])[:, None]
+             + x["T"].sum((2, 3)) + x["aff"].sum(2) + params[0] + flow)
+        for name, t in x.items():
+            if name in ("cutoff", "cutoff_rep", "lam", "run", "done"):
+                e = e + t
+            elif name in ("stats", "H", "b"):
+                e = e + t.reshape(S, B, -1).sum(2)
+        shapes = dict(T=(4, 4), aff=(2,), stats=(6,), H=(8, 8), b=(8,),
+                      cutoff_rep=(), lam=(), done=())
+        out = []
+        for k, name in enumerate(cuda_kernels.TRIP_OUTPUTS[mode_]):
+            v = (e + k).reshape((S, B) + (1,) * len(shapes[name]))
+            v = v.expand((S, B) + shapes[name]).clone()
+            out.append(v > 20.0 if name == "done" else v)
+        return tuple(out)
     monkeypatch.setattr(cuda_kernels, "_trip_launch", fake)
     rng = np.random.RandomState(3)
     S, N, B = 3, 10, 2
     pts, dI = t32(rng.rand(S, N, 4)), t32(rng.rand(S, 9, 8, 3))
     valid = torch.from_numpy(rng.rand(S, N) > 0.3)
-    T, rel = t32(rng.rand(S, B, 4, 4)), t32(rng.rand(S, B, 2))
-    cut, ref_aff = t32(rng.rand(B)), t32(rng.rand(S, 2))
-    params = [2.0] + [0.0] * 21
+    T, aff = t32(rng.rand(S, B, 4, 4)), t32(rng.rand(S, B, 2))
+    ref_aff, expo = t32(rng.rand(S, 2)), t32(rng.rand(S))
+    stats, H, b = t32(rng.rand(S, B, 6)), t32(rng.rand(S, B, 8, 8)), \
+        t32(rng.rand(S, B, 8))
+    scal, flag = t32(rng.rand(S, B)), torch.from_numpy(rng.rand(S, B) > 0.5)
+    cut = t32(rng.rand(B))                  # no sequence axis
+    params = [2.0] + [0.0] * 30
+    op = getattr(torch.ops.ldso_tpu_torch, cuda_kernels.TRIP_OPS[mode])
+    ref_expo = t32(0.7)                     # no sequence axis
 
-    def one(p, v, d, t, r, ra):
-        return torch.ops.ldso_tpu_torch.tracker_trip(p, v, d, t, r, cut, ra,
-                                                     params, True)
-    got = torch.func.vmap(one)(pts, valid, dI, T, rel, ref_aff)
-    assert launched == [S]
-    for s in range(S):
-        want = one(pts[s], valid[s], dI[s], T[s], rel[s], ref_aff[s])
+    def one(p, v, d, t, a, ra, e, st, h, bb, sc, fl):
+        state = {"trip": (cut,), "cutoff": (st, h, bb, sc, fl),
+                 "lm": (st, h, bb, sc, fl, cut)}[mode]
+        return op(p, v, d, t, a, ra, ref_expo, e, *state, params, True)
+    seq = (pts, valid, dI, T, aff, ref_aff, expo, stats, H, b, scal, flag)
+    got = torch.func.vmap(one)(*seq)
+    assert launched == [(mode, S)]
+    for s_ in range(S):
+        want = one(*(x[s_] for x in seq))
         for g, w in zip(got, want):
-            equal(g[s], w)
+            equal(g[s_], w)
     # an axis other than the first, and an unbatched level
-    got = torch.func.vmap(one, in_dims=(1, 1, None, 0, 0, 0))(
-        pts.transpose(0, 1), valid.t().contiguous(), dI[0], T, rel, ref_aff)
-    for s in range(S):
-        want = one(pts[s], valid[s], dI[0], T[s], rel[s], ref_aff[s])
+    moved = (pts.transpose(0, 1), valid.t().contiguous(), dI[0]) + seq[3:]
+    got = torch.func.vmap(one, in_dims=(1, 1, None) + (0,) * 9)(*moved)
+    for s_ in range(S):
+        want = one(pts[s_], valid[s_], dI[0], *(x[s_] for x in seq[3:]))
         for g, w in zip(got, want):
-            equal(g[s], w)
+            equal(g[s_], w)
 
 
 def test_tracker_trip_float32_against_float64(scene4, monkeypatch):
@@ -639,3 +699,382 @@ def test_tracker_trip_float32_against_float64(scene4, monkeypatch):
             assert np.abs(H - H64).max() <= 1e-6 * np.abs(H64).max(), who
             assert np.abs(b - b64).max() <= 5e-5 * np.abs(b64).max(), who
         close(s32, npy(s64), 1e-5, 1e-5, f"stats level {lvl}")
+
+
+# ---------------------------------------------------------------------------
+# K3's cutoff and lm modes: their plain versions against the JAX package's
+# loop bodies, the level block against JAX's, idle members, and the checks
+# that hold the kernel to the plain versions
+# ---------------------------------------------------------------------------
+
+AFFINE_MODES = [dict(), dict(affine_opt_mode_a=-1),
+                dict(affine_opt_mode_b=-1),
+                dict(affine_opt_mode_a=-1, affine_opt_mode_b=-1)]
+
+
+def _jax_lm_iteration(rj, pj, lvl, T, aff, stats, H, b, lam, cut, calib,
+                      jc, flow):
+    """One iteration of the JAX package's lm_body for one member, from its
+    _solve_inc, lie.se3_exp, _calc_res and _calc_gs: (inc, T_new, aff_new,
+    stats_new, H_new, b_new, accept)."""
+    from ldso_tpu.math import lie as jlie
+    inc = np.asarray(jtr._solve_inc(j32(H), j32(b), jnp.float32(lam), jc))
+    lim = np.float32(1e-3)
+    extrap = (np.sqrt(np.sqrt(lim / np.maximum(np.float32(lam), 1e-12)))
+              if lam < lim else np.float32(1.0))
+    inc = (inc * extrap).astype(np.float32)
+    scale = npy(ttr._scale_vec("cpu"))
+    xi = inc * scale
+    xi = np.where(np.isfinite(xi), xi, 0.0).astype(np.float32)
+    T_new = np.asarray(jlie.se3_exp(j32(xi[:6]))) @ np.asarray(T, np.float32)
+    aff_new = (np.asarray(aff, np.float32) + xi[6:8]).astype(np.float32)
+    bufs, st = jtr._calc_res(rj, pj, lvl, j32(T_new), j32(aff_new),
+                             jnp.float32(1.0), jnp.float32(cut), calib, jc,
+                             compute_flow=flow)
+    Hn, bn, _ = jtr._calc_gs(bufs, lvl, rj, j32(aff_new), jnp.float32(1.0),
+                             calib)
+    st, Hn, bn = np.asarray(st), np.asarray(Hn), np.asarray(bn)
+    stats = np.asarray(stats)
+    accept = (st[0] / max(st[1], 1.0)) < (stats[0] / max(stats[1], 1.0))
+    return inc, T_new.astype(np.float32), aff_new, st, Hn, bn, accept
+
+
+@pytest.mark.parametrize("affine", range(len(AFFINE_MODES)))
+@pytest.mark.parametrize("lvl", [0, 2])
+def test_lm_trip_ref_matches_jax(scene4, lvl, affine):
+    """lm_trip_ref (the plain version of K3's lm mode) against one
+    iteration composed from the JAX package's _solve_inc, se3_exp,
+    _calc_res and _calc_gs, member by member, for every set of affine
+    parameters the LM solves for, batch 8 with two members done: the
+    step (T, aff) within the solve's rounding (torch_kernel_checks'
+    _step_tol), the new stats, H and b within the trip's tolerances at the
+    port's new pose, the same accept decisions unless the energies are
+    within ACCEPT_RTOL, lam exactly, done equal, done members unchanged."""
+    calib, poses, pj, pt, rj, rt = scene4
+    kc = kernel_checks
+    kw = AFFINE_MODES[affine]
+    cfg, jc = TC(**kw), JC(**kw)
+    T, aff, cut = _trip_inputs(poses, 8)
+    T[:, :3, 3] += 0.004            # off the optimum, so the steps are real
+    flow = lvl == 0
+    Tt, afft, cutt = t32(T), t32(aff), t32(cut)
+    stats, H, b, _, _, lam, done = kc.mode_state(
+        ttr.tracker_trip_ref, rt, pt, lvl, Tt, afft, t32(1.0), cutt, calib,
+        cfg, flow)
+    got = ttr.lm_trip_ref(rt, pt, lvl, Tt, afft, t32(1.0), stats, H, b, lam,
+                          done, cutt, calib, cfg, flow)
+    inc, T_new, aff_n = ttr.lm_step_ref(Tt, afft, H, b, lam, cfg)
+    tol = kc._step_tol(H, b, lam, cfg, inc)
+    for m in range(8):
+        if done[m]:
+            for g, x in zip(got[:6], (Tt, afft, stats, H, b, lam)):
+                assert _bits(g[m:m + 1], x[m:m + 1])
+            assert bool(got[6][m])
+            continue
+        j_inc, j_T, j_aff, j_st, j_H, j_b, j_acc = _jax_lm_iteration(
+            rj, pj, lvl, T[m], aff[m], npy(stats[m]), npy(H[m]), npy(b[m]),
+            float(lam[m]), float(cut[m]), calib, jc, flow)
+        assert np.abs(npy(T_new[m]) - j_T).max() <= float(tol[m]) + \
+            kc.STEP_ATOL, m
+        assert np.abs(npy(aff_n[m]) - j_aff).max() <= 1e3 * float(tol[m]) \
+            + kc.STEP_ATOL * (1 + np.abs(j_aff).max()), m
+        # the JAX trip at the port's new pose
+        args = (rt, pt, lvl, T_new[m:m + 1], aff_n[m:m + 1], t32(1.0),
+                cutt[m:m + 1], calib, cfg, flow)
+        port_new = ttr.tracker_trip_ref(*args)
+        jax_new = _jax_trip(rj, pj, lvl, npy(T_new[m:m + 1]),
+                            npy(aff_n[m:m + 1]), cut[m:m + 1], calib, flow)
+        err, share, same_n = kc.trip_err(
+            port_new, [torch.from_numpy(x) for x in jax_new],
+            kc.trip_allowance(*args), kc.trip_floor(*args[:-1]))
+        assert same_n and share <= 1.0, (m, err, share)
+        acc = bool(got[5][m] < lam[m])
+        mean_old = float(stats[m, 0] / max(float(stats[m, 1]), 1.0))
+        if acc != bool(j_acc):
+            mean_new = j_st[0] / max(j_st[1], 1.0)
+            assert abs(mean_new - mean_old) <= kc.ACCEPT_RTOL * mean_old
+        want_lam = lam[m] * 0.5 if acc else torch.clamp(lam[m] * 4.0,
+                                                        min=1e-3)
+        assert _bits(got[5][m:m + 1], want_lam.reshape(1))
+        assert bool(got[6][m]) == bool(np.linalg.norm(j_inc) <= 1e-3)
+
+
+@pytest.mark.parametrize("case", [None, "saturating"])
+def test_cutoff_trip_ref_matches_jax(scene4, case):
+    """cutoff_trip_ref (the plain version of K3's cutoff mode) against the
+    JAX package's cutoff_body at every level, batch 8: a running member
+    over 60% saturated and under the limit doubles its cutoff multiplier
+    and takes stats, H and b at the new cutoff (within the trip's
+    tolerances of JAX's _calc_res and _calc_gs); the others keep theirs
+    bit for bit."""
+    calib, poses, pj, pt, rj, rt = scene4
+    T, aff, cut = _trip_inputs(poses, 8, case)
+    Tt, afft = t32(T), t32(aff)
+    for lvl in range(calib.levels):
+        flow = lvl == 0
+        stats, H, b = ttr.tracker_trip_ref(rt, pt, lvl, Tt, afft, t32(1.0),
+                                           t32(cut), calib, TC(), flow)
+        rep = t32([1, 2, 64, 1, 4, 1, 32, 1])
+        run = torch.tensor([True, True, True, False, True, True, True, True])
+        got = ttr.cutoff_trip_ref(rt, pt, lvl, Tt, afft, t32(1.0), stats, H,
+                                  b, rep, run, calib, TC(), flow)
+        more = (npy(stats[:, 5]) > 0.6) & (npy(rep) < 50) & npy(run)
+        if case == "saturating":
+            assert more.sum() == 6
+        equal(got[3], np.where(more, 2 * npy(rep), npy(rep)))
+        for m in range(8):
+            if not more[m]:
+                for g, x in zip(got[:3], (stats, H, b)):
+                    assert _bits(g[m:m + 1], x[m:m + 1])
+                continue
+            new_cut = np.float32(20.0) * np.float32(2 * rep[m])
+            want = _jax_trip(rj, pj, lvl, T[m:m + 1], aff[m:m + 1],
+                             np.array([new_cut], np.float32), calib, flow)
+            args = (rt, pt, lvl, Tt[m:m + 1], afft[m:m + 1], t32(1.0),
+                    t32([new_cut]), calib, TC(), flow)
+            _close_trip([g[m:m + 1] for g in got[:3]], want,
+                        f"level {lvl} member {m}",
+                        kernel_checks.trip_allowance(*args))
+
+
+@pytest.mark.parametrize("lvl", [0, 1, 2])
+def test_level_block_matches_jax(scene, lvl):
+    """The port's _level_block (every trip through the K3 wrappers, their
+    plain versions on the CPU) against the JAX package's, at each level of
+    the 256x192 scene from a pose 1.5 cm off: test_track_frame's
+    tolerances (the LM amplifies float32 rounding), the same ok flag and
+    repeat flag."""
+    calib, poses, pj, pt, ideps = scene
+    rj, rt = _refs(scene)
+    T0 = (poses[1] @ np.linalg.inv(poses[0])).astype(np.float32)
+    T0[0, 3] += 0.015
+    L = calib.levels
+    last = np.full(L, np.nan, np.float32)
+    abort = np.full(L, 1e9, np.float32)
+    jstate = (j32(T0), j32([0.0, 0.0]), jnp.asarray(True), j32(last),
+              j32([1000.0] * 3))
+    (jT, jaff, jok, jres, jflow), jrep = jtr._level_block(
+        rj, pj[1], lvl, jstate, jnp.float32(1.0), j32(abort), calib, JC(),
+        JC().coarse_lm_iterations[lvl])
+    tstate = (t32(T0)[None], t32([[0.0, 0.0]]), torch.tensor([True]),
+              t32(last)[None], t32([[1000.0] * 3]))
+    (tT, taff, tok, tres, tflow), trep = ttr._level_block(
+        rt, pt[1], lvl, tstate, torch.tensor([True]), t32(1.0), t32(abort),
+        calib, TC(), TC().coarse_lm_iterations[lvl])
+    close(tT[0], jT, 0, 1e-4, "T")
+    close(taff[0], jaff, 0, 1e-3, "aff")
+    equal(tok[0], jok, "ok")
+    close(tres[0], jres, 1e-3, 1e-4, "residuals")
+    close(tflow[0], jflow, 1e-3, 1e-4, "flow")
+    equal(trep[0], jrep, "repeat")
+
+
+def test_idle_members_keep_their_state(scene4):
+    """A member with nothing to do keeps its state bit for bit in both
+    plain modes, and the wrappers on CPU tensors are the plain versions
+    bit for bit (NaN payloads included) and launch nothing: cutoff
+    members that are not run, at most 60% saturated or at the cutoff
+    limit; LM members that are done (their H, b and stats NaN here, which
+    a live member's selects would not keep)."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    calib, poses, pj, pt, rj, rt = scene4
+    T, aff, cut = _trip_inputs(poses, 8)
+    Tt, afft, cutt = t32(T), t32(aff), t32(cut)
+    before = dict(cuda_kernels.LAUNCHES)
+    for lvl in (0, 3):
+        stats, H, b = ttr.tracker_trip_ref(rt, pt, lvl, Tt, afft, t32(1.0),
+                                           cutt, calib, TC(), lvl == 0)
+        stats = stats.clone()
+        stats[:, 5] = t32([0.9, 0.5, 0.9, 0.9, 0.61, 0.6, 0.9, 0.95])
+        rep = t32([1, 1, 64, 50, 1, 1, 1, 1])
+        run = torch.tensor([False, True, True, True, True, True, True, True])
+        c_args = (rt, pt, lvl, Tt, afft, t32(1.0), stats, H, b, rep, run,
+                  calib, TC(), lvl == 0)
+        got = ttr.cutoff_trip_ref(*c_args)
+        idle = [0, 1, 2, 3, 5]
+        for g, x in zip(got, (stats, H, b, rep)):
+            assert _bits(g[idle], x[idle])
+        assert not _bits(got[1][[4]], H[[4]])
+        for g, w in zip(cuda_kernels.cutoff_trip(*c_args), got):
+            assert _bits(g, w)
+        nan = torch.full_like(H, float("nan"))
+        done = torch.ones(8, dtype=torch.bool)
+        lam = t32([0.01] * 8)
+        l_args = (rt, pt, lvl, Tt, afft, t32(1.0), stats, nan, b, lam, done,
+                  cutt, calib, TC(), lvl == 0)
+        got = ttr.lm_trip_ref(*l_args)
+        for g, x in zip(got, (Tt, afft, stats, nan, b, lam, done)):
+            assert _bits(g, x)
+        for g, w in zip(cuda_kernels.lm_trip(*l_args), got):
+            assert _bits(g, w)
+    assert cuda_kernels.LAUNCHES == before
+
+
+def test_lm_step_float32_against_float64(scene4):
+    """What float32 costs the step: torch's solve_ex (the plain version)
+    and K3's elimination (emulated, torch_kernel_checks.solve_like_k3),
+    both in float32, against the float64 solve of the same system, at
+    every level, poses off the optimum and near it, lam from 1e-5 to 10:
+    each within half of STEP_COND_FACTOR kappa 2^-23 |inc|_inf, so two
+    float32 solves stay within the lm mode's step tolerance."""
+    calib, poses, pj, pt, rj, rt = scene4
+    kc = kernel_checks
+    for off in (0.01, 0.0003):
+        T, aff, cut = _trip_inputs(poses, 8)
+        T[:, :3, 3] += np.random.RandomState(7).randn(8, 3).astype(
+            np.float32) * off
+        for lvl in range(calib.levels):
+            _, H, b = ttr.tracker_trip_ref(rt, pt, lvl, t32(T), t32(aff),
+                                           t32(1.0), t32(cut), calib, TC(),
+                                           lvl == 0)
+            for lam_v in (1e-5, 1e-3, 0.01, 0.1, 10.0):
+                lam = torch.full((8,), lam_v)
+                inc64 = ttr._solve_inc(H.double(), b.double(), lam.double(),
+                                       TC())
+                tol = kc._step_tol(H, b, lam, TC(), inc64).double()
+                for inc in (ttr._solve_inc(H, b, lam, TC()),
+                            kc.solve_like_k3(H, b, lam, TC())):
+                    err = (inc.double() - inc64).abs().amax(1)
+                    assert bool((err <= 0.5 * tol).all()), (
+                        off, lvl, lam_v, (err / tol).max())
+
+
+def test_converged_trip_float32_against_float64(scene4, monkeypatch):
+    """E and b at converged poses (12 LM iterations from 5 mm off, every
+    level, batch 8), float32 against float64: within a quarter of
+    torch_kernel_checks.trip_floor, the floors that the lm mode's check
+    adds (relative tolerances fail there: the residuals are a fraction of
+    a grey level, and b cancels)."""
+    from ldso_tpu_torch.ops.preprocess import FramePyramid
+    calib, poses, pj, pt, rj, rt = scene4
+    kc = kernel_checks
+    d = torch.float64
+    rt64 = ttr.TrackerRef(points=tuple(p.to(d) for p in rt.points),
+                          valid=rt.valid, ref_exposure=rt.ref_exposure.to(d),
+                          ref_aff=rt.ref_aff.to(d))
+    pt64 = FramePyramid(dI=tuple(x.to(d) for x in pt.dI), abs_grad=())
+    const = ttr._const
+    T, aff, cut = _trip_inputs(poses, 8)
+    T[1:, :3, 3] += np.random.RandomState(3).randn(7, 3).astype(
+        np.float32) * 0.005
+    for lvl in range(calib.levels):
+        flow = lvl == 0
+        Tc, ac, cutt = t32(T), t32(aff), t32(cut)
+        st, H, b = ttr.tracker_trip_ref(rt, pt, lvl, Tc, ac, t32(1.0), cutt,
+                                        calib, TC(), flow)
+        lam = torch.full((8,), 0.01)
+        live = torch.zeros(8, dtype=torch.bool)
+        for _ in range(12):
+            Tc, ac, st, H, b, lam, _ = ttr.lm_trip_ref(
+                rt, pt, lvl, Tc, ac, t32(1.0), st, H, b, lam, live, cutt,
+                calib, TC(), flow)
+        s32, _, b32 = ttr.tracker_trip_ref(rt, pt, lvl, Tc, ac, t32(1.0),
+                                           cutt, calib, TC(), flow)
+        monkeypatch.setattr(ttr, "_const", lambda v, dev, dtype=d: const(
+            v, dev, d if dtype == torch.float32 else dtype))
+        s64, _, b64 = ttr.tracker_trip_ref(rt64, pt64, lvl, Tc.to(d),
+                                           ac.to(d), t32(1.0).to(d),
+                                           cutt.to(d), calib, TC(), flow)
+        monkeypatch.setattr(ttr, "_const", const)
+        f_stats, f_b = kc.trip_floor(rt, pt, lvl, Tc, ac, t32(1.0), cutt,
+                                     calib, TC())
+        e_ratio = ((s32[:, 0].double() - s64[:, 0]).abs()
+                   / f_stats[:, 0].double()).max()
+        b_ratio = ((b32.double() - b64).abs() / f_b.double()).max()
+        assert float(e_ratio) <= 0.25 and float(b_ratio) <= 0.25, (
+            lvl, float(e_ratio), float(b_ratio))
+
+
+# what a faulty lm mode gets wrong in its candidate trip (the trip at the
+# stepped pose): the trip taken at the un-stepped aff, E too large by 1e-3
+# of itself, and b's first pose entry off by CAND_B_FAULT of the member's
+# largest |b| (the affine entries set it)
+CAND_E_FAULT = 1e-3
+CAND_B_FAULT = 1e-3
+
+
+def _emulated_modes(monkeypatch, fault=None):
+    """K3's cutoff and lm modes emulated on the CPU as another float32
+    evaluation: the points in reverse order (the sums in another order)
+    and the step by K3's elimination (solve_like_k3); `fault` breaks one
+    thing, as a faulty kernel would."""
+    kc = kernel_checks
+    plain_trip = ttr.tracker_trip_ref
+
+    def trip(ref, pyr, lvl, *a, **k):
+        flip = ttr.TrackerRef(points=tuple(p.flip(0) for p in ref.points),
+                              valid=tuple(v.flip(0) for v in ref.valid),
+                              ref_exposure=ref.ref_exposure,
+                              ref_aff=ref.ref_aff)
+        return plain_trip(flip, pyr, lvl, *a, **k)
+
+    def cutoff(*a, **k):
+        with kc.plain_trip(trip):
+            out = ttr.cutoff_trip_ref(*a, **k)
+        if fault == "cutoff_rep":
+            out = out[:3] + (out[3] * 1.5,)
+        return out
+
+    def lm(*a, **k):
+        old_aff = a[4]
+
+        def candidate_trip(ref, pyr, lvl, T, aff, *r, **kw):
+            if fault == "cand_aff":
+                aff = old_aff
+            stats, H, b = trip(ref, pyr, lvl, T, aff, *r, **kw)
+            if fault == "cand_E":
+                stats = stats.clone()
+                stats[:, 0] *= 1.0 + CAND_E_FAULT
+            elif fault == "cand_b":
+                b = b.clone()
+                b[:, 0] += CAND_B_FAULT * torch.abs(b).amax(1)
+            return stats, H, b
+        with monkeypatch.context() as mp:
+            mp.setattr(ttr, "_solve_inc", kc.solve_like_k3)
+            with kc.plain_trip(candidate_trip):
+                out = list(ttr.lm_trip_ref(*a, **k))
+        if fault == "step":
+            out[0] = out[0] * 1.001
+        elif fault == "idle":
+            out[5] = out[5] * 2.0
+        elif fault == "done":
+            out[6] = ~out[6]
+        return tuple(out)
+    return cutoff, lm
+
+
+@pytest.mark.parametrize("lvl", [0, 3])
+def test_mode_checks_hold_an_emulated_kernel(scene4, monkeypatch, lvl):
+    """torch_kernel_checks.mode_errs, which phase 2 of chip_smoke.py and
+    the card tests hold K3's cutoff and lm modes to, passes another float32
+    evaluation of the same functions (_emulated_modes) on the scene and
+    the saturating case at batch 1 and 8, with live, done and not-run
+    members, and reports each fault that a broken kernel would have, the
+    candidate trip's among them (CAND_E_FAULT, CAND_B_FAULT: above the
+    rounding floors of E and b at these poses, 3 mm and more off the
+    truth)."""
+    calib, poses, pj, pt, rj, rt = scene4
+    kc = kernel_checks
+    cutoff, lm = _emulated_modes(monkeypatch)
+    for case in (None, "saturating"):
+        for B in (1, 8):
+            T, aff, cut = _trip_inputs(poses, B, case)
+            T[:, :3, 3] += 0.003
+            err, share, faults, _ = kc.mode_errs(
+                cutoff, lm, ttr.tracker_trip_ref, rt, pt, lvl, t32(T),
+                t32(aff), t32(1.0), t32(cut), calib, TC(), lvl == 0)
+            assert not faults and share <= 1.0, (case, B, faults, share)
+            assert err > 0.0                 # it is another evaluation
+    T, aff, cut = _trip_inputs(poses, 8)
+    T[:, :3, 3] += 0.003
+    for fault, what in (("cutoff_rep", "cutoff cutoff_rep"),
+                        ("step", "lm step"), ("idle", "lm idle lam"),
+                        ("done", "lm idle done"),
+                        ("cand_aff", "lm candidate trip"),
+                        ("cand_E", "lm candidate trip"),
+                        ("cand_b", "lm candidate trip")):
+        cutoff, lm = _emulated_modes(monkeypatch, fault)
+        _, _, faults, _ = kc.mode_errs(
+            cutoff, lm, ttr.tracker_trip_ref, rt, pt, lvl, t32(T), t32(aff),
+            t32(1.0), t32(cut), calib, TC(), lvl == 0)
+        assert any(f.startswith(what) for f in faults), (fault, faults)

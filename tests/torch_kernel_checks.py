@@ -18,11 +18,16 @@ coordinates (a few ulps of Ku, Kv times the image gradient), so
     cutoff may be good in one evaluation and saturated in the other: it
     joins or leaves H, b and the good count at once. `trip_allowance`
     bounds what such points can move, and the comparison adds it to the
-    tolerance (0 when no point is that close).
+    tolerance (0 when no point is that close);
+  * at a converged pose, where an LM step may land, E is a sum of
+    residuals of a fraction of a grey level and b cancels: their error is
+    each residual's own rounding, `trip_floor`, which the lm mode's check
+    adds.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -37,6 +42,14 @@ TRIP_H_SCALE = 1e-5
 TRIP_B_RTOL = 1e-3
 TRIP_B_SCALE = 1e-4
 TRIP_CUT_MARGIN = 0.05
+# ulps of a residual's warped coordinates (and intensity) that the floors of
+# E and b allow each evaluation at a converged pose (trip_floor): float32
+# against float64 stays within a quarter of them on a 640x480 plane scene,
+# so two float32 evaluations stay within half (tests/test_torch_tracker.py
+# ::test_converged_trip_float32_against_float64). E's errors, of one sign
+# per point's square, average out more than b's terms of either sign.
+TRIP_E_ULPS = 2.0
+TRIP_B_ULPS = 16.0
 TRIP_CASES = ("scene", "out_of_bounds", "saturating", "nan_intensity",
               "nan_patch")
 
@@ -97,9 +110,53 @@ def trip_allowance(ref, pyr, lvl, T, aff, expo, cutoff, calib, cfg,
     return s, H, b, k / n_good
 
 
-def trip_err(got, want, allowance=None):
+def trip_floor(ref, pyr, lvl, T, aff, expo, cutoff, calib, cfg):
+    """The rounding floors of E and b (stats (B, 6), b (B, 8)) at a pose
+    where they are small sums (a converged one, where an LM step lands):
+    each residual carries a few float32 ulps of its warped coordinates
+    times its image gradient, and of its intensity, dr = (|Ku dx| + |Kv dy|
+    + |I|) 2^-23, which moves an ok point's energy by up to
+    2 min(|r|, huber) dr (TRIP_E_ULPS of them) and a good point's b by
+    hw |J| dr (TRIP_B_ULPS of them; / max(#good, 1), scaled as b). There E
+    sums residuals of a fraction of a grey level and b terms of either
+    sign, so each residual's own rounding, not the sum's, sets their
+    error."""
+    bufs, _ = _calc_res(ref, pyr, lvl, T, aff, expo, cutoff, calib, cfg,
+                        False)
+    fx, fy = calib.fx[lvl], calib.fy[lvl]
+    rel = affine.from_to(ref.ref_exposure, expo, ref.ref_aff, aff)
+    dxf, dyf = bufs["dx"] * fx, bufs["dy"] * fy
+    u, v, idep = bufs["u"], bufs["v"], bufs["idepth"]
+    J = torch.stack([
+        idep * dxf, idep * dyf, -idep * (u * dxf + v * dyf),
+        -(u * v * dxf + (1.0 + v * v) * dyf), u * v * dyf + (1.0 + u * u) * dxf,
+        u * dyf - v * dxf,
+        (rel[:, 0:1] * (ref.ref_aff[1] - bufs["color"][None, :])).expand_as(u),
+        -torch.ones_like(u)], dim=-1)
+    Ku = fx * u + calib.cx[lvl]
+    Kv = fy * v + calib.cy[lvl]
+    r = bufs["residual"]
+    intensity = r + rel[:, 0:1] * bufs["color"][None, :] + rel[:, 1:2]
+    good = bufs["good"] > 0
+    ok = _ok_mask(bufs, ref, lvl, calib)
+    dr = (torch.abs(Ku * bufs["dx"]) + torch.abs(Kv * bufs["dy"])
+          + torch.abs(intensity)) * 2.0 ** -23
+    zero = torch.zeros_like(dr)
+    stats = torch.zeros(r.shape[0], 6, dtype=r.dtype, device=r.device)
+    stats[:, 0] = TRIP_E_ULPS * torch.where(
+        ok & ~torch.isnan(dr),
+        2.0 * torch.clamp(torch.abs(r), max=cfg.huber_th) * dr, zero).sum(1)
+    w = torch.where(good, TRIP_B_ULPS * bufs["hw"] * dr, zero)
+    Ja = torch.where(good[..., None], torch.abs(J), torch.zeros_like(J))
+    n = torch.clamp(good.sum(1), min=1).to(J.dtype)
+    return stats, (Ja * w[..., None]).sum(1) / n[:, None] * \
+        tracker._scale_vec(u.device)
+
+
+def trip_err(got, want, allowance=None, floor=None):
     """Hold `got` (stats, H, b) to `want` within the trip's tolerances plus
-    `allowance` (trip_allowance's, or None). Returns (max |got - want| over
+    `allowance` (trip_allowance's, or None) and `floor` (trip_floor's, or
+    None). Returns (max |got - want| over
     the three, the largest error as a share of its tolerance, numTerms
     equal). A NaN on one side only is an infinite error; NaN on both sides
     agrees."""
@@ -120,6 +177,8 @@ def trip_err(got, want, allowance=None):
             if i:
                 rel_k = allowance[3].reshape((-1,) + (1,) * (p.dim() - 1))
                 tol = tol + rel_k * torch.nan_to_num(torch.abs(p), nan=0.0)
+        if floor is not None and i != 1:
+            tol = tol + floor[i // 2]
         both_nan = torch.isnan(g) & torch.isnan(p)
         d = torch.where(both_nan, torch.zeros_like(g),
                         torch.nan_to_num(torch.abs(g - p), nan=inf))
@@ -180,3 +239,307 @@ def trip_case(case: str, pyr, lvl, T, aff, cfg):
     elif case != "scene":
         raise ValueError(f"unknown trip case {case!r}")
     return pyr, T, aff, cut, plain
+
+
+# ---------------------------------------------------------------------------
+# K3's cutoff and lm modes (ops/cuda_kernels.cutoff_trip, lm_trip) against
+# their plain versions (frontend/tracker.cutoff_trip_ref, lm_trip_ref)
+# ---------------------------------------------------------------------------
+#
+# A member with nothing to do (cutoff: not run, at most 60% saturated or at
+# the cutoff limit; lm: done) keeps its state bit for bit in both versions.
+# A live cutoff member doubles cutoff_rep exactly and is held to the trip's
+# tolerances at the new cutoff. A live LM member is held in parts:
+#   * the step: two float32 solves of the damped system differ by their
+#     rounding, which the condition number kappa of that system amplifies:
+#     |inc_a - inc_b| <= STEP_COND_FACTOR kappa 2^-23 |inc|_inf per
+#     component (tests/test_torch_tracker.py::
+#     test_lm_step_float32_against_float64 measures torch's solve_ex and
+#     K3's elimination, emulated, each within half of it from float64),
+#     scaled by the parameter scales, plus STEP_ATOL for se3_exp and the
+#     4x4 product (sin and cos of two libraries, fused multiply-adds);
+#   * the trip at the kernel's own new pose: the trip's tolerances above,
+#     with the rounding floors of E and b (trip_floor), since the step may
+#     land where the residuals are small;
+#   * the accept test: the two may decide differently only where the new
+#     mean energy lies within ACCEPT_RTOL of the old one (the step's and
+#     the trip's differences move the new energy by less); each version's
+#     outputs then follow its own decision bit for bit (the candidate or
+#     the old state, lam halved or grown 4x, exactly);
+#   * done: equal except where |inc| lies within DONE_RTOL of 1e-3.
+
+STEP_COND_FACTOR = 4.0
+STEP_ATOL = 2e-6
+ACCEPT_RTOL = 1e-3
+DONE_RTOL = 1e-2
+_EPS32 = 2.0 ** -23
+
+
+def bits(a, b) -> torch.Tensor:
+    """Per-member bitwise equality of two (B, ...) tensors of float32 or
+    bool, NaN payloads included: (B,) bool."""
+    if a.dtype == torch.bool:
+        eq = a == b
+    else:
+        eq = a.view(torch.int32) == b.view(torch.int32)
+    return eq.reshape(eq.shape[0], -1).all(1)
+
+
+@contextlib.contextmanager
+def plain_trip(fn):
+    """The plain modes (cutoff_trip_ref, lm_trip_ref) with `fn` as their
+    trip: trip_case's plain function, which on a NaN level drops the masked
+    rows as K3 skips them."""
+    saved = tracker.tracker_trip_ref
+    tracker.tracker_trip_ref = fn
+    try:
+        yield
+    finally:
+        tracker.tracker_trip_ref = saved
+
+
+def mode_state(plain, ref, pyr, lvl, T, aff, expo, cut, calib, cfg, flow):
+    """A state of the cutoff and LM loops at these poses, from the plain
+    trip: (stats, H, b, cutoff_rep, run, lam, done). Its members cover each
+    branch of both modes (for B >= 8): member 1 is not `run`, member 2 sits
+    at the cutoff limit (cutoff_rep 64), members 3 and 6 are done; the
+    others run, over 60% saturated (a saturated share of 0.9 is written
+    into their stats), with lam from 1e-6 to 0.5."""
+    stats, H, b = plain(ref, pyr, lvl, T, aff, expo, cut, calib, cfg, flow)
+    B = T.shape[0]
+    dev = T.device
+    stats = stats.clone()
+    stats[:, 5] = 0.9
+    rep = torch.ones(B, dtype=torch.float32, device=dev)
+    run = torch.ones(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    lam = torch.tensor([0.01, 0.5, 1e-6, 0.01, 1e-3, 2e-3, 0.01, 0.1] * (
+        -(-B // 8)), dtype=torch.float32, device=dev)[:B]
+    if B >= 8:
+        run[1] = False
+        rep[2] = 64.0
+        done[3] = done[6] = True
+    return stats, H, b, rep, run, lam, done
+
+
+def _faults(what, mask, idx=None):
+    """[what and the members where `mask` holds] (members idx[mask] when
+    the mask runs over a subset idx), or []."""
+    if not bool(mask.any()):
+        return []
+    members = mask.nonzero()[:, 0]
+    if idx is not None:
+        members = idx[members]
+    return [f"{what}: members {members.tolist()}"]
+
+
+def cutoff_err(args, state, got, want):
+    """Hold K3's cutoff mode (`got`) to its plain version (`want`) on args
+    = (ref, pyr, lvl, T, aff, expo, calib, cfg, flow) and state = (stats,
+    H, b, cutoff_rep, run). Returns (max |got - want| over the live
+    members' stats, H and b, that error as a share of its tolerance, a list
+    of faults)."""
+    ref, pyr, lvl, T, aff, expo, calib, cfg, flow = args
+    stats, H, b, rep, run = state
+    more = (stats[:, 5] > 0.6) & (rep < tracker._CUTOFF_LIMIT) & run
+    faults = _faults("cutoff_rep", ~bits(got[3], want[3]))
+    for i, name in enumerate(("stats", "H", "b")):
+        faults += _faults(f"idle {name}", ~more & ~bits(got[i], state[i]))
+    if not bool(more.any()):
+        return 0.0, 0.0, faults
+    idx = more.nonzero()[:, 0]
+    cut = cfg.coarse_cutoff_th * want[3][idx]
+    allowance = trip_allowance(ref, pyr, lvl, T[idx], aff[idx], expo, cut,
+                               calib, cfg, flow)
+    err, share, same_n = trip_err([g[idx] for g in got[:3]],
+                                  [w[idx] for w in want[:3]], allowance)
+    if not same_n or share > 1.0:
+        faults.append(f"live trips: {err} ({share:.3g} of the tolerance), "
+                      f"numTerms equal {same_n}")
+    return err, share, faults
+
+
+def _step_tol(H, b, lam, cfg, inc):
+    """STEP_COND_FACTOR kappa 2^-23 |inc|_inf per member: the rounding of a
+    float32 solve of the damped system over its active parameters."""
+    idx = [i for i in range(8) if i < 6
+           or (i == 6 and cfg.affine_opt_mode_a >= 0)
+           or (i == 7 and cfg.affine_opt_mode_b >= 0)]
+    Hd = H.double()
+    Hl = Hd + torch.diag_embed(torch.diagonal(Hd, dim1=-2, dim2=-1)
+                               * lam.double()[:, None])
+    Hs = Hl[:, idx][:, :, idx]
+    kappa = torch.linalg.cond(Hs)
+    kappa = torch.where(torch.isfinite(kappa), kappa,
+                        torch.full_like(kappa, float("inf")))
+    return (STEP_COND_FACTOR * kappa * _EPS32
+            * inc.double().abs().amax(1)).float()
+
+
+def lm_err(args, state, got, cand, want, plain):
+    """Hold K3's lm mode (`got`) to its plain version (`want`), part by
+    part as the notes above say. args = (ref, pyr, lvl, T, aff, expo,
+    calib, cfg, flow), state = (stats, H, b, lam, done, cutoff); `cand` is
+    K3's lm mode on the same state with every live member's old energy
+    set to +inf, so that it accepts: its candidate T, aff, stats, H, b;
+    `plain` the plain trip (trip_case's). Returns (max |got - want| of the
+    step and the candidate trip, the largest error as a share of its
+    tolerance, a list of faults, the floors' largest shares of the
+    candidate trip: {"E": trip_floor's E over |E|, "b": its b over the
+    member's max |b|}, over the live members)."""
+    ref, pyr, lvl, T, aff, expo, calib, cfg, flow = args
+    stats, H, b, lam, done, cutoff = state
+    live = ~done
+    outs_in = (T, aff, stats, H, b, lam)
+    names = ("T", "aff", "stats", "H", "b", "lam")
+    faults = []
+    for i, name in enumerate(names):
+        faults += _faults(f"idle {name}", done & ~bits(got[i], outs_in[i]))
+    faults += _faults("idle done", done & ~got[6])
+    floors = dict(E=0.0, b=0.0)
+    if not bool(live.any()):
+        return 0.0, 0.0, faults, floors
+    idx = live.nonzero()[:, 0]
+    inc, T_new, aff_n = tracker.lm_step_ref(T, aff, H, b, lam, cfg)
+    # the step
+    tol = _step_tol(H[idx], b[idx], lam[idx], cfg, inc[idx])
+    scale = tracker._scale_vec(T.device)
+    dT = torch.abs(cand[0][idx] - T_new[idx]).amax((1, 2))
+    daff = torch.abs(cand[1][idx] - aff_n[idx])
+    tol_T = tol * float(scale[:6].max()) + STEP_ATOL
+    tol_aff = (tol[:, None] * scale[6:8]
+               + STEP_ATOL * (1.0 + torch.abs(aff_n[idx])))
+    worst = max(float(dT.max()), float(daff.max()))
+    share = max(float((dT / tol_T).max()), float((daff / tol_aff).max()))
+    if share > 1.0:
+        faults.append(f"step: |dT| {dT.tolist()} against {tol_T.tolist()}, "
+                      f"|daff| {daff.tolist()}")
+    # the candidate trip at the kernel's own new pose
+    c_args = (ref, pyr, lvl, cand[0][idx], cand[1][idx], expo, cutoff[idx],
+              calib, cfg, flow)
+    c_plain = plain(*c_args)
+    floor = trip_floor(*c_args[:-1])
+    err, c_share, same_n = trip_err([c[idx] for c in cand[2:5]], c_plain,
+                                    trip_allowance(*c_args), floor)
+    finite = torch.isfinite(c_plain[0][:, 0])
+    if bool(finite.any()):
+        e_abs = torch.clamp(torch.abs(c_plain[0][:, 0]), min=1e-30)
+        b_max = torch.clamp(torch.nan_to_num(torch.abs(c_plain[2]), nan=0.0)
+                            .amax(1), min=1e-30)
+        floors = dict(E=float((floor[0][:, 0] / e_abs)[finite].max()),
+                      b=float((floor[1].amax(1) / b_max)[finite].max()))
+    worst, share = max(worst, err), max(share, c_share)
+    if not same_n or c_share > 1.0:
+        got_c = [c[idx] for c in cand[2:5]]
+        parts = [trip_err([g if j == i else w for j, (g, w) in enumerate(
+            zip(got_c, c_plain))], c_plain, trip_allowance(*c_args),
+            floor)[1] for i in range(3)]
+        faults.append(f"candidate trip: {err} ({c_share:.3g} of the "
+                      f"tolerance; stats, H, b {parts}), numTerms equal "
+                      f"{same_n}")
+    # the accept test
+    # (the whole batch, as the plain lm mode ran it: the card's reductions
+    # may order their sums by the batch's shape)
+    w_mine = [x[idx] for x in (T_new, aff_n) + tuple(plain(
+        ref, pyr, lvl, T_new, aff_n, expo, cutoff, calib, cfg, flow))]
+
+    def mean(st):
+        return st[:, 0] / torch.clamp(st[:, 1], min=1.0)
+    acc_g = got[5][idx] < lam[idx]
+    acc_w = want[5][idx] < lam[idx]
+    close = (torch.abs(mean(w_mine[2]) - mean(stats[idx]))
+             <= ACCEPT_RTOL * torch.abs(mean(stats[idx])))
+    faults += _faults("accept differs", (acc_g != acc_w) & ~close, idx)
+    # each version's outputs follow its own decision, bit for bit
+    for name, out, acc, mine in (
+            ("kernel", got, acc_g, [c[idx] for c in cand]),
+            ("plain", want, acc_w, w_mine)):
+        for i in range(5):
+            exp = tracker._where(acc, mine[i], outs_in[i][idx])
+            faults += _faults(f"{name} {names[i]} off its decision",
+                              ~bits(out[i][idx], exp), idx)
+        lam_exp = torch.where(acc, lam[idx] * 0.5, torch.clamp(
+            lam[idx] * 4.0, min=tracker._LAMBDA_EXTRAPOLATION_LIMIT))
+        faults += _faults(f"{name} lam", ~bits(out[5][idx], lam_exp), idx)
+    # done
+    n_inc = torch.linalg.norm(inc[idx], dim=1)
+    near = torch.abs(n_inc - 1e-3) <= DONE_RTOL * 1e-3
+    faults += _faults("done differs", (got[6][idx] != want[6][idx]) & ~near,
+                      idx)
+    return worst, share, faults, floors
+
+
+def lm_candidate(lm_fn, args, state):
+    """`lm_fn` (a K3 wrapper or the plain version) on the state with every
+    live member's old mean energy +inf: each accepts, so its outputs are
+    its candidate T, aff, stats, H, b."""
+    ref, pyr, lvl, T, aff, expo, calib, cfg, flow = args
+    stats, H, b, lam, done, cutoff = state
+    st = stats.clone()
+    st[:, 0] = torch.where(done, stats[:, 0],
+                           torch.full_like(stats[:, 0], float("inf")))
+    return lm_fn(ref, pyr, lvl, T, aff, expo, st, H, b, lam, done, cutoff,
+                 calib, cfg, flow)
+
+
+def mode_errs(cutoff_fn, lm_fn, plain, ref, pyr, lvl, T, aff, expo, cut,
+              calib, cfg, flow):
+    """`cutoff_fn` and `lm_fn` (K3's wrappers, cuda_kernels.cutoff_trip and
+    lm_trip) against the plain modes with `plain` as their trip, from
+    mode_state's state at these poses. Returns (max error, its share of
+    the tolerance, faults, {"state": the lm mode's state, "floor_E",
+    "floor_b": lm_err's floor shares})."""
+    stats, H, b, rep, run, lam, done = mode_state(
+        plain, ref, pyr, lvl, T, aff, expo, cut, calib, cfg, flow)
+    args = (ref, pyr, lvl, T, aff, expo, calib, cfg, flow)
+    c_state = (stats, H, b, rep, run)
+    got = cutoff_fn(ref, pyr, lvl, T, aff, expo, *c_state, calib, cfg, flow)
+    with plain_trip(plain):
+        want = tracker.cutoff_trip_ref(ref, pyr, lvl, T, aff, expo, *c_state,
+                                       calib, cfg, flow)
+    e_c, s_c, faults = cutoff_err(args, c_state, got, want)
+    faults = [f"cutoff {f}" for f in faults]
+    cutoff = cfg.coarse_cutoff_th * rep
+    l_state = (stats, H, b, lam, done, cutoff)
+    got = lm_fn(ref, pyr, lvl, T, aff, expo, *l_state, calib, cfg, flow)
+    cand = lm_candidate(lm_fn, args, l_state)
+    with plain_trip(plain):
+        want = tracker.lm_trip_ref(ref, pyr, lvl, T, aff, expo, *l_state,
+                                   calib, cfg, flow)
+    e_l, s_l, f_l, floors = lm_err(args, l_state, got, cand, want, plain)
+    faults += [f"lm {f}" for f in f_l]
+    return (max(e_c, e_l), max(s_c, s_l), faults,
+            dict(state=l_state, floor_E=floors["E"], floor_b=floors["b"]))
+
+
+def solve_like_k3(H, b, lam, cfg):
+    """`_solve_inc`'s function computed the way K3's lm_step computes it, in
+    the input's dtype: the damped augmented system with an inactive
+    parameter as an identity row and column and a zero right-hand side,
+    Gaussian elimination with partial pivoting (the first largest
+    |pivot|), back substitution. For the tests that bound what two float32
+    solves may differ by (the kernel's fused multiply-adds round in places
+    this does not)."""
+    B = H.shape[0]
+    act = torch.tensor([True] * 6 + [cfg.affine_opt_mode_a >= 0,
+                                     cfg.affine_opt_mode_b >= 0],
+                       device=H.device)
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    eye = torch.eye(8, dtype=H.dtype, device=H.device)
+    Hl = H + torch.diag_embed(diag * lam[:, None]) + eye * 1e-12
+    M = torch.where(act[:, None] & act[None, :], Hl, eye.expand(B, 8, 8))
+    M = torch.cat([M, torch.where(act, -b, torch.zeros_like(b))[..., None]],
+                  dim=2)
+    rows = torch.arange(B, device=H.device)
+    for k in range(8):
+        piv = k + torch.argmax(torch.abs(M[:, k:, k]), dim=1)
+        top, low = M[rows, k].clone(), M[rows, piv].clone()
+        M[rows, k], M[rows, piv] = low, top
+        lk = M[:, k + 1:, k] / M[:, k, k][:, None]
+        M[:, k + 1:, k + 1:] = (M[:, k + 1:, k + 1:]
+                                - lk[..., None] * M[:, k, None, k + 1:])
+    x = torch.zeros(B, 8, dtype=H.dtype, device=H.device)
+    for i in range(7, -1, -1):
+        x[:, i] = (M[:, i, 8] - (M[:, i, i + 1:8] * x[:, i + 1:]).sum(1)) \
+            / M[:, i, i]
+    return torch.where(act, x, torch.zeros_like(x))
