@@ -21,7 +21,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (frontend/tracker.tracker_trip_ref, cutoff_trip_ref, lm_trip_ref) at
      every level of a 640x480 scene, batch 1 and 8, on the scene and on
      four edge cases (every point out of bounds, a saturating cutoff, a NaN
-     patch in the intensity and in all three channels): the trip's stats
+     patch in the intensity and in all three channels, where the plain
+     version's H and b turn NaN and K3's must alike): the trip's stats
      within 1e-4 relative with numTerms exact, H and b within 1e-3
      relative or 1e-5 of their scale; the cutoff and lm modes from a state
      with live, done and not-run members, held as
@@ -31,7 +32,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      equal; then, right after phase 3, the same comparisons on phase 3's
      last frame and reference at every level and batch, with K3's times
      (`ms`, `plain_ms`, `device_ms`; each mode with every member live and,
-     for the cutoff and lm modes, every member idle) and bounds;
+     for the cutoff and lm modes, every member idle) and bounds. K12 (the
+     windowed BA's nullspace projector, csrc/ba_projector.cu) against its
+     plain version (the SVD) on windows of 1-8 frames of the main path's 8
+     slots and an empty one (tests/torch_kernel_checks.projector_err), 20
+     launches bitwise, its times at the full window;
   3. the pure-VO path: the synchronous monocular VO FullSystem at 640x480
      with the production Config and loop closing off on 64 synthetic uint8
      frames of the bench trajectory, on the package's default device (the
@@ -53,6 +58,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
          that of a dispatch without the sleep;
      3c. the map checkpoint: save_all to .bin and .npz, load_all into a
          fresh system, keyframe ids and T_cw bitwise equal;
+     3d. the device LM (backend/ba_device.optimize_device, one CUDA graph
+         per call): every BA call of phase 3 was one graph replay, none
+         captured inside the run (the FullSystem captures them when it is
+         built), K12 launched once per call; on phase 3's recorded BA
+         inputs: the last call's replay bitwise the eager call, its
+         uploads and replay under set_sync_debug_mode("error") behind 50
+         ms of sleep, its device ms (queued replays) beside phase 3's wall
+         ms per call, the aten operations of an eager call, the live trips
+         of every call, K12 against its plain version on every call;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
@@ -96,7 +110,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
          ms of each;
      7d. the sharded build system and the sharded PCG through one NCCL
          group of world size 1, against the unsharded functions on phase
-         3's final window and phase 4's final pose graph.
+         3's final window and phase 4's final pose graph;
+     7e. phase 3's last 8 BA inputs in one vmapped CUDA graph against 8
+         single replays (within BA_ORDER_FACTOR times the spread of a
+         single replay with its points reversed, tests/
+         torch_kernel_checks.ba_batch_err), K12 once for the 8, and the
+         device ms of the batch and of the singles.
+Every run of the device LM (3, 4b, 5, 7b) holds K12's launches to its BA
+graph replays, with no graph captured inside the run; K12's record gives
+phase 3's count and each path's.
 Every phase that tracks (3, 3a, 3b, 4, 4b, 5, 6, 7a-7c) asserts K3's
 launches, counted through graph replays: exactly
 tracker.trips_per_track (316 at 640x480) per track and per graph capture,
@@ -505,10 +527,9 @@ def phase_trip_edges():
     at batch 1 and 8, on the scene itself and on the edge cases (a pose
     that puts every point out of bounds, a cutoff that saturates most
     terms, a NaN patch in the level's intensity, and one in all three
-    channels; with a NaN the plain version's H and b are NaN, and K3 is
-    held there to the plain arithmetic with the masked rows dropped); then
-    20 launches on the same inputs, bitwise equal. Returns the worst
-    errors."""
+    channels, where the plain version's H and b turn NaN and K3's must
+    turn NaN alike); then 20 launches on the same inputs, bitwise equal.
+    Returns the worst errors."""
     import torch
     from ldso_tpu_torch.config import Config
     from ldso_tpu_torch.frontend import tracker
@@ -531,17 +552,18 @@ def phase_trip_edges():
     expo = torch.ones((), **f32)
     worst = dict(abs=0.0, share=0.0)
     modes = dict(abs=0.0, share=0.0, floor_E=0.0, floor_b=0.0)
+    nan_members = dict(nan_intensity=0, nan_patch=0)
     for case in kc.TRIP_CASES:
         head = None
         for lvl in range(L):
             for B in TRIP_BATCHES:
-                p, T, aff, cut, plain = kc.trip_case(
+                p, T, aff, cut = kc.trip_case(
                     case, pyr, lvl, trip_poses(torch.as_tensor(T_true, **f32),
                                                B),
                     torch.tensor([[0.01, 0.5]], **f32).expand(B, 2), cfg)
                 args = (ref, p, lvl, T, aff, expo, cut, calib, cfg, lvl == 0)
                 got = cuda_kernels.tracker_trip(*args)
-                want = plain(*args)
+                want = tracker.tracker_trip_ref(*args)
                 err, share, same_n = kc.trip_err(got, want,
                                                  kc.trip_allowance(*args))
                 worst["abs"] = max(worst["abs"], err)
@@ -555,14 +577,15 @@ def phase_trip_edges():
                     head = (float(n[0]), float(got[0][0, 5]))
                 if case == "out_of_bounds" and bool(torch.any(n != 0)):
                     _fail(f"K3 out_of_bounds level {lvl}: numTerms {n}")
-                if case.startswith("nan") and not bool(
-                        torch.isfinite(got[1]).all()):
-                    _fail(f"K3 {case} level {lvl}: H not finite")
+                if case.startswith("nan"):
+                    nan_members[case] += int(torch.isnan(want[1]).any(
+                        (1, 2)).sum())
                 # the cutoff and lm modes from a state with live, done and
                 # not-run members (torch_kernel_checks.mode_state)
                 err, share, faults, info = kc.mode_errs(
-                    cuda_kernels.cutoff_trip, cuda_kernels.lm_trip, plain,
-                    ref, p, lvl, T, aff, expo, cut, calib, cfg, lvl == 0)
+                    cuda_kernels.cutoff_trip, cuda_kernels.lm_trip,
+                    tracker.tracker_trip_ref, ref, p, lvl, T, aff, expo, cut,
+                    calib, cfg, lvl == 0)
                 modes["abs"] = max(modes["abs"], err)
                 modes["share"] = max(modes["share"], share)
                 for k in ("floor_E", "floor_b"):
@@ -596,6 +619,12 @@ def phase_trip_edges():
                 if not _same(a, b_):
                     _fail(f"K3 {mode} mode: launch {rep} differs from "
                           f"launch 0")
+    if not all(nan_members.values()):
+        _fail(f"K3's NaN cases: no member with a NaN H in the plain version "
+              f"({nan_members}): the cases test nothing")
+    print(f"K3's NaN cases: the plain version's H is NaN in {nan_members} "
+          f"members (over the levels and batches), and K3's alike",
+          flush=True)
     print(f"K3: {len(kc.TRIP_CASES)} cases x {L} levels x 2 batches; trip "
           f"mode max|kernel - plain| {worst['abs']:.6g}, at most "
           f"{worst['share']:.4f} of the tolerance; cutoff and lm modes "
@@ -1274,11 +1303,17 @@ def phase_boxes(n_frames: int = BOX_FRAMES):
 
 
 def _no_capture_inside(run: dict) -> None:
-    """The tracker's graphs are captured when the FullSystem is built, never
-    inside a timed run."""
-    if run["graph_captures"]:
-        _fail(f"{run['mode']}: {run['graph_captures']} tracker graphs were "
-              f"captured inside the timed run")
+    """The tracker's and the device LM's graphs are captured when the
+    FullSystem is built, never inside a timed run; with the device LM, each
+    BA call of the run is one replay with one K12 launch."""
+    what = run.get("phase", run["mode"])
+    if run["graph_captures"] or run["ba_captures"]:
+        _fail(f"{what}: {run['graph_captures']} tracker graphs and "
+              f"{run['ba_captures']} BA graphs were captured inside the "
+              f"timed run")
+    if run["k12_launches"] != run["ba_replays"]:
+        _fail(f"{what}: K12 launched {run['k12_launches']} times for "
+              f"{run['ba_replays']} BA graph replays")
 
 
 def _mode_line(run: dict) -> str:
@@ -1287,7 +1322,7 @@ def _mode_line(run: dict) -> str:
             "ms_per_frame_wall", "wall_s", "k1_launches", "k1_streams",
             "k3_launches", "tracks", "rank_calls",
             "post_bootstrap_keyframes", "retrack_trips", "lm_frames",
-            "graph_captures", "gpu")
+            "graph_captures", "ba_replays", "k12_launches", "gpu")
     return json.dumps({k: run[k] for k in keys})
 
 
@@ -1410,6 +1445,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                                 kitti_output=True, device=device)
             launches = cuda_kernels.LAUNCHES["distance_transform"]
             k3 = cuda_kernels.LAUNCHES["tracker_trip"]
+            k12 = cuda_kernels.LAUNCHES["ba_projector"]
         wall = time.time() - t0
         if fs.device.type != device:
             _fail(f"cli {pmode}: ran on {fs.device}, not {device}")
@@ -1458,6 +1494,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                       f"{dict(k1)}, not all on the mapping thread's stream")
         out_launches[pmode] = launches
         out_launches[f"k3_{pmode}"] = k3
+        out_launches[f"k12_{pmode}"] = k12
         if fs.viewer is not None:
             check_viewer(fs.viewer, len(rows), (calib.h[0], calib.w[0]))
     return out_launches
@@ -1668,6 +1705,293 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
         _fail(f"loop slice: K1 launched {launches['distance_transform']} "
               f"times for {post_boot} post-bootstrap keyframes")
     return launches, post_boot, fs.global_map
+
+
+K12_F = 8                    # the main path's window slots (max_frames + 1)
+
+
+def projector_bound_ms(Nn, delta: float):
+    """The least time for K12's function on these (S, n, k) bases: one read
+    of Nn and one write of the (S, n, n) projectors, against the float32
+    operations the function needs, whatever the algorithm: the k x k Gram
+    matrix's upper triangle (k (k + 1) n), U_r = Nn V_r S_r^-1 (2 k r n)
+    and the upper triangle of U_r U_r^T (r n (n + 1)), with r the rank this
+    data keeps (the singular values over delta times the largest). Returns
+    (ms, "bytes" or "operations")."""
+    import torch
+    S, n, k = Nn.shape
+    n_bytes = 4 * S * (n * k + n * n)
+    sv = torch.linalg.svdvals(Nn.double())
+    r = int((sv > delta * sv.amax(-1, keepdim=True)).sum())
+    ops = S * k * (k + 1) * n + 2 * k * r * n + r * n * (n + 1)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _projector_errs(kc, bases, delta, what):
+    """K12 against its plain version on each basis; fails past the
+    tolerance. Returns (max |kernel - plain|, its largest share)."""
+    from ldso_tpu_torch.backend.ba_device import nullspace_projector_ref
+    from ldso_tpu_torch.ops import cuda_kernels
+    worst, share = 0.0, 0.0
+    for i, Nn in enumerate(bases):
+        got = cuda_kernels.ba_projector(Nn, delta)
+        want = nullspace_projector_ref(Nn, delta)
+        err, sh, at_gate = kc.projector_err(got[None], want[None], Nn[None],
+                                            delta)
+        worst, share = max(worst, err), max(share, sh)
+        if at_gate or not sh <= 1.0 or not _same(got, got.T):
+            _fail(f"K12 {what} {i}: max|kernel - plain| {err} ({sh:.3g} of "
+                  f"the tolerance), a singular value at the gate "
+                  f"{bool(at_gate)}, symmetric {_same(got, got.T)}")
+    return worst, share
+
+
+def phase_projector():
+    """K12 (csrc/ba_projector.cu) against its plain version (the SVD) on
+    the BA windows of 1 to 8 frames in the main path's 8 slots at 640x480
+    and on an empty window, within torch_kernel_checks.projector_err's
+    tolerance; 20 launches bitwise equal; its times at the full window.
+    Returns the kernel record (launches filled in after phase 3)."""
+    import torch
+    from ldso_tpu_torch.backend import ba_device
+    from ldso_tpu_torch.backend.window import empty_window
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kernel_checks()
+    bases = []
+    for nf in range(1, K12_F + 1):
+        W, _, _, _, cfg, _ = kc.ba_window(nf, K12_F, n_pts=64, w=640, h=480,
+                                          seed=nf, device="cuda")
+        bases.append(ba_device.orth_basis(W))
+    delta = cfg.solver_mode_delta
+    bases.append(ba_device.orth_basis(empty_window(
+        K12_F, 16, (352.0, 352.0, 319.5, 239.5), cfg, "cuda")))
+    worst, share = _projector_errs(kc, bases, delta, "window")
+    Nn = bases[K12_F - 1]
+    kernel = lambda: cuda_kernels.ba_projector(Nn, delta)  # noqa: E731
+    first = kernel()
+    for rep in range(1, DET_REPEATS):
+        if not _same(kernel(), first):
+            _fail(f"K12: launch {rep} differs from launch 0")
+    _, work = cuda_kernels.projector_launch(Nn[None], delta)
+    bound_ms, bound_by = projector_bound_ms(Nn[None], delta)
+    rec = dict(name="ba_projector", route="cuda",
+               source="ldso_tpu_torch/csrc/ba_projector.cu",
+               replaces="ldso_tpu/backend/ba_device.py:94",
+               max_abs_err=worst, tol_share=share,
+               ms=_median_event_ms(kernel),
+               device_ms=_graph_device_ms(kernel),
+               plain_ms=_median_event_ms(
+                   lambda: ba_device.nullspace_projector_ref(Nn, delta)),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+               sweeps=int(work[0, 0]), rotations=int(work[0, 1]),
+               rows=int(Nn.shape[0]))
+    print(f"K12 ba_projector: {len(bases)} windows (1-{K12_F} frames of "
+          f"{K12_F} slots, n = {rec['rows']}, and an empty one): max|kernel "
+          f"- plain| {worst:.3g}, at most {share:.3f} of the tolerance; "
+          f"{DET_REPEATS} launches bitwise equal; at the full window "
+          f"{rec['ms']:.4f} ms per single call, {rec['device_ms']:.4f} ms of "
+          f"device time per launch (20 in a graph), plain (SVD) "
+          f"{rec['plain_ms']:.4f} ms; {rec['sweeps']} sweeps, "
+          f"{rec['rotations']} rotations; bound {bound_ms * 1e3:.4f} us set "
+          f"by {bound_by}", flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def recorded_ba():
+    """Yields a list that gets the inputs of every device-LM call inside
+    (energy_functional.replay_ba, EnergyFunctional.optimize's path on the
+    card; a FullSystem's placeholder captures included): (W, dIs, HM, bM,
+    newest, cfg, img_w, img_h, trips). The system writes none of them in
+    place, so they are kept as given."""
+    from ldso_tpu_torch.backend import energy_functional as efm
+    seen = []
+    replay = efm.replay_ba
+
+    def recorded(*args):
+        seen.append(args)
+        return replay(*args)
+    efm.replay_ba = recorded
+    try:
+        yield seen
+    finally:
+        efm.replay_ba = replay
+
+
+def _ba_calls(records):
+    """The recorded device-LM calls of a run (not the placeholders)."""
+    return [r for r in records if bool(r[0].frame_valid.any())]
+
+
+def _live_trips(W, dIs, HM, bM, newest, cfg, w, h, trips) -> int:
+    """The LM trips of one device-LM call before its `done`: its loop run
+    eagerly with the break test read on the host."""
+    from ldso_tpu_torch.backend import ba, ba_device
+    W = ba_device._reset_oob_dev(W)
+    W, _ = ba.linearize_all(W, dIs, cfg, w, h)
+    W = ba_device._commit(ba.set_new_frame_energy_th(W, newest, cfg))
+    proj = ba_device.nullspace_projector(W, cfg)
+    lam0 = ba_device.lm_lambda(cfg)
+    for it in range(trips):
+        W, _, _, canbreak = ba_device._trip(
+            W, dIs, HM, bM, newest, lam0, proj if it >= 2 else None, cfg, w,
+            h)
+        if bool(canbreak) and it + 1 >= cfg.min_opt_iterations:
+            return it + 1
+    return trips
+
+
+# aten operations per eager device-LM call at the main path's full window
+# is not bounded here: the graph replays them all (PERF.md has the count)
+
+
+def phase_ba_graph(records, ba_ms):
+    """3d: the device LM (backend/ba_device.optimize_device, one CUDA graph
+    per call on the card) on phase 3's BA inputs: the replay of the last
+    call against the eager program, bitwise; the prior's pinned uploads and
+    the replay under torch.cuda.set_sync_debug_mode("error") behind 50 ms
+    of queued sleep (it must return inside the sleep; its stats bitwise the
+    eager ones); the device ms per call (replays queued behind a sleep)
+    beside phase 3's wall ms per call; the aten operations of one eager
+    call; the live trips (before `done`) of every call; K12 against its
+    plain version on every call's basis. Returns the numbers."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from ldso_tpu_torch.backend import ba_device, energy_functional as efm
+    from ldso_tpu_torch.ops.preprocess import to_device
+    kc = _kernel_checks()
+    calls = _ba_calls(records)
+    W, dIs, HM, bM, newest, cfg, w, h, trips = last = calls[-1]
+    got = efm.replay_ba(*last)
+    want = ba_device.optimize_device(*last)
+    for name, g, e in zip(ba_device.Window._fields + ("stats",),
+                          tuple(got[0]) + (got[1],),
+                          tuple(want[0]) + (want[1],)):
+        if not _same(g, e):
+            _fail(f"3d: the BA graph's {name} differs from the eager call")
+    dev = dIs.device
+    host = (HM.cpu(), bM.cpu(), newest.cpu())
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * 50.0))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        out = efm.replay_ba(W, dIs, *(to_device(x, dev) for x in host), cfg,
+                            w, h, trips)
+        queued_ms = (time.perf_counter() - t) * 1e3
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode(0)
+        _fail(f"3d: the BA's uploads and replay synchronised: {e}")
+    torch.cuda.set_sync_debug_mode(0)
+    if not (queued_ms < 25.0 and _same(out[1], want[1])):
+        _fail(f"3d: the BA replay took {queued_ms:.2f} ms to queue behind "
+              f"50 ms of sleep, stats equal {_same(out[1], want[1])}")
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+    with Count():
+        ba_device.optimize_device(*last)
+    live = [_live_trips(*c) for c in calls]
+    k12_err, k12_share = _projector_errs(
+        kc, [ba_device.orth_basis(c[0]) for c in calls],
+        cfg.solver_mode_delta, "phase 3 call")
+    res = dict(
+        calls=len(calls), trips=[c[-1] for c in calls], live_trips=live,
+        live_trips_mean=float(np.mean(live)),
+        wall_ms_median=float(np.median(ba_ms)),
+        device_ms=_queued_device_ms(lambda: efm.replay_ba(*last), n=5,
+                                    reps=5),
+        eager_ms=_host_us_per_call(lambda: ba_device.optimize_device(*last),
+                                   n=3) / 1e3,
+        queued_ms_in_sync_check=queued_ms, eager_ops=Count.n,
+        k12_max_abs_err=k12_err, k12_tol_share=k12_share,
+        captures=efm.BA_GRAPHS.counts["count"],
+        capture_s=efm.BA_GRAPHS.counts["s"])
+    print(f"3d device LM: {len(calls)} calls in phase 3 (trips {res['trips']}"
+          f"), live trips {live} (mean {res['live_trips_mean']:.2f}); the "
+          f"last call's graph replay equals the eager call bitwise; its "
+          f"uploads and replay ran under set_sync_debug_mode('error') and "
+          f"queued in {queued_ms:.2f} ms behind 50 ms of sleep; "
+          f"{res['device_ms']:.4f} ms of device time per call ({trips} trips,"
+          f" 5 replays queued, median of 5) against phase 3's "
+          f"{res['wall_ms_median']:.2f} ms wall per call (median) and "
+          f"{res['eager_ms']:.2f} ms per eager call; {Count.n} aten "
+          f"operations per eager call; K12 on every call's basis max|kernel "
+          f"- plain| {k12_err:.3g} ({k12_share:.3f} of the tolerance); "
+          f"{res['captures']} BA graphs captured in {res['capture_s']:.2f} s "
+          f"(at FullSystem construction)", flush=True)
+    return res
+
+
+BATCH_BA_WINDOWS = 8         # as 7c's sequences, bench.py's S
+
+
+def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
+    """7e: phase 3's last S device-LM inputs (one trip count) in one vmapped
+    CUDA graph (as bench.py's _bench_batched_ba vmaps the JAX package's),
+    against S single replays, within torch_kernel_checks.ba_batch_err's
+    tolerance (the batched products sum in another order: BA_ORDER_FACTOR
+    times the spread of single replays with the points reversed), the
+    residual bookkeeping equal; K12 launched once for the S; the device ms
+    of the batch and of the S singles. Returns the numbers."""
+    import torch
+    from ldso_tpu_torch.backend import ba_device, energy_functional as efm
+    from ldso_tpu_torch.backend.window import Window
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.utils.graphs import Programs
+    kc = _kernel_checks()
+    calls = _ba_calls(records)[-S:]
+    cfg, w, h, trips = calls[-1][5:]
+    if len(calls) < S or any(c[5:] != (cfg, w, h, trips) for c in calls):
+        _fail(f"7e: phase 3's last {S} BA calls do not share one trip count: "
+              f"{[c[-1] for c in calls]}")
+    stacked = tuple(torch.stack([c[0][i] for c in calls])
+                    for i in range(len(Window._fields))) + tuple(
+        torch.stack([c[k] for c in calls]) for k in (1, 2, 3, 4))
+    key = ("vmap", ba_device.graph_key(cfg), w, h, trips)
+
+    def program(*xs):
+        W, stats = torch.func.vmap(
+            lambda W, d, H, b, n: ba_device.optimize_device(
+                W, d, H, b, n, cfg, w, h, trips))(Window(*xs[:-4]), *xs[-4:])
+        return tuple(W) + (stats,)
+    graphs = Programs()
+    graphs.replay(key, program, stacked)
+    cuda_kernels.reset_launch_counts()
+
+    def batch():
+        return graphs.replay(key, program, stacked)
+    out = batch()
+    k12 = cuda_kernels.LAUNCHES["ba_projector"]
+
+    def single(W, *rest):
+        return efm.replay_ba(W, *rest, cfg, w, h, trips)
+    worst, tol, faults = kc.ba_batch_err(
+        [(Window(*(x[s] for x in out[:-1])), out[-1][s]) for s in range(S)],
+        [single(*c[:5]) for c in calls],
+        [kc.reordered_ba(single, *c[:5]) for c in calls])
+    if faults or k12 != 1:
+        _fail(f"7e: batch of {S} against single replays: {faults} "
+              f"(largest {worst}, tolerance {tol}), K12 launched {k12} times")
+    res = dict(phase="7e batched_ba", windows=S, trips=trips, max_err=worst,
+               tol=tol, k12_launches=k12,
+               device_ms=_queued_device_ms(batch, n=3, reps=5),
+               single_device_ms=[_queued_device_ms(
+                   lambda c=c: efm.replay_ba(*c), n=3, reps=5) for c in calls])
+    print(f"7e batched BA: phase 3's last {S} windows ({trips} trips) in one "
+          f"vmapped graph against {S} single replays: largest differences "
+          f"{worst} within {tol} (BA_ORDER_FACTOR x the reordered spread), "
+          f"bookkeeping equal; K12 launched once; {res['device_ms']:.4f} ms "
+          f"of device time per batch against "
+          f"{sum(res['single_device_ms']):.4f} ms for the {S} singles "
+          f"({[round(x, 4) for x in res['single_device_ms']]})", flush=True)
+    return res
 
 
 @contextlib.contextmanager
@@ -1918,16 +2242,22 @@ def main() -> int:
     import torch
     record = phase_kernels()
     trip_edges = phase_trip_edges()
+    proj_record = phase_projector()
     phase_determinism()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
-    with ba_times() as phase3_ba_ms:
+    with ba_times() as phase3_ba_ms, recorded_ba() as ba_records:
         launches_vo, calib, images, poses, strict, fs, tracks3 = \
             phase_main_path()
+    # every device-LM call of phase 3 went through its graph
+    if not strict["ba_replays"] == len(phase3_ba_ms) > 0:
+        _fail(f"phase 3: {strict['ba_replays']} BA graph replays for "
+              f"{len(phase3_ba_ms)} BA calls")
     trip_record = phase_trip_frame(fs, images, trip_edges,
                                    strict["k3_by_mode"])
     graph = phase_tracker_graph(fs, images, tracks3)
     del tracks3
+    ba_graph = phase_ba_graph(ba_records, phase3_ba_ms)
     phase_dispatch_ahead(fs, images)
     phase_checkpoint(fs, root)
     window3 = fs.ef.W
@@ -1939,6 +2269,8 @@ def main() -> int:
     variants = phase_variants(calib, images, poses, phase3_ba_ms)
     batched = phase_batched_tracker()
     sharded = phase_sharded(window3, map4)
+    batched_ba = phase_batched_ba(ba_records)
+    del ba_records
     by_path = dict(vo_strict=launches_vo["distance_transform"],
                    loop=launches["distance_transform"],
                    boxes=boxes["k1_launches"],
@@ -1966,6 +2298,20 @@ def main() -> int:
     print(f"K3 launches per path: {k3_by_path}", flush=True)
     trip_record["launches"] = launches["tracker_trip"]
     trip_record["launches_by_path"] = k3_by_path
+    k12_by_path = dict(vo_strict=strict["k12_launches"],
+                       loop=launches["ba_projector"],
+                       boxes=boxes["k12_launches"],
+                       vo_lookahead=look["k12_launches"],
+                       vo_async=asyn["k12_launches"],
+                       vo_async_paced=paced["k12_launches"],
+                       cli_lookahead=cli["k12_lookahead"],
+                       cli_async=cli["k12_async"],
+                       **{name.split()[1]: run["k12_launches"]
+                          for name, run in variants.items()},
+                       batched_ba=batched_ba["k12_launches"])
+    print(f"K12 launches per path: {k12_by_path}", flush=True)
+    proj_record["launches"] = strict["k12_launches"]
+    proj_record["launches_by_path"] = k12_by_path
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for name, run in variants.items():
@@ -1975,8 +2321,10 @@ def main() -> int:
             "phase3_ba_ms_median", "k1_launches", "gpu")}))
     print(json.dumps(batched))
     print(json.dumps(sharded))
+    print(json.dumps(batched_ba))
     print(json.dumps({"tracker_graph": graph}))
-    print(json.dumps({"kernels": [record, trip_record]}))
+    print(json.dumps({"ba_graph": ba_graph}))
+    print(json.dumps({"kernels": [record, trip_record, proj_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,7 +6,11 @@ EnergyFunctional.cc plus the optimization driver of FullSystem.cc:725-864):
     reference keeps its stitched algebra in double);
   * frame slots: active frames always occupy slots [0, nf);
   * the default BA (`ba_device_lm=True`, force-accept, no momentum) runs
-    through backend/ba_device.optimize_device; every other configuration
+    through backend/ba_device.optimize_device, one device program: on the
+    card one CUDA graph per shape and trip count (`BA_GRAPHS`, captured
+    before a FullSystem's first frame by `warm_ba_programs`), the prior
+    uploaded through pinned memory and the stats read once after the
+    replay; every other configuration
     runs the host-orchestrated LM `_optimize_host`: the accept/reject
     loop, each solve assembled on the device and solved in float64 numpy
     (`solve_system`, with every SOLVER_* branch), the momentum modes and
@@ -34,6 +38,40 @@ from ldso_tpu_torch.backend.ba_device import (_finalize_linearization,
 from ldso_tpu_torch.backend.window import (RES_IN, RES_OUTLIER, Window,
                                            aff_g2l_zero, empty_window)
 from ldso_tpu_torch.math import lie
+from ldso_tpu_torch.ops.preprocess import to_device
+from ldso_tpu_torch.utils.graphs import Programs
+
+# the device LM's CUDA graphs (utils/graphs.Programs): one per
+# device, Config fields it reads, image size, trip count and input shapes
+BA_GRAPHS = Programs()
+
+
+def device_lm(cfg: Config) -> bool:
+    """Whether `optimize` runs the device LM (else `_optimize_host`)."""
+    return bool(cfg.ba_device_lm and cfg.force_accept_step
+                and not (cfg.solver_mode & SOLVER_MOMENTUM))
+
+
+def ba_trip_counts(max_iterations: int):
+    """The LM trip counts `optimize` runs with: 20 for a window of two
+    frames, 15 for three, `max_iterations` from four on."""
+    return (20, 15, max_iterations)
+
+
+def replay_ba(W: Window, dIs, HM, bM, newest, cfg: Config, img_w: int,
+              img_h: int, max_iterations: int):
+    """ba_device.optimize_device through its CUDA graph (BA_GRAPHS; the
+    graph of this key is captured at its first call, and a capture that
+    fails raises). All inputs are tensors on one card, newest a 0-d
+    integer. Returns (W, stats) as optimize_device does."""
+    def program(*xs):
+        W, stats = ba_device.optimize_device(
+            Window(*xs[:-4]), *xs[-4:], cfg, img_w, img_h, max_iterations)
+        return tuple(W) + (stats,)
+    out = BA_GRAPHS.replay((ba_device.graph_key(cfg), img_w, img_h,
+                            max_iterations), program,
+                           tuple(W) + (dIs, HM, bM, newest))
+    return Window(*out[:-1]), out[-1]
 
 
 def _set_at(t, i, v):
@@ -554,29 +592,51 @@ class EnergyFunctional:
         nf = self.n_frames
         if nf < 2:
             return 0.0
-        if nf < 3:
-            max_iterations = 20
-        elif nf < 4:
-            max_iterations = 15
-        momentum = bool(cfg.solver_mode & SOLVER_MOMENTUM)
-        if not (cfg.ba_device_lm and cfg.force_accept_step and not momentum):
-            return self._optimize_host(dIs, max_iterations, img_w, img_h,
-                                       nf - 1, momentum)
+        max_iterations = ba_trip_counts(max_iterations)[min(nf, 4) - 2]
+        if not device_lm(cfg):
+            return self._optimize_host(
+                dIs, max_iterations, img_w, img_h, nf - 1,
+                bool(cfg.solver_mode & SOLVER_MOMENTUM))
         n_full = CPARS + 8 * self.F
         n = CPARS + 8 * nf
         HMp = np.zeros((n_full, n_full), np.float32)
         bMp = np.zeros(n_full, np.float32)
         HMp[:n, :n] = self.HM
         bMp[:n] = self.bM
-        self.W, stats = ba_device.optimize_device(
-            self.W, dIs, torch.from_numpy(HMp).to(self.device),
-            torch.from_numpy(bMp).to(self.device), nf - 1, cfg, img_w, img_h,
-            max_iterations)
-        stats = stats.cpu().numpy()
+        dev = self.device
+        args = (self.W, dIs, to_device(torch.from_numpy(HMp), dev),
+                to_device(torch.from_numpy(bMp), dev),
+                to_device(torch.tensor(nf - 1), dev), cfg, img_w, img_h,
+                max_iterations)
+        if dev.type == "cuda":
+            self.W, stats = replay_ba(*args)
+        else:
+            self.W, stats = ba_device.optimize_device(*args)
+        stats = stats.cpu().numpy()     # the one host read, after the LM
         self.res_in_a = int(stats[1])
         if not np.isfinite(stats[0]):
             self.is_lost = True
         return float(stats[2])
+
+    def warm_ba_programs(self, dIs, max_iterations: int, img_w: int,
+                         img_h: int):
+        """Capture the device LM's graphs for every trip count `optimize`
+        runs (ba_trip_counts) on placeholder inputs of this window's shapes
+        (the empty window, a zero prior), so that no capture lands in a run
+        (FullSystem.warm_retrack_programs). Only on the card and for a
+        Config that runs the device LM."""
+        if self.device.type != "cuda" or not device_lm(self.cfg):
+            return
+        n_full = CPARS + 8 * self.F
+        f32 = dict(dtype=torch.float32, device=self.device)
+        W = empty_window(self.F, self.P, self.calib.intrinsics_vec(),
+                         self.cfg, self.device)
+        for trips in ba_trip_counts(max_iterations):
+            replay_ba(W, torch.zeros_like(dIs),
+                      torch.zeros((n_full, n_full), **f32),
+                      torch.zeros(n_full, **f32),
+                      torch.zeros((), dtype=torch.int64, device=self.device),
+                      self.cfg, img_w, img_h, trips)
 
     def _linearize(self, dIs, img_w, img_h, newest) -> float:
         """linearizeAll without fixing (FullSystem.cc:1442-1543): returns

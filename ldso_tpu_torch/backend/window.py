@@ -18,6 +18,7 @@ import torch
 from ldso_tpu_torch.config import (SCALE_A, SCALE_B, SCALE_C, SCALE_F,
                                    SCALE_XI_ROT, SCALE_XI_TRANS)
 from ldso_tpu_torch.math import lie
+from ldso_tpu_torch.utils.static import device_const
 
 RES_IN = 0
 RES_OOB = 1
@@ -126,11 +127,11 @@ def empty_window(F: int, P: int, c_init, cfg, device) -> Window:
 
 def scaled_state(state):
     """(..., 10) unscaled -> scaled (physical) parameters."""
-    return state * torch.tensor(STATE_SCALE, device=state.device)
+    return state * device_const(tuple(STATE_SCALE.tolist()), state.device)
 
 
 def c_scaled(c_value):
-    return c_value * torch.tensor(C_SCALE, device=c_value.device)
+    return c_value * device_const(tuple(C_SCALE.tolist()), c_value.device)
 
 
 def current_poses(W: Window):

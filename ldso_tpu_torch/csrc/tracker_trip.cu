@@ -37,10 +37,20 @@
 //   * over the good points (ok and not saturated) the 8-column Jacobian J,
 //     H = sum hw J J^T and b = sum hw J r, each / max(#good, 1) and scaled
 //     by SCALE_XI_ROT, SCALE_XI_TRANS, SCALE_A, SCALE_B.
-// A point that is not ok (or, for H and b, not good) adds nothing: it is
-// skipped, never multiplied by 0, so a NaN it carries stays out. (The plain
-// version forms H as (J w)^T J, so a masked point whose gradient is NaN
-// turns its H NaN; the JAX package does the same.)
+// A point that is not ok (or, for H and b, not good) adds nothing to the
+// sums: it is skipped, never multiplied by 0. The plain version (and the
+// JAX package's `_calc_gs`) forms H as (J w)^T J and b as (J w)^T r over
+// every row of the point list, padding rows included, with w = 0 for a
+// point that is not good: 0 times a non-finite term is NaN. So each thread
+// also forms the terms of its points that are not good and keeps a mask of
+// what is non-finite there (kBad*): J[q] turns H's row and column q and
+// b[q] NaN, a NaN residual (whose Huber weight is NaN) every entry of H and
+// b, an infinite one every entry of b, and at level 0 a non-finite flow
+// term of a point that is not ok the flow statistic it would add to. The
+// masks are OR-ed across the cluster and written as NaN in the epilogue,
+// where the plain version's entries are NaN. In lm mode a NaN H or b gives
+// a NaN step, whose non-finite increments are set to 0 as in
+// `lm_step_ref`: the member does not move.
 //
 // What bounds it on this card: bytes, and at these sizes latency. The
 // inputs are N points of 16 bytes and their mask byte, about 100 floats of
@@ -82,10 +92,12 @@
 //    at its first instructions. The outputs are new tensors of the wrapper
 //    (torch.empty), because vmap refuses in-place writes.
 //  * Memory access: a thread reads its point as one 16-byte float4 (threads
-//    on neighbouring points, coalesced) and its mask byte, and returns at
-//    once for a masked or out-of-bounds point, before any gather; the
-//    level's three channels are __ldg gathers at four taps for in-bounds
-//    points only (TMA does not apply to data-dependent taps).
+//    on neighbouring points, coalesced) and its mask byte; the level's
+//    three channels are __ldg gathers at four taps (TMA does not apply to
+//    data-dependent taps). Every row of the list is sampled, masked ones
+//    too, since their non-finite terms count (above); the padding rows all
+//    repeat one pixel, and out-of-bounds points land on the clamped border,
+//    so their gathers hit lines already in cache.
 //  * Tensor cores stay unused: the 8x8 outer products are float32 (the port
 //    keeps TF32 off) and 36 FMAs a point fill no wgmma tile.
 // Tried on the card and not kept: 512 threads a block (a live trip at level
@@ -115,6 +127,12 @@ constexpr int kGood = 47;     // ok and not saturated
 constexpr int kFlowT = 48;
 constexpr int kFlowRT = 49;
 constexpr int kAcc = 50;
+// what is non-finite among the terms of the points that are not good (bits
+// 0-7: J[q])
+constexpr unsigned kBadResNaN = 1u << 8;   // the residual is NaN
+constexpr unsigned kBadResInf = 1u << 9;   // the residual is infinite
+constexpr unsigned kBadFlowT = 1u << 10;   // a point that is not ok
+constexpr unsigned kBadFlowRT = 1u << 11;
 constexpr int kParams = 31;
 constexpr int kPointers = 21;
 
@@ -173,6 +191,21 @@ __host__ __device__ constexpr int tri(int i, int j) {
 }
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
+
+// torch.clamp(x, min=lo): a NaN stays NaN (fmaxf would drop it)
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+
+// the kBad* bits of the terms of a point that is not good
+__device__ __forceinline__ unsigned bad_bits(const float (&J)[8], float res) {
+  unsigned bits = 0u;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) bits |= isfinite(J[q]) ? 0u : 1u << q;
+  if (isnan(res)) bits |= kBadResNaN;
+  if (isinf(res)) bits |= kBadResInf;
+  return bits;
+}
 
 // p.scale[i] for a thread-dependent i, by selects: an indexed parameter
 // array would be copied to local memory by every thread at the start
@@ -450,8 +483,9 @@ tracker_trip_kernel(Args a, Params p, int mode, int B, int N, int w, int h,
   }
 #define ACC(k) acc[(k) / 32][(k) % 32]
 
+  unsigned bad = 0u;
   for (int i = rank * kThreads + tid; i < N; i += n_ranks * kThreads) {
-    if (V[i] == 0) continue;
+    const bool valid = V[i] != 0;
     const float4 pt = __ldg(P + i);
     const float x = pt.x, y = pt.y, idep = pt.z, color = pt.w;
 
@@ -465,37 +499,51 @@ tracker_trip_kernel(Args a, Params p, int mode, int B, int N, int w, int h,
     const float Ku = p.fx * u + p.cx;
     const float Kv = p.fy * v + p.cy;
     const float nid = idep / p2;
-    if (!(Ku > 2.0f && Kv > 2.0f && Ku < umax && Kv < vmax && nid > 0.0f)) {
-      continue;
-    }
+    const bool inb = Ku > 2.0f && Kv > 2.0f && Ku < umax && Kv < vmax &&
+                     nid > 0.0f;
 
-    // bilinear (I, dx, dy): the taps of ops/interp.bilinear
-    const float xc = fminf(fmaxf(Ku, 0.0f), wlim);
-    const float yc = fminf(fmaxf(Kv, 0.0f), hlim);
-    const float x0 = floorf(xc), y0 = floorf(yc);
-    const float fx_ = xc - x0, fy_ = yc - y0;
-    const float* t00 =
-        img + (static_cast<size_t>(y0) * w + static_cast<size_t>(x0)) * 3;
-    const float* t01 = t00 + 3;
-    const float* t10 = t00 + static_cast<size_t>(w) * 3;
-    const float* t11 = t10 + 3;
-    const float dxdy = fx_ * fy_;
-    const float w11 = dxdy, w10 = fy_ - dxdy, w01 = fx_ - dxdy;
-    const float w00 = 1.0f - fx_ - fy_ + dxdy;
-    const float I = w11 * __ldg(t11) + w10 * __ldg(t10) + w01 * __ldg(t01) +
-                    w00 * __ldg(t00);
-    if (!isfinite(I)) continue;
-    const float gx = w11 * __ldg(t11 + 1) + w10 * __ldg(t10 + 1) +
-                     w01 * __ldg(t01 + 1) + w00 * __ldg(t00 + 1);
-    const float gy = w11 * __ldg(t11 + 2) + w10 * __ldg(t10 + 2) +
-                     w01 * __ldg(t01 + 2) + w00 * __ldg(t00 + 2);
+    // bilinear (I, dx, dy): the taps of ops/interp.bilinear, whose clamp
+    // keeps a NaN coordinate, and so a NaN sample
+    float I, gx, gy;
+    if (isnan(Ku) || isnan(Kv)) {
+      I = gx = gy = __int_as_float(0x7fc00000);
+    } else {
+      const float xc = fminf(fmaxf(Ku, 0.0f), wlim);
+      const float yc = fminf(fmaxf(Kv, 0.0f), hlim);
+      const float x0 = floorf(xc), y0 = floorf(yc);
+      const float fx_ = xc - x0, fy_ = yc - y0;
+      const float* t00 =
+          img + (static_cast<size_t>(y0) * w + static_cast<size_t>(x0)) * 3;
+      const float* t01 = t00 + 3;
+      const float* t10 = t00 + static_cast<size_t>(w) * 3;
+      const float* t11 = t10 + 3;
+      const float dxdy = fx_ * fy_;
+      const float w11 = dxdy, w10 = fy_ - dxdy, w01 = fx_ - dxdy;
+      const float w00 = 1.0f - fx_ - fy_ + dxdy;
+      I = w11 * __ldg(t11) + w10 * __ldg(t10) + w01 * __ldg(t01) +
+          w00 * __ldg(t00);
+      gx = w11 * __ldg(t11 + 1) + w10 * __ldg(t10 + 1) +
+           w01 * __ldg(t01 + 1) + w00 * __ldg(t00 + 1);
+      gy = w11 * __ldg(t11 + 2) + w10 * __ldg(t10 + 2) +
+           w01 * __ldg(t01 + 2) + w00 * __ldg(t00 + 2);
+    }
+    const bool ok = valid && inb && isfinite(I);
 
     const float res = I - (a_rel * color + b_rel);
     const float abs_r = fabsf(res);
-    const float hw = abs_r < huber ? 1.0f : huber / fmaxf(abs_r, 1e-12f);
+    const float hw = abs_r < huber ? 1.0f : huber / clamp_min(abs_r, 1e-12f);
     const bool sat = abs_r > cut;
-    ACC(kE) += sat ? max_energy : hw * res * res * (2.0f - hw);
-    ACC(kNum) += 1.0f;
+    const float dxf = gx * p.fx;
+    const float dyf = gy * p.fy;
+    float J[8];
+    J[0] = nid * dxf;
+    J[1] = nid * dyf;
+    J[2] = -nid * (u * dxf + v * dyf);
+    J[3] = -(u * v * dxf + (1.0f + v * v) * dyf);
+    J[4] = u * v * dyf + (1.0f + u * u) * dxf;
+    J[5] = u * dyf - v * dxf;
+    J[6] = a_rel * (b0 - color);
+    J[7] = -1.0f;
 
     if (compute_flow) {
       // pure translation both ways, and the rotation with -t
@@ -508,26 +556,27 @@ tracker_trip_kernel(Args a, Params p, int mode, int B, int N, int w, int h,
       const float KvT2 = p.fy * (k1 - ty) / (k2 - tz) + p.cy;
       const float Ku3 = p.fx * (r0 - tx) / (r2 - tz) + p.cx;
       const float Kv3 = p.fy * (r1 - ty) / (r2 - tz) + p.cy;
-      ACC(kFlowT) += sq(KuT - x) + sq(KvT - y) + sq(KuT2 - x) + sq(KvT2 - y);
-      ACC(kFlowRT) += sq(Ku - x) + sq(Kv - y) + sq(Ku3 - x) + sq(Kv3 - y);
+      const float ft = sq(KuT - x) + sq(KvT - y) + sq(KuT2 - x) + sq(KvT2 - y);
+      const float frt = sq(Ku - x) + sq(Kv - y) + sq(Ku3 - x) + sq(Kv3 - y);
+      if (ok) {
+        ACC(kFlowT) += ft;
+        ACC(kFlowRT) += frt;
+      } else {
+        bad |= (isfinite(ft) ? 0u : kBadFlowT) |
+               (isfinite(frt) ? 0u : kBadFlowRT);
+      }
     }
-    if (sat) {
-      ACC(kSat) += 1.0f;
+    if (ok) {
+      ACC(kE) += sat ? max_energy : hw * res * res * (2.0f - hw);
+      ACC(kNum) += 1.0f;
+    }
+    if (!ok || sat) {
+      // not good: nothing in the sums, but its non-finite terms
+      bad |= bad_bits(J, res);
+      if (ok) ACC(kSat) += 1.0f;
       continue;
     }
     ACC(kGood) += 1.0f;
-
-    const float dxf = gx * p.fx;
-    const float dyf = gy * p.fy;
-    float J[8];
-    J[0] = nid * dxf;
-    J[1] = nid * dyf;
-    J[2] = -nid * (u * dxf + v * dyf);
-    J[3] = -(u * v * dxf + (1.0f + v * v) * dyf);
-    J[4] = u * v * dyf + (1.0f + u * u) * dxf;
-    J[5] = u * dyf - v * dxf;
-    J[6] = a_rel * (b0 - color);
-    J[7] = -1.0f;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const float Jw = J[q] * hw;
@@ -544,14 +593,24 @@ tracker_trip_kernel(Args a, Params p, int mode, int B, int N, int w, int h,
   __shared__ float blk[kAcc];
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  __shared__ unsigned red_bad[kWarps];
+  __shared__ unsigned blk_bad;
   red[warp][lane] = reduce_scatter(acc[0], lane);
   red[warp][32 + lane] = reduce_scatter(acc[1], lane);
+  bad = __reduce_or_sync(0xffffffffu, bad);
+  if (lane == 0) red_bad[warp] = bad;
   __syncthreads();
   if (tid < kAcc) {
     float x = red[0][tid];
 #pragma unroll
     for (int wi = 1; wi < kWarps; ++wi) x += red[wi][tid];
     blk[tid] = x;
+  }
+  if (tid == kAcc) {
+    unsigned x = 0u;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) x |= red_bad[wi];
+    blk_bad = x;
   }
 
   // 5. the cluster's sums: rank 0 adds the other ranks' in rank order
@@ -571,25 +630,44 @@ tracker_trip_kernel(Args a, Params p, int mode, int B, int N, int w, int h,
     }
     tot[tid] = x;
   }
+  __shared__ unsigned tot_bad;
+  if (rank == 0 && tid == kAcc) {
+    unsigned x = blk_bad;
+    for (int r = 1; r < n_ranks; ++r) x |= *cluster.map_shared_rank(&blk_bad, r);
+    tot_bad = x;
+  }
   cluster.sync();      // the other ranks' shared memory lives until here
   if (rank != 0) return;
 
   // 6. the epilogue: stats, H and b of the trip, then the mode's selects
   __shared__ float nH[64], nb[8], nst[6];
   if (tid < 64) {
+    const float nan = __int_as_float(0x7fc00000);
+    const unsigned bad_all = tot_bad;
     const float n = fmaxf(tot[kGood], 1.0f);
     const int i = tid >> 3, j = tid & 7;
     const int lo = i < j ? i : j, hi = i < j ? j : i;
-    nH[tid] = tot[kH + tri(lo, hi)] / n * scale_of(p, i) * scale_of(p, j);
-    if (tid < 8) nb[tid] = tot[kB + tid] / n * scale_of(p, tid);
+    const bool h_nan = (bad_all & (kBadResNaN | (1u << i) | (1u << j))) != 0u;
+    nH[tid] = h_nan ? nan
+                    : tot[kH + tri(lo, hi)] / n * scale_of(p, i) *
+                          scale_of(p, j);
+    if (tid < 8) {
+      const bool b_nan =
+          (bad_all & (kBadResNaN | kBadResInf | (1u << tid))) != 0u;
+      nb[tid] = b_nan ? nan : tot[kB + tid] / n * scale_of(p, tid);
+    }
     if (tid == 0) {
       const float num = tot[kNum];
       const float n_flow = 2.0f * (num + 0.1f);
       nst[0] = tot[kE];
       nst[1] = num;
-      nst[2] = compute_flow ? tot[kFlowT] / n_flow : 0.0f;
+      nst[2] = !compute_flow            ? 0.0f
+               : bad_all & kBadFlowT    ? nan
+                                        : tot[kFlowT] / n_flow;
       nst[3] = 0.0f;
-      nst[4] = compute_flow ? tot[kFlowRT] / n_flow : 0.0f;
+      nst[4] = !compute_flow            ? 0.0f
+               : bad_all & kBadFlowRT   ? nan
+                                        : tot[kFlowRT] / n_flow;
       nst[5] = tot[kSat] / fmaxf(num, 1.0f);
     }
   }

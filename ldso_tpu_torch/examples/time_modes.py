@@ -17,7 +17,9 @@ retrack-gate trips, how many frames the tracker ran on (a pipeline
 re-tracks its frames in flight after each keyframe) and the host time of
 those calls (on the card a graph replay that does not wait for the
 track), the tracker graphs captured inside the run (0: the FullSystem
-captures them when it is built), the host time of the mapping stages per
+captures them when it is built), K12's launches and the device LM's graph
+replays and captures (one replay per BA call; 0 captures, as the
+tracker's), the host time of the mapping stages per
 frame (`mapping_ms_per_frame`), and the card's name and power limit.
 With `--async-paces`, each turn then feeds async one frame per PACE times
 its strict run's `ms_per_frame_wall`, for each PACE (async keeps a
@@ -44,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from ldso_tpu_torch.backend.energy_functional import BA_GRAPHS
 from ldso_tpu_torch.config import Config
 from ldso_tpu_torch.examples.run_common import PIPELINES, make_driver
 from ldso_tpu_torch.frontend import track_graph, tracker
@@ -175,6 +178,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
     with traced_k1() as k1, counted_tracks() as tracks:
         _sync(fs.device)
         cuda_kernels.reset_launch_counts()
+        ba_graphs = dict(BA_GRAPHS.counts)
         call_ms = []
         t0 = time.perf_counter()
         for i, img in enumerate(images):
@@ -191,6 +195,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
         _sync(fs.device)
         wall = time.perf_counter() - t0
         launches = dict(cuda_kernels.LAUNCHES)
+        ba_graphs = {k: BA_GRAPHS.counts[k] - v for k, v in ba_graphs.items()}
         k3_by_mode = dict(cuda_kernels.TRIP_LAUNCHES)
     streams = collections.Counter()
     for (_, s), n in k1.items():
@@ -217,6 +222,9 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                k3_launches=launches["tracker_trip"],
                k3_by_mode=k3_by_mode,
                k3_expected=k3_expected(tracks, cfg, calib.levels),
+               k12_launches=launches["ba_projector"],
+               ba_replays=ba_graphs["replays"],
+               ba_captures=ba_graphs["count"],
                tracks=tracks["tracks"],
                rank_calls=tracks["ranks"],
                post_bootstrap_keyframes=sum(1 for kf in kfs if kf.kf_id >= 2),

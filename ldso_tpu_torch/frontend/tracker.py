@@ -45,7 +45,7 @@ from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.ops.interp import bilinear
 from ldso_tpu_torch.ops.preprocess import FramePyramid
 from ldso_tpu_torch.ops.scatter import segment_sum
-from ldso_tpu_torch.utils.static import nonzero_padded
+from ldso_tpu_torch.utils.static import device_const, nonzero_padded
 
 _LAMBDA_EXTRAPOLATION_LIMIT = 0.001
 # the cutoff doubles from 1 while under 50 (CoarseTracker.cc:89-94): at
@@ -175,23 +175,8 @@ def make_tracker_ref_from_idepth(idepth_map, pyr: FramePyramid,
 # trackNewestCoarse, batched over B poses
 # ---------------------------------------------------------------------------
 
-_consts = {}
-
-
-def _const(values, device, dtype=torch.float32) -> torch.Tensor:
-    """A constant tensor on `device`, uploaded at its first use and kept:
-    the captured tracker (frontend/track_graph.py) may not copy from the
-    host while it records, and its eager warm-up run makes every constant
-    of the path first."""
-    key = (values, str(device), dtype)
-    t = _consts.get(key)
-    if t is None:
-        t = _consts[key] = torch.tensor(values, dtype=dtype, device=device)
-    return t
-
-
 def _Ki(calib: Calibration, lvl: int, device):
-    return _const(tuple(map(tuple, calib.Ki(lvl).tolist())), device)
+    return device_const(tuple(map(tuple, calib.Ki(lvl).tolist())), device)
 
 
 def _calc_res(ref: TrackerRef, pyr_new: FramePyramid, lvl: int, T, aff_new,
@@ -282,7 +267,7 @@ def _calc_res(ref: TrackerRef, pyr_new: FramePyramid, lvl: int, T, aff_new,
 
 
 def _scale_vec(device):
-    return _const((SCALE_XI_ROT,) * 3 + (SCALE_XI_TRANS,) * 3
+    return device_const((SCALE_XI_ROT,) * 3 + (SCALE_XI_TRANS,) * 3
                   + (SCALE_A, SCALE_B), device)
 
 
@@ -359,7 +344,7 @@ def _solve_inc(H, b, lam, cfg: Config):
         idx = list(range(7))
     else:
         idx = [0, 1, 2, 3, 4, 5, 7]
-    ix = _const(tuple(idx), H.device, torch.int64)
+    ix = device_const(tuple(idx), H.device, torch.int64)
     Hs = Hl[:, ix][:, :, ix] + eye[:len(idx), :len(idx)]
     sol = torch.linalg.solve_ex(Hs, -b[:, ix])[0]
     return zeros.index_copy(1, ix, sol)

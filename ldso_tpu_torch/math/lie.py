@@ -115,7 +115,7 @@ def se3(R, t):
     top = torch.cat([R.expand(batch + (3, 3)),
                      t.expand(batch + (3,))[..., None]], dim=-1)
     # the [0 0 0 1] row from fills, not an upload: a CUDA graph capture
-    # (frontend/track_graph.py) may not copy from the host
+    # (utils/graphs.py) may not copy from the host
     like = dict(dtype=R.dtype, device=R.device)
     bottom = torch.cat([torch.zeros(batch + (1, 3), **like),
                         torch.ones(batch + (1, 1), **like)], dim=-1)
@@ -150,14 +150,12 @@ def se3_inv(T):
 
 
 def se3_adj(T):
-    """Adjoint: (...,4,4) -> (...,6,6) for tangent order [v, w]."""
+    """Adjoint: (...,4,4) -> (...,6,6) for tangent order [v, w]. Built out
+    of place (vmap refuses writes into an unbatched buffer)."""
     R = T[..., :3, :3]
     t = T[..., :3, 3]
-    A = torch.zeros(T.shape[:-2] + (6, 6), dtype=T.dtype, device=T.device)
-    A[..., :3, :3] = R
-    A[..., :3, 3:] = hat(t) @ R
-    A[..., 3:, 3:] = R
-    return A
+    return torch.cat([torch.cat([R, hat(t) @ R], dim=-1),
+                      torch.cat([torch.zeros_like(R), R], dim=-1)], dim=-2)
 
 
 # ---------------------------------------------------------------------------

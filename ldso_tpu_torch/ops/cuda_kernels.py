@@ -15,7 +15,7 @@ ints), so a run can show that its main path went through the kernels. A
 launch recorded into a CUDA graph runs at each replay, not at the capture:
 while a thread captures (`recording_launches`), its counts go to the
 capture's tally, and the graph adds the tally to `LAUNCHES` at every replay
-(frontend/track_graph.py). K3's launches are also counted by mode in
+(utils/graphs.py). K3's launches are also counted by mode in
 `TRIP_LAUNCHES`, the same way.
 """
 
@@ -40,7 +40,7 @@ from ldso_tpu_torch.ops.distance_map import MAX_K, distance_transform_ref
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-_SOURCES = ("distance_map.cu", "tracker_trip.cu")
+_SOURCES = ("distance_map.cu", "tracker_trip.cu", "ba_projector.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "ldso_tpu_torch")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -48,7 +48,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # the dynamic shared memory a block may use without opting in to more
 SMEM_LIMIT = 48 * 1024
 
-LAUNCHES = {"distance_transform": 0, "tracker_trip": 0}
+LAUNCHES = {"distance_transform": 0, "tracker_trip": 0, "ba_projector": 0}
 # K3's launches by mode (TRIP_MODES); each is also one of LAUNCHES's
 TRIP_LAUNCHES = {"trip": 0, "cutoff": 0, "lm": 0}
 
@@ -202,6 +202,10 @@ def _load():
                 + [ctypes.POINTER(ctypes.c_float), ctypes.c_int,
                    ctypes.c_void_p])
             lib.ldso_tracker_trip.restype = ctypes.c_int
+            lib.ldso_ba_projector.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                + [ctypes.c_float, ctypes.c_void_p])
+            lib.ldso_ba_projector.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -530,3 +534,73 @@ def _lm_op(points: _T, valid: _T, dI: _T, T: _T, aff: _T, ref_aff: _T,
 
 for _mode, _name in TRIP_OPS.items():
     torch.library.register_vmap(f"ldso_tpu_torch::{_name}", _vmap_rule(_mode))
+
+
+# ---------------------------------------------------------------------------
+# K12: the nullspace projector of the windowed BA (csrc/ba_projector.cu)
+# ---------------------------------------------------------------------------
+
+PROJECTOR_MAX_ROWS = 256
+PROJECTOR_MAX_COLS = 8
+
+
+def projector_launch(Nn: torch.Tensor, delta: float):
+    """Launch K12 on S windows: Nn (S, n, k) float32 -> (the projectors
+    (S, n, n), (S, 2) int32: the Jacobi sweeps each window took and the
+    rotations it made)."""
+    if Nn.device.type != "cuda" or Nn.dtype != torch.float32 \
+            or Nn.dim() != 3:
+        raise ValueError(f"ba_projector: expected an (S, n, k) float32 CUDA "
+                         f"tensor, got {tuple(Nn.shape)} {Nn.dtype} on "
+                         f"{Nn.device}")
+    S, n, k = Nn.shape
+    if not (1 <= n <= PROJECTOR_MAX_ROWS and 1 <= k <= PROJECTOR_MAX_COLS):
+        raise ValueError(f"ba_projector: n = {n} rows (1..{PROJECTOR_MAX_ROWS})"
+                         f" and k = {k} columns (1..{PROJECTOR_MAX_COLS})")
+    Nn = Nn.contiguous()
+    lib = _load()
+    out = torch.empty((S, n, n), dtype=torch.float32, device=Nn.device)
+    work = torch.empty((S, 2), dtype=torch.int32, device=Nn.device)
+    with torch.cuda.device(Nn.device):
+        stream = torch.cuda.current_stream(Nn.device).cuda_stream
+        err = lib.ldso_ba_projector(Nn.data_ptr(), out.data_ptr(),
+                                    work.data_ptr(), S, n, k, float(delta),
+                                    stream)
+    if err != 0:
+        raise RuntimeError(f"ba_projector kernel launch failed: CUDA error "
+                           f"{err}")
+    _count("ba_projector")
+    return out, work
+
+
+def ba_projector(Nn: torch.Tensor, delta: float) -> torch.Tensor:
+    """The symmetric (n, n) projector onto the span of the (n, k)
+    column-normalised nullspace basis Nn, over its singular values above
+    delta times the largest (backend/ba_device.nullspace_projector_ref is
+    the function).
+
+    CPU tensor: the plain version (an SVD). CUDA tensor: K12
+    (csrc/ba_projector.cu) on the current stream through the operator
+    `ldso_tpu_torch::ba_projector`, whose vmap rule launches it once for
+    all S windows. It reads nothing back and allocates with torch.empty
+    only, so a CUDA graph can capture it."""
+    if Nn.device.type == "cpu":
+        from ldso_tpu_torch.backend.ba_device import nullspace_projector_ref
+        return nullspace_projector_ref(Nn, delta)
+    return torch.ops.ldso_tpu_torch.ba_projector(Nn, float(delta))
+
+
+@torch.library.custom_op("ldso_tpu_torch::ba_projector", mutates_args=())
+def _projector_op(Nn: _T, delta: float) -> _T:
+    """K12 on one window (Nn (n, k))."""
+    return projector_launch(Nn[None], delta)[0][0]
+
+
+def _projector_vmap(info, in_dims, Nn, delta):
+    """vmap over K12: the vmapped axis is the kernel's window axis."""
+    Nn = Nn.movedim(in_dims[0], 0) if in_dims[0] is not None else \
+        Nn.expand((info.batch_size,) + tuple(Nn.shape))
+    return projector_launch(Nn, delta)[0], 0
+
+
+torch.library.register_vmap("ldso_tpu_torch::ba_projector", _projector_vmap)

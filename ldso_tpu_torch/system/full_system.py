@@ -551,17 +551,21 @@ class FullSystem:
         self.viewer = viewer
 
     def warm_retrack_programs(self):
-        """Build what a run would otherwise first build mid-run: K1's
-        library (compiled from source on first use), the tracker's CUDA
-        graphs for one frame and for the retry batch (frontend/track_graph,
-        captured on placeholder inputs of this system's shapes) and, with
-        loop closing, the native host library. The constructor calls it on
+        """Build what a run would otherwise first build mid-run: the
+        kernels' library (compiled from source on first use), the tracker's
+        CUDA graphs for one frame and for the retry batch (frontend/
+        track_graph, captured on placeholder inputs of this system's
+        shapes), the device LM's graph for each of its trip counts
+        (EnergyFunctional.warm_ba_programs) and, with loop closing, the
+        native host library. The constructor calls it on
         the card; repeat calls are free."""
         if self._retrack_warm:
             return
         if self.device.type == "cuda":
             cuda_kernels._load()
             self._capture_tracker()
+            self.ef.warm_ba_programs(self.dIs, self.cfg.max_opt_iterations,
+                                     self.calib.w[0], self.calib.h[0])
         if self.loop_closing is not None:
             native.get_lib()
         self._retrack_warm = True

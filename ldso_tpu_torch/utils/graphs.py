@@ -1,0 +1,119 @@
+"""Programs captured once as CUDA graphs and replayed, shared by streams.
+
+A program that reads nothing back from the card is, for given input
+shapes, one fixed sequence of kernels; recorded once into a
+`torch.cuda.CUDAGraph`, it costs the host one graph launch per call. A
+`Programs` is one family of such programs: a graph per key (the device,
+the hashable arguments the program closes over, the inputs' shapes and
+dtypes), shared by every stream, with the family's own lock and counts.
+The tracker's family is frontend/track_graph.TRACKER, the windowed BA's
+backend/energy_functional.BA_GRAPHS.
+
+A replay runs under the graph's lock on the caller's current stream: wait
+for the graph's previous replay (an event, whatever stream it ran on),
+copy the inputs into the graph's static buffers, replay, clone the outputs
+out of its static buffers and record the event. So two streams (a
+pipeline's tracking stream and its mapping stream) never use the buffers
+at once, and each result is a fresh tensor that the next replay cannot
+overwrite.
+
+A capture begins with `torch.cuda.graph`'s device synchronise; it happens
+at a key's first call, which `FullSystem.warm_retrack_programs` makes
+before a run starts. A capture that fails raises.
+
+The hand-written kernels in a program count their launches in Python,
+which a replay does not run: the capture records each kernel's launches
+(`cuda_kernels.recording_launches`) and every replay adds them to
+`cuda_kernels.LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from ldso_tpu_torch.ops import cuda_kernels
+
+
+class Captured:
+    """One program captured on static inputs, replayed with new values."""
+
+    def __init__(self, program: Callable, inputs: Tuple[torch.Tensor, ...]):
+        dev = inputs[0].device
+        caller = torch.cuda.current_stream(dev)
+        self.static_in = tuple(x.clone() for x in inputs)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            # eager warm-up on the capture stream: library handles and
+            # workspaces, the tracker's device constants
+            program(*self.static_in)
+        self.graph = torch.cuda.CUDAGraph()
+        with cuda_kernels.recording_launches() as launches, \
+                torch.cuda.graph(self.graph, stream=side,
+                                 capture_error_mode="thread_local"):
+            self.static_out = tuple(program(*self.static_in))
+        self.launches = launches       # kernel launches of one replay
+        caller.wait_stream(side)
+        # an output that is an input (a field the program did not write)
+        # is returned as the caller's own tensor, as the eager call does
+        self.passthrough = {i: j for i, o in enumerate(self.static_out)
+                            for j, x in enumerate(self.static_in) if o is x}
+        self.lock = threading.Lock()
+        self.done = None
+
+    def replay(self, inputs) -> Tuple[torch.Tensor, ...]:
+        with self.lock:
+            stream = torch.cuda.current_stream(self.static_in[0].device)
+            if self.done is not None:
+                stream.wait_event(self.done)
+            for s, x in zip(self.static_in, inputs):
+                s.copy_(x)
+            self.graph.replay()
+            cuda_kernels.add_launches(self.launches)
+            out = tuple(inputs[self.passthrough[i]] if i in self.passthrough
+                        else o.clone() for i, o in enumerate(self.static_out))
+            self.done = torch.cuda.Event()
+            self.done.record(stream)
+            return out
+
+
+def _key(static, inputs) -> tuple:
+    return (inputs[0].device.index, static,
+            tuple((tuple(x.shape), x.dtype) for x in inputs))
+
+
+class Programs:
+    """One family of captured programs: a graph per key, shared by every
+    stream, and the family's counts (`counts`: graphs captured, their host
+    seconds, replays)."""
+
+    def __init__(self):
+        self.graphs: Dict[tuple, Captured] = {}
+        self.lock = threading.Lock()
+        self.counts = {"count": 0, "s": 0.0, "replays": 0}
+        self._count_lock = threading.Lock()
+
+    def replay(self, static, program: Callable,
+               inputs: Tuple[torch.Tensor, ...]):
+        """program(*inputs) through its graph for this key (captured now if
+        it has none; a capture that fails raises); `static` holds the
+        hashable arguments the program closes over. The inputs are CUDA
+        tensors of one device."""
+        key = _key(static, inputs)
+        g = self.graphs.get(key)
+        if g is None:
+            with self.lock:
+                g = self.graphs.get(key)
+                if g is None:
+                    t = time.perf_counter()
+                    g = self.graphs[key] = Captured(program, inputs)
+                    self.counts["count"] += 1
+                    self.counts["s"] += time.perf_counter() - t
+        out = g.replay(inputs)
+        with self._count_lock:
+            self.counts["replays"] += 1
+        return out

@@ -1,13 +1,29 @@
-"""Fixed-size index helpers that keep JAX's static-shape semantics.
+"""Fixed-size helpers that keep JAX's static-shape semantics.
 
 `jnp.nonzero(mask, size=n, fill_value=f)` returns exactly n indices, padded
 with f; torch.nonzero returns a data-dependent count and waits for the
 device. `nonzero_padded` gives the JAX result without a host round-trip.
+`device_const` keeps the constant tensors of the captured programs (the
+tracker, the windowed BA) on their device.
 """
 
 from __future__ import annotations
 
 import torch
+
+_consts = {}
+
+
+def device_const(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A constant tensor of the (nested) tuple `values` on `device`,
+    uploaded at its first use and kept: a CUDA graph capture
+    (utils/graphs.py) may not copy from the host, and the eager
+    warm-up run before it makes every constant of the program first."""
+    key = (values, str(device), dtype)
+    t = _consts.get(key)
+    if t is None:
+        t = _consts[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 def nonzero_padded(mask: torch.Tensor, size: int, fill_value: int = 0):

@@ -526,9 +526,11 @@ def _trip_batch(T0, B):
 def test_trip_kernel_matches_plain(cuda, lvl):
     """K3 against tracker_trip_ref at this level, batch 1 and 8, on the
     scene and on the edge cases (every point out of bounds, most terms
-    saturated, a NaN patch in the intensity or in all channels, where K3
-    skips the masked points and is held to the plain arithmetic with them
-    dropped), within torch_kernel_checks' tolerances; one launch each."""
+    saturated, a NaN patch in the intensity or in all channels, where the
+    plain version's H and b turn NaN and K3's must turn NaN alike), within
+    torch_kernel_checks' tolerances (NaN against NaN agrees, NaN on one
+    side fails); one launch each."""
+    from ldso_tpu_torch.frontend import tracker
     from ldso_tpu_torch.ops import cuda_kernels
     import torch_kernel_checks as kc
     sc = _trip_scene()
@@ -536,15 +538,19 @@ def test_trip_kernel_matches_plain(cuda, lvl):
     before = cuda_kernels.LAUNCHES["tracker_trip"]
     for case in kc.TRIP_CASES:
         for B in (1, 8):
-            p, T, aff, cut, plain = kc.trip_case(
+            p, T, aff, cut = kc.trip_case(
                 case, sc["pyr"], lvl, *_trip_batch(sc["T"], B), sc["cfg"])
             args = (sc["ref"], p, lvl, T, aff, expo, cut, sc["calib"],
                     sc["cfg"], lvl == 0)
             got = cuda_kernels.tracker_trip(*args)
-            err, share, same_n = kc.trip_err(got, plain(*args),
+            want = tracker.tracker_trip_ref(*args)
+            err, share, same_n = kc.trip_err(got, want,
                                              kc.trip_allowance(*args))
             assert share <= 1.0 and same_n, (case, B, err, share)
-            assert all(bool(torch.isfinite(x).all()) for x in got), case
+            for g, w in zip(got, want):
+                assert torch.equal(torch.isnan(g), torch.isnan(w)), case
+            if not case.startswith("nan"):
+                assert all(bool(torch.isfinite(x).all()) for x in got), case
             if case == "out_of_bounds":
                 assert not bool(got[0][:, 1].any())
             elif case == "saturating":
@@ -617,17 +623,19 @@ def test_trip_modes_match_plain(cuda, lvl):
     trip at the kernel's new pose within the trip's tolerances, the accept
     and done decisions equal unless their margins are within rounding);
     one launch per call."""
+    from ldso_tpu_torch.frontend import tracker
     from ldso_tpu_torch.ops import cuda_kernels
     import torch_kernel_checks as kc
     sc = _trip_scene()
     expo = torch.ones((), device=cuda)
     for case in kc.TRIP_CASES:
         for B in (1, 8):
-            p, T, aff, cut, plain = kc.trip_case(
+            p, T, aff, cut = kc.trip_case(
                 case, sc["pyr"], lvl, *_trip_batch(sc["T"], B), sc["cfg"])
             before = cuda_kernels.LAUNCHES["tracker_trip"]
             err, share, faults, _ = kc.mode_errs(
-                cuda_kernels.cutoff_trip, cuda_kernels.lm_trip, plain,
+                cuda_kernels.cutoff_trip, cuda_kernels.lm_trip,
+                tracker.tracker_trip_ref,
                 sc["ref"], p, lvl, T, aff, expo, cut, sc["calib"], sc["cfg"],
                 lvl == 0)
             # the cutoff call, the lm call and its candidate
@@ -715,3 +723,146 @@ def test_trip_launches_count_through_graph_replays(cuda):
         cuda_kernels.reset_launch_counts()
         run()
         assert cuda_kernels.LAUNCHES["tracker_trip"] == trips
+
+
+# ---------------------------------------------------------------------------
+# the windowed BA's device LM as one CUDA graph, and K12 (its projector)
+# ---------------------------------------------------------------------------
+
+def _kc():
+    import os
+    import sys
+    tests = os.path.dirname(os.path.abspath(__file__))
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_kernel_checks
+    return torch_kernel_checks
+
+
+def _ba_inputs(cuda, nf, seed, F=8):
+    """A BA window of nf frames in F slots on the card (the main path's F),
+    with its prior and the newest frame as a device integer."""
+    W, dIs, HM, bM, cfg, (w, h) = _kc().ba_window(
+        nf, F, n_pts=64, seed=seed, device=cuda)
+    return (W, dIs, HM, bM, torch.tensor(nf - 1, device=cuda)), cfg, w, h
+
+
+def test_projector_kernel_matches_plain(cuda):
+    """K12 against the plain projector (the SVD) on the windows of 1 to 8
+    frames of the main path's 8 slots, and on an empty window, within
+    torch_kernel_checks.projector_err's tolerance; one launch each; 20
+    launches bitwise equal."""
+    from ldso_tpu_torch.backend import ba_device
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kc()
+    for nf in range(0, 9):
+        if nf:
+            (W, *_), cfg, _, _ = _ba_inputs(cuda, nf, nf)
+        else:
+            cfg = _kc().ba_window(1, 8, device=cuda)[4]
+            from ldso_tpu_torch.backend.window import empty_window
+            W = empty_window(8, 16, (100.0, 100.0, 80.0, 60.0), cfg, cuda)
+        Nn = ba_device.orth_basis(W)
+        before = cuda_kernels.LAUNCHES["ba_projector"]
+        got = cuda_kernels.ba_projector(Nn, cfg.solver_mode_delta)
+        assert cuda_kernels.LAUNCHES["ba_projector"] == before + 1
+        want = ba_device.nullspace_projector_ref(Nn, cfg.solver_mode_delta)
+        err, share, at_gate = kc.projector_err(got[None], want[None],
+                                               Nn[None], cfg.solver_mode_delta)
+        assert not at_gate and share <= 1.0, (nf, err, share)
+        assert torch.equal(got, got.T)
+    first = cuda_kernels.ba_projector(Nn, cfg.solver_mode_delta)
+    for _ in range(19):
+        assert _same(cuda_kernels.ba_projector(Nn, cfg.solver_mode_delta),
+                     first)
+
+
+@pytest.mark.parametrize("nf", [2, 3, 8])
+def test_ba_graph_replay_equals_eager(cuda, nf):
+    """The device LM replayed as one CUDA graph (energy_functional.
+    replay_ba) against the eager optimize_device on the same window, bit
+    for bit, at 20, 15 and 6 trips; every field it does not write is the
+    caller's own tensor; one graph per key, K12 launched once per replay."""
+    from ldso_tpu_torch.backend import ba_device, energy_functional as efm
+    from ldso_tpu_torch.ops import cuda_kernels
+    args, cfg, w, h = _ba_inputs(cuda, nf, 20 + nf)
+    trips = efm.ba_trip_counts(6)[min(nf, 4) - 2]
+    want = ba_device.optimize_device(*args, cfg, w, h, trips)
+    efm.replay_ba(*args, cfg, w, h, trips)           # captured here if new
+    before = (dict(efm.BA_GRAPHS.counts),
+              cuda_kernels.LAUNCHES["ba_projector"])
+    got = efm.replay_ba(*args, cfg, w, h, trips)
+    torch.cuda.synchronize()
+    assert efm.BA_GRAPHS.counts["count"] == before[0]["count"]
+    assert efm.BA_GRAPHS.counts["replays"] == before[0]["replays"] + 1
+    assert cuda_kernels.LAUNCHES["ba_projector"] == before[1] + 1
+    for name, g, e in zip(ba_device.Window._fields, got[0], want[0]):
+        assert _same(g, e), name
+    assert _same(got[1], want[1])
+    for g, x in zip(got[0], args[0]):
+        assert g is x or g.data_ptr() != x.data_ptr()
+
+
+def test_ba_replay_does_not_sync(cuda):
+    """EnergyFunctional.optimize's device part (the prior's pinned uploads
+    and the graph replay) under torch.cuda.set_sync_debug_mode("error"),
+    behind 50 ms of queued sleep: it returns before the card has run it;
+    the stats read afterwards equal an unslept replay's."""
+    import time
+    from ldso_tpu_torch.backend import energy_functional as efm
+    from ldso_tpu_torch.ops.preprocess import to_device
+    (W, dIs, HM, bM, newest), cfg, w, h = _ba_inputs(cuda, 8, 3)
+    want = efm.replay_ba(W, dIs, HM, bM, newest, cfg, w, h, 6)[1]
+    HMh, bMh = HM.cpu(), bM.cpu()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(50e-3 * 1.5e9))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        got = efm.replay_ba(W, dIs, to_device(HMh, cuda), to_device(bMh, cuda),
+                            to_device(torch.tensor(7), cuda), cfg, w, h, 6)[1]
+        queued_s = time.perf_counter() - t
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert queued_s < 0.025, queued_s
+    assert _same(got, want)
+
+
+def test_ba_vmapped_graph_matches_single_replays(cuda):
+    """torch.func.vmap of the device LM over S = 8 windows (2 to 8 frames
+    of 8 slots, so other newest frames and other masked trips), captured
+    as one CUDA graph, against 8 single replays, within torch_kernel_checks.
+    ba_batch_err's tolerance (the batched products sum in another order:
+    BA_ORDER_FACTOR times the spread of single replays with the points
+    reversed), the residual bookkeeping equal; K12 launched once for the
+    8."""
+    from ldso_tpu_torch.backend import ba_device, energy_functional as efm
+    from ldso_tpu_torch.backend.window import Window
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.utils.graphs import Programs
+    kc = _kc()
+    inputs = [_ba_inputs(cuda, nf, 40 + nf) for nf in (2, 3, 4, 5, 6, 7, 8, 8)]
+    cfg, w, h = inputs[0][1:]
+    stacked = tuple(torch.stack([a[0][0][i] for a in inputs])
+                    for i in range(len(Window._fields))) + tuple(
+        torch.stack([a[0][k] for a in inputs]) for k in (1, 2, 3, 4))
+
+    def program(*xs):
+        W, stats = torch.func.vmap(
+            lambda W, d, H, b, n: ba_device.optimize_device(
+                W, d, H, b, n, cfg, w, h, 6))(Window(*xs[:-4]), *xs[-4:])
+        return tuple(W) + (stats,)
+    graphs = Programs()
+    graphs.replay(("vmap",), program, stacked)
+    before = cuda_kernels.LAUNCHES["ba_projector"]
+    out = graphs.replay(("vmap",), program, stacked)
+    assert cuda_kernels.LAUNCHES["ba_projector"] == before + 1
+
+    def single(W, *rest):
+        return efm.replay_ba(W, *rest, cfg, w, h, 6)
+    worst, tol, faults = kc.ba_batch_err(
+        [(Window(*(x[s] for x in out[:-1])), out[-1][s])
+         for s in range(len(inputs))],
+        [single(*a[0]) for a in inputs],
+        [kc.reordered_ba(single, *a[0]) for a in inputs])
+    assert not faults, (faults, worst, tol)

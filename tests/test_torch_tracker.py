@@ -519,13 +519,13 @@ def _fake_capture(graph, stream=None, **kw):
 
 
 def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
-    """track_graph._Captured with the CUDA pieces faked on the CPU and a
+    """utils.graphs.Captured with the CUDA pieces faked on the CPU and a
     program that counts launches as a kernel wrapper does: the eager
     warm-up counts as launches, the capture only into the graph's tally,
     and each replay adds the tally to LAUNCHES; a launch on another thread
     during a capture counts as usual."""
-    from ldso_tpu_torch.frontend import track_graph
     from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.utils import graphs
 
     class _Stream:
         def __init__(self, *a, **k):
@@ -561,15 +561,16 @@ def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
         return (x + 1,)
 
     cuda_kernels.reset_launch_counts()
-    g = track_graph._Captured(program, (torch.zeros(2),))
+    g = graphs.Captured(program, (torch.zeros(2),))
     # warm-up: 3 + 1 launches; the thread's launch during the warm-up: 1
     assert cuda_kernels.LAUNCHES == {"distance_transform": 2,
-                                     "tracker_trip": 3}
+                                     "tracker_trip": 3, "ba_projector": 0}
     assert g.launches == {"tracker_trip": 3, "distance_transform": 1}
     for k in range(1, 3):
         out = g.replay((torch.ones(2),))
         assert cuda_kernels.LAUNCHES == {"distance_transform": 2 + k,
-                                         "tracker_trip": 3 + 3 * k}
+                                         "tracker_trip": 3 + 3 * k,
+                                         "ba_projector": 0}
     assert torch.equal(out[0], torch.full((2,), 1.0))
     cuda_kernels.reset_launch_counts()
     with cuda_kernels.recording_launches() as tally:
@@ -683,16 +684,16 @@ def test_tracker_trip_float32_against_float64(scene4, monkeypatch):
                           valid=rt.valid, ref_exposure=rt.ref_exposure.to(d),
                           ref_aff=rt.ref_aff.to(d))
     pt64 = FramePyramid(dI=tuple(x.to(d) for x in pt.dI), abs_grad=())
-    const = ttr._const
+    const = ttr.device_const
     for lvl in range(calib.levels):
         args = (lvl, t32(T), t32(aff), t32(1.0), t32(cut), calib, TC(),
                 lvl == 0)
         s32, H32, b32 = ttr.tracker_trip_ref(rt, pt, *args)
-        monkeypatch.setattr(ttr, "_const", lambda v, dev, dtype=d: const(
+        monkeypatch.setattr(ttr, "device_const", lambda v, dev, dtype=d: const(
             v, dev, d if dtype == torch.float32 else dtype))
         s64, H64, b64 = ttr.tracker_trip_ref(
             rt64, pt64, lvl, *(a.to(d) for a in args[1:5]), *args[5:])
-        monkeypatch.setattr(ttr, "_const", const)
+        monkeypatch.setattr(ttr, "device_const", const)
         _, Hj, bj = _jax_trip(rj, pj, lvl, T, aff, cut, calib, lvl == 0)
         H64, b64 = npy(H64), npy(b64)
         for H, b, who in ((npy(H32), npy(b32), "port"), (Hj, bj, "jax")):
@@ -953,7 +954,7 @@ def test_converged_trip_float32_against_float64(scene4, monkeypatch):
                           valid=rt.valid, ref_exposure=rt.ref_exposure.to(d),
                           ref_aff=rt.ref_aff.to(d))
     pt64 = FramePyramid(dI=tuple(x.to(d) for x in pt.dI), abs_grad=())
-    const = ttr._const
+    const = ttr.device_const
     T, aff, cut = _trip_inputs(poses, 8)
     T[1:, :3, 3] += np.random.RandomState(3).randn(7, 3).astype(
         np.float32) * 0.005
@@ -970,12 +971,12 @@ def test_converged_trip_float32_against_float64(scene4, monkeypatch):
                 calib, TC(), flow)
         s32, _, b32 = ttr.tracker_trip_ref(rt, pt, lvl, Tc, ac, t32(1.0),
                                            cutt, calib, TC(), flow)
-        monkeypatch.setattr(ttr, "_const", lambda v, dev, dtype=d: const(
+        monkeypatch.setattr(ttr, "device_const", lambda v, dev, dtype=d: const(
             v, dev, d if dtype == torch.float32 else dtype))
         s64, _, b64 = ttr.tracker_trip_ref(rt64, pt64, lvl, Tc.to(d),
                                            ac.to(d), t32(1.0).to(d),
                                            cutt.to(d), calib, TC(), flow)
-        monkeypatch.setattr(ttr, "_const", const)
+        monkeypatch.setattr(ttr, "device_const", const)
         f_stats, f_b = kc.trip_floor(rt, pt, lvl, Tc, ac, t32(1.0), cutt,
                                      calib, TC())
         e_ratio = ((s32[:, 0].double() - s64[:, 0]).abs()
@@ -1006,7 +1007,16 @@ def _emulated_modes(monkeypatch, fault=None):
                               valid=tuple(v.flip(0) for v in ref.valid),
                               ref_exposure=ref.ref_exposure,
                               ref_aff=ref.ref_aff)
-        return plain_trip(flip, pyr, lvl, *a, **k)
+        if fault != "drop_masked":
+            return plain_trip(flip, pyr, lvl, *a, **k)
+        # K3 before it flagged masked points' non-finite terms: the rows
+        # that are not good dropped before the 8x8 reduce
+        bufs, stats = ttr._calc_res(flip, pyr, lvl, *a, **k)
+        keep = bufs["good"] > 0
+        bufs = {n: torch.where(keep, v, torch.zeros_like(v))
+                if v.dim() == 2 else v for n, v in bufs.items()}
+        H, b, _ = ttr._calc_gs(bufs, lvl, flip, a[1], a[2], a[4])
+        return stats, H, b
 
     def cutoff(*a, **k):
         with kc.plain_trip(trip):
@@ -1077,4 +1087,35 @@ def test_mode_checks_hold_an_emulated_kernel(scene4, monkeypatch, lvl):
         _, _, faults, _ = kc.mode_errs(
             cutoff, lm, ttr.tracker_trip_ref, rt, pt, lvl, t32(T), t32(aff),
             t32(1.0), t32(cut), calib, TC(), lvl == 0)
+        assert any(f.startswith(what) for f in faults), (fault, faults)
+
+
+@pytest.mark.parametrize("lvl", [0, 3])
+def test_mode_checks_hold_an_emulated_kernel_on_a_nan_level(scene4,
+                                                           monkeypatch, lvl):
+    """On trip_case's NaN patch, where tracker_trip_ref's H and b turn NaN
+    for the members whose masked points sample it, mode_errs (which phase 2
+    and the card tests hold K3's cutoff and lm modes to there) passes the
+    emulated kernel, NaN where the plain version is NaN and a NaN step
+    frozen in both; and it reports K3's behaviour before its NaN repair
+    (the masked rows dropped, so H and b stay finite) and a member that
+    moves on a NaN step."""
+    calib, poses, pj, pt, rj, rt = scene4
+    kc = kernel_checks
+    T, aff, _ = _trip_inputs(poses, 8)
+    T[:, :3, 3] += 0.003
+    pyr, Tc, ac, cut = kc.trip_case("nan_patch", pt, lvl, t32(T), t32(aff),
+                                    TC())
+    args = (rt, pyr, lvl, Tc, ac, t32(1.0), cut, calib, TC(), lvl == 0)
+    _, H, b = ttr.tracker_trip_ref(*args)
+    assert bool(torch.isnan(H).any()) and bool(torch.isnan(b).any())
+    cutoff, lm = _emulated_modes(monkeypatch)
+    err, share, faults, _ = kc.mode_errs(cutoff, lm, ttr.tracker_trip_ref,
+                                         *args)
+    assert not faults and share <= 1.0, (faults, share)
+    for fault, what in (("drop_masked", "cutoff live trips"),
+                        ("step", "lm kernel moved on a non-finite step")):
+        cutoff, lm = _emulated_modes(monkeypatch, fault)
+        _, _, faults, _ = kc.mode_errs(cutoff, lm, ttr.tracker_trip_ref,
+                                       *args)
         assert any(f.startswith(what) for f in faults), (fault, faults)

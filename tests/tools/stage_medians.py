@@ -1,0 +1,194 @@
+"""Where a frame's and a keyframe's time goes, per stage, on the card.
+
+    PYTHONPATH=$PWD python tests/tools/stage_medians.py
+
+Runs `chip_smoke.py`'s phase 3 (strict, loop closing off, 64 frames of the
+bench scene) and phase 4 (loop closing on, the 150-frame revisit scene),
+imported from the current directory, so that the same script times the
+checkout it is run from (a parent commit's too: run it from an unpacked
+`git archive` with PYTHONPATH set there). Prints one JSON line per phase:
+  * `stages`: every `fs.timer` stage's median, mean and count of host ms
+    per call (the StageTimer's calls, sampled one by one);
+  * `track_split` (phase 3): strict's `track` stage cut into the pyramid,
+    the tracker (a graph replay) and the candidate trace it queues, each
+    with its host ms per call and its device ms per call from CUDA events
+    around it, and the rest of the frame step (the read of the tracker's
+    result, which waits for the card, the gate, the trace's queueing);
+  * `loop_split` (phase 4): `kf.loop` cut into ORB features, BoW
+    (vocabulary transform, database query and insert), matching, the
+    RANSAC solvers, `refine_sim3` and the pose graph, host ms per
+    keyframe (mean over the keyframes, each piece timed with a device
+    synchronise on both sides, so that its device work is its own).
+Needs the card.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _stats(ms):
+    return dict(median=float(np.median(ms)), mean=float(np.mean(ms)),
+                n=len(ms)) if ms else dict(median=None, mean=None, n=0)
+
+
+@contextlib.contextmanager
+def stage_samples():
+    """Every StageTimer.stage call's host ms inside, by stage name."""
+    from ldso_tpu_torch.utils import timing
+    samples = collections.defaultdict(list)
+    stage = timing.StageTimer.stage
+
+    @contextlib.contextmanager
+    def sampled(self, name):
+        t = time.perf_counter()
+        with stage(self, name):
+            yield
+        samples[name].append((time.perf_counter() - t) * 1e3)
+    timing.StageTimer.stage = sampled
+    try:
+        yield samples
+    finally:
+        timing.StageTimer.stage = stage
+
+
+@contextlib.contextmanager
+def _patched(owner, name, wrap):
+    fn = getattr(owner, name)
+    setattr(owner, name, wrap(fn))
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def track_split():
+    """strict's `track` stage in parts: host ms and CUDA-event device ms of
+    the pyramid, the tracker and the trace; the read of the result is the
+    rest of `_frame_step`'s host time."""
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.system import full_system
+    host = collections.defaultdict(list)
+    events = collections.defaultdict(list)
+    inside = []          # the parts timed so far in the current _frame_step
+
+    def timed(part):
+        def wrap(fn):
+            def call(*a, **k):
+                outer = part == "frame_step"
+                if not (outer or inside):
+                    return fn(*a, **k)      # not on the tracking path
+                if outer:
+                    inside.append(True)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                e0.record()
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    if outer:
+                        inside.clear()
+                e1.record()
+                host[part].append((time.perf_counter() - t) * 1e3)
+                events[part].append((e0, e1))
+                return out
+            return call
+        return wrap
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(full_system, "make_pyramid",
+                                     timed("pyramid")))
+        stack.enter_context(_patched(tracker, "track_frame",
+                                     timed("tracker")))
+        stack.enter_context(_patched(full_system.FullSystem, "_trace_arena",
+                                     timed("trace")))
+        stack.enter_context(_patched(full_system.FullSystem, "_frame_step",
+                                     timed("frame_step")))
+        out = {}
+        yield out
+    torch.cuda.synchronize()
+    for part, ms in host.items():
+        dev = [a.elapsed_time(b) for a, b in events[part]]
+        out[part] = dict(host=_stats(ms), device=_stats(dev))
+    # what _frame_step spends besides the pyramid and the tracker: the
+    # result's read (which waits for the card), the gate, and the trace's
+    # set-up and queueing when it runs
+    n = len(host["frame_step"])
+    rest = [host["frame_step"][i] - host["pyramid"][i] - host["tracker"][i]
+            for i in range(n)]
+    out["read_gate_and_trace"] = dict(host=_stats(rest))
+
+
+@contextlib.contextmanager
+def loop_split():
+    """kf.loop in parts, each synchronised on both sides: host ms summed
+    per part over the run, and the keyframes it ran on."""
+    from ldso_tpu_torch.loop import loopclosing, matcher, posegraph
+    from ldso_tpu_torch.loop.database import KeyframeDatabase
+    from ldso_tpu_torch.loop.vocab import Vocabulary
+    total = collections.defaultdict(float)
+
+    def timed(part):
+        def wrap(fn):
+            def call(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                total[part] += (time.perf_counter() - t) * 1e3
+                return out
+            return call
+        return wrap
+    parts = ((loopclosing.detector, "detect_corners", "orb"),
+             (Vocabulary, "transform", "bow"), (Vocabulary, "bow_vector", "bow"),
+             (Vocabulary, "node_ids", "bow"),
+             (KeyframeDatabase, "query", "bow"), (KeyframeDatabase, "add", "bow"),
+             (matcher, "search_by_bow", "matching"),
+             (matcher, "search_by_projection", "matching"),
+             (loopclosing, "pnp_ransac", "ransac"),
+             (loopclosing, "umeyama_ransac", "ransac"),
+             (loopclosing, "refine_sim3", "refine_sim3"),
+             (posegraph, "run_pose_graph", "pgo"))
+    with contextlib.ExitStack() as stack:
+        for owner, name, part in parts:
+            if hasattr(owner, name):
+                stack.enter_context(_patched(owner, name, timed(part)))
+        yield total
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("stage_medians: needs the card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke
+    chip_smoke.phase_device()
+    with stage_samples() as samples, track_split() as split:
+        chip_smoke.phase_main_path()
+    print(json.dumps(dict(
+        phase="3 strict", stages={k: _stats(v) for k, v in
+                                  sorted(samples.items())},
+        track_split=split)), flush=True)
+    with stage_samples() as samples, loop_split() as parts:
+        chip_smoke.phase_loop_slice()
+    n_loop = len(samples.get("kf.loop", ()))
+    print(json.dumps(dict(
+        phase="4 loop_slice", stages={k: _stats(v) for k, v in
+                                      sorted(samples.items())},
+        loop_split_ms_per_keyframe={k: v / max(n_loop, 1)
+                                    for k, v in parts.items()},
+        loop_keyframes=n_loop)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -187,24 +187,9 @@ def trip_err(got, want, allowance=None, floor=None):
     return worst, share, bool(torch.equal(got[0][:, 1], want[0][:, 1]))
 
 
-def trip_plain_dropping_masked(ref, pyr, lvl, T, aff, expo, cut, calib, cfg,
-                               flow):
-    """The plain version with the rows that are not good set to 0 before
-    `_calc_gs`, so they add nothing to H and b where the plain version
-    adds 0 times their terms (NaN where the intensity is NaN): K3's
-    function on a level with NaNs."""
-    bufs, stats = _calc_res(ref, pyr, lvl, T, aff, expo, cut, calib, cfg,
-                            flow)
-    keep = bufs["good"] > 0
-    bufs = {k: torch.where(keep, v, torch.zeros_like(v)) if v.dim() == 2
-            else v for k, v in bufs.items()}
-    H, b, _ = _calc_gs(bufs, lvl, ref, aff, expo, calib)
-    return stats, H, b
-
-
 def trip_case(case: str, pyr, lvl, T, aff, cfg):
     """An edge case of TRIP_CASES at level lvl from a batch of poses T and
-    affines aff about the truth: (pyr, T, aff, cutoff, plain function).
+    affines aff about the truth: (pyr, T, aff, cutoff).
       scene: as given, the production cutoff;
       out_of_bounds: even members 100 m to the side, odd ones 100 m behind,
         so no point is in bounds (numTerms 0);
@@ -213,13 +198,12 @@ def trip_case(case: str, pyr, lvl, T, aff, cfg):
       nan_intensity, nan_patch: a NaN patch over the top half of the
         level's second quarter of columns (where the point lists, filled
         in raster order up to their caps, land at every level), in its
-        intensity channel or in all three (the plain version's H
-        and b turn NaN there: the plain function with the masked rows
-        dropped is the one to hold K3 to)."""
+        intensity channel or in all three: the plain version's H and b
+        turn NaN for a member whose masked points sample it (0 times a NaN
+        term), and K3 is held to the plain version there too."""
     B = T.shape[0]
     cut = torch.full((B,), cfg.coarse_cutoff_th, dtype=torch.float32,
                      device=T.device)
-    plain = tracker.tracker_trip_ref
     if case == "out_of_bounds":
         T = T.clone()
         T[0::2, 0, 3] += 100.0
@@ -235,10 +219,9 @@ def trip_case(case: str, pyr, lvl, T, aff, cfg):
         lv[:h // 2, w // 4:w // 2, chans] = float("nan")
         dI[lvl] = lv
         pyr = FramePyramid(dI=tuple(dI), abs_grad=())
-        plain = trip_plain_dropping_masked
     elif case != "scene":
         raise ValueError(f"unknown trip case {case!r}")
-    return pyr, T, aff, cut, plain
+    return pyr, T, aff, cut
 
 
 # ---------------------------------------------------------------------------
@@ -288,8 +271,8 @@ def bits(a, b) -> torch.Tensor:
 @contextlib.contextmanager
 def plain_trip(fn):
     """The plain modes (cutoff_trip_ref, lm_trip_ref) with `fn` as their
-    trip: trip_case's plain function, which on a NaN level drops the masked
-    rows as K3 skips them."""
+    trip (another evaluation of tracker_trip_ref, as the CPU tests' emulated
+    kernel is)."""
     saved = tracker.tracker_trip_ref
     tracker.tracker_trip_ref = fn
     try:
@@ -382,7 +365,7 @@ def lm_err(args, state, got, cand, want, plain):
     calib, cfg, flow), state = (stats, H, b, lam, done, cutoff); `cand` is
     K3's lm mode on the same state with every live member's old energy
     set to +inf, so that it accepts: its candidate T, aff, stats, H, b;
-    `plain` the plain trip (trip_case's). Returns (max |got - want| of the
+    `plain` the plain trip (tracker_trip_ref). Returns (max |got - want| of the
     step and the candidate trip, the largest error as a share of its
     tolerance, a list of faults, the floors' largest shares of the
     candidate trip: {"E": trip_floor's E over |E|, "b": its b over the
@@ -401,19 +384,37 @@ def lm_err(args, state, got, cand, want, plain):
         return 0.0, 0.0, faults, floors
     idx = live.nonzero()[:, 0]
     inc, T_new, aff_n = tracker.lm_step_ref(T, aff, H, b, lam, cfg)
-    # the step
-    tol = _step_tol(H[idx], b[idx], lam[idx], cfg, inc[idx])
-    scale = tracker._scale_vec(T.device)
-    dT = torch.abs(cand[0][idx] - T_new[idx]).amax((1, 2))
-    daff = torch.abs(cand[1][idx] - aff_n[idx])
-    tol_T = tol * float(scale[:6].max()) + STEP_ATOL
-    tol_aff = (tol[:, None] * scale[6:8]
-               + STEP_ATOL * (1.0 + torch.abs(aff_n[idx])))
-    worst = max(float(dT.max()), float(daff.max()))
-    share = max(float((dT / tol_T).max()), float((daff / tol_aff).max()))
-    if share > 1.0:
-        faults.append(f"step: |dT| {dT.tolist()} against {tol_T.tolist()}, "
-                      f"|daff| {daff.tolist()}")
+    # the step. A NaN in H or b (a masked point's NaN term) makes every
+    # increment NaN, and both versions set a non-finite increment to 0: that
+    # member must not move (the identity times T may turn a -0 into +0)
+    fin = torch.isfinite(inc[idx])
+    frozen = ~fin.any(1)
+    faults += _faults("step partly non-finite", fin.any(1) & ~fin.all(1),
+                      idx)
+
+    def same(a, b):
+        return (a == b).reshape(a.shape[0], -1).all(1)
+    for name, mine in (("kernel", cand), ("plain", (T_new, aff_n))):
+        moved = ~same(mine[0][idx], T[idx]) | ~same(mine[1][idx], aff[idx])
+        faults += _faults(f"{name} moved on a non-finite step",
+                          frozen & moved, idx)
+    worst, share = 0.0, 0.0
+    step = fin.all(1)
+    if bool(step.any()):
+        js = idx[step]
+        tol = _step_tol(H[js], b[js], lam[js], cfg, inc[js])
+        scale = tracker._scale_vec(T.device)
+        dT = torch.abs(cand[0][js] - T_new[js]).amax((1, 2))
+        daff = torch.abs(cand[1][js] - aff_n[js])
+        tol_T = tol * float(scale[:6].max()) + STEP_ATOL
+        tol_aff = (tol[:, None] * scale[6:8]
+                   + STEP_ATOL * (1.0 + torch.abs(aff_n[js])))
+        worst = max(float(dT.max()), float(daff.max()))
+        share = max(float((dT / tol_T).max()),
+                    float((daff / tol_aff).max()))
+        if share > 1.0:
+            faults.append(f"step: |dT| {dT.tolist()} against "
+                          f"{tol_T.tolist()}, |daff| {daff.tolist()}")
     # the candidate trip at the kernel's own new pose
     c_args = (ref, pyr, lvl, cand[0][idx], cand[1][idx], expo, cutoff[idx],
               calib, cfg, flow)
@@ -421,7 +422,9 @@ def lm_err(args, state, got, cand, want, plain):
     floor = trip_floor(*c_args[:-1])
     err, c_share, same_n = trip_err([c[idx] for c in cand[2:5]], c_plain,
                                     trip_allowance(*c_args), floor)
-    finite = torch.isfinite(c_plain[0][:, 0])
+    # (over the members whose E and b are finite)
+    finite = (torch.isfinite(c_plain[0][:, 0])
+              & torch.isfinite(c_plain[2]).all(1))
     if bool(finite.any()):
         e_abs = torch.clamp(torch.abs(c_plain[0][:, 0]), min=1e-30)
         b_max = torch.clamp(torch.nan_to_num(torch.abs(c_plain[2]), nan=0.0)
@@ -543,3 +546,170 @@ def solve_like_k3(H, b, lam, cfg):
         x[:, i] = (M[:, i, 8] - (M[:, i, i + 1:8] * x[:, i + 1:]).sum(1)) \
             / M[:, i, i]
     return torch.where(act, x, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# The windowed BA (backend/ba_device.optimize_device) and K12, its nullspace
+# projector (ops/cuda_kernels.ba_projector)
+# ---------------------------------------------------------------------------
+
+def ba_window(n_frames: int, F: int, n_pts: int = 64, w: int = 160,
+              h: int = 120, seed: int = 0, pose_noise: float = 2e-3,
+              idepth_noise: float = 0.05, device="cpu"):
+    """A BA window of the port alone (so the card tests and chip_smoke.py
+    can make one): n_frames of F slots along a lateral path over a
+    PlaneScene, the poses after the first `pose_noise` off the truth, a
+    grid of about n_pts points hosted in frame 0 with idepths
+    `idepth_noise` off, and a marginalization prior of the kind a
+    marginalized frame leaves (a diagonal-dominant SPD block and a small
+    b over the live parameters, zero padded to 4 + 8F). Returns (W, dIs
+    (F, h, w, 3), HM, bM, Config, (w, h))."""
+    import numpy as np
+    from ldso_tpu_torch.backend.energy_functional import EnergyFunctional
+    from ldso_tpu_torch.config import CPARS, Config, PATTERN
+    from ldso_tpu_torch.math import lie_np
+    from ldso_tpu_torch.ops.interp import bilinear
+    from ldso_tpu_torch.ops.preprocess import make_pyramid
+    from ldso_tpu_torch.synthetic import PlaneScene, default_calib
+    cfg = Config(max_points=max(n_pts, 16))
+    calib = default_calib(w, h)
+    scene = PlaneScene(freq_hi=18.0, contrast=80.0)
+    rng = np.random.RandomState(seed)
+    ef = EnergyFunctional(cfg, calib, F=F, P=cfg.max_points, device=device)
+    dIs = []
+    for i in range(n_frames):
+        T = lie_np.se3_exp(np.array([0.06 * i, 0.01 * i, 0.0, 0.0, 0.0,
+                                     0.0]))
+        img, idep = scene.render(calib, T, device=device)
+        if i == 0:
+            idep0 = idep
+        dIs.append(make_pyramid(img, calib.levels).dI[0])
+        if i > 0 and pose_noise > 0:
+            T = lie_np.se3_exp(rng.randn(6) * pose_noise) @ T
+        ef.insert_frame(T, exposure=1.0, aff=np.zeros(2), is_first=(i == 0))
+    side = int(np.sqrt(n_pts))
+    gx, gy = np.meshgrid(np.linspace(12, w - 12, side),
+                         np.linspace(12, h - 12, side))
+    u, v = gx.reshape(-1), gy.reshape(-1)
+    idep = idep0.cpu().numpy()[v.astype(int), u.astype(int)]
+    idep = idep * (1.0 + rng.randn(len(idep)) * idepth_noise)
+    patt = torch.tensor(PATTERN, dtype=torch.float32, device=device)
+    uv = [torch.tensor(a, dtype=torch.float32, device=device)[:, None]
+          + patt[None, :, k] for k, a in enumerate((u, v))]
+    ptc = bilinear(dIs[0], uv[0], uv[1]).cpu().numpy()
+    gsq = np.sum(ptc[..., 1:3] ** 2, -1)
+    weights = np.sqrt(cfg.outlier_th_sum_component
+                      / (cfg.outlier_th_sum_component + gsq))
+    ef.insert_points(0, u, v, ptc[..., 0], weights, idep,
+                     np.full(len(u), 8.0 * cfg.outlier_th, np.float32))
+    dIs = torch.stack(dIs + [torch.zeros_like(dIs[0])] * (F - n_frames))
+    n, n_full = CPARS + 8 * n_frames, CPARS + 8 * F
+    A = rng.randn(n, n) * 0.1
+    HM = np.zeros((n_full, n_full), np.float32)
+    HM[:n, :n] = A @ A.T + np.diag(rng.uniform(0.5, 2.0, n))
+    bM = np.zeros(n_full, np.float32)
+    bM[:n] = rng.randn(n) * 0.01
+    f32 = dict(dtype=torch.float32, device=device)
+    return (ef.W, dIs, torch.tensor(HM, **f32), torch.tensor(bM, **f32),
+            cfg, (w, h))
+
+
+# K12 against its plain version: the projector is unique, but the plain
+# version's float32 SVD rounds where K12's float64 Jacobi does not. A
+# float32 projector of a basis with condition number kappa (its largest
+# kept singular value over its smallest) is off by a few 2^-23 kappa per
+# entry (tests/test_torch_ba_device.py::test_projector_float32_against_float64
+# measures the plain version within PROJ_ULPS / 4 of it against float64 on
+# the BA windows of 1 to 8 frames). A singular value within PROJ_GATE_RTOL
+# of the gate delta max(S) may be kept by one and dropped by the other:
+# such a window is reported and held to no tolerance.
+PROJ_ULPS = 8.0
+PROJ_GATE_RTOL = 1e-3
+
+
+def projector_err(got, want, Nn, delta: float):
+    """Hold K12's projectors `got` (S, n, n) to the plain version's `want`
+    for the bases Nn (S, n, k). Returns (max |got - want|, the largest
+    error as a share of its tolerance, the windows with a singular value at
+    the gate). The tolerance comes from float64 singular values."""
+    S = torch.linalg.svdvals(Nn.double())
+    gate = delta * S.amax(-1, keepdim=True)
+    kept = S > gate
+    smin = torch.where(kept, S, torch.full_like(S, float("inf"))).amin(-1)
+    kappa = torch.where(kept.any(-1), S.amax(-1) / smin,
+                        torch.ones_like(smin))
+    tol = PROJ_ULPS * _EPS32 * kappa
+    at_gate = (((S - gate).abs() <= PROJ_GATE_RTOL * gate)
+               & (gate > 0)).any(-1)
+    err = (got.double() - want.double()).abs().amax((-2, -1))
+    share = torch.where(at_gate, torch.zeros_like(err), err / tol)
+    return float(err.max()), float(share.max()), at_gate.nonzero()[:, 0].tolist()
+
+
+# The device LM under vmap against single calls. The batched program sums in
+# another order (batched products and einsums), and the LM's relinearizations
+# compound float32 rounding, so a batch member differs from its single call
+# as much as another order of the same sums does. The yardstick is the
+# single call on the window with its point slots reversed (`reordered_ba`:
+# the same function, its sums in another order): each member's poses,
+# idepths and stats must lie within BA_ORDER_FACTOR times the largest such
+# spread over the batch (or the floors), its residual bookkeeping equal.
+# (On the CPU, 8 windows of 2-8 frames: the batch within 1.3 times that
+# spread, up to 1.5e-4 in a pose.)
+BA_ORDER_FACTOR = 4.0
+BA_ORDER_FLOORS = dict(pose=1e-6, idepth=1e-5, stats=1e-6)
+BA_BOOKKEEPING = ("res_exist", "res_active", "res_state", "pt_num_good_res")
+
+
+def reordered_ba(fn, W, *rest):
+    """fn(W, *rest) (one device-LM call -> (W, stats)) on W with its point
+    slots reversed, the outputs put back in order."""
+    from ldso_tpu_torch.backend.window import Window
+    P = W.pt_valid.shape[0]
+    assert P != W.frame_valid.shape[0]
+
+    def flip(W):
+        return Window(*(x.flip(0) if x.dim() and x.shape[0] == P else x
+                        for x in W))
+    Wr, stats = fn(flip(W), *rest)
+    return flip(Wr), stats
+
+
+def ba_diffs(a, b):
+    """Between two device-LM results (W, stats): the largest pose entry
+    difference, idepth difference relative to |idepth| over valid points,
+    stats difference relative, and whether the bookkeeping is equal."""
+    from ldso_tpu_torch.backend.window import current_poses
+    (Wa, sa), (Wb, sb) = a, b
+    good = Wb.pt_valid
+    return dict(
+        pose=float(torch.abs(current_poses(Wa) - current_poses(Wb)).max()),
+        idepth=float((torch.abs(Wa.idepth - Wb.idepth)
+                      / torch.abs(Wb.idepth).clamp(min=1e-6))[good].max())
+        if bool(good.any()) else 0.0,
+        stats=float((torch.abs(sa - sb) / torch.abs(sb).clamp(min=1e-6))
+                    .max()),
+        bookkeeping=all(torch.equal(getattr(Wa, n), getattr(Wb, n))
+                        for n in BA_BOOKKEEPING))
+
+
+def ba_batch_err(batched, singles, reordered):
+    """Hold a vmapped device LM's members (batched: [(W, stats)] per
+    member) to their single calls, with the reordered single calls as the
+    yardstick. Returns (the largest difference per quantity, the tolerance
+    per quantity, a list of faults)."""
+    spread = {k: max(ba_diffs(r, s)[k] for r, s in zip(reordered, singles))
+              for k in BA_ORDER_FLOORS}
+    tol = {k: max(BA_ORDER_FACTOR * spread[k], BA_ORDER_FLOORS[k])
+           for k in BA_ORDER_FLOORS}
+    worst = dict.fromkeys(BA_ORDER_FLOORS, 0.0)
+    faults = []
+    for i, (b, s) in enumerate(zip(batched, singles)):
+        d = ba_diffs(b, s)
+        for k in worst:
+            worst[k] = max(worst[k], d[k])
+            if d[k] > tol[k]:
+                faults.append(f"member {i}: {k} {d[k]:.3g} > {tol[k]:.3g}")
+        if not d["bookkeeping"]:
+            faults.append(f"member {i}: residual bookkeeping differs")
+    return worst, tol, faults
