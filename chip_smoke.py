@@ -35,8 +35,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      for the cutoff and lm modes, every member idle) and bounds. K12 (the
      windowed BA's nullspace projector, csrc/ba_projector.cu) against its
      plain version (the SVD) on windows of 1-8 frames of the main path's 8
-     slots and an empty one (tests/torch_kernel_checks.projector_err), 20
-     launches bitwise, its times at the full window;
+     slots, an empty one and planted bases (a repeated and a zero column,
+     condition numbers 1e3 and 10^4.5, a singular value at 1.01 and 0.99
+     times the gate, which are reported and not held to the tolerance)
+     (tests/torch_kernel_checks.projector_err), and on each against
+     projector_emulated (its own algorithm in float64 PyTorch on the card:
+     P within PROJ_EMU_ULPS float32 ulps, sweeps and rotations equal), P
+     symmetric bitwise, 20 launches bitwise, its times at the full window
+     and ptxas's registers, shared memory and spills;
   3. the pure-VO path: the synchronous monocular VO FullSystem at 640x480
      with the production Config and loop closing off on 64 synthetic uint8
      frames of the bench trajectory, on the package's default device (the
@@ -66,7 +72,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
          uploads and replay under set_sync_debug_mode("error") behind 50
          ms of sleep, its device ms (queued replays) beside phase 3's wall
          ms per call, the aten operations of an eager call, the live trips
-         of every call, K12 against its plain version on every call;
+         of every call, K12 against its plain version and its emulation on
+         every call, and K12's device time as a share of a call's;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
@@ -115,7 +122,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
          single replays (within BA_ORDER_FACTOR times the spread of a
          single replay with its points reversed, tests/
          torch_kernel_checks.ba_batch_err), K12 once for the 8, and the
-         device ms of the batch and of the singles.
+         device ms of the batch and of the singles; K12 alone on the 8
+         windows, one launch against 8 single ones.
 Every run of the device LM (3, 4b, 5, 7b) holds K12's launches to its BA
 graph replays, with no graph captured inside the run; K12's record gives
 phase 3's count and each path's.
@@ -1729,45 +1737,93 @@ def projector_bound_ms(Nn, delta: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _projector_errs(kc, bases, delta, what):
-    """K12 against its plain version on each basis; fails past the
-    tolerance. Returns (max |kernel - plain|, its largest share)."""
+def ptxas_facts(report: str, kernel: str) -> dict:
+    """The registers, shared memory, stack frame and spill bytes of
+    `kernel` in nvcc -Xptxas=-v's report."""
+    import re
+    lines = report.splitlines()
+    facts = {}
+    pats = dict(registers=r"Used (\d+) registers",
+                smem_bytes=r"(\d+) bytes smem",
+                stack_bytes=r"(\d+) bytes stack frame",
+                spill_store_bytes=r"(\d+) bytes spill stores",
+                spill_load_bytes=r"(\d+) bytes spill loads")
+    for i, line in enumerate(lines):
+        if kernel in line and "Compiling entry function" in line:
+            for nxt in lines[i + 1:i + 5]:
+                for key, pat in pats.items():
+                    m = re.search(pat, nxt)
+                    if m and key not in facts:
+                        facts[key] = int(m[1])
+    return facts
+
+
+def _projector_errs(kc, bases, delta, names):
+    """K12 on each basis against its plain version (projector_err's
+    tolerance) and against its own algorithm run on the card in float64
+    (kc.projector_emulated: P within PROJ_EMU_ULPS float32 ulps, the sweeps
+    and rotations equal); P symmetric bit for bit. A basis with a singular
+    value at the gate is reported, not held to the plain version's
+    tolerance. Fails on any other fault. Returns the largest errors and
+    shares and the names of the bases at the gate."""
     from ldso_tpu_torch.backend.ba_device import nullspace_projector_ref
     from ldso_tpu_torch.ops import cuda_kernels
-    worst, share = 0.0, 0.0
-    for i, Nn in enumerate(bases):
+    res = dict(max_abs_err=0.0, tol_share=0.0, emu_max_abs_err=0.0,
+               emu_ulps_share=0.0, at_gate=[])
+    for name, Nn in zip(names, bases):
         got = cuda_kernels.ba_projector(Nn, delta)
         want = nullspace_projector_ref(Nn, delta)
         err, sh, at_gate = kc.projector_err(got[None], want[None], Nn[None],
                                             delta)
-        worst, share = max(worst, err), max(share, sh)
-        if at_gate or not sh <= 1.0 or not _same(got, got.T):
-            _fail(f"K12 {what} {i}: max|kernel - plain| {err} ({sh:.3g} of "
-                  f"the tolerance), a singular value at the gate "
-                  f"{bool(at_gate)}, symmetric {_same(got, got.T)}")
-    return worst, share
+        emu, sweeps, rotations = kc.projector_emulated(Nn, delta)
+        emu_err, emu_sh = kc.projector_emu_err(got, emu)
+        work = cuda_kernels.projector_launch(Nn[None], delta)[1][0].tolist()
+        for key, x in (("max_abs_err", err), ("tol_share", sh),
+                       ("emu_max_abs_err", emu_err),
+                       ("emu_ulps_share", emu_sh)):
+            res[key] = max(res[key], x)
+        if at_gate:
+            res["at_gate"].append(name)
+        if not (sh <= 1.0 and emu_sh <= 1.0 and work == [sweeps, rotations]
+                and _same(got, got.T)):
+            _fail(f"K12 {name}: max|kernel - plain| {err} ({sh:.3g} of the "
+                  f"tolerance), max|kernel - emulated| {emu_err} ({emu_sh:.3g}"
+                  f" of {kc.PROJ_EMU_ULPS} ulps), sweeps and rotations {work} "
+                  f"against the emulation's {[sweeps, rotations]}, symmetric "
+                  f"{_same(got, got.T)}")
+    return res
 
 
 def phase_projector():
-    """K12 (csrc/ba_projector.cu) against its plain version (the SVD) on
-    the BA windows of 1 to 8 frames in the main path's 8 slots at 640x480
-    and on an empty window, within torch_kernel_checks.projector_err's
-    tolerance; 20 launches bitwise equal; its times at the full window.
-    Returns the kernel record (launches filled in after phase 3)."""
+    """K12 (csrc/ba_projector.cu) against its plain version (the SVD) and
+    its emulation on the BA windows of 1 to 8 frames in the main path's 8
+    slots at 640x480, an empty window and the planted bases of
+    torch_kernel_checks.planted_bases (the two at the gate must be reported
+    so); 20 launches bitwise equal; its times at the full window and
+    ptxas's facts. Returns the kernel record (launches filled in after
+    phase 3)."""
     import torch
     from ldso_tpu_torch.backend import ba_device
     from ldso_tpu_torch.backend.window import empty_window
     from ldso_tpu_torch.ops import cuda_kernels
     kc = _kernel_checks()
-    bases = []
+    names, bases = [], []
     for nf in range(1, K12_F + 1):
         W, _, _, _, cfg, _ = kc.ba_window(nf, K12_F, n_pts=64, w=640, h=480,
                                           seed=nf, device="cuda")
+        names.append(f"window {nf}")
         bases.append(ba_device.orth_basis(W))
     delta = cfg.solver_mode_delta
+    names.append("empty window")
     bases.append(ba_device.orth_basis(empty_window(
         K12_F, 16, (352.0, 352.0, 319.5, 239.5), cfg, "cuda")))
-    worst, share = _projector_errs(kc, bases, delta, "window")
+    for name, B in kc.planted_bases(delta).items():
+        names.append(name)
+        bases.append(torch.from_numpy(B).cuda())
+    errs = _projector_errs(kc, bases, delta, names)
+    if sorted(errs["at_gate"]) != ["gate_0.99", "gate_1.01"]:
+        _fail(f"K12: bases reported at the gate {errs['at_gate']}, not the "
+              f"two planted there")
     Nn = bases[K12_F - 1]
     kernel = lambda: cuda_kernels.ba_projector(Nn, delta)  # noqa: E731
     first = kernel()
@@ -1776,26 +1832,33 @@ def phase_projector():
             _fail(f"K12: launch {rep} differs from launch 0")
     _, work = cuda_kernels.projector_launch(Nn[None], delta)
     bound_ms, bound_by = projector_bound_ms(Nn[None], delta)
+    ptx = ptxas_facts(cuda_kernels.ptxas_report("ba_projector.cu"),
+                      "ba_projector_kernel")
     rec = dict(name="ba_projector", route="cuda",
                source="ldso_tpu_torch/csrc/ba_projector.cu",
                replaces="ldso_tpu/backend/ba_device.py:94",
-               max_abs_err=worst, tol_share=share,
+               **errs, cases=len(bases),
                ms=_median_event_ms(kernel),
                device_ms=_graph_device_ms(kernel),
                plain_ms=_median_event_ms(
                    lambda: ba_device.nullspace_projector_ref(Nn, delta)),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                sweeps=int(work[0, 0]), rotations=int(work[0, 1]),
-               rows=int(Nn.shape[0]))
-    print(f"K12 ba_projector: {len(bases)} windows (1-{K12_F} frames of "
-          f"{K12_F} slots, n = {rec['rows']}, and an empty one): max|kernel "
-          f"- plain| {worst:.3g}, at most {share:.3f} of the tolerance; "
-          f"{DET_REPEATS} launches bitwise equal; at the full window "
-          f"{rec['ms']:.4f} ms per single call, {rec['device_ms']:.4f} ms of "
-          f"device time per launch (20 in a graph), plain (SVD) "
-          f"{rec['plain_ms']:.4f} ms; {rec['sweeps']} sweeps, "
-          f"{rec['rotations']} rotations; bound {bound_ms * 1e3:.4f} us set "
-          f"by {bound_by}", flush=True)
+               rows=int(Nn.shape[0]), ptxas=ptx)
+    print(f"K12 ba_projector: {len(bases)} bases ({K12_F} windows of 1-"
+          f"{K12_F} frames in {K12_F} slots, n = {rec['rows']}, an empty one"
+          f" and {len(bases) - K12_F - 1} planted): max|kernel - plain| "
+          f"{errs['max_abs_err']:.3g}, at most {errs['tol_share']:.3f} of the "
+          f"tolerance, at the gate (reported) {errs['at_gate']}; max|kernel "
+          f"- emulated| {errs['emu_max_abs_err']:.3g} ("
+          f"{errs['emu_ulps_share']:.3f} of {kc.PROJ_EMU_ULPS} float32 ulps),"
+          f" sweeps and rotations equal; {DET_REPEATS} launches bitwise "
+          f"equal; at the full window {rec['ms']:.4f} ms per single call, "
+          f"{rec['device_ms']:.5f} ms of device time per launch (20 in a "
+          f"graph), plain (SVD) {rec['plain_ms']:.4f} ms; {rec['sweeps']} "
+          f"sweeps (the last rotating nothing), {rec['rotations']} rotations;"
+          f" bound {bound_ms * 1e3:.5f} us set by {bound_by}; ptxas {ptx}",
+          flush=True)
     return rec
 
 
@@ -1847,7 +1910,7 @@ def _live_trips(W, dIs, HM, bM, newest, cfg, w, h, trips) -> int:
 # is not bounded here: the graph replays them all (PERF.md has the count)
 
 
-def phase_ba_graph(records, ba_ms):
+def phase_ba_graph(records, ba_ms, k12_device_ms):
     """3d: the device LM (backend/ba_device.optimize_device, one CUDA graph
     per call on the card) on phase 3's BA inputs: the replay of the last
     call against the eager program, bitwise; the prior's pinned uploads and
@@ -1856,7 +1919,9 @@ def phase_ba_graph(records, ba_ms):
     eager ones); the device ms per call (replays queued behind a sleep)
     beside phase 3's wall ms per call; the aten operations of one eager
     call; the live trips (before `done`) of every call; K12 against its
-    plain version on every call's basis. Returns the numbers."""
+    plain version and its emulation on every call's basis, and K12's device
+    ms per launch (phase 2's, `k12_device_ms`) as a share of a call's.
+    Returns the numbers."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from ldso_tpu_torch.backend import ba_device, energy_functional as efm
@@ -1898,9 +1963,10 @@ def phase_ba_graph(records, ba_ms):
     with Count():
         ba_device.optimize_device(*last)
     live = [_live_trips(*c) for c in calls]
-    k12_err, k12_share = _projector_errs(
+    k12 = _projector_errs(
         kc, [ba_device.orth_basis(c[0]) for c in calls],
-        cfg.solver_mode_delta, "phase 3 call")
+        cfg.solver_mode_delta, [f"phase 3 call {i}" for i in
+                                range(len(calls))])
     res = dict(
         calls=len(calls), trips=[c[-1] for c in calls], live_trips=live,
         live_trips_mean=float(np.mean(live)),
@@ -1910,9 +1976,12 @@ def phase_ba_graph(records, ba_ms):
         eager_ms=_host_us_per_call(lambda: ba_device.optimize_device(*last),
                                    n=3) / 1e3,
         queued_ms_in_sync_check=queued_ms, eager_ops=Count.n,
-        k12_max_abs_err=k12_err, k12_tol_share=k12_share,
+        k12_max_abs_err=k12["max_abs_err"], k12_tol_share=k12["tol_share"],
+        k12_emu_max_abs_err=k12["emu_max_abs_err"],
+        k12_at_gate=k12["at_gate"], k12_device_ms=k12_device_ms,
         captures=efm.BA_GRAPHS.counts["count"],
         capture_s=efm.BA_GRAPHS.counts["s"])
+    res["k12_share_of_call"] = k12_device_ms / res["device_ms"]
     print(f"3d device LM: {len(calls)} calls in phase 3 (trips {res['trips']}"
           f"), live trips {live} (mean {res['live_trips_mean']:.2f}); the "
           f"last call's graph replay equals the eager call bitwise; its "
@@ -1923,8 +1992,12 @@ def phase_ba_graph(records, ba_ms):
           f"{res['wall_ms_median']:.2f} ms wall per call (median) and "
           f"{res['eager_ms']:.2f} ms per eager call; {Count.n} aten "
           f"operations per eager call; K12 on every call's basis max|kernel "
-          f"- plain| {k12_err:.3g} ({k12_share:.3f} of the tolerance); "
-          f"{res['captures']} BA graphs captured in {res['capture_s']:.2f} s "
+          f"- plain| {k12['max_abs_err']:.3g} ({k12['tol_share']:.3f} of the "
+          f"tolerance), at the gate {k12['at_gate']}, max|kernel - emulated| "
+          f"{k12['emu_max_abs_err']:.3g}; K12's {k12_device_ms * 1e3:.3f} us "
+          f"per launch are {100 * res['k12_share_of_call']:.4f}% of a call's "
+          f"device time; {res['captures']} BA graphs captured in "
+          f"{res['capture_s']:.2f} s "
           f"(at FullSystem construction)", flush=True)
     return res
 
@@ -1939,7 +2012,9 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
     tolerance (the batched products sum in another order: BA_ORDER_FACTOR
     times the spread of single replays with the points reversed), the
     residual bookkeeping equal; K12 launched once for the S; the device ms
-    of the batch and of the S singles. Returns the numbers."""
+    of the batch and of the S singles; K12 alone on the S windows' bases,
+    one launch (bitwise the S single launches) against S single launches,
+    in device ms. Returns the numbers."""
     import torch
     from ldso_tpu_torch.backend import ba_device, energy_functional as efm
     from ldso_tpu_torch.backend.window import Window
@@ -1979,18 +2054,35 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
     if faults or k12 != 1:
         _fail(f"7e: batch of {S} against single replays: {faults} "
               f"(largest {worst}, tolerance {tol}), K12 launched {k12} times")
+    delta = cfg.solver_mode_delta
+    bases = torch.stack([ba_device.orth_basis(c[0]) for c in calls])
+    together = cuda_kernels.projector_launch(bases, delta)[0]
+    if not all(_same(together[i], cuda_kernels.projector_launch(
+            bases[i:i + 1], delta)[0][0]) for i in range(S)):
+        _fail(f"7e: K12 on the {S} bases in one launch differs from {S} "
+              f"single launches")
     res = dict(phase="7e batched_ba", windows=S, trips=trips, max_err=worst,
                tol=tol, k12_launches=k12,
                device_ms=_queued_device_ms(batch, n=3, reps=5),
                single_device_ms=[_queued_device_ms(
-                   lambda c=c: efm.replay_ba(*c), n=3, reps=5) for c in calls])
+                   lambda c=c: efm.replay_ba(*c), n=3, reps=5) for c in calls],
+               k12_batch_device_ms=_graph_device_ms(
+                   lambda: cuda_kernels.projector_launch(bases, delta)),
+               k12_singles_device_ms=_graph_device_ms(
+                   lambda: [cuda_kernels.projector_launch(b[None], delta)
+                            for b in bases]))
+    res["k12_share_of_batch"] = res["k12_batch_device_ms"] / res["device_ms"]
     print(f"7e batched BA: phase 3's last {S} windows ({trips} trips) in one "
           f"vmapped graph against {S} single replays: largest differences "
           f"{worst} within {tol} (BA_ORDER_FACTOR x the reordered spread), "
           f"bookkeeping equal; K12 launched once; {res['device_ms']:.4f} ms "
           f"of device time per batch against "
           f"{sum(res['single_device_ms']):.4f} ms for the {S} singles "
-          f"({[round(x, 4) for x in res['single_device_ms']]})", flush=True)
+          f"({[round(x, 4) for x in res['single_device_ms']]}); K12 alone "
+          f"on the {S} bases {res['k12_batch_device_ms'] * 1e3:.3f} us in one "
+          f"launch ({100 * res['k12_share_of_batch']:.4f}% of the batch's "
+          f"device time), bitwise the {S} single launches, which take "
+          f"{res['k12_singles_device_ms'] * 1e3:.3f} us", flush=True)
     return res
 
 
@@ -2257,7 +2349,8 @@ def main() -> int:
                                    strict["k3_by_mode"])
     graph = phase_tracker_graph(fs, images, tracks3)
     del tracks3
-    ba_graph = phase_ba_graph(ba_records, phase3_ba_ms)
+    ba_graph = phase_ba_graph(ba_records, phase3_ba_ms,
+                              proj_record["device_ms"])
     phase_dispatch_ahead(fs, images)
     phase_checkpoint(fs, root)
     window3 = fs.ef.W

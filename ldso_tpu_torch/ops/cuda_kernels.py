@@ -187,6 +187,20 @@ def build(verbose: bool = False) -> str:
     return path
 
 
+def ptxas_report(name: str) -> str:
+    """nvcc -Xptxas=-v's report (registers, shared memory, spills) of one
+    source, e.g. "ba_projector.cu", compiled alone with the build's flags."""
+    os.makedirs(BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
+        proc = subprocess.run(
+            [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-c", "-o",
+             os.path.join(tmp, "k.o"), os.path.join(_CSRC, name)],
+            capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
+    return proc.stderr
+
+
 def _load():
     global _lib
     with _lock:

@@ -749,32 +749,51 @@ def _ba_inputs(cuda, nf, seed, F=8):
 
 def test_projector_kernel_matches_plain(cuda):
     """K12 against the plain projector (the SVD) on the windows of 1 to 8
-    frames of the main path's 8 slots, and on an empty window, within
-    torch_kernel_checks.projector_err's tolerance; one launch each; 20
-    launches bitwise equal."""
+    frames of the main path's 8 slots, an empty window and the planted
+    bases (torch_kernel_checks.planted_bases), within
+    torch_kernel_checks.projector_err's tolerance, the two planted at the
+    gate reported so; against its own algorithm in float64 on the card
+    (projector_emulated) within PROJ_EMU_ULPS float32 ulps, with the same
+    sweeps and rotations; P symmetric bit for bit; one launch each; 20
+    launches bitwise equal; a ragged n (not a multiple of 4) and k < 7."""
     from ldso_tpu_torch.backend import ba_device
+    from ldso_tpu_torch.backend.window import empty_window
     from ldso_tpu_torch.ops import cuda_kernels
     kc = _kc()
-    for nf in range(0, 9):
-        if nf:
-            (W, *_), cfg, _, _ = _ba_inputs(cuda, nf, nf)
-        else:
-            cfg = _kc().ba_window(1, 8, device=cuda)[4]
-            from ldso_tpu_torch.backend.window import empty_window
-            W = empty_window(8, 16, (100.0, 100.0, 80.0, 60.0), cfg, cuda)
-        Nn = ba_device.orth_basis(W)
+    cfg = kc.ba_window(1, 8, device=cuda)[4]
+    delta = cfg.solver_mode_delta
+    cases = {f"window {nf}":
+             ba_device.orth_basis(_ba_inputs(cuda, nf, nf)[0][0])
+             for nf in range(1, 9)}
+    cases["empty"] = ba_device.orth_basis(
+        empty_window(8, 16, (100.0, 100.0, 80.0, 60.0), cfg, cuda))
+    cases.update({name: torch.from_numpy(B).to(cuda)
+                  for name, B in kc.planted_bases(delta).items()})
+    rng = np.random.RandomState(5)
+    cases["ragged n 37, k 5"] = torch.from_numpy(
+        rng.randn(37, 5).astype(np.float32)).to(cuda)
+    at_gate_cases = []
+    for name, Nn in cases.items():
         before = cuda_kernels.LAUNCHES["ba_projector"]
-        got = cuda_kernels.ba_projector(Nn, cfg.solver_mode_delta)
+        got = cuda_kernels.ba_projector(Nn, delta)
         assert cuda_kernels.LAUNCHES["ba_projector"] == before + 1
-        want = ba_device.nullspace_projector_ref(Nn, cfg.solver_mode_delta)
+        want = ba_device.nullspace_projector_ref(Nn, delta)
         err, share, at_gate = kc.projector_err(got[None], want[None],
-                                               Nn[None], cfg.solver_mode_delta)
-        assert not at_gate and share <= 1.0, (nf, err, share)
+                                               Nn[None], delta)
+        if at_gate:
+            at_gate_cases.append(name)
+        assert share <= 1.0, (name, err, share)
+        emu, sweeps, rotations = kc.projector_emulated(Nn, delta)
+        emu_err, emu_share = kc.projector_emu_err(got, emu)
+        assert emu_share <= 1.0, (name, emu_err)
+        work = cuda_kernels.projector_launch(Nn[None], delta)[1][0].tolist()
+        assert work == [sweeps, rotations], (name, work)
         assert torch.equal(got, got.T)
-    first = cuda_kernels.ba_projector(Nn, cfg.solver_mode_delta)
+    assert sorted(at_gate_cases) == ["gate_0.99", "gate_1.01"]
+    Nn = cases["window 8"]
+    first = cuda_kernels.ba_projector(Nn, delta)
     for _ in range(19):
-        assert _same(cuda_kernels.ba_projector(Nn, cfg.solver_mode_delta),
-                     first)
+        assert _same(cuda_kernels.ba_projector(Nn, delta), first)
 
 
 @pytest.mark.parametrize("nf", [2, 3, 8])

@@ -28,6 +28,7 @@ coordinates (a few ulps of Ku, Kv times the image gradient), so
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Tuple
 
 import torch
@@ -620,9 +621,11 @@ def ba_window(n_frames: int, F: int, n_pts: int = 64, w: int = 160,
 # kept singular value over its smallest) is off by a few 2^-23 kappa per
 # entry (tests/test_torch_ba_device.py::test_projector_float32_against_float64
 # measures the plain version within PROJ_ULPS / 4 of it against float64 on
-# the BA windows of 1 to 8 frames). A singular value within PROJ_GATE_RTOL
-# of the gate delta max(S) may be kept by one and dropped by the other:
-# such a window is reported and held to no tolerance.
+# the BA windows of 1 to 8 frames). A float32 SVD's singular values are off
+# by a few 2^-23 max(S), so one within PROJ_ULPS 2^-23 max(S) of the gate
+# delta max(S) (9.5% of the gate at delta = 1e-5), or within PROJ_GATE_RTOL
+# of it, may be kept by one version and dropped by the other: such a window
+# is reported and held to no tolerance.
 PROJ_ULPS = 8.0
 PROJ_GATE_RTOL = 1e-3
 
@@ -633,17 +636,180 @@ def projector_err(got, want, Nn, delta: float):
     error as a share of its tolerance, the windows with a singular value at
     the gate). The tolerance comes from float64 singular values."""
     S = torch.linalg.svdvals(Nn.double())
-    gate = delta * S.amax(-1, keepdim=True)
+    smax = S.amax(-1, keepdim=True)
+    gate = delta * smax
     kept = S > gate
     smin = torch.where(kept, S, torch.full_like(S, float("inf"))).amin(-1)
     kappa = torch.where(kept.any(-1), S.amax(-1) / smin,
                         torch.ones_like(smin))
     tol = PROJ_ULPS * _EPS32 * kappa
-    at_gate = (((S - gate).abs() <= PROJ_GATE_RTOL * gate)
-               & (gate > 0)).any(-1)
+    margin = torch.maximum(PROJ_GATE_RTOL * gate, PROJ_ULPS * _EPS32 * smax)
+    at_gate = (((S - gate).abs() <= margin) & (gate > 0)).any(-1)
     err = (got.double() - want.double()).abs().amax((-2, -1))
     share = torch.where(at_gate, torch.zeros_like(err), err / tol)
     return float(err.max()), float(share.max()), at_gate.nonzero()[:, 0].tolist()
+
+
+# K12's own steps in plain float64 PyTorch (csrc/ba_projector.cu): the Gram
+# matrix summed as the kernel sums it, cyclic two-sided Jacobi on it padded to
+# 8x8 in the kernel's pair order with its stop rule, the eigenvalue gate and
+# P summed over the kept columns in column order. Every operation is one
+# IEEE float64 operation in the kernel's order (the kernel contracts no
+# multiply-add), so the float64 values are the kernel's; K12 is held to it
+# within PROJ_EMU_ULPS float32 ulps of P's largest entry (a float32 entry
+# is one rounding of them, so the difference is expected to be 0).
+PROJ_TOL = 1e-15             # the Jacobi's stop tolerance (kOrthTol)
+PROJ_MAX_SWEEPS = 30         # kMaxSweeps
+PROJ_EMU_ULPS = 2.0
+_PROJ_COLS = 8
+
+
+def projector_pairs(rnd: int):
+    """The 4 disjoint (p, q) pairs of Jacobi round `rnd` (0..6): the
+    round-robin tournament, player 0 fixed and the others moving one seat
+    per round."""
+    return [(0 if w == 0 else 1 + (w - 1 + rnd) % 7, 1 + (6 - w + rnd) % 7)
+            for w in range(_PROJ_COLS // 2)]
+
+
+def _sqrt(x):
+    """A correctly rounded float64 square root, as the kernel's: torch's
+    own on the CPU (its vectorised kernel) is not, numpy's is."""
+    import numpy as np
+    return torch.from_numpy(np.sqrt(x.cpu().numpy())).to(x.device)
+
+
+def _lane_sum(partials):
+    """(..., L) per-lane sums -> (...): lane 0's value after the xor
+    butterfly over offsets L / 2, ..., 2, 1."""
+    h = partials.shape[-1] // 2
+    while h:
+        partials = partials[..., :h] + partials[..., h:2 * h]
+        h //= 2
+    return partials[..., 0]
+
+
+def projector_emulated(Nn, delta: float, drop: int = -1):
+    """K12's algorithm on one (n, k) basis, on Nn's device: returns (P (n,
+    n) float32, sweeps, rotations). `drop` >= 0 leaves out the kept
+    direction of that rank (a planted fault for the tests)."""
+    n, k = Nn.shape
+    C = _PROJ_COLS
+    f64 = dict(dtype=torch.float64, device=Nn.device)
+    L = 8                    # lanes per Gram entry (kGroup)
+    A = torch.zeros((-(-n // L) * L, C), **f64)
+    A[:n, :k] = Nn.double()
+    # lane l sums rows l, l + L, ... in order; then the lanes' tree
+    prod = A.T[:, None, :] * A.T[None, :, :]
+    acc = torch.zeros((C, C, L), **f64)
+    for m in range(A.shape[0] // L):
+        acc = acc + prod[..., L * m:L * (m + 1)]
+    G = _lane_sum(acc)
+    V = torch.eye(C, **f64)
+    sweeps, rotations = PROJ_MAX_SWEEPS, 0
+    off = ~torch.eye(C, dtype=torch.bool, device=Nn.device)
+    tol2 = PROJ_TOL * PROJ_TOL
+    for sweep in range(PROJ_MAX_SWEEPS):
+        d = G.diagonal()
+        ok = G * G <= tol2 * (d[:, None] * d[None, :]).abs()
+        if bool(ok[off].all()):
+            sweeps = sweep + 1
+            break
+        for rnd in range(C - 1):
+            pq = torch.tensor(projector_pairs(rnd), device=Nn.device)
+            p, q = pq[:, 0], pq[:, 1]
+            a, b, g = G[p, p], G[q, q], G[p, q]
+            rot = g * g > tol2 * (a * b).abs()
+            d = b - a
+            g2 = torch.where(d >= 0, 2.0 * g, -2.0 * g)
+            r = _sqrt(d * d + g2 * g2)
+            den = d.abs() + r
+            r2 = 2.0 * r
+            w = 1.0 / _sqrt(r2 * den)
+            c, s, t = den * w, g2 * w, g2 * (r2 * (w * w))
+            one, zero = torch.ones_like(c), torch.zeros_like(c)
+            c, s, t = (torch.where(rot, c, one), torch.where(rot, s, zero),
+                       torch.where(rot, t, zero))
+            # new column p = c p - s q, new column q = s p + c q
+            al = torch.empty(C, **f64)
+            be = torch.empty(C, **f64)
+            pa = torch.empty(C, dtype=torch.long, device=Nn.device)
+            al[p], al[q], be[p], be[q] = c, c, -s, s
+            pa[p], pa[q] = q, p
+            Gn = ((al[:, None] * al[None, :]) * G
+                  + (be[:, None] * be[None, :]) * G[pa][:, pa]) \
+                + ((al[:, None] * be[None, :]) * G[:, pa]
+                   + (be[:, None] * al[None, :]) * G[pa, :])
+            for j in rot.nonzero()[:, 0].tolist():
+                pj, qj = int(p[j]), int(q[j])
+                Gn[pj, pj] = a[j] - t[j] * g[j]
+                Gn[qj, qj] = b[j] + t[j] * g[j]
+                Gn[pj, qj] = Gn[qj, pj] = 0.0
+            G = Gn
+            V = al[None, :] * V + be[None, :] * V[:, pa]
+            rotations += int(rot.sum())
+    lam = G.diagonal()
+    d32 = float(torch.tensor(delta, dtype=torch.float32))
+    gate = (d32 * d32) * lam.max()
+    kept = ((lam > gate) & (lam > 0)).nonzero()[:, 0].tolist()
+    if drop >= 0:
+        del kept[drop]
+    U = torch.zeros((n, 0), **f64)
+    if kept:
+        acc = torch.zeros((n, len(kept)), **f64)
+        for m in range(k):
+            acc = acc + A[:n, m, None] * V[m, kept][None, :]
+        U = acc * (1.0 / _sqrt(lam[kept]))[None, :]
+    P = torch.zeros((n, n), **f64)
+    for col in range(U.shape[1]):
+        P = P + U[:, col, None] * U[None, :, col]
+    return P.to(torch.float32), sweeps, rotations
+
+
+def projector_emu_err(got, want):
+    """|K12 - projector_emulated| on one window, and its share of
+    PROJ_EMU_ULPS float32 ulps of the largest |entry|."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 23) if scale > 0 \
+        else 2.0 ** -149
+    return err, err / (PROJ_EMU_ULPS * ulp)
+
+
+PROJ_N = 4 + 8 * 8           # rows at the main path's 8 window slots
+
+
+def _unit_columns(Q, theta):
+    """7 unit columns: Q's first six and one at angle theta to the sixth
+    (so the pair's singular values are sqrt(1 +- cos theta))."""
+    import numpy as np
+    cols = Q[:, :6].copy()
+    last = np.cos(theta) * Q[:, 5] + np.sin(theta) * Q[:, 6]
+    return np.concatenate([cols, last[:, None]], 1)
+
+
+def planted_bases(delta: float, n: int = PROJ_N, seed: int = 12):
+    """Planted (n, 7) bases of unit columns, as orth_basis gives them, with
+    what makes K12's work hard: {name: float32 numpy array}. A repeated
+    column, a zero column (a rank-6 basis each), condition numbers 1e3 and
+    10^4.5 (a pair of columns at angle 2 atan(1 / kappa)), and a smallest
+    singular value at 1.01 and 0.99 times the gate delta max(S)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    Q = np.linalg.qr(rng.randn(n, 7))[0]
+    out = {}
+    rep = Q.copy()
+    rep[:, 4] = rep[:, 2]
+    out["repeated_column"] = rep
+    zero = Q.copy()
+    zero[:, 3] = 0.0
+    out["zero_column"] = zero
+    for name, kappa in (("kappa_1e3", 1e3), ("kappa_1e4.5", 10 ** 4.5)):
+        out[name] = _unit_columns(Q, 2.0 * np.arctan(1.0 / kappa))
+    for name, f in (("gate_1.01", 1.01), ("gate_0.99", 0.99)):
+        # smallest over largest singular value tan(theta / 2)
+        out[name] = _unit_columns(Q, 2.0 * np.arctan(f * delta))
+    return {name: B.astype(np.float32) for name, B in out.items()}
 
 
 # The device LM under vmap against single calls. The batched program sums in
