@@ -132,9 +132,16 @@ launches, counted through graph replays: exactly
 tracker.trips_per_track (316 at 640x480) per track and per graph capture,
 plus one per rank_hypotheses call; K3's record gives phase 3's launches
 of each mode, counted as they ran (cuda_kernels.TRIP_LAUNCHES).
+  8. the port's benchmark (ldso_tpu_torch/examples/bench.py, bench.py's
+     legs) in this process at its defaults: no error; three windows in
+     each of lookahead, strict, async and the two aggregate legs; value
+     > 0; ATE under 5 mm; util's three device times finite and positive;
+     K3 launched in every leg that tracks, K12 once per BA graph replay
+     (and capture) in every leg and in every leg that runs the BA, both
+     counted through graph replays; its JSON line and its wall time.
 One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
-captured tracker's numbers, then a JSON record of the kernels, then the
-last line {"ok": true, "device": {...}}.
+captured tracker's numbers, the bench's JSON line, then a JSON record of
+the kernels, then the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1179,15 +1186,8 @@ def phase_plain_tracker(tracks):
 
 
 def _sleep_cycles_per_ms() -> float:
-    import torch
-    torch.cuda._sleep(1_000_000)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    torch.cuda._sleep(20_000_000)
-    b.record()
-    b.synchronize()
-    return 20_000_000 / a.elapsed_time(b)
+    from ldso_tpu_torch.examples.bench import sleep_cycles_per_ms
+    return sleep_cycles_per_ms()
 
 
 def phase_dispatch_ahead(fs, images, sleep_ms: float = 50.0):
@@ -2327,6 +2327,63 @@ def phase_sharded(W, global_map):
     return res
 
 
+# the bench's legs that track frames, and those that run the device LM
+BENCH_TRACKING = ("warmup", "lookahead", "strict", "async", "util",
+                  "aggregate_8seq", "aggregate_16seq", "batched_tracking")
+BENCH_BA = ("warmup", "lookahead", "strict", "util", "aggregate_8seq",
+            "aggregate_16seq", "batched_ba")
+
+
+def phase_bench():
+    """8: the port's benchmark at its defaults, in this process (every
+    graph it replays was captured by the phases before, except the
+    batched legs' own). Returns its result."""
+    from ldso_tpu_torch.examples import bench
+    t = time.perf_counter()
+    res = bench.measure(bench.parse_args([]))
+    wall = time.perf_counter() - t
+    if "error" in res:
+        _fail(f"8 bench: {res['error']}")
+    windows = dict(sync=res["sync_fps_windows"],
+                   strict=res["strict_fps_windows"],
+                   piped=res["piped_fps_windows"],
+                   **{k: v["fps_windows"]
+                      for k, v in res["aggregate"].items()})
+    bad = [k for k, v in windows.items() if len(v) != 3]
+    if bad or set(res["aggregate"]) != {"8seq", "16seq"}:
+        _fail(f"8 bench: not three windows in {bad} "
+              f"(aggregate legs {sorted(res['aggregate'])})")
+    if not res["value"] > 0:
+        _fail(f"8 bench: value {res['value']}")
+    if not res["ate_m_sim_aligned"] < ATE_BOUND_M:
+        _fail(f"8 bench: ATE {res['ate_m_sim_aligned']} m")
+    util = {k: v["ms"] for k, v in res["util"].items()
+            if k in ("frame_step(track)", "ba_lm") or k.startswith("trace(")}
+    if len(util) != 3 or not all(np.isfinite(ms) and ms > 0
+                                 for ms in util.values()):
+        _fail(f"8 bench: util device ms {util}")
+    for leg, n in res["launches"].items():
+        graphs = res["graphs"][leg]
+        if leg in BENCH_TRACKING and not n["tracker_trip"] > 0:
+            _fail(f"8 bench: K3 not launched in the {leg} leg")
+        if leg in BENCH_BA and not n["ba_projector"] > 0:
+            _fail(f"8 bench: K12 not launched in the {leg} leg")
+        if leg != "batched_ba" and n["ba_projector"] != (
+                graphs["ba_replays"] + graphs["ba_captures"]):
+            _fail(f"8 bench: {leg}: K12 launched {n['ba_projector']} times "
+                  f"for {graphs['ba_replays']} BA graph replays and "
+                  f"{graphs['ba_captures']} captures")
+    print(f"8 bench: async {res['value']:.2f} fps "
+          f"({res['piped_keyframes_windows']} keyframes), lookahead "
+          f"{res['sync_fps']:.2f}, strict {res['strict_fps']:.2f}, ATE "
+          f"{res['ate_m_sim_aligned'] * 1e3:.4f} mm, aggregate 8/16 "
+          f"{res['aggregate_vo_fps_8seq']:.2f} / "
+          f"{res['aggregate_vo_fps_16seq']:.2f}, batched tracking "
+          f"{res['batched_tracking_fps_16seq']:.1f}, util device ms "
+          f"{util}; in {wall:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     import os
     t_start = time.perf_counter()
@@ -2364,6 +2421,10 @@ def main() -> int:
     sharded = phase_sharded(window3, map4)
     batched_ba = phase_batched_ba(ba_records)
     del ba_records
+    bench = phase_bench()
+    bench_launches = {k: sum(leg[k] for leg in bench["launches"].values())
+                      for k in ("distance_transform", "tracker_trip",
+                                "ba_projector")}
     by_path = dict(vo_strict=launches_vo["distance_transform"],
                    loop=launches["distance_transform"],
                    boxes=boxes["k1_launches"],
@@ -2372,7 +2433,8 @@ def main() -> int:
                    vo_async_paced=paced["k1_launches"],
                    cli_lookahead=cli["lookahead"], cli_async=cli["async"],
                    **{name.split()[1]: run["k1_launches"]
-                      for name, run in variants.items()})
+                      for name, run in variants.items()},
+                   bench=bench_launches["distance_transform"])
     print(f"K1 launches per path: {by_path}", flush=True)
     record["launches"] = launches["distance_transform"]
     record["launches_per_keyframe"] = launches["distance_transform"] / post_boot
@@ -2387,7 +2449,8 @@ def main() -> int:
                       cli_async=cli["k3_async"],
                       **{name.split()[1]: run["k3_launches"]
                          for name, run in variants.items()},
-                      batched_replay=batched["k3_launches"])
+                      batched_replay=batched["k3_launches"],
+                      bench=bench_launches["tracker_trip"])
     print(f"K3 launches per path: {k3_by_path}", flush=True)
     trip_record["launches"] = launches["tracker_trip"]
     trip_record["launches_by_path"] = k3_by_path
@@ -2401,7 +2464,8 @@ def main() -> int:
                        cli_async=cli["k12_async"],
                        **{name.split()[1]: run["k12_launches"]
                           for name, run in variants.items()},
-                       batched_ba=batched_ba["k12_launches"])
+                       batched_ba=batched_ba["k12_launches"],
+                       bench=bench_launches["ba_projector"])
     print(f"K12 launches per path: {k12_by_path}", flush=True)
     proj_record["launches"] = strict["k12_launches"]
     proj_record["launches_by_path"] = k12_by_path
@@ -2417,6 +2481,7 @@ def main() -> int:
     print(json.dumps(batched_ba))
     print(json.dumps({"tracker_graph": graph}))
     print(json.dumps({"ba_graph": ba_graph}))
+    print(json.dumps(bench))
     print(json.dumps({"kernels": [record, trip_record, proj_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -592,23 +592,12 @@ class EnergyFunctional:
         nf = self.n_frames
         if nf < 2:
             return 0.0
-        max_iterations = ba_trip_counts(max_iterations)[min(nf, 4) - 2]
         if not device_lm(cfg):
             return self._optimize_host(
-                dIs, max_iterations, img_w, img_h, nf - 1,
-                bool(cfg.solver_mode & SOLVER_MOMENTUM))
-        n_full = CPARS + 8 * self.F
-        n = CPARS + 8 * nf
-        HMp = np.zeros((n_full, n_full), np.float32)
-        bMp = np.zeros(n_full, np.float32)
-        HMp[:n, :n] = self.HM
-        bMp[:n] = self.bM
-        dev = self.device
-        args = (self.W, dIs, to_device(torch.from_numpy(HMp), dev),
-                to_device(torch.from_numpy(bMp), dev),
-                to_device(torch.tensor(nf - 1), dev), cfg, img_w, img_h,
-                max_iterations)
-        if dev.type == "cuda":
+                dIs, ba_trip_counts(max_iterations)[min(nf, 4) - 2], img_w,
+                img_h, nf - 1, bool(cfg.solver_mode & SOLVER_MOMENTUM))
+        args = self.device_lm_inputs(dIs, max_iterations, img_w, img_h)
+        if self.device.type == "cuda":
             self.W, stats = replay_ba(*args)
         else:
             self.W, stats = ba_device.optimize_device(*args)
@@ -617,6 +606,26 @@ class EnergyFunctional:
         if not np.isfinite(stats[0]):
             self.is_lost = True
         return float(stats[2])
+
+    def device_lm_inputs(self, dIs, max_iterations: int, img_w: int,
+                         img_h: int) -> tuple:
+        """The device LM's arguments for the current window of nf >= 2
+        frames: (W, dIs, HM, bM, newest, cfg, img_w, img_h, trips), the
+        float64 prior padded to the window's slots as float32 and uploaded
+        without waiting, newest (nf - 1) a 0-d device integer and the trip
+        count of `ba_trip_counts` for nf."""
+        nf = self.n_frames
+        n_full = CPARS + 8 * self.F
+        n = CPARS + 8 * nf
+        HMp = np.zeros((n_full, n_full), np.float32)
+        bMp = np.zeros(n_full, np.float32)
+        HMp[:n, :n] = self.HM
+        bMp[:n] = self.bM
+        dev = self.device
+        return (self.W, dIs, to_device(torch.from_numpy(HMp), dev),
+                to_device(torch.from_numpy(bMp), dev),
+                to_device(torch.tensor(nf - 1), dev), self.cfg, img_w, img_h,
+                ba_trip_counts(max_iterations)[min(nf, 4) - 2])
 
     def warm_ba_programs(self, dIs, max_iterations: int, img_w: int,
                          img_h: int):

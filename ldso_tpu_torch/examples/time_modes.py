@@ -73,17 +73,26 @@ def gpu_facts() -> dict:
     return dict(name=name, power_limit=limit)
 
 
-def bench_frames(n: int, w: int = 640, h: int = 480, device="cuda"):
-    """The bench trajectory (bench.py:135-140) over PlaneScene(freq_hi=25,
-    contrast=80), rendered on `device` and returned as uint8 numpy frames
-    with the camera-from-world poses: (calib, poses, images)."""
+def bench_pose(i: int, seq: int = 0) -> np.ndarray:
+    """The camera-from-world pose of frame i of the bench trajectory
+    (bench.py:135-140); seq > 0 gives sequence `seq` of its aggregate leg,
+    whose sine and yaw rate are shifted by it (bench.py:511-514)."""
+    t = np.array([0.03 * i, 0.01 * np.sin(0.2 * i + seq), 0.004 * i])
+    w = np.array([0.0, 0.0018 * i, 0.0004 * i + 0.0002 * seq])
+    return np.linalg.inv(lie_np.se3_exp(np.concatenate([t, w])))
+
+
+def bench_frames(n: int, w: int = 640, h: int = 480, device="cuda",
+                 seq: int = 0):
+    """The bench trajectory (`bench_pose`, sequence `seq`) over
+    PlaneScene(freq_hi=25, contrast=80), rendered on `device` and returned
+    as uint8 numpy frames with the camera-from-world poses: (calib, poses,
+    images)."""
     calib = default_calib(w, h)
     scene = PlaneScene(freq_hi=25.0, contrast=80.0)
     poses, images = [], []
     for i in range(n):
-        t = np.array([0.03 * i, 0.01 * np.sin(0.2 * i), 0.004 * i])
-        w_ = np.array([0.0, 0.0018 * i, 0.0004 * i])
-        T = np.linalg.inv(lie_np.se3_exp(np.concatenate([t, w_])))
+        T = bench_pose(i, seq)
         img, _ = scene.render(calib, T, device=device)
         poses.append(T)
         images.append(torch.clamp(torch.round(img), 0, 255)

@@ -616,27 +616,34 @@ class FullSystem:
             not np.isfinite(last0)
             or res_np[0] < last0 * np.float32(cfg.re_track_threshold)))
         if accept:
-            F = self.ef.F
-            T_hosts = np.tile(np.eye(4), (F, 1, 1))
-            host_affs = np.zeros((F, 2))
-            host_expos = np.ones(F)
-            for i, fr in enumerate(self.window_frames):
-                T_hosts[i] = fr.T_cw
-                host_affs[i] = fr.aff
-                host_expos[i] = fr.exposure or 1.0
-            K = torch.tensor(calib.K(0), dtype=torch.float32, device=dev)
-            Ki = torch.linalg.inv(K)
-            T_new_cw = T @ self._f32(T_ref_cw)
-            T_rel = torch.einsum("ij,fjk->fik", T_new_cw,
-                                 torch.linalg.inv(self._f32(T_hosts)))
-            KRKis = torch.einsum("ij,fjk,kl->fil", K, T_rel[:, :3, :3], Ki)
-            Kts = torch.einsum("ij,fj->fi", K, T_rel[:, :3, 3])
-            ha = self._f32(host_affs)
-            ra = torch.exp(aff[0] - ha[:, 0]) * float(np.float32(exposure)) \
-                / self._f32(host_expos)
-            affs = torch.stack([ra, aff[1] - ra * ha[:, 1]], dim=-1)
-            self._trace_arena(pyr, KRKis, Kts, affs)
+            self._trace_arena(pyr, *self._trace_transforms(
+                T @ self._f32(T_ref_cw), aff, exposure))
         return pyr, T_np, aff_np, ok_np, res_np, flow_np, accept
+
+    def _trace_transforms(self, T_new_cw, aff, exposure: float):
+        """The trace's per-host inputs for a new frame at T_new_cw (a device
+        (4, 4)) with brightness affine `aff` (a device (2,)): K R K^-1,
+        K t and the host -> new brightness transfer of each window slot."""
+        calib, dev = self.calib, self.device
+        F = self.ef.F
+        T_hosts = np.tile(np.eye(4), (F, 1, 1))
+        host_affs = np.zeros((F, 2))
+        host_expos = np.ones(F)
+        for i, fr in enumerate(self.window_frames):
+            T_hosts[i] = fr.T_cw
+            host_affs[i] = fr.aff
+            host_expos[i] = fr.exposure or 1.0
+        K = torch.tensor(calib.K(0), dtype=torch.float32, device=dev)
+        Ki = torch.linalg.inv(K)
+        T_rel = torch.einsum("ij,fjk->fik", T_new_cw,
+                             torch.linalg.inv(self._f32(T_hosts)))
+        KRKis = torch.einsum("ij,fjk,kl->fil", K, T_rel[:, :3, :3], Ki)
+        Kts = torch.einsum("ij,fj->fi", K, T_rel[:, :3, 3])
+        ha = self._f32(host_affs)
+        ra = torch.exp(aff[0] - ha[:, 0]) * float(np.float32(exposure)) \
+            / self._f32(host_expos)
+        affs = torch.stack([ra, aff[1] - ra * ha[:, 1]], dim=-1)
+        return KRKis, Kts, affs
 
     def _trace_arena(self, pyr, KRKis, Kts, affs):
         """Trace the live prefix of the candidate arena (lanes past the

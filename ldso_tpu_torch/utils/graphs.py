@@ -64,9 +64,12 @@ class Captured:
                             for j, x in enumerate(self.static_in) if o is x}
         self.lock = threading.Lock()
         self.done = None
+        self.wait_s = 0.0       # host seconds replays waited for the lock
 
     def replay(self, inputs) -> Tuple[torch.Tensor, ...]:
+        t = time.perf_counter()
         with self.lock:
+            self.wait_s += time.perf_counter() - t
             stream = torch.cuda.current_stream(self.static_in[0].device)
             if self.done is not None:
                 stream.wait_event(self.done)
@@ -117,3 +120,8 @@ class Programs:
         with self._count_lock:
             self.counts["replays"] += 1
         return out
+
+    def lock_wait_s(self) -> float:
+        """The host seconds this family's replays have waited for a graph's
+        lock while another replay held it."""
+        return sum(g.wait_s for g in list(self.graphs.values()))

@@ -885,3 +885,32 @@ def test_ba_vmapped_graph_matches_single_replays(cuda):
         [single(*a[0]) for a in inputs],
         [kc.reordered_ba(single, *a[0]) for a in inputs])
     assert not faults, (faults, worst, tol)
+
+
+# the counts of tests/test_torch_bench.py's CPU run
+BENCH_SMALL = ["--warm", "9", "--sync-warm", "1", "--window", "1",
+               "--pipe-warm", "1", "--pipe-window", "1", "--seqs", "2",
+               "--unique-seqs", "1", "--seq-warm", "9", "--seq-window", "1",
+               "--batch", "2", "--steps", "1", "--ba-batch", "2"]
+
+
+def test_bench_gives_device_times_on_the_card(cuda):
+    """The port's bench (examples/bench.py) on the card at the CPU test's
+    small counts: exit code 0, the line last, and every device time
+    present and positive."""
+    import contextlib
+    import io
+    import json
+    from ldso_tpu_torch.examples import bench
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(BENCH_SMALL)
+    result = json.loads(out.getvalue().splitlines()[-1])
+    assert rc == 0, result.get("error")
+    assert result["device"]["type"] == "cuda" and result["device"]["name"]
+    assert len(result["util"]) == 4
+    for name, rec in result["util"].items():
+        assert rec["ms"] > 0 and rec["hbm_pct_min"] > 0, (name, rec)
+    ba = result["batched_ba_2seq"]
+    assert ba["ms"] > 0 and ba["agg_kf_per_sec"] > 0
+    assert all(gb > 0 for gb in result["peak_memory_gb"].values())

@@ -518,6 +518,33 @@ def _fake_capture(graph, stream=None, **kw):
     yield
 
 
+class _FakeStream:
+    def __init__(self, *a, **k):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+    def wait_event(self, event):
+        pass
+
+
+class _FakeEvent:
+    def record(self, stream=None):
+        pass
+
+
+def _fake_cuda(monkeypatch):
+    """The CUDA pieces utils.graphs uses, faked on the CPU."""
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+
+
 def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
     """utils.graphs.Captured with the CUDA pieces faked on the CPU and a
     program that counts launches as a kernel wrapper does: the eager
@@ -526,26 +553,7 @@ def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
     during a capture counts as usual."""
     from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.utils import graphs
-
-    class _Stream:
-        def __init__(self, *a, **k):
-            pass
-
-        def wait_stream(self, other):
-            pass
-
-        def wait_event(self, event):
-            pass
-
-    class _Event:
-        def record(self, stream=None):
-            pass
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
-    monkeypatch.setattr(torch.cuda, "Stream", _Stream)
-    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
-    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    _fake_cuda(monkeypatch)
     seen_elsewhere = []
 
     def program(x):
@@ -580,6 +588,35 @@ def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
         t.join()
     assert tally == {"tracker_trip": 1}
     assert cuda_kernels.LAUNCHES["tracker_trip"] == 1
+
+
+def test_programs_count_the_wait_for_a_graph_lock(monkeypatch):
+    """A replay that finds its graph's lock held waits, and the family's
+    lock_wait_s counts that wait (the bench reads it per leg)."""
+    import threading
+    import time
+    from ldso_tpu_torch.utils import graphs
+    _fake_cuda(monkeypatch)
+    fam = graphs.Programs()
+    x = (torch.zeros(2),)
+    fam.replay("k", lambda x: (x + 1,), x)
+    assert fam.lock_wait_s() < 0.05
+    g = fam.graphs[graphs._key("k", x)]
+    started = threading.Event()
+
+    def hold():
+        with g.lock:
+            started.set()
+            time.sleep(0.2)
+    t = threading.Thread(target=hold)
+    t.start()
+    started.wait(5)
+    out = fam.replay("k", lambda x: (x + 1,), x)
+    t.join(5)
+    assert not t.is_alive()
+    assert torch.equal(out[0], torch.ones(2))
+    assert 0.1 < fam.lock_wait_s() < 5
+    assert fam.counts["replays"] == 2 and fam.counts["count"] == 1
 
 
 def test_trip_launches_are_counted_by_mode():
