@@ -42,7 +42,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      projector_emulated (its own algorithm in float64 PyTorch on the card:
      P within PROJ_EMU_ULPS float32 ulps, sweeps and rotations equal), P
      symmetric bitwise, 20 launches bitwise, its times at the full window
-     and ptxas's registers, shared memory and spills;
+     and ptxas's registers, shared memory and spills. K4 (the epipolar
+     trace of the candidate arena, csrc/immature_trace.cu) against its
+     plain version (frontend/immature.trace_arena_ref) on the bench scene
+     at 640x480 with all 4,096 lanes live: every search (packed, rotated,
+     nearest over either pattern, with and without the re-score), an
+     uninitialised and a narrowing trace, and planted lanes (at and past
+     the border, sticky OOB, skipped, badcondition, idepth_min < 0, steps
+     at the cap, a former outlier, dead lanes between live ones, NaN
+     pixels in the target), held by tests/torch_kernel_checks.trace_err
+     (status exact, intervals and positions within 1e-4 relative, quality
+     within 2e-3, dead lanes bitwise, a difference only at the plain
+     version's own ties and on at most 1% of the live lanes); 20 launches
+     bitwise; then, right after phase 3, every trace phase 3 ran again
+     through the plain version from its recorded inputs, held the same
+     way, and K4's times on phase 3's last arena (`ms`, `plain_ms`,
+     `device_ms`) beside its bound;
   3. the pure-VO path: the synchronous monocular VO FullSystem at 640x480
      with the production Config and loop closing off on 64 synthetic uint8
      frames of the bench trajectory, on the package's default device (the
@@ -131,7 +146,11 @@ Every phase that tracks (3, 3a, 3b, 4, 4b, 5, 6, 7a-7c) asserts K3's
 launches, counted through graph replays: exactly
 tracker.trips_per_track (316 at 640x480) per track and per graph capture,
 plus one per rank_hypotheses call; K3's record gives phase 3's launches
-of each mode, counted as they ran (cuda_kernels.TRIP_LAUNCHES).
+of each mode, counted as they ran (cuda_kernels.TRIP_LAUNCHES). Every
+phase that drives a path (3, 4, 4b, 5, 6, 7a, 7b and every bench leg
+that traces, phase 8) asserts that K4 launched once for each trace of
+the arena (FullSystem._trace_arena's calls, and the bench's util trace
+calls): no trace went through the plain version.
   8. the port's benchmark (ldso_tpu_torch/examples/bench.py, bench.py's
      legs) in this process at its defaults: no error; three windows in
      each of lookahead, strict, async and the two aggregate legs; value
@@ -141,7 +160,8 @@ of each mode, counted as they ran (cuda_kernels.TRIP_LAUNCHES).
      counted through graph replays; its JSON line and its wall time.
 One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
 captured tracker's numbers, the bench's JSON line, then a JSON record of
-the kernels, then the last line {"ok": true, "device": {...}}.
+the kernels (K1, K3, K12, K4), then the last line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -908,7 +928,8 @@ def phase_main_path(n_frames: int = N_FRAMES):
         _fail(f"main path: lost={strict['lost']} "
               f"init_failed={strict['init_failed']}")
     launches = dict(distance_transform=strict["k1_launches"],
-                    tracker_trip=strict["k3_launches"])
+                    tracker_trip=strict["k3_launches"],
+                    trace=strict["k4_launches"])
     tracked = sum(1 for f in fs.all_frames if f.pose_valid)
     peak = torch.cuda.max_memory_allocated()
     print(f"main path: {n_frames} frames 640x480 uint8, "
@@ -920,7 +941,9 @@ def phase_main_path(n_frames: int = N_FRAMES):
           f"{strict['k1_launches']} for {strict['post_bootstrap_keyframes']} "
           f"post-bootstrap keyframes, K3 launches {strict['k3_launches']} "
           f"({strict['k3_by_mode']} by mode) for {strict['tracks']} tracks "
-          f"and {strict['rank_calls']} rankings", flush=True)
+          f"and {strict['rank_calls']} rankings, K4 launches "
+          f"{strict['k4_launches']} for {strict['traces']} traces of the "
+          f"arena", flush=True)
     if strict["keyframes"] < 8:
         _fail(f"only {strict['keyframes']} keyframes (need >= 8)")
     if not strict["ate_mm"] < ATE_BOUND_M * 1e3:
@@ -930,6 +953,7 @@ def phase_main_path(n_frames: int = N_FRAMES):
               f"{strict['post_bootstrap_keyframes']} post-bootstrap keyframes")
     _no_capture_inside(strict)
     _k3_run_check(strict)
+    _k4_run_check(strict)
     return launches, calib, images, poses, strict, fs, tracks
 
 
@@ -1301,6 +1325,7 @@ def phase_boxes(n_frames: int = BOX_FRAMES):
     _no_capture_inside(run)
     run["phase"] = "4b boxes"
     _k3_run_check(run)
+    _k4_run_check(run)
     if not run["ate_kf_mm"] < ATE_BOUND_M * 1e3:
         _fail(f"boxes: keyframe ATE {run['ate_kf_mm']:.4f} mm >= "
               f"{ATE_BOUND_M * 1e3} mm")
@@ -1328,7 +1353,7 @@ def _mode_line(run: dict) -> str:
     keys = ("mode", "interval_ms", "frames", "keyframes", "ate_mm",
             "ms_per_frame_median",
             "ms_per_frame_wall", "wall_s", "k1_launches", "k1_streams",
-            "k3_launches", "tracks", "rank_calls",
+            "k3_launches", "tracks", "rank_calls", "k4_launches", "traces",
             "post_bootstrap_keyframes", "retrack_trips", "lm_frames",
             "graph_captures", "ba_replays", "k12_launches", "gpu")
     return json.dumps({k: run[k] for k in keys})
@@ -1362,6 +1387,7 @@ def phase_pipelines(calib, images, poses, strict: dict, device="cuda"):
         _no_capture_inside(run)
         if device == "cuda":
             _k3_run_check(run)
+            _k4_run_check(run)
         runs.append(run)
         poses_of.append([f.T_cw.tobytes() for f in fs.all_frames])
     look1, look2, asyn, paced = runs
@@ -1447,13 +1473,15 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
             argv += ["nogui=0", "viewer_port=0"]    # the live viewer
         t0 = time.time()
         with time_modes.traced_k1() as k1, \
-                time_modes.counted_tracks() as tracks:
+                time_modes.counted_tracks() as tracks, \
+                time_modes.counted_traces() as traces:
             cuda_kernels.reset_launch_counts()
             fs = run_common.run(run_common.parse_args(argv), "kitti",
                                 kitti_output=True, device=device)
             launches = cuda_kernels.LAUNCHES["distance_transform"]
             k3 = cuda_kernels.LAUNCHES["tracker_trip"]
             k12 = cuda_kernels.LAUNCHES["ba_projector"]
+            k4 = cuda_kernels.LAUNCHES["trace"]
         wall = time.time() - t0
         if fs.device.type != device:
             _fail(f"cli {pmode}: ran on {fs.device}, not {device}")
@@ -1484,13 +1512,15 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
               f"launches {launches} for {post_boot} post-bootstrap keyframes, "
               f"by (thread, stream) {dict(k1)}; K3 launches {k3} for "
               f"{tracks['tracks']} tracks, {tracks['ranks']} rankings and "
-              f"{tracks['captures']} captures", flush=True)
+              f"{tracks['captures']} captures; K4 launches {k4} for "
+              f"{traces['traces']} traces", flush=True)
         if not ate < ATE_BOUND_M:
             _fail(f"cli {pmode}: keyframe ATE {ate * 1e3:.4f} mm >= "
                   f"{ATE_BOUND_M * 1e3} mm")
         if device == "cuda":
             _k3_check(f"cli {pmode}", k3, time_modes.k3_expected(
                 tracks, fs.cfg, fs.calib.levels))
+            _k4_check(f"cli {pmode}", k4, traces["traces"])
             if not launches == post_boot > 0:
                 _fail(f"cli {pmode}: K1 launched {launches} times for "
                       f"{post_boot} post-bootstrap keyframes")
@@ -1503,6 +1533,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         out_launches[pmode] = launches
         out_launches[f"k3_{pmode}"] = k3
         out_launches[f"k12_{pmode}"] = k12
+        out_launches[f"k4_{pmode}"] = k4
         if fs.viewer is not None:
             check_viewer(fs.viewer, len(rows), (calib.h[0], calib.w[0]))
     return out_launches
@@ -1636,7 +1667,8 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     lc.run_pose_graph_if_needed = timed(pgo, pgo_ms)
     torch.cuda.reset_peak_memory_stats()
     frame_ms = []
-    with time_modes.counted_tracks() as tracks:
+    with time_modes.counted_tracks() as tracks, \
+            time_modes.counted_traces() as traces:
         cuda_kernels.reset_launch_counts()
         for i, img in enumerate(images):
             torch.cuda.synchronize()
@@ -1650,6 +1682,7 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
         launches = dict(cuda_kernels.LAUNCHES)
     _k3_check("4 loop slice", launches["tracker_trip"],
               time_modes.k3_expected(tracks, cfg, calib.levels))
+    _k4_check("4 loop slice", launches["trace"], traces["traces"])
     # the CLI's strict-mode final pose-graph pass before results.txt
     # (examples/run_common.py:200-203)
     torch.cuda.synchronize()
@@ -1684,7 +1717,8 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
           f"{peak / 2**20:.1f} MiB, K1 launches "
           f"{launches['distance_transform']} for {post_boot} post-bootstrap "
           f"keyframes, K3 launches {launches['tracker_trip']} for "
-          f"{tracks['tracks']} tracks and {tracks['ranks']} rankings",
+          f"{tracks['tracks']} tracks and {tracks['ranks']} rankings, K4 "
+          f"launches {launches['trace']} for {traces['traces']} traces",
           flush=True)
     print("stage timers (host wall, s):\n" + fs.timer.summary(), flush=True)
     print(json.dumps(dict(
@@ -1860,6 +1894,244 @@ def phase_projector():
           f" bound {bound_ms * 1e3:.5f} us set by {bound_by}; ptxas {ptx}",
           flush=True)
     return rec
+
+
+# float operations of K4's function, counted from csrc/immature_trace.cu by
+# what each unit of work reaches: an active lane's interval and gates, one
+# search tap (a bilinear blend and its Huber term) and one GN tap (three
+# channels' blends, its energy, H and b terms)
+TRACE_OPS = dict(lane=150, tap=30, gn_tap=70)
+# the arena's bytes per lane that the function needs: for every lane
+# (valid, host, status) and the 7 fields it writes; for a lane that is not
+# active, the 6 float fields it copies through; for an active lane, u, v,
+# gradH and the fields its interval and quality start from (idepth_min,
+# idepth_max, quality: an active lane's last_u, last_v and last_interval
+# are overwritten unread); for a lane that searches, color and energy_th,
+# and the weights when the GN runs
+TRACE_LANE_BYTES = dict(every=9, written=28, inactive=24, active=36,
+                        search=36, gn=32)
+
+
+def trace_bound_ms(arena, dI, KRKis, Kts, affs, parts, cfg, calib):
+    """The least time for K4's function on these inputs, the default
+    (packed) search: the arena's bytes (TRACE_LANE_BYTES), the host tables
+    once, and the image's 4-byte words that this run's taps read (channel 0
+    at the four corners of every live step's 8 taps, all three channels at
+    the four corners of every GN tap of a lane still iterating), against
+    TRACE_OPS on the same work. Returns (ms, "bytes" or "operations")."""
+    import torch
+    W, H = calib.w[0], calib.h[0]
+    N = arena.host.shape[0]
+    active, search = parts["active"], parts["do_search"]
+    n_cap = parts["energies"].shape[1]
+    dev = dI.device
+    steps = torch.arange(n_cap, dtype=torch.float32, device=dev)
+    live = search[:, None] & (steps[None] < parts["n_steps"][:, None])
+    sx = parts["ptx0"][:, None] + steps[None] * parts["dxn"][:, None]
+    sy = parts["pty0"][:, None] + steps[None] * parts["dyn"][:, None]
+    from ldso_tpu_torch.config import PATTERN
+    patt = torch.as_tensor(PATTERN, dtype=torch.long, device=dev)
+    words = []
+
+    def floor_cell(x, hi):
+        x = torch.clamp(x, 0.0, hi)
+        return torch.nan_to_num(torch.floor(x)).long()
+    xi, yi = floor_cell(sx[live], W - 1.001), floor_cell(sy[live], H - 1.001)
+    for ox in (0, 1):
+        for oy in (0, 1):
+            cx = torch.clamp(xi[:, None] + patt[:, 0], 0, W - 1)
+            cy = torch.clamp(yi[:, None] + patt[:, 1], 0, H - 1)
+            cx = torch.clamp(cx + ox, max=W - 1)
+            cy = torch.clamp(cy + oy, max=H - 1)
+            words.append(((cy * W + cx) * 3).reshape(-1))
+    rot = parts["rot_patt"]
+    gn_taps = 0
+    for it in parts.get("gn", ()):
+        m = it["upd"] & search
+        gn_taps += int(m.sum()) * 8
+        x = floor_cell(it["bu"][m][:, None] + rot[m][:, :, 0], W - 1.001)
+        y = floor_cell(it["bv"][m][:, None] + rot[m][:, :, 1], H - 1.001)
+        for ox in (0, 1):
+            for oy in (0, 1):
+                idx = ((y + oy) * W + x + ox).reshape(-1) * 3
+                words += [idx, idx + 1, idx + 2]
+    n_words = int(torch.unique(torch.cat(words)).numel())
+    n_active, n_search = int(active.sum()), int(search.sum())
+    per_search = TRACE_LANE_BYTES["search"] + (
+        TRACE_LANE_BYTES["gn"] if cfg.trace_gn_iterations > 0 else 0)
+    n_bytes = (N * (TRACE_LANE_BYTES["every"] + TRACE_LANE_BYTES["written"])
+               + (N - n_active) * TRACE_LANE_BYTES["inactive"]
+               + n_active * TRACE_LANE_BYTES["active"]
+               + n_search * per_search
+               + sum(t.numel() * t.element_size() for t in (KRKis, Kts, affs))
+               + 4 * n_words)
+    ops = (n_active * TRACE_OPS["lane"]
+           + n_search * n_cap * 8 * TRACE_OPS["tap"]
+           + gn_taps * TRACE_OPS["gn_tap"])
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _trace_check(kc, what, inputs, got, calib):
+    """K4's output `got` against the plain version on the card on the same
+    inputs (arena, dI, KRKis, Kts, affs, cfg): trace_err's report, with the
+    lanes not bitwise equal to the plain version's; fails the run on a
+    fault or on too many flips."""
+    import torch
+    arena, dI, KRKis, Kts, affs, cfg = inputs
+    want, parts = kc.plain_trace(arena, dI, KRKis, Kts, affs, calib, cfg)
+    rep = kc.trace_err(want, got, parts, cfg)
+    same = torch.ones_like(parts["active"])
+    for f in kc.TRACE_CLOSE + ("quality", "status"):
+        same &= kc.bits(getattr(got.pool, f), getattr(want.pool, f))
+    rep["not_bitwise"] = int((~same).sum())
+    if not rep["ok"]:
+        _fail(f"K4 {what}: {rep['faults']} (flips {rep['flips'][:20]} of "
+              f"{rep['live']} live lanes, at most "
+              f"{kc.TRACE_TIE_SHARE} of them)")
+    return rep, want, parts
+
+
+def phase_trace_kernel(device="cuda"):
+    """K4 (csrc/immature_trace.cu) against its plain version
+    (frontend/immature.trace_arena_ref) on the card, on the bench scene at
+    640x480 (torch_kernel_checks.trace_scene, every one of its 4,096 lanes
+    live): each search of TRACE_VARIANTS on an uninitialised arena and on
+    the arena its first trace narrowed, and the planted lanes (at and past
+    the border, sticky OOB, skipped, badcondition, idepth_min < 0, steps at
+    the cap, uninitialised, a former outlier, dead lanes between live
+    ones, NaN pixels in the target), each held by trace_err; 20 launches
+    bitwise equal. Returns the kernel record (times and launches are
+    filled in after phase 3, on its last arena)."""
+    import torch
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kernel_checks()
+    t0 = time.perf_counter()
+    scene = kc.trace_scene(640, 480, device)
+    calib = scene["calib"]
+    cases = kc.trace_cases(scene)
+    worst, flips, ties, lanes, not_bitwise = 0.0, 0, 0, 0, 0
+    launches = cuda_kernels.LAUNCHES["trace"]
+    for name, (arena, dI, KRKis, Kts, affs, cfg) in cases.items():
+        got = cuda_kernels.trace_arena(arena, dI, KRKis, Kts, affs, calib,
+                                       cfg)
+        rep, _, _ = _trace_check(kc, name, (arena, dI, KRKis, Kts, affs, cfg),
+                                 got, calib)
+        worst = max(worst, rep["max_err"])
+        flips += len(rep["flips"])
+        ties += rep["ties"]
+        lanes += rep["live"]
+        not_bitwise += rep["not_bitwise"]
+    if device == "cuda" and \
+            cuda_kernels.LAUNCHES["trace"] != launches + len(cases):
+        _fail(f"K4: {cuda_kernels.LAUNCHES['trace'] - launches} launches for "
+              f"{len(cases)} cases")
+    arena, dI, KRKis, Kts, affs, cfg = cases["planted"]
+    kernel = lambda: cuda_kernels.trace_arena(  # noqa: E731
+        arena, dI, KRKis, Kts, affs, calib, cfg)
+    first = kernel().pool
+    for rep in range(1, DET_REPEATS):
+        again = kernel().pool
+        if not all(_same(getattr(again, f), getattr(first, f))
+                   for f in cuda_kernels.TRACE_OUTPUTS):
+            _fail(f"K4: launch {rep} differs from launch 0")
+    print(f"K4 trace: {len(cases)} cases at 640x480 ({len(kc.TRACE_VARIANTS)}"
+          f" searches, uninitialised and narrowing, and the planted lanes "
+          f"{sorted(kc.TRACE_PLANTS.values())}), {lanes} live lanes: "
+          f"max|kernel - plain| {worst:.3g}, {not_bitwise} lanes not "
+          f"bitwise the plain version's, {flips} flips at the plain "
+          f"version's {ties} tie lanes; {DET_REPEATS} launches bitwise "
+          f"equal; {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(name="trace", route="cuda",
+                source="ldso_tpu_torch/csrc/immature_trace.cu",
+                replaces="ldso_tpu/frontend/immature.py:119",
+                max_abs_err=worst, cases=len(cases), flips=flips,
+                not_bitwise=not_bitwise, library_ms=None)
+
+
+@contextlib.contextmanager
+def recorded_traces():
+    """Yields a list that gets, for each call of K4's wrapper inside (every
+    trace of the arena), its inputs and output: ((arena, dI, KRKis, Kts,
+    affs, cfg), calib, output). The system makes a new arena at each
+    trace and writes none of these in place."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    seen = []
+    wrapper = cuda_kernels.trace_arena
+
+    def recorded(arena, dI, KRKis, Kts, affs, calib, cfg):
+        out = wrapper(arena, dI, KRKis, Kts, affs, calib, cfg)
+        seen.append(((arena, dI, KRKis, Kts, affs, cfg), calib, out))
+        return out
+    cuda_kernels.trace_arena = recorded
+    try:
+        yield seen
+    finally:
+        cuda_kernels.trace_arena = wrapper
+
+
+def phase_trace_frame(record, traces):
+    """Every trace of phase 3 again through the plain version on the card,
+    from its recorded inputs, held to K4's recorded output by trace_err;
+    then K4's times on phase 3's last arena and frame: `ms` and `plain_ms`
+    (single calls, CUDA events, median of 50), `device_ms` (20 launches in
+    one CUDA graph), the bound and its share. Fills in the record."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kernel_checks()
+    if not traces:
+        _fail("phase 3 traced no arena")
+    flips, ties, lanes, worst, not_bitwise = [], 0, 0, 0.0, 0
+    for k, (inputs, calib, got) in enumerate(traces):
+        rep, _, parts = _trace_check(kc, f"phase 3 trace {k}", inputs, got,
+                                     calib)
+        flips += [(k, i) for i in rep["flips"]]
+        ties += rep["ties"]
+        lanes += rep["live"]
+        worst = max(worst, rep["max_err"])
+        not_bitwise += rep["not_bitwise"]
+    arena, dI, KRKis, Kts, affs, cfg = inputs
+    kernel = lambda: cuda_kernels.trace_arena(  # noqa: E731
+        arena, dI, KRKis, Kts, affs, calib, cfg)
+    plain = lambda: kc.plain_trace(  # noqa: E731
+        arena, dI, KRKis, Kts, affs, calib, cfg)
+    rec = dict(ms=_median_event_ms(kernel), device_ms=_graph_device_ms(kernel),
+               plain_ms=_median_event_ms(plain))
+    rec["bound_ms"], rec["bound_by"] = trace_bound_ms(
+        arena, dI, KRKis, Kts, affs, parts, cfg, calib)
+    rec.update(phase3_traces=len(traces), phase3_live_lanes=lanes,
+               phase3_flips=len(flips), phase3_tie_lanes=ties,
+               phase3_not_bitwise=not_bitwise,
+               last_live_lanes=int(parts["active"].sum()),
+               last_searched_lanes=int(parts["do_search"].sum()))
+    record["max_abs_err"] = max(record["max_abs_err"], worst)
+    record.update(rec)
+    print(f"K4 on phase 3: {len(traces)} traces, {lanes} live lanes, all "
+          f"held by trace_err: {len(flips)} flips {flips[:10]} at the plain "
+          f"version's {ties} tie lanes, {not_bitwise} lanes not bitwise, "
+          f"max|kernel - plain| {worst:.3g}; on the last arena "
+          f"({rec['last_live_lanes']} live lanes, "
+          f"{rec['last_searched_lanes']} searched, of "
+          f"{arena.host.shape[0]}): kernel {rec['ms']:.4f} ms per single "
+          f"call, {rec['device_ms'] * 1e3:.2f} us of device time per launch "
+          f"(20 in a graph), plain {rec['plain_ms']:.3f} ms; bound "
+          f"{rec['bound_ms'] * 1e3:.3f} us set by {rec['bound_by']}, "
+          f"{100 * rec['bound_ms'] / rec['device_ms']:.2f}% of it reached "
+          f"in device time", flush=True)
+
+
+def _k4_check(what: str, launches: int, traces: int) -> None:
+    """K4 ran once for each trace of the arena on this path, and no trace
+    went through the plain version."""
+    if not launches == traces > 0:
+        _fail(f"{what}: K4 launched {launches} times for {traces} traces of "
+              f"the arena")
+
+
+def _k4_run_check(run: dict) -> None:
+    _k4_check(f"{run.get('phase', run['mode'])}", run["k4_launches"],
+              run["traces"])
+
 
 
 @contextlib.contextmanager
@@ -2144,6 +2416,7 @@ def phase_variants(calib, images, poses, phase3_ba_ms, device="cuda"):
         _no_capture_inside(run)
         if device == "cuda":
             _k3_run_check(run)
+            _k4_run_check(run)
         if run["keyframes"] < 8:
             _fail(f"{name}: only {run['keyframes']} keyframes (need >= 8)")
         if not run["ate_mm"] < ATE_BOUND_M * 1e3:
@@ -2332,6 +2605,9 @@ BENCH_TRACKING = ("warmup", "lookahead", "strict", "async", "util",
                   "aggregate_8seq", "aggregate_16seq", "batched_tracking")
 BENCH_BA = ("warmup", "lookahead", "strict", "util", "aggregate_8seq",
             "aggregate_16seq", "batched_ba")
+# and those that trace the candidate arena
+BENCH_TRACING = ("warmup", "lookahead", "strict", "async", "util",
+                 "aggregate_8seq", "aggregate_16seq")
 
 
 def phase_bench():
@@ -2368,6 +2644,11 @@ def phase_bench():
             _fail(f"8 bench: K3 not launched in the {leg} leg")
         if leg in BENCH_BA and not n["ba_projector"] > 0:
             _fail(f"8 bench: K12 not launched in the {leg} leg")
+        if leg in BENCH_TRACING:
+            _k4_check(f"8 bench: {leg}", n["trace"], res["traces"][leg])
+        elif n["trace"] != res["traces"][leg]:
+            _fail(f"8 bench: {leg}: K4 launched {n['trace']} times for "
+                  f"{res['traces'][leg]} traces")
         if leg != "batched_ba" and n["ba_projector"] != (
                 graphs["ba_replays"] + graphs["ba_captures"]):
             _fail(f"8 bench: {leg}: K12 launched {n['ba_projector']} times "
@@ -2392,10 +2673,12 @@ def main() -> int:
     record = phase_kernels()
     trip_edges = phase_trip_edges()
     proj_record = phase_projector()
+    trace_record = phase_trace_kernel()
     phase_determinism()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
-    with ba_times() as phase3_ba_ms, recorded_ba() as ba_records:
+    with ba_times() as phase3_ba_ms, recorded_ba() as ba_records, \
+            recorded_traces() as traces3:
         launches_vo, calib, images, poses, strict, fs, tracks3 = \
             phase_main_path()
     # every device-LM call of phase 3 went through its graph
@@ -2404,6 +2687,8 @@ def main() -> int:
               f"{len(phase3_ba_ms)} BA calls")
     trip_record = phase_trip_frame(fs, images, trip_edges,
                                    strict["k3_by_mode"])
+    phase_trace_frame(trace_record, traces3)
+    del traces3
     graph = phase_tracker_graph(fs, images, tracks3)
     del tracks3
     ba_graph = phase_ba_graph(ba_records, phase3_ba_ms,
@@ -2424,7 +2709,7 @@ def main() -> int:
     bench = phase_bench()
     bench_launches = {k: sum(leg[k] for leg in bench["launches"].values())
                       for k in ("distance_transform", "tracker_trip",
-                                "ba_projector")}
+                                "ba_projector", "trace")}
     by_path = dict(vo_strict=launches_vo["distance_transform"],
                    loop=launches["distance_transform"],
                    boxes=boxes["k1_launches"],
@@ -2469,6 +2754,20 @@ def main() -> int:
     print(f"K12 launches per path: {k12_by_path}", flush=True)
     proj_record["launches"] = strict["k12_launches"]
     proj_record["launches_by_path"] = k12_by_path
+    k4_by_path = dict(vo_strict=launches_vo["trace"],
+                      loop=launches["trace"],
+                      boxes=boxes["k4_launches"],
+                      vo_lookahead=look["k4_launches"],
+                      vo_async=asyn["k4_launches"],
+                      vo_async_paced=paced["k4_launches"],
+                      cli_lookahead=cli["k4_lookahead"],
+                      cli_async=cli["k4_async"],
+                      **{name.split()[1]: run["k4_launches"]
+                         for name, run in variants.items()},
+                      bench=bench_launches["trace"])
+    print(f"K4 launches per path: {k4_by_path}", flush=True)
+    trace_record["launches"] = launches_vo["trace"]
+    trace_record["launches_by_path"] = k4_by_path
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for name, run in variants.items():
@@ -2482,7 +2781,8 @@ def main() -> int:
     print(json.dumps({"tracker_graph": graph}))
     print(json.dumps({"ba_graph": ba_graph}))
     print(json.dumps(bench))
-    print(json.dumps({"kernels": [record, trip_record, proj_record]}))
+    print(json.dumps({"kernels": [record, trip_record, proj_record,
+                                  trace_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

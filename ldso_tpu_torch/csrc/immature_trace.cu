@@ -1,0 +1,681 @@
+// K4: the epipolar trace of the candidate arena, hand-written for Hopper
+// (sm_90a). One launch per trace of the arena against a new frame, from
+// ldso_tpu_torch/ops/cuda_kernels.trace_arena.
+//
+// Replaces `trace` of the JAX package (ldso_tpu/frontend/immature.py:119),
+// which runs over the arena inside the fused `_frame_step`
+// (ldso_tpu/system/full_system.py:47-102) as part of one XLA program; it
+// has no `pallas_call`. Its plain version is the port's
+// frontend/immature.trace_arena_ref, which on the card runs as some
+// hundreds of small aten kernels.
+//
+// Function: for every lane i of the arena (traceOn,
+// ImmaturePoint.cc:47-310), with its host slot clamp(host, 0, F - 1) and
+// active = valid & host >= 0 & status != OOB (OOB is sticky):
+//   1. project the inverse-depth interval into the new frame (K R K^-1,
+//      K t of the host) and apply the OOB, skipped, scale and
+//      badcondition gates; the search line's direction, its step count
+//      and the error bound from gradH;
+//   2. the discrete search over the steps: the Huber SSD of the 8-tap
+//      pattern at every step, in one of three samplings (packed: the
+//      unrotated integer pattern sharing the step's fraction, each tap
+//      clamped; the reference's rotated bilinear; nearest, over the
+//      unrotated or the rotated pattern), 1e5 for a non-finite tap and 1e10
+//      at and past the step count;
+//   3. the first minimum (lowest step on a tie, a NaN first), the second
+//      best outside +-2 steps and the quality;
+//   4. after a nearest search, the bilinear re-score of +-refine steps;
+//   5. Gauss-Newton along the line with the rotated pattern and its
+//      backtracking;
+//   6. the outlier test, the new interval and the status precedence, and
+//      last_u, last_v, last_interval.
+// It writes new tensors for the 7 fields the trace updates (idepth_min,
+// idepth_max, quality, status, last_u, last_v, last_interval); a lane that
+// is not active copies its fields through bit for bit.
+//
+// Every operation is the plain version's, in its order: the plain version
+// writes its three contractions (the projection, the rotated pattern, the
+// 8-tap sums, in the tree ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)))
+// out in that order, and this file is built with --fmad=false, so no
+// multiply and add is contracted here either. On the same inputs the two
+// give the same bits; tests/torch_kernel_checks.trace_err still allows a
+// lane to differ where the plain version's own numbers tie.
+//
+// What bounds it on this card: bytes. The work is small: at 640x480 about
+// 1,300 live lanes, 34 steps and 8 bilinear taps each, some 0.35 M taps
+// and 20 M float operations (0.3 us at 67 TFLOP/s). The bytes are the
+// arena's lane state, 125 bytes a lane read and 28 written (0.6 MB at
+// 4,096 lanes), the host tables, and the target image's pixels that the
+// taps read (at most its 3.7 MB), about 1.3 us at 3.35 TB/s. The plain
+// version's time is its launches, not its arithmetic.
+//
+// What the design does about that: one launch for the whole arena, each
+// lane's state read once into registers, the 7 outputs written once, and
+// the taps read through the read-only cache (`__ldg`; the image fits in
+// the 50 MB L2, and neighbouring steps and taps share its lines). One warp
+// per lane:
+//   * every thread of the warp computes the lane's interval and gates (a
+//     few dozen scalar operations) itself, so nothing is broadcast;
+//   * thread t scores steps t, t + 32, t + 64, t + 96 (34 steps at
+//     640x480, at most 100), each step's 8 taps summed in the tree order;
+//   * the argmin and the second best are xor-shuffle reductions, lowest
+//     step on a tie, so every thread ends with the same result;
+//   * the re-score puts its 2K + 1 candidates on threads 0..2K;
+//   * a Gauss-Newton step puts tap p on the threads t with t % 8 == p; the
+//     xor shuffles 1, 2, 4 sum the 8 taps in the tree order;
+//   * thread 0 writes the lane's 7 outputs.
+// A dead or inactive lane costs its warp one read and one write of its 7
+// fields. Nothing is summed across lanes, so there are no atomics.
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTaps = 8;
+constexpr int kMaxSteps = 100;                  // immature.MAX_STEPS
+constexpr int kStepsPerThread = (kMaxSteps + 31) / 32;
+constexpr int kLanesPerBlock = 4;               // one warp per lane
+constexpr int kMaxRefine = 15;                  // 2K + 1 <= 32 threads
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNone = 0x7fffffff;               // no step on this thread
+
+// immature.IPS_*
+constexpr int kGood = 0;
+constexpr int kOob = 1;
+constexpr int kOutlier = 2;
+constexpr int kSkipped = 3;
+constexpr int kBadCondition = 4;
+
+// the discrete search's sampling (cuda_kernels.TRACE_SEARCHES)
+constexpr int kPacked = 0;          // unrotated integer pattern, bilinear
+constexpr int kRotated = 1;         // the reference's rotated bilinear
+constexpr int kNearestPacked = 2;   // unrotated integer pattern, nearest
+constexpr int kNearestRotated = 3;  // rotated pattern, nearest
+
+struct Args {
+  // the arena (N lanes)
+  const float* u;
+  const float* v;
+  const bool* valid;
+  const float* color;        // (N, 8)
+  const float* weights;      // (N, 8)
+  const float* gradH;        // (N, 2, 2)
+  const float* idepth_min;
+  const float* idepth_max;
+  const float* quality;
+  const float* energy_th;
+  const int* status;
+  const float* last_u;
+  const float* last_v;
+  const float* last_interval;
+  const int* host;
+  // the target frame (H, W, 3) and the host tables (F, 3, 3), (F, 3), (F, 2)
+  const float* dI;
+  const float* KRKi;
+  const float* Kt;
+  const float* aff;
+  // the 7 outputs (N lanes)
+  float* o_idepth_min;
+  float* o_idepth_max;
+  float* o_quality;
+  int* o_status;
+  float* o_last_u;
+  float* o_last_v;
+  float* o_last_interval;
+  int n, n_hosts, w, h, n_cap, search, refine, gn_iterations;
+  // Config values and the plain version's Python scalars, as float32
+  float max_pix_search, stepsize, slack_interval, min_improvement, huber_th,
+      gn_threshold, extra_slack, x_hi, y_hi;
+  int patt[kTaps][2];
+};
+
+// torch.clamp and its one-sided forms: a NaN stays NaN
+__device__ __forceinline__ float clamp_f(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  return isnan(x) ? x : fminf(x, hi);
+}
+// torch.minimum / torch.maximum: a NaN operand is the result
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+
+// immature._sum8's tree
+__device__ __forceinline__ float sum8(const float* x) {
+  return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
+}
+
+// the same sum across the 8 threads of a group, tap p on thread t % 8 == p:
+// each xor shuffle adds the partner's partial, a + b and b + a being the
+// same bits, so every thread ends with the tree's sum
+__device__ __forceinline__ float sum8_shfl(float x) {
+  x = x + __shfl_xor_sync(kFull, x, 1);
+  x = x + __shfl_xor_sync(kFull, x, 2);
+  return x + __shfl_xor_sync(kFull, x, 4);
+}
+
+// torch.argmin's order (LessOrNan): a NaN before any number, the lower
+// index on a tie; kNone loses to everything
+__device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
+  if (ia == kNone) return false;
+  if (ib == kNone) return true;
+  if (isnan(a)) return isnan(b) ? ia < ib : true;
+  if (isnan(b)) return false;
+  return a == b ? ia < ib : a < b;
+}
+
+// the warp's first minimum; every thread gets it
+__device__ __forceinline__ void warp_argmin(float& val, int& idx) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, val, off);
+    const int oi = __shfl_xor_sync(kFull, idx, off);
+    if (before(ov, oi, val, idx)) {
+      val = ov;
+      idx = oi;
+    }
+  }
+}
+
+// torch.amin over the warp (NaN propagates)
+__device__ __forceinline__ float warp_amin(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    x = nan_min(x, __shfl_xor_sync(kFull, x, off));
+  }
+  return x;
+}
+
+// the plain version's th / x is x.reciprocal() * th (Tensor.__rtruediv__),
+// two roundings
+__device__ __forceinline__ float huber_w(float ar, float th) {
+  return ar < th ? 1.0f : (1.0f / clamp_min(ar, 1e-12f)) * th;
+}
+
+// one tap's term of pattern_energy
+__device__ __forceinline__ float pattern_term(float hit, float color,
+                                              const float* af, float th) {
+  const float res = hit - (af[0] * color + af[1]);
+  const float hw = huber_w(fabsf(res), th);
+  return isfinite(hit) ? hw * res * res * (2.0f - hw) : 1e5f;
+}
+
+__device__ __forceinline__ float pixel(const Args& a, int y, int x, int c) {
+  return __ldg(a.dI + 3 * (y * a.w + x) + c);
+}
+
+// interp.bilinear's weights and cell of (x, y): a NaN coordinate takes cell
+// 0 and keeps its NaN weights
+struct Cell {
+  int x, y;
+  float dx, dy;
+};
+__device__ __forceinline__ Cell bilinear_cell(const Args& a, float x,
+                                              float y) {
+  x = clamp_f(x, 0.0f, a.x_hi);
+  y = clamp_f(y, 0.0f, a.y_hi);
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  Cell c;
+  c.x = isnan(x0) ? 0 : static_cast<int>(x0);
+  c.y = isnan(y0) ? 0 : static_cast<int>(y0);
+  c.dx = x - x0;
+  c.dy = y - y0;
+  return c;
+}
+__device__ __forceinline__ float blend(float dx, float dy, float v00,
+                                       float v01, float v10, float v11) {
+  const float dxdy = dx * dy;
+  return dxdy * v11 + (dy - dxdy) * v10 + (dx - dxdy) * v01 +
+         (1.0f - dx - dy + dxdy) * v00;
+}
+// interp.bilinear of channel c at (x, y)
+__device__ __forceinline__ float bilinear(const Args& a, const Cell& q,
+                                          int c) {
+  return blend(q.dx, q.dy, pixel(a, q.y, q.x, c), pixel(a, q.y, q.x + 1, c),
+               pixel(a, q.y + 1, q.x, c), pixel(a, q.y + 1, q.x + 1, c));
+}
+// interp.nearest's index: round half to even, then clamp to the image
+__device__ __forceinline__ int nearest_index(float x, int n) {
+  const float r = rintf(x);
+  return static_cast<int>(clamp_f(isnan(r) ? 0.0f : r, 0.0f,
+                                  static_cast<float>(n - 1)));
+}
+
+// The lane's state after the interval projection and its gates
+// (immature.trace up to `do_search`), computed alike by every thread.
+struct Lane {
+  float pr[3], kt[3], af[2];
+  float u_min, v_min, u_max, v_max, dist, dxn, dyn, error_px, ptx0, pty0;
+  float rot[kTaps][2];
+  int n_steps;
+  bool oob, skipped, badcond;
+};
+
+__device__ Lane interval(const Args& a, int i) {
+  Lane L;
+  const int hs = min(max(a.host[i], 0), a.n_hosts - 1);
+  const float* K = a.KRKi + 9 * hs;
+  for (int k = 0; k < 3; ++k) {
+    L.kt[k] = a.Kt[3 * hs + k];
+  }
+  L.af[0] = a.aff[2 * hs];
+  L.af[1] = a.aff[2 * hs + 1];
+  const float u = a.u[i], v = a.v[i];
+  for (int r = 0; r < 3; ++r) {
+    L.pr[r] = K[3 * r] * u + K[3 * r + 1] * v + K[3 * r + 2];
+  }
+  const float W = static_cast<float>(a.w), H = static_cast<float>(a.h);
+  const float mps = a.max_pix_search;
+  const float id_min = a.idepth_min[i];
+  const float id_max_in = a.idepth_max[i];
+  const float p0 = L.pr[0] + L.kt[0] * id_min;
+  const float p1 = L.pr[1] + L.kt[1] * id_min;
+  const float p2 = L.pr[2] + L.kt[2] * id_min;
+  L.u_min = p0 / p2;
+  L.v_min = p1 / p2;
+  const bool inb_min = (L.u_min > 4.0f) & (L.v_min > 4.0f) &
+                       (L.u_min < W - 5.0f) & (L.v_min < H - 5.0f);
+  const bool finite_max = isfinite(id_max_in);
+  const float id_max = finite_max ? id_max_in : 0.01f;
+  const float q0 = L.pr[0] + L.kt[0] * id_max;
+  const float q1 = L.pr[1] + L.kt[1] * id_max;
+  const float q2 = L.pr[2] + L.kt[2] * id_max;
+  const float u_max0 = q0 / q2;
+  const float v_max0 = q1 / q2;
+  const float du = L.u_min - u_max0, dv = L.v_min - v_max0;
+  const float dist_f = sqrtf(du * du + dv * dv);
+  const float dnorm = 1.0f / clamp_min(dist_f, 1e-12f);
+  const float u_max_inf = L.u_min + mps * (u_max0 - L.u_min) * dnorm;
+  const float v_max_inf = L.v_min + mps * (v_max0 - L.v_min) * dnorm;
+  L.u_max = finite_max ? u_max0 : u_max_inf;
+  L.v_max = finite_max ? v_max0 : v_max_inf;
+  float dist = finite_max ? dist_f : mps;
+  const bool inb_max = (L.u_max > 4.0f) & (L.v_max > 4.0f) &
+                       (L.u_max < W - 5.0f) & (L.v_max < H - 5.0f);
+
+  bool oob = !inb_min | !inb_max;
+  L.skipped = finite_max & (dist < a.slack_interval) & !oob;
+  const bool scale_ok = (id_min < 0.0f) | ((p2 > 0.75f) & (p2 < 1.5f));
+  oob = oob | !scale_ok;
+
+  // the error bound from gradH
+  const float dx0 = a.stepsize * (L.u_max - L.u_min);
+  const float dy0 = a.stepsize * (L.v_max - L.v_min);
+  const float* g = a.gradH + 4 * i;
+  const float A = dx0 * (g[0] * dx0 + g[1] * dy0) +
+                  dy0 * (g[2] * dx0 + g[3] * dy0);
+  const float B = dy0 * (g[0] * dy0 - g[1] * dx0) -
+                  dx0 * (g[2] * dy0 - g[3] * dx0);
+  float error_px = 0.2f + 0.2f * (A + B) / clamp_min(A, 1e-12f);
+  L.badcond = (error_px * a.min_improvement > dist) & finite_max & !oob &
+              !L.skipped;
+  L.error_px = clamp_max(error_px, 10.0f);
+
+  L.dxn = dx0 / clamp_min(dist, 1e-12f);
+  L.dyn = dy0 / clamp_min(dist, 1e-12f);
+  if (dist > mps) {
+    L.u_max = L.u_min + mps * L.dxn;
+    L.v_max = L.v_min + mps * L.dyn;
+  }
+  L.dist = clamp_max(dist, mps);
+  L.n_steps = min(static_cast<int>(1.9999f + L.dist / a.stepsize),
+                  a.n_cap - 1);
+  const bool bad_dir = !isfinite(L.dxn) | !isfinite(L.dyn);
+  L.oob = oob | bad_dir;
+
+  // the pattern rotated by K R K^-1's 2x2 block
+  for (int p = 0; p < kTaps; ++p) {
+    const float px = static_cast<float>(a.patt[p][0]);
+    const float py = static_cast<float>(a.patt[p][1]);
+    L.rot[p][0] = px * K[0] + py * K[1];
+    L.rot[p][1] = px * K[3] + py * K[4];
+  }
+  const float rand_shift = L.u_min * 1000.0f - floorf(L.u_min * 1000.0f);
+  L.ptx0 = L.u_min - rand_shift * L.dxn;
+  L.pty0 = L.v_min - rand_shift * L.dyn;
+  return L;
+}
+
+// the search's pattern energy at (sx, sy) in its sampling
+__device__ float search_energy(const Args& a, const Lane& L,
+                               const float* color, float sx, float sy) {
+  float e[kTaps];
+  if (a.search == kPacked) {
+    // immature._search_samples: one fraction, each tap's row and column
+    // clamped to the image
+    const Cell q = bilinear_cell(a, sx, sy);
+    for (int p = 0; p < kTaps; ++p) {
+      const int cx = min(max(q.x + a.patt[p][0], 0), a.w - 1);
+      const int cy = min(max(q.y + a.patt[p][1], 0), a.h - 1);
+      const int cx1 = min(cx + 1, a.w - 1);
+      const int cy1 = min(cy + 1, a.h - 1);
+      const float hit =
+          blend(q.dx, q.dy, pixel(a, cy, cx, 0), pixel(a, cy, cx1, 0),
+                pixel(a, cy1, cx, 0), pixel(a, cy1, cx1, 0));
+      e[p] = pattern_term(hit, color[p], L.af, a.huber_th);
+    }
+  } else if (a.search == kRotated) {
+    for (int p = 0; p < kTaps; ++p) {
+      const Cell q = bilinear_cell(a, sx + L.rot[p][0], sy + L.rot[p][1]);
+      e[p] = pattern_term(bilinear(a, q, 0), color[p], L.af, a.huber_th);
+    }
+  } else if (a.search == kNearestPacked) {
+    // immature._nearest_samples: the rounded centre clamped, then each tap
+    const int xi = nearest_index(sx, a.w), yi = nearest_index(sy, a.h);
+    for (int p = 0; p < kTaps; ++p) {
+      const int cx = min(max(xi + a.patt[p][0], 0), a.w - 1);
+      const int cy = min(max(yi + a.patt[p][1], 0), a.h - 1);
+      e[p] = pattern_term(pixel(a, cy, cx, 0), color[p], L.af, a.huber_th);
+    }
+  } else {
+    for (int p = 0; p < kTaps; ++p) {
+      const int xi = nearest_index(sx + L.rot[p][0], a.w);
+      const int yi = nearest_index(sy + L.rot[p][1], a.h);
+      e[p] = pattern_term(pixel(a, yi, xi, 0), color[p], L.af, a.huber_th);
+    }
+  }
+  return sum8(e);
+}
+
+// the reference's bilinear energy over the rotated pattern (the re-score)
+__device__ float rotated_energy(const Args& a, const Lane& L,
+                                const float* color, float sx, float sy) {
+  float e[kTaps];
+  for (int p = 0; p < kTaps; ++p) {
+    const Cell q = bilinear_cell(a, sx + L.rot[p][0], sy + L.rot[p][1]);
+    e[p] = pattern_term(bilinear(a, q, 0), color[p], L.af, a.huber_th);
+  }
+  return sum8(e);
+}
+
+// The discrete search: the first minimum's step and energy, and the
+// second best outside +-2 steps, every thread of the warp alike.
+struct Search {
+  int best;
+  float best_e, second;
+};
+
+__device__ Search search(const Args& a, const Lane& L, const float* color,
+                         int lane) {
+  float e[kStepsPerThread];
+  float val = 0.0f;
+  int idx = kNone;
+#pragma unroll
+  for (int k = 0; k < kStepsPerThread; ++k) {
+    const int s = lane + 32 * k;
+    e[k] = 0.0f;
+    if (s < a.n_cap) {
+      const float fs = static_cast<float>(s);
+      const float en = search_energy(a, L, color, L.ptx0 + fs * L.dxn,
+                                     L.pty0 + fs * L.dyn);
+      e[k] = fs < static_cast<float>(L.n_steps) ? en : 1e10f;
+      if (before(e[k], s, val, idx)) {
+        val = e[k];
+        idx = s;
+      }
+    }
+  }
+  warp_argmin(val, idx);
+  Search r;
+  r.best = idx;
+  r.best_e = val;
+  // the best step is never far, so 1e10 is always in the plain's amin
+  float second = 1e10f;
+#pragma unroll
+  for (int k = 0; k < kStepsPerThread; ++k) {
+    const int s = lane + 32 * k;
+    if (s < a.n_cap &&
+        fabsf(static_cast<float>(s) - static_cast<float>(r.best)) > 2.0f) {
+      second = nan_min(second, e[k]);
+    }
+  }
+  r.second = warp_amin(second);
+  return r;
+}
+
+// the bilinear re-score of +-K steps around the nearest search's best:
+// candidate j on thread j
+__device__ void refine(const Args& a, const Lane& L, const float* color,
+                       int lane, int best, float& best_e, float& best_u,
+                       float& best_v) {
+  const int K = a.refine;
+  float val = 0.0f, cu = 0.0f, cv = 0.0f;
+  int idx = kNone;
+  if (lane <= 2 * K) {
+    const float cand = static_cast<float>(best) + static_cast<float>(lane - K);
+    const bool live = (cand >= 0.0f) & (cand < static_cast<float>(L.n_steps));
+    cu = L.ptx0 + cand * L.dxn;
+    cv = L.pty0 + cand * L.dyn;
+    const float en = rotated_energy(a, L, color, cu, cv);
+    val = live ? en : 1e10f;
+    idx = lane;
+  }
+  warp_argmin(val, idx);
+  best_e = val;
+  best_u = __shfl_sync(kFull, cu, idx);
+  best_v = __shfl_sync(kFull, cv, idx);
+}
+
+// Gauss-Newton along the line with backtracking, tap t % 8 on thread t;
+// returns the final (u, v) and the energy of the last kept step
+__device__ void gauss_newton(const Args& a, const Lane& L, int i, int lane,
+                             float& bu, float& bv, float& be) {
+  const int p = lane & (kTaps - 1);
+  const float color = a.color[kTaps * i + p];
+  const float wt = a.weights[kTaps * i + p];
+  float ubak = bu, vbak = bv, stepback = 0.0f;
+  be = 1e5f;
+  bool done = false;
+  for (int it = 0; it < a.gn_iterations; ++it) {
+    const Cell q = bilinear_cell(a, bu + L.rot[p][0], bv + L.rot[p][1]);
+    const float h0 = bilinear(a, q, 0);
+    const float h1 = bilinear(a, q, 1);
+    const float h2 = bilinear(a, q, 2);
+    const bool finite = isfinite(h0);
+    const float r = h0 - (L.af[0] * color + L.af[1]);
+    const float d = L.dxn * h1 + L.dyn * h2;
+    const float hw = huber_w(fabsf(r), a.huber_th);
+    const float e = sum8_shfl(finite ? wt * wt * hw * r * r * (2.0f - hw)
+                                     : 1e5f);
+    const float Hc = 1.0f + sum8_shfl(finite ? hw * d * d : 0.0f);
+    const float bc = sum8_shfl(finite ? hw * r * d : 0.0f);
+
+    const bool worse = e > be;
+    const float sb_half = stepback * 0.5f;
+    const float bu_back = ubak + sb_half * L.dxn;
+    const float bv_back = vbak + sb_half * L.dyn;
+    float step = clamp_f(-bc / Hc, -0.5f, 0.5f);
+    step = isfinite(step) ? step : 0.0f;
+    const float bu_fwd = bu + step * L.dxn;
+    const float bv_fwd = bv + step * L.dyn;
+    if (!done) {
+      if (!worse) {
+        ubak = bu;
+        vbak = bv;
+        be = e;
+      }
+      bu = worse ? bu_back : bu_fwd;
+      bv = worse ? bv_back : bv_fwd;
+      stepback = worse ? sb_half : step;
+    }
+    done = done | (fabsf(worse ? sb_half : step) < a.gn_threshold);
+  }
+}
+
+__global__ void __launch_bounds__(32 * kLanesPerBlock)
+    immature_trace_kernel(const Args a) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kLanesPerBlock + (threadIdx.x >> 5);
+  if (i >= a.n) return;                       // whole warps
+  const int status = a.status[i];
+  const bool active = a.valid[i] & (a.host[i] >= 0) & (status != kOob);
+  if (!active) {
+    if (lane == 0) {
+      a.o_idepth_min[i] = a.idepth_min[i];
+      a.o_idepth_max[i] = a.idepth_max[i];
+      a.o_quality[i] = a.quality[i];
+      a.o_status[i] = status;
+      a.o_last_u[i] = a.last_u[i];
+      a.o_last_v[i] = a.last_v[i];
+      a.o_last_interval[i] = a.last_interval[i];
+    }
+    return;
+  }
+  const Lane L = interval(a, i);
+  const bool do_search = !L.oob & !L.skipped & !L.badcond;
+
+  float quality = a.quality[i];
+  float best_u = 0.0f, best_v = 0.0f, best_e = 0.0f;
+  bool is_outlier = false, interval_bad = false;
+  float new_min = 0.0f, new_max = 0.0f;
+  if (do_search) {                            // uniform over the warp
+    float color[kTaps];
+    for (int p = 0; p < kTaps; ++p) {
+      color[p] = a.color[kTaps * i + p];
+    }
+    const Search s = search(a, L, color, lane);
+    const float new_q = s.second / clamp_min(s.best_e, 1e-12f);
+    quality = (new_q < quality) | (L.n_steps > 10) ? new_q : quality;
+    best_e = s.best_e;
+    best_u = L.ptx0 + static_cast<float>(s.best) * L.dxn;
+    best_v = L.pty0 + static_cast<float>(s.best) * L.dyn;
+    if ((a.search == kNearestPacked || a.search == kNearestRotated) &&
+        a.refine > 0) {
+      refine(a, L, color, lane, s.best, best_e, best_u, best_v);
+    }
+    if (a.gn_iterations > 0) {
+      gauss_newton(a, L, i, lane, best_u, best_v, best_e);
+    }
+
+    // the outlier test and the new interval
+    is_outlier = !(best_e < a.energy_th[i] * a.extra_slack);
+    const bool use_x = L.dxn * L.dxn > L.dyn * L.dyn;
+    const float px_lo = use_x ? best_u - L.error_px * L.dxn
+                              : best_v - L.error_px * L.dyn;
+    const float px_hi = use_x ? best_u + L.error_px * L.dxn
+                              : best_v + L.error_px * L.dyn;
+    const float pr_a = use_x ? L.pr[0] : L.pr[1];
+    const float kt_a = use_x ? L.kt[0] : L.kt[1];
+    const float id_lo = (L.pr[2] * px_lo - pr_a) / (kt_a - L.kt[2] * px_lo);
+    const float id_hi = (L.pr[2] * px_hi - pr_a) / (kt_a - L.kt[2] * px_hi);
+    new_min = nan_min(id_lo, id_hi);
+    new_max = nan_max(id_lo, id_hi);
+    interval_bad = !isfinite(new_min) | !isfinite(new_max) | (new_max < 0.0f);
+  }
+  if (lane != 0) return;
+
+  // the status precedence (the plain version's torch.where chain)
+  const bool failed = do_search & (is_outlier | interval_bad);
+  const bool good = do_search & !is_outlier & !interval_bad;
+  int st = status;
+  if (L.oob) st = kOob;
+  if (!L.oob & L.skipped) st = kSkipped;
+  if (L.badcond) st = kBadCondition;
+  if (failed) st = (is_outlier & (status == kOutlier)) ? kOob : kOutlier;
+  if (good) st = kGood;
+
+  const bool sb = L.skipped | L.badcond;
+  float last_u = good ? best_u : (sb ? (L.u_max + L.u_min) * 0.5f
+                                     : a.last_u[i]);
+  float last_v = good ? best_v : (sb ? (L.v_max + L.v_min) * 0.5f
+                                     : a.last_v[i]);
+  if (L.oob | failed) {
+    last_u = -1.0f;
+    last_v = -1.0f;
+  }
+  a.o_idepth_min[i] = good ? new_min : a.idepth_min[i];
+  a.o_idepth_max[i] = good ? new_max : a.idepth_max[i];
+  a.o_quality[i] = quality;
+  a.o_status[i] = st;
+  a.o_last_u[i] = last_u;
+  a.o_last_v[i] = last_v;
+  a.o_last_interval[i] = good ? 2.0f * L.error_px : (sb ? L.dist : 0.0f);
+}
+
+}  // namespace
+
+extern "C" {
+
+// ptrs: the 26 pointers of Args in order (u .. o_last_interval); ints: n,
+// n_hosts, w, h, n_cap, search, refine, gn_iterations, then the pattern's
+// 16 offsets (x0, y0, x1, ...); floats: max_pix_search, stepsize,
+// slack_interval, min_improvement, huber_th, gn_threshold, extra_slack,
+// x_hi, y_hi. Launches one warp per lane on `stream` and returns the launch
+// error (cudaError_t, 0 on success).
+int ldso_immature_trace(void* const* ptrs, const int* ints,
+                        const float* floats, void* stream) {
+  for (int k = 0; k < 26; ++k) {
+    if (ptrs[k] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto in = [&](int k) { return static_cast<const float*>(ptrs[k]); };
+  const auto out = [&](int k) { return static_cast<float*>(ptrs[k]); };
+  Args a;
+  a.u = in(0);
+  a.v = in(1);
+  a.valid = static_cast<const bool*>(ptrs[2]);
+  a.color = in(3);
+  a.weights = in(4);
+  a.gradH = in(5);
+  a.idepth_min = in(6);
+  a.idepth_max = in(7);
+  a.quality = in(8);
+  a.energy_th = in(9);
+  a.status = static_cast<const int*>(ptrs[10]);
+  a.last_u = in(11);
+  a.last_v = in(12);
+  a.last_interval = in(13);
+  a.host = static_cast<const int*>(ptrs[14]);
+  a.dI = in(15);
+  a.KRKi = in(16);
+  a.Kt = in(17);
+  a.aff = in(18);
+  a.o_idepth_min = out(19);
+  a.o_idepth_max = out(20);
+  a.o_quality = out(21);
+  a.o_status = static_cast<int*>(ptrs[22]);
+  a.o_last_u = out(23);
+  a.o_last_v = out(24);
+  a.o_last_interval = out(25);
+  a.n = ints[0];
+  a.n_hosts = ints[1];
+  a.w = ints[2];
+  a.h = ints[3];
+  a.n_cap = ints[4];
+  a.search = ints[5];
+  a.refine = ints[6];
+  a.gn_iterations = ints[7];
+  for (int p = 0; p < kTaps; ++p) {
+    a.patt[p][0] = ints[8 + 2 * p];
+    a.patt[p][1] = ints[9 + 2 * p];
+  }
+  a.max_pix_search = floats[0];
+  a.stepsize = floats[1];
+  a.slack_interval = floats[2];
+  a.min_improvement = floats[3];
+  a.huber_th = floats[4];
+  a.gn_threshold = floats[5];
+  a.extra_slack = floats[6];
+  a.x_hi = floats[7];
+  a.y_hi = floats[8];
+  if (a.n < 1 || a.n_hosts < 1 || a.w < 2 || a.h < 2 || a.n_cap < 1 ||
+      a.n_cap > kMaxSteps || a.search < kPacked || a.search > kNearestRotated ||
+      a.refine < 0 || a.refine > kMaxRefine || a.gn_iterations < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (a.n + kLanesPerBlock - 1) / kLanesPerBlock;
+  immature_trace_kernel<<<blocks, 32 * kLanesPerBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

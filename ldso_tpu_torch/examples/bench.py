@@ -23,9 +23,9 @@ clock starts), and the legs run in this order on one FullSystem:
   ate        the similarity-aligned ATE (`bench_ate`) over every frame
              before the async leg with a valid pose;
   util       device ms of three programs at the warm system's state: the
-             frame step (pyramid and the captured tracker), the trace at
-             the system's live lane count and the device LM as one graph
-             replay;
+             frame step (pyramid and the captured tracker), the trace of
+             the whole arena as the system runs it (labelled with its live
+             lane count) and the device LM as one graph replay;
 then, each on systems of its own:
   aggregate  for each S of `seqs`: S FullSystems on S sequences (at most
              `unique_seqs` of them rendered, the rest repeat them), warmed
@@ -52,7 +52,9 @@ ms_per_seq_kf, agg_kf_per_sec}), and per leg: `launches` (the change of
 `cuda_kernels.LAUNCHES`), `graphs` (the tracker's and the device LM's
 graph captures and replays, and the host seconds replays waited for a
 graph's lock: every FullSystem of the process shares the graphs, so S
-systems' replays queue on one lock), `leg_s` (wall seconds) and
+systems' replays queue on one lock), `traces` (the arena traces:
+FullSystem._trace_arena's calls, and util's timed trace calls; K4 launches
+once for each on the card), `leg_s` (wall seconds) and
 `peak_memory_gb`; and `device` (the card's name and power limit, the
 torch and CUDA versions).
 
@@ -166,6 +168,8 @@ class Run:
     poses: List[np.ndarray] = None
     images: List[np.ndarray] = None
     fs: Optional[fsm.FullSystem] = None
+    # the arena traces: FullSystem._trace_arena's calls and util's own
+    traces: Optional[dict] = None
 
     def ids(self, leg: str) -> range:
         """The frame ids of a leg of the main system, in bench.py's order
@@ -405,7 +409,8 @@ def leg_util(run: Run, result: dict):
     util["frame_step(track)"] = program_util(dev, frame_step, fs.track_chain,
                                              (img, ref, T_ref))
 
-    # 2. the trace at the system's live lane count, against that frame
+    # 2. the whole arena's trace against that frame, labelled with its live
+    # lane count
     n = immature.arena_watermark(fs.imm_arena)
     if n == 0:
         raise BenchError("no live trace lanes in the warm system")
@@ -414,8 +419,9 @@ def leg_util(run: Run, result: dict):
                                       shell.exposure)
 
     def trace(arena):
-        out = immature.trace_arena_prefix(arena, pyr.dI[0], *transforms,
-                                          calib, cfg, n)
+        run.traces["traces"] += 1
+        out = immature.trace_arena(arena, pyr.dI[0], *transforms, calib,
+                                   cfg)
         return out, out
     util[f"trace({n} lanes)"] = program_util(dev, trace, fs.imm_arena,
                                              (pyr.dI[0], transforms))
@@ -585,8 +591,10 @@ def measure(args: argparse.Namespace) -> dict:
             _reset_peak(run.dev)
             t0 = time.perf_counter()
             try:
-                fn(run, result)
+                with time_modes.counted_traces() as run.traces:
+                    fn(run, result)
             finally:
+                result.setdefault("traces", {})[leg] = run.traces["traces"]
                 result.setdefault("leg_s", {})[leg] = time.perf_counter() - t0
                 result.setdefault("peak_memory_gb", {})[leg] = _peak_gb(
                     run.dev)

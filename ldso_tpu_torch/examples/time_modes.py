@@ -12,7 +12,8 @@ the wall clock from the first frame to the end of the drain (with a
 synchronise) per frame (`ms_per_frame_wall`), the median host time of one
 add_active_frame call from the bootstrap on (`ms_per_frame_median`), the
 keyframes, the ATE, K1's launches and the streams they went to, K3's
-launches beside the count the run's tracker calls imply, the
+launches beside the count the run's tracker calls imply, K4's launches
+beside the arena traces (FullSystem._trace_arena calls), the
 retrack-gate trips, how many frames the tracker ran on (a pipeline
 re-tracks its frames in flight after each keyframe) and the host time of
 those calls (on the card a graph replay that does not wait for the
@@ -153,6 +154,26 @@ def counted_tracks():
         counts["captures"] = track_graph.CAPTURES["count"] - captures
 
 
+@contextlib.contextmanager
+def counted_traces():
+    """Count FullSystem._trace_arena's calls while inside, on every thread,
+    and yield the count ({"traces": n}): each is one trace of the candidate
+    arena, one K4 launch on the card."""
+    counts = dict(traces=0)
+    lock = threading.Lock()
+    trace = FullSystem._trace_arena
+
+    def counted(self, *a, **k):
+        with lock:
+            counts["traces"] += 1
+        return trace(self, *a, **k)
+    FullSystem._trace_arena = counted
+    try:
+        yield counts
+    finally:
+        FullSystem._trace_arena = trace
+
+
 def k3_expected(counts: dict, cfg, levels: int) -> int:
     """The K3 launches that `counted_tracks`' counts imply: one track's
     trips (tracker.trips_per_track, from the coarsest level as FullSystem
@@ -184,7 +205,8 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
               else None)
     mapping = getattr(drv, "map_stream", None)
     mapping = mapping.cuda_stream if mapping is not None else None
-    with traced_k1() as k1, counted_tracks() as tracks:
+    with traced_k1() as k1, counted_tracks() as tracks, \
+            counted_traces() as traces:
         _sync(fs.device)
         cuda_kernels.reset_launch_counts()
         ba_graphs = dict(BA_GRAPHS.counts)
@@ -232,6 +254,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                k3_by_mode=k3_by_mode,
                k3_expected=k3_expected(tracks, cfg, calib.levels),
                k12_launches=launches["ba_projector"],
+               k4_launches=launches["trace"], traces=traces["traces"],
                ba_replays=ba_graphs["replays"],
                ba_captures=ba_graphs["count"],
                tracks=tracks["tracks"],

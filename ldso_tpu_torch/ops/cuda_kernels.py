@@ -17,6 +17,10 @@ while a thread captures (`recording_launches`), its counts go to the
 capture's tally, and the graph adds the tally to `LAUNCHES` at every replay
 (utils/graphs.py). K3's launches are also counted by mode in
 `TRIP_LAUNCHES`, the same way.
+
+The kernels: K1 `distance_transform` (csrc/distance_map.cu), K3
+`tracker_trip` and its modes (csrc/tracker_trip.cu), K12 `ba_projector`
+(csrc/ba_projector.cu) and K4 `trace_arena` (csrc/immature_trace.cu).
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ from ldso_tpu_torch.ops.distance_map import MAX_K, distance_transform_ref
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-_SOURCES = ("distance_map.cu", "tracker_trip.cu", "ba_projector.cu")
+_SOURCES = ("distance_map.cu", "tracker_trip.cu", "ba_projector.cu",
+            "immature_trace.cu")
+# flags of one source beside NVCC_FLAGS: K4 rounds every multiply and add
+# on its own, as its plain version's separate aten operations do
+_SOURCE_FLAGS = {"immature_trace.cu": ("--fmad=false",)}
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "ldso_tpu_torch")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -48,7 +56,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # the dynamic shared memory a block may use without opting in to more
 SMEM_LIMIT = 48 * 1024
 
-LAUNCHES = {"distance_transform": 0, "tracker_trip": 0, "ba_projector": 0}
+LAUNCHES = {"distance_transform": 0, "tracker_trip": 0, "ba_projector": 0,
+            "trace": 0}
 # K3's launches by mode (TRIP_MODES); each is also one of LAUNCHES's
 TRIP_LAUNCHES = {"trip": 0, "cutoff": 0, "lm": 0}
 
@@ -129,6 +138,7 @@ def _source_hash() -> str:
     for name in _SOURCES:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode())
+            h.update(" ".join(_SOURCE_FLAGS.get(name, ())).encode())
             h.update(f.read())
     return h.hexdigest()[:16]
 
@@ -153,8 +163,8 @@ def build(verbose: bool = False) -> str:
             fd, obj = tempfile.mkstemp(suffix=".o", dir=out_dir)
             os.close(fd)
             temps.append(obj)
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj,
-                   os.path.join(_CSRC, name)]
+            cmd = [nvcc, *NVCC_FLAGS, *_SOURCE_FLAGS.get(name, ()), "-c",
+                   "-o", obj, os.path.join(_CSRC, name)]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             jobs.append((name, subprocess.Popen(
@@ -193,8 +203,8 @@ def ptxas_report(name: str) -> str:
     os.makedirs(BUILD_ROOT, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         proc = subprocess.run(
-            [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-c", "-o",
-             os.path.join(tmp, "k.o"), os.path.join(_CSRC, name)],
+            [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, *_SOURCE_FLAGS.get(name, ()),
+             "-c", "-o", os.path.join(tmp, "k.o"), os.path.join(_CSRC, name)],
             capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
@@ -220,6 +230,10 @@ def _load():
                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                 + [ctypes.c_float, ctypes.c_void_p])
             lib.ldso_ba_projector.restype = ctypes.c_int
+            lib.ldso_immature_trace.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+            lib.ldso_immature_trace.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -618,3 +632,109 @@ def _projector_vmap(info, in_dims, Nn, delta):
 
 
 torch.library.register_vmap("ldso_tpu_torch::ba_projector", _projector_vmap)
+
+
+# ---------------------------------------------------------------------------
+# K4: the epipolar trace of the candidate arena (csrc/immature_trace.cu)
+# ---------------------------------------------------------------------------
+
+# the discrete search's samplings, by (trace_search_nearest, trace_packed)
+TRACE_SEARCHES = {(False, True): 0, (False, False): 1, (True, True): 2,
+                  (True, False): 3}
+TRACE_MAX_REFINE = 15
+# the arena's fields in the kernel's pointer order, then the outputs
+_TRACE_FIELDS = ("u", "v", "valid", "color", "weights", "gradH",
+                 "idepth_min", "idepth_max", "quality", "energy_th", "status",
+                 "last_u", "last_v", "last_interval")
+TRACE_OUTPUTS = ("idepth_min", "idepth_max", "quality", "status", "last_u",
+                 "last_v", "last_interval")
+
+
+def trace_params(calib, cfg) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
+    """K4's integer and float launch arguments but the lane and host
+    counts: (w, h, the step cap, the search, refine steps, GN iterations,
+    the pattern's 16 offsets), and the plain version's Python scalars as
+    float32 (max_pix_search, stepsize, slack interval, min improvement
+    factor, Huber threshold, GN threshold, extra slack, and the bilinear
+    clamps W - 1.001 and H - 1.001)."""
+    import numpy as np
+    from ldso_tpu_torch.config import PATTERN
+    from ldso_tpu_torch.frontend.immature import _steps_cap
+    W, H = calib.w[0], calib.h[0]
+    nearest = bool(cfg.trace_search_nearest)
+    refine = cfg.trace_refine_steps if nearest else 0
+    if not (0 <= refine <= TRACE_MAX_REFINE and cfg.trace_gn_iterations >= 0):
+        raise ValueError(f"trace: {refine} refine steps (0.."
+                         f"{TRACE_MAX_REFINE}) and {cfg.trace_gn_iterations}"
+                         f" GN iterations")
+    ints = (W, H, _steps_cap(W, H, cfg),
+            TRACE_SEARCHES[(nearest, bool(cfg.trace_packed))], refine,
+            cfg.trace_gn_iterations,
+            *(int(c) for c in np.asarray(PATTERN).reshape(-1)))
+    floats = tuple(float(np.float32(x)) for x in (
+        (W + H) * cfg.max_pix_search, cfg.trace_stepsize,
+        cfg.trace_slack_interval, cfg.trace_min_improvement_factor,
+        cfg.huber_th, cfg.trace_gn_threshold, cfg.trace_extra_slack_on_th,
+        W - 1.001, H - 1.001))
+    return ints, floats
+
+
+def trace_arena(arena, dI_target, KRKis, Kts, affs, calib, cfg):
+    """The epipolar trace of every lane of the candidate arena against a
+    new frame (frontend/immature.trace_arena_ref is the function): lanes
+    with a host slot >= 0, valid and not OOB search for their best match
+    along the epipolar line and get a new interval and status; the others
+    pass through. arena: an ImmatureArena of N lanes; dI_target (H, W, 3);
+    KRKis (F, 3, 3), Kts (F, 3), affs (F, 2) per host slot. Returns the
+    arena with new tensors for the 7 fields the trace updates
+    (TRACE_OUTPUTS) and every other field shared.
+
+    CPU tensors: the plain version. CUDA tensors: K4 (csrc/immature_trace.cu)
+    in one launch over all N lanes on the current stream. It reads nothing
+    back and allocates with torch.empty only."""
+    pool = arena.pool
+    if pool.u.device.type == "cpu":
+        from ldso_tpu_torch.frontend.immature import trace_arena_ref
+        return trace_arena_ref(arena, dI_target, KRKis, Kts, affs, calib,
+                               cfg)
+    N = pool.u.shape[0]
+    W, H = calib.w[0], calib.h[0]
+    F = KRKis.shape[0]
+    dev = pool.u.device
+    shapes = dict(color=(N, 8), weights=(N, 8), gradH=(N, 2, 2))
+    tensors = [(f, getattr(pool, f), shapes.get(f, (N,)),
+                {"valid": torch.bool, "status": torch.int32}.get(
+                    f, torch.float32)) for f in _TRACE_FIELDS]
+    tensors += [("host", arena.host, (N,), torch.int32),
+                ("dI_target", dI_target, (H, W, 3), torch.float32),
+                ("KRKis", KRKis, (F, 3, 3), torch.float32),
+                ("Kts", Kts, (F, 3), torch.float32),
+                ("affs", affs, (F, 2), torch.float32)]
+    for name, t, shape, dtype in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"trace: {name} on {t.device}; every input must "
+                             f"be on one CUDA device")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"trace: {name} is {tuple(t.shape)} {t.dtype}, "
+                             f"expected {shape} {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"trace: {name} must be contiguous")
+    if N < 1 or F < 1:
+        raise ValueError(f"trace: {N} lanes and {F} host slots (need >= 1)")
+    ints, floats = trace_params(calib, cfg)
+    out = {f: torch.empty(N, dtype=torch.int32 if f == "status"
+                          else torch.float32, device=dev)
+           for f in TRACE_OUTPUTS}
+    ptrs = [t.data_ptr() for _, t, _, _ in tensors]
+    ptrs += [out[f].data_ptr() for f in TRACE_OUTPUTS]
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ldso_immature_trace(
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * (2 + len(ints)))(N, F, *ints),
+            (ctypes.c_float * len(floats))(*floats), stream)
+    if err != 0:
+        raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
+    _count("trace")
+    return arena._replace(pool=pool._replace(**out))

@@ -54,7 +54,7 @@ from ldso_tpu_torch.ops.preprocess import (FramePyramid, make_pyramid,
                                            to_device, upload_image)
 from ldso_tpu_torch.slam_map import FrameShell, GlobalMap, MapPointRecord
 from ldso_tpu_torch.utils.device import DEFAULT_DEVICE, entry_device
-from ldso_tpu_torch.utils.static import nonzero_padded
+from ldso_tpu_torch.utils.static import device_const, nonzero_padded
 from ldso_tpu_torch.utils.timing import StageTimer
 
 RETRY_K = 8          # retry hypotheses LM-refined after the coarse ranking
@@ -623,7 +623,11 @@ class FullSystem:
     def _trace_transforms(self, T_new_cw, aff, exposure: float):
         """The trace's per-host inputs for a new frame at T_new_cw (a device
         (4, 4)) with brightness affine `aff` (a device (2,)): K R K^-1,
-        K t and the host -> new brightness transfer of each window slot."""
+        K t and the host -> new brightness transfer of each window slot.
+        Reads nothing back: K is a kept device constant, the window's
+        poses, affines and exposures go up pinned and without a wait, and
+        the inverses are inv_ex's LU with no check of its info on the
+        host."""
         calib, dev = self.calib, self.device
         F = self.ef.F
         T_hosts = np.tile(np.eye(4), (F, 1, 1))
@@ -633,12 +637,14 @@ class FullSystem:
             T_hosts[i] = fr.T_cw
             host_affs[i] = fr.aff
             host_expos[i] = fr.exposure or 1.0
-        K = torch.tensor(calib.K(0), dtype=torch.float32, device=dev)
-        Ki = torch.linalg.inv(K)
+        K = device_const(tuple(map(tuple, calib.K(0).tolist())), dev)
+        Ki = torch.linalg.inv_ex(K)[0]
         T_rel = torch.einsum("ij,fjk->fik", T_new_cw,
-                             torch.linalg.inv(self._f32(T_hosts)))
-        KRKis = torch.einsum("ij,fjk,kl->fil", K, T_rel[:, :3, :3], Ki)
-        Kts = torch.einsum("ij,fj->fi", K, T_rel[:, :3, 3])
+                             torch.linalg.inv_ex(self._f32(T_hosts))[0])
+        # K4 takes contiguous tables; einsum may give a view on the card
+        KRKis = torch.einsum("ij,fjk,kl->fil", K, T_rel[:, :3, :3],
+                             Ki).contiguous()
+        Kts = torch.einsum("ij,fj->fi", K, T_rel[:, :3, 3]).contiguous()
         ha = self._f32(host_affs)
         ra = torch.exp(aff[0] - ha[:, 0]) * float(np.float32(exposure)) \
             / self._f32(host_expos)
@@ -646,13 +652,11 @@ class FullSystem:
         return KRKis, Kts, affs
 
     def _trace_arena(self, pyr, KRKis, Kts, affs):
-        """Trace the live prefix of the candidate arena (lanes past the
-        watermark are dead, and trace leaves dead lanes untouched)."""
-        n = immature.arena_watermark(self.imm_arena)
-        if n > 0:
-            self.imm_arena = immature.trace_arena_prefix(
-                self.imm_arena, pyr.dI[0], KRKis, Kts, affs, self.calib,
-                self.cfg, n)
+        """Trace the whole candidate arena against the new frame: on the
+        card one K4 launch, with no read of the live watermark (dead lanes
+        pass through the trace untouched)."""
+        self.imm_arena = immature.trace_arena(
+            self.imm_arena, pyr.dI[0], KRKis, Kts, affs, self.calib, self.cfg)
 
     def _track_new_coarse(self, shell: FrameShell, img,
                           commit_trace: bool = True, neighbors=None) -> bool:

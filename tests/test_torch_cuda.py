@@ -914,3 +914,138 @@ def test_bench_gives_device_times_on_the_card(cuda):
     ba = result["batched_ba_2seq"]
     assert ba["ms"] > 0 and ba["agg_kf_per_sec"] > 0
     assert all(gb > 0 for gb in result["peak_memory_gb"].values())
+
+
+# ---------------------------------------------------------------------------
+# K4, the epipolar trace of the candidate arena (csrc/immature_trace.cu)
+# ---------------------------------------------------------------------------
+
+_TRACE_SCENE = {}
+TRACE_CASES = [f"{v} {k}" for v in _kc().TRACE_VARIANTS
+               for k in ("uninitialised", "narrowing")] + ["planted"]
+
+
+def _trace_scene():
+    """torch_kernel_checks.trace_scene at 640x480 on the card and its
+    trace_cases."""
+    if not _TRACE_SCENE:
+        kc = _kc()
+        scene = kc.trace_scene(640, 480, "cuda")
+        _TRACE_SCENE.update(scene=scene, cases=kc.trace_cases(scene))
+    return _TRACE_SCENE
+
+
+@pytest.mark.parametrize("case", TRACE_CASES)
+def test_trace_kernel_matches_plain(cuda, case):
+    """K4 against trace_arena_ref on the card, in every search, on an
+    uninitialised and a narrowing trace of the bench scene's 4,096 live
+    lanes, and on the planted lanes (border, sticky OOB, skipped,
+    badcondition, idepth_min < 0, steps at the cap, a former outlier, dead
+    lanes between live ones, NaN pixels in the target): held by
+    torch_kernel_checks.trace_err, one launch each, the fields the trace
+    does not write shared."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kc()
+    s = _trace_scene()
+    arena, dI, KRKis, Kts, affs, cfg = s["cases"][case]
+    calib = s["scene"]["calib"]
+    before = cuda_kernels.LAUNCHES["trace"]
+    got = cuda_kernels.trace_arena(arena, dI, KRKis, Kts, affs, calib, cfg)
+    assert cuda_kernels.LAUNCHES["trace"] == before + 1
+    want, parts = kc.plain_trace(arena, dI, KRKis, Kts, affs, calib, cfg)
+    rep = kc.trace_err(want, got, parts, cfg)
+    assert rep["ok"], (rep["faults"], rep["flips"])
+    for f in got.pool._fields:
+        if f not in cuda_kernels.TRACE_OUTPUTS:
+            assert getattr(got.pool, f) is getattr(arena.pool, f)
+
+
+def test_trace_kernel_repeats_bitwise(cuda):
+    """20 launches on the planted case give the same bits."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    s = _trace_scene()
+    arena, dI, KRKis, Kts, affs, cfg = s["cases"]["planted"]
+    calib = s["scene"]["calib"]
+    first = cuda_kernels.trace_arena(arena, dI, KRKis, Kts, affs, calib, cfg)
+    for _ in range(19):
+        again = cuda_kernels.trace_arena(arena, dI, KRKis, Kts, affs, calib,
+                                         cfg)
+        for f in cuda_kernels.TRACE_OUTPUTS:
+            a, b = getattr(again.pool, f), getattr(first.pool, f)
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+
+
+def test_trace_launches_count_through_graph_replays(cuda):
+    """One launch per call of the wrapper, and one per replay of a graph
+    that captured one (recording_launches): the captured launch gives the
+    eager launch's bits."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    s = _trace_scene()
+    arena, dI, KRKis, Kts, affs, cfg = s["cases"]["packed uninitialised"]
+    calib = s["scene"]["calib"]
+    before = cuda_kernels.LAUNCHES["trace"]
+    want = cuda_kernels.trace_arena(arena, dI, KRKis, Kts, affs, calib, cfg)
+    assert cuda_kernels.LAUNCHES["trace"] == before + 1
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), cuda_kernels.recording_launches() as tally:
+        with torch.cuda.graph(g, stream=side):
+            got = cuda_kernels.trace_arena(arena, dI, KRKis, Kts, affs, calib,
+                                           cfg)
+    assert tally == {"trace": 1}
+    assert cuda_kernels.LAUNCHES["trace"] == before + 1
+    for _ in range(2):
+        g.replay()
+        cuda_kernels.add_launches(tally)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["trace"] == before + 3
+    for f in cuda_kernels.TRACE_OUTPUTS:
+        a, b = getattr(got.pool, f), getattr(want.pool, f)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+
+
+def test_trace_arena_runs_ahead_of_the_card(cuda):
+    """FullSystem._trace_transforms and _trace_arena behind ~50 ms of sleep,
+    under set_sync_debug_mode("error"): no host read (the watermark and
+    linalg.inv's check are gone), the call returns before the card has run
+    the trace (an event after it is not done), and its results equal a
+    run without the sleep bitwise."""
+    import numpy as np
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.slam_map import FrameShell
+    from ldso_tpu_torch.system.full_system import FullSystem
+    kc = _kc()
+    scene = _trace_scene()["scene"]
+    fs = FullSystem(scene["calib"], scene["cfg"])
+    for slot, k in enumerate(kc.TRACE_HOSTS):
+        fs.window_frames.append(FrameShell(
+            id=k, T_cw=scene["poses"][k], aff=np.array([0.02 * slot, 1.0]),
+            exposure=1.0 + 0.1 * slot))
+    target = kc.TRACE_TARGETS[0]
+    pyr = scene["pyrs"][target]
+
+    def run():
+        fs.imm_arena = scene["arena"]
+        transforms = fs._trace_transforms(
+            fs._f32(scene["poses"][target]), fs._f32([0.01, -0.5]), 1.2)
+        fs._trace_arena(pyr, *transforms)
+        return list(transforms) + list(fs.imm_arena.pool)
+
+    want = [t.clone() for t in run()]
+    torch.cuda.synchronize()
+    before = cuda_kernels.LAUNCHES["trace"]
+    torch.cuda._sleep(100_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+        done = torch.cuda.Event()
+        done.record()
+        ready = done.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not ready
+    assert cuda_kernels.LAUNCHES["trace"] == before + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))

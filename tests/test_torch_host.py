@@ -24,8 +24,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_no_jax():
-    """The port and its main entry point load without jax or ldso_tpu."""
-    code = ("import sys, ldso_tpu_torch, ldso_tpu_torch.system.full_system, "
+    """The port, its main entry point, its benchmark and the smoke run
+    with the kernel checks it imports load without jax or ldso_tpu."""
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import chip_smoke, torch_kernel_checks, "
+            "ldso_tpu_torch.examples.bench; "
+            "import ldso_tpu_torch, ldso_tpu_torch.system.full_system, "
             "ldso_tpu_torch.utils.convert, ldso_tpu_torch.ops.cuda_kernels, "
             "ldso_tpu_torch.loop.loopclosing, ldso_tpu_torch.native, "
             "ldso_tpu_torch.system.pipeline, ldso_tpu_torch.io.datasets, "

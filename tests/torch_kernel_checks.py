@@ -879,3 +879,334 @@ def ba_batch_err(batched, singles, reordered):
         if not d["bookkeeping"]:
             faults.append(f"member {i}: residual bookkeeping differs")
     return worst, tol, faults
+
+
+# ---------------------------------------------------------------------------
+# K4: the epipolar trace of the candidate arena (csrc/immature_trace.cu)
+# against its plain version (frontend/immature.trace_arena_ref)
+# ---------------------------------------------------------------------------
+#
+# K4 runs the plain version's operations in its order (the plain version
+# writes its contractions out in one fixed order, K4 contracts no
+# multiply-add), so on the card the two give the same bits. The check
+# still holds them as two float32 evaluations of one function, with the
+# tolerances of tests/test_torch_immature.py::test_trace_twice:
+#   * dead and inactive lanes (not valid, no host, sticky OOB) bitwise, in
+#     all 7 fields the trace writes;
+#   * an active lane's status exactly; idepth_min, idepth_max, last_u,
+#     last_v and last_interval within TRACE_RTOL relative (TRACE_ATOL
+#     absolute), quality within TRACE_QUALITY_RTOL;
+#   * a lane may differ beyond that only where the plain version's own
+#     numbers tie (`trace_ties`): its search's best energy has a rival step
+#     within TRACE_TIE_ULPS float32 ulps (an 8-term sum's reordering moves
+#     it by a few), the step count sits within rounding of an integer, the
+#     re-score's best has a rival within the same margin, a GN `worse`
+#     (e > be) or `done` (|step| < threshold) test, the outlier test or
+#     the sign or finiteness of a new interval bound lies within rounding
+#     of its threshold. Such a lane is a flip: it is reported by index,
+#     and the flips are held to TRACE_TIE_SHARE of the live lanes.
+#
+# TRACE_TIE_SHARE comes from the plain version's own spread: the plain
+# version with its 8-tap sums in the other order (`reordered_taps`, left
+# to right) against itself (the tree) on the 13 cases of the bench scene at
+# 640x480 (trace_cases, 50,877 live lanes in all) differs beyond the
+# tolerances in 2 lanes, both at ties, 1 in 3,881 in the worst case
+# (0.026%); tests/test_torch_trace_kernel.py::
+# test_tie_share_covers_the_plain_spread holds that spread to a tenth of
+# the share, which is ten times it.
+
+TRACE_RTOL = 1e-4
+TRACE_ATOL = 1e-4
+TRACE_QUALITY_RTOL = 2e-3
+TRACE_TIE_ULPS = 16.0
+TRACE_TIE_SHARE = 0.01
+# the ulps of u_min by which two evaluations of the projection may differ
+# (trace_ties's `start`)
+TRACE_START_ULPS = 1.0
+TRACE_CLOSE = ("idepth_min", "idepth_max", "last_u", "last_v",
+               "last_interval")
+_EPS32 = 2.0 ** -23
+
+
+def plain_trace(arena, dI, KRKis, Kts, affs, calib, cfg):
+    """The plain version's trace and its intermediate values (parts)."""
+    from ldso_tpu_torch.frontend import immature
+    parts = {}
+    out = immature.trace_arena_ref(arena, dI, KRKis, Kts, affs, calib, cfg,
+                                   parts)
+    return out, parts
+
+
+@contextlib.contextmanager
+def reordered_taps():
+    """While inside, the plain version sums its 8 taps left to right: the
+    same function in another order, whose spread TRACE_TIE_SHARE covers."""
+    from ldso_tpu_torch.frontend import immature
+    tree = immature._sum8
+
+    def left_to_right(x):
+        s = x[..., 0]
+        for p in range(1, x.shape[-1]):
+            s = s + x[..., p]
+        return s
+    immature._sum8 = left_to_right
+    try:
+        yield
+    finally:
+        immature._sum8 = tree
+
+
+def _near(a, b, scale=None):
+    """|a - b| within TRACE_TIE_ULPS float32 ulps of the larger of |a|, |b|
+    (or of `scale`)."""
+    if scale is None:
+        scale = torch.maximum(torch.abs(a), torch.abs(b))
+    return torch.abs(a - b) <= TRACE_TIE_ULPS * _EPS32 * scale
+
+
+def _rival(e, idx):
+    """(N,) whether another column of e (N, S) ties with column idx."""
+    best = torch.gather(e, 1, idx[:, None].long())
+    others = torch.ones_like(e, dtype=torch.bool)
+    others.scatter_(1, idx[:, None].long(), False)
+    return (others & _near(e, best.expand_as(e))).any(dim=1)
+
+
+def trace_ties(parts, cfg, start: bool = False) -> torch.Tensor:
+    """(N,) bool: the searched lanes where the plain version's own numbers
+    tie, so that another float32 evaluation may take the other branch.
+
+    With `start`, for another evaluation of the projection too (the JAX
+    package's, whose XLA contracts multiply-adds): the search starts at
+    u_min - frac(1000 u_min) dxn (the reference's randShift), so a few ulps
+    of u_min move every step and the GN's first position by 1000 times
+    them, TRACE_START_ULPS ulps of u_min; a GN `done` test within that of
+    its threshold is then a tie as well."""
+    tie = _rival(parts["energies"], parts["best_idx"])
+    x = parts["steps_f"]
+    tie |= _near(x, torch.round(x))
+    if "re_sum" in parts:
+        tie |= _rival(parts["re_sum"], parts["re_idx"])
+    th = torch.full_like(x, cfg.trace_gn_threshold)
+    shift = 1000.0 * TRACE_START_ULPS * _EPS32 * torch.abs(parts["u_min"])
+    for it, b_abs in zip(parts.get("gn", ()), parts.get("gn_b_abs", ())):
+        moved = torch.abs(it["moved"])
+        done = _near(moved, th, moved + b_abs / it["Hc"])
+        if start:
+            done |= torch.abs(moved - th) <= shift
+        tie |= it["upd"] & (_near(it["e"], it["be"]) | done)
+    tie |= _near(parts["best_energy"], parts["outlier_th"])
+    for num, den, a1, a2, pr_a, kt_a in parts["bounds"]:
+        tie |= _near(num, torch.zeros_like(num),
+                     torch.abs(a1) + torch.abs(pr_a))
+        tie |= _near(den, torch.zeros_like(den),
+                     torch.abs(kt_a) + torch.abs(a2))
+    return tie & parts["do_search"]
+
+
+def _differs(got, want, rtol, atol):
+    """(N,) lanes where got and want (float) disagree beyond the tolerance
+    (NaN must meet NaN, an infinity its equal)."""
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    far = torch.abs(got - want) > atol + rtol * torch.abs(want)
+    same_inf = ~fin & (got == want)
+    return (nan_g != nan_w) | (~nan_g & ~nan_w & ~same_inf & (~fin | far))
+
+
+def trace_err(plain, got, parts, cfg, share: float = TRACE_TIE_SHARE,
+              start: bool = False):
+    """K4's output arena `got` against the plain version's `plain` (and
+    its `parts`, plain_trace's) on the same inputs. Returns a report:
+    lanes, live (active) and searched lanes, the plain version's tie
+    lanes, `flips` (lanes that differ, all at ties), `faults` ({what:
+    lanes} that differ outside a tie, or a dead lane written), `max_err`
+    (the largest |got - plain| over the active lanes' float fields, NaNs
+    and infinities aside) and `ok`. `start` as trace_ties's."""
+    active = parts["active"]
+    dead = ~active
+    ties = trace_ties(parts, cfg, start)
+    faults, max_err = {}, 0.0
+    differ = torch.zeros_like(active)
+    for f in ("status",) + TRACE_CLOSE + ("quality",):
+        g, w = getattr(got.pool, f), getattr(plain.pool, f)
+        if f == "status":
+            d = g != w
+        else:
+            rtol = TRACE_QUALITY_RTOL if f == "quality" else TRACE_RTOL
+            d = _differs(g, w, rtol, TRACE_ATOL)
+            fin = active & torch.isfinite(g) & torch.isfinite(w)
+            if bool(fin.any()):
+                max_err = max(max_err, float(torch.abs(g - w)[fin].max()))
+        bad = dead & ~(g.view(torch.int32) == w.view(torch.int32))
+        if bool(bad.any()):
+            faults[f"{f} of a dead lane"] = _idx(bad)
+        d = d & active
+        differ |= d
+        if bool((d & ~ties).any()):
+            faults[f] = _idx(d & ~ties)
+    for f in got.pool._fields:
+        if f not in TRACE_CLOSE + ("status", "quality") and \
+                getattr(got.pool, f) is not getattr(plain.pool, f) and \
+                not bits(getattr(got.pool, f), getattr(plain.pool, f)).all():
+            faults[f"{f} (not written by the trace)"] = [-1]
+    flips = _idx(differ & ties)
+    live = int(active.sum())
+    return dict(lanes=int(active.numel()), live=live,
+                searched=int(parts["do_search"].sum()),
+                ties=int(ties.sum()), flips=flips, faults=faults,
+                max_err=max_err,
+                ok=not faults and len(flips) <= share * max(live, 1))
+
+
+def _idx(mask):
+    return [int(i) for i in torch.nonzero(mask).reshape(-1).tolist()]
+
+
+# the bench frames that host candidates (window slots 0-2), and the targets
+# of a first trace and of a narrowing one
+TRACE_HOSTS = (0, 2, 4)
+TRACE_TARGETS = (6, 8)
+TRACE_SLOTS = 8                      # the main path's window slots
+TRACE_LANES = 4096                   # 2 * Config().max_immature
+# the searches of tests/test_torch_immature.py::test_trace_searches, and
+# the default (packed bilinear)
+TRACE_VARIANTS = {
+    "packed": dict(),
+    "rotated": dict(trace_packed=False),
+    "nearest packed": dict(trace_search_nearest=True, trace_refine_steps=0),
+    "nearest packed refine 2": dict(trace_search_nearest=True,
+                                    trace_refine_steps=2),
+    "nearest rotated": dict(trace_packed=False, trace_search_nearest=True,
+                            trace_refine_steps=0),
+    "nearest rotated refine 2": dict(trace_packed=False,
+                                     trace_search_nearest=True,
+                                     trace_refine_steps=2)}
+# planted lanes of the `planted` case, by lane % 17
+TRACE_PLANTS = {1: "sticky OOB", 2: "border", 3: "skipped",
+                4: "badcondition", 5: "idepth_min < 0", 6: "steps at the cap",
+                7: "uninitialised", 8: "was an outlier"}
+
+
+def trace_scene(w: int, h: int, device, n_lanes: int = TRACE_LANES,
+                seed: int = 14) -> dict:
+    """The bench scene (examples/time_modes.bench_frames) at w x h: an
+    arena of n_lanes candidates at random pixels of frames TRACE_HOSTS
+    (window slots 0-2, overflow dropped, so every lane is live), the
+    frames' pyramids, poses, calibration and Config()."""
+    import dataclasses
+    import numpy as np
+    from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.examples import time_modes
+    from ldso_tpu_torch.frontend import immature
+    from ldso_tpu_torch.ops.preprocess import make_pyramid, upload_image
+    calib, poses, images = time_modes.bench_frames(max(TRACE_TARGETS) + 1, w,
+                                                   h, device)
+    cfg = dataclasses.replace(Config(), enable_loop_closing=False)
+    pyrs = {k: make_pyramid(upload_image(images[k], device), calib.levels)
+            for k in TRACE_HOSTS + TRACE_TARGETS}
+    rng = np.random.RandomState(seed)
+    arena = immature.empty_arena(n_lanes, cfg, device)
+    per = -(-n_lanes // len(TRACE_HOSTS)) + 1
+    ys, xs = np.mgrid[8:h - 8, 8:w - 8]
+    cells = (ys * w + xs).reshape(-1)
+    for slot, k in enumerate(TRACE_HOSTS):
+        status = np.zeros(h * w, np.int32)
+        status[rng.choice(cells, min(per, cells.size), replace=False)] = 1
+        pool = immature.make_pool(
+            torch.from_numpy(status.reshape(h, w)).to(device),
+            pyrs[k].dI[0], per, cfg)
+        arena = immature.arena_add(arena, pool, slot)
+    return dict(calib=calib, poses=poses, cfg=cfg, pyrs=pyrs, arena=arena)
+
+
+def trace_inputs(scene: dict, target: int):
+    """(KRKis, Kts, affs) of TRACE_SLOTS slots against bench frame
+    `target`, formed in float64 on the host as
+    FullSystem._trace_new_coarse forms them; each host gets its own
+    brightness transfer."""
+    import numpy as np
+    calib, poses = scene["calib"], scene["poses"]
+    dev = scene["arena"].host.device
+    K, Ki = calib.K(0), calib.Ki(0)
+    KRKis = np.tile(np.eye(3), (TRACE_SLOTS, 1, 1))
+    Kts = np.zeros((TRACE_SLOTS, 3))
+    affs = np.tile([1.0, 0.0], (TRACE_SLOTS, 1))
+    for slot, k in enumerate(TRACE_HOSTS):
+        T = poses[target] @ np.linalg.inv(poses[k])
+        KRKis[slot] = K @ T[:3, :3] @ Ki
+        Kts[slot] = K @ T[:3, 3]
+        affs[slot] = (np.exp(0.02 * slot), 1.5 * slot)
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in (KRKis, Kts, affs))
+
+
+def _plant(scene, arena, dI, ins, cfg):
+    """The narrowed arena with TRACE_PLANTS's lanes, dead lanes between live
+    ones, and the target with NaN pixels: all three channels on 8 rows, the
+    intensity alone on 3 columns."""
+    import numpy as np
+    from ldso_tpu_torch.frontend import immature
+    _, parts = plain_trace(arena, dI, *ins, scene["calib"], cfg)
+    W, H = scene["calib"].w[0], scene["calib"].h[0]
+    p = arena.pool
+    lane = torch.arange(p.u.shape[0], device=p.u.device)
+    at = {k: (lane % 17) == k for k in TRACE_PLANTS}
+    status = torch.where(at[1], immature.IPS_OOB, p.status)
+    status = torch.where(at[8], immature.IPS_OUTLIER, status)
+    edge = torch.tensor([2.0, 3.0, 4.0, 4.5, 5.0, 6.0, W - 7.0, W - 6.0,
+                         W - 5.0, W - 4.5, W - 4.0, W - 3.0],
+                        device=p.u.device)
+    u = torch.where(at[2], edge[lane % edge.numel()], p.u)
+    v = torch.where(at[2] & (lane % 2 == 0), edge[lane % edge.numel()]
+                    * (H / W), p.v)
+    idmin = torch.where(at[5], torch.full_like(p.idepth_min, -0.05),
+                        p.idepth_min)
+    idmin = torch.where(at[6], torch.full_like(idmin, 0.02), idmin)
+    idmin = torch.where(at[7], torch.zeros_like(idmin), idmin)
+    idmax = torch.where(at[3], idmin * (1.0 + 1e-4) + 1e-4, p.idepth_max)
+    idmax = torch.where(at[6], torch.full_like(idmax, 5.0), idmax)
+    idmax = torch.where(at[7], torch.full_like(idmax, float("inf")), idmax)
+    # a gradient across the search line only: the error bound explodes
+    d = torch.stack([parts["dxn"], parts["dyn"]], -1)
+    d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True), min=1e-12)
+    n = torch.stack([-d[:, 1], d[:, 0]], -1)
+    G = n[:, :, None] * n[:, None, :] + 1e-6 * d[:, :, None] * d[:, None, :]
+    gradH = torch.where(at[4][:, None, None] & torch.isfinite(G), G, p.gradH)
+    valid = p.valid & (lane % 9 != 0)
+    host = torch.where(lane % 13 == 0, torch.full_like(arena.host, -1),
+                       arena.host)
+    pool = p._replace(u=u, v=v, status=status.to(torch.int32),
+                      idepth_min=idmin, idepth_max=idmax, gradH=gradH,
+                      valid=valid)
+    pool = pool._replace(**{f: getattr(pool, f).contiguous()
+                            for f in pool._fields})
+    dI = dI.clone()
+    dI[H // 2 - 4:H // 2 + 4] = float("nan")
+    dI[:, W // 3:W // 3 + 3, 0] = float("nan")
+    return immature.ImmatureArena(pool=pool, host=host.contiguous()), dI
+
+
+def trace_cases(scene: dict):
+    """{name: (arena, dI, KRKis, Kts, affs, cfg)}: each search of
+    TRACE_VARIANTS on the scene's uninitialised arena against frame
+    TRACE_TARGETS[0] and on the arena that trace made (in the same search)
+    against TRACE_TARGETS[1]; then the planted lanes (`_plant`) on the
+    default search's narrowed arena, against a target with NaN pixels."""
+    import dataclasses
+    from ldso_tpu_torch.frontend import immature
+    calib, arena = scene["calib"], scene["arena"]
+    t0, t1 = TRACE_TARGETS
+    in0, in1 = trace_inputs(scene, t0), trace_inputs(scene, t1)
+    dI0, dI1 = scene["pyrs"][t0].dI[0], scene["pyrs"][t1].dI[0]
+    cases = {}
+    for name, kw in TRACE_VARIANTS.items():
+        cfg = dataclasses.replace(scene["cfg"], **kw)
+        cases[f"{name} uninitialised"] = (arena, dI0, *in0, cfg)
+        narrowed = immature.trace_arena_ref(arena, dI0, *in0, calib, cfg)
+        cases[f"{name} narrowing"] = (narrowed, dI1, *in1, cfg)
+    cfg = scene["cfg"]
+    narrowed = cases["packed narrowing"][0]
+    planted, dI = _plant(scene, narrowed, dI1, in1, cfg)
+    cases["planted"] = (planted, dI, *in1, cfg)
+    return cases
