@@ -57,7 +57,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bitwise; then, right after phase 3, every trace phase 3 ran again
      through the plain version from its recorded inputs, held the same
      way, and K4's times on phase 3's last arena (`ms`, `plain_ms`,
-     `device_ms`) beside its bound;
+     `device_ms`) beside its bound. K5 (the keyframe's activation of the
+     arena, csrc/immature_activate.cu: the gate against the newest
+     keyframe with K1's map, then the depth-only LM against every window
+     slot) against its plain version (frontend/immature.
+     activate_arena_ref) on the bench scene at 640x480 with the full
+     4,096-lane arena: windows of 2, 4 and 8 frames and planted lanes
+     (patterns out of bounds at the border, masked targets, NaN pixels,
+     Hdd under min_idepth_h_act, a first step that converges, an energy at
+     the outlier limit, host == newest and out of range, dead lanes
+     between live ones, among others), held by
+     tests/torch_kernel_checks.activate_err (dead lanes bitwise, to_opt,
+     remove, ok and n_good exact, idepths within 1e-4 relative, a
+     difference only at the plain version's own ties and on at most 1% of
+     the live lanes); 20 launches bitwise; its times on the window of 8
+     beside its bound; FullSystem's activation under
+     set_sync_debug_mode("error") behind 50 ms of sleep (one K1 and one K5
+     launch, nothing read back, bitwise a run without the sleep); then,
+     right after phase 3, every activation phase 3 ran again through the
+     plain version from its recorded inputs, held the same way;
   3. the pure-VO path: the synchronous monocular VO FullSystem at 640x480
      with the production Config and loop closing off on 64 synthetic uint8
      frames of the bench trajectory, on the package's default device (the
@@ -150,7 +168,10 @@ of each mode, counted as they ran (cuda_kernels.TRIP_LAUNCHES). Every
 phase that drives a path (3, 4, 4b, 5, 6, 7a, 7b and every bench leg
 that traces, phase 8) asserts that K4 launched once for each trace of
 the arena (FullSystem._trace_arena's calls, and the bench's util trace
-calls): no trace went through the plain version.
+calls): no trace went through the plain version; and that K5 launched
+once for each post-bootstrap keyframe (the bench: once for each
+activation pass, util's timed ones among them), printed per path in a
+`k5_by_path` line.
   8. the port's benchmark (ldso_tpu_torch/examples/bench.py, bench.py's
      legs) in this process at its defaults: no error; three windows in
      each of lookahead, strict, async and the two aggregate legs; value
@@ -160,7 +181,7 @@ calls): no trace went through the plain version.
      counted through graph replays; its JSON line and its wall time.
 One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
 captured tracker's numbers, the bench's JSON line, then a JSON record of
-the kernels (K1, K3, K12, K4), then the last line {"ok": true, "device":
+the kernels (K1, K3, K12, K4, K5), then the last line {"ok": true, "device":
 {...}}.
 """
 
@@ -929,7 +950,8 @@ def phase_main_path(n_frames: int = N_FRAMES):
               f"init_failed={strict['init_failed']}")
     launches = dict(distance_transform=strict["k1_launches"],
                     tracker_trip=strict["k3_launches"],
-                    trace=strict["k4_launches"])
+                    trace=strict["k4_launches"],
+                    activate=strict["k5_launches"])
     tracked = sum(1 for f in fs.all_frames if f.pose_valid)
     peak = torch.cuda.max_memory_allocated()
     print(f"main path: {n_frames} frames 640x480 uint8, "
@@ -943,7 +965,8 @@ def phase_main_path(n_frames: int = N_FRAMES):
           f"({strict['k3_by_mode']} by mode) for {strict['tracks']} tracks "
           f"and {strict['rank_calls']} rankings, K4 launches "
           f"{strict['k4_launches']} for {strict['traces']} traces of the "
-          f"arena", flush=True)
+          f"arena, K5 launches {strict['k5_launches']} for "
+          f"{strict['activations']} activations", flush=True)
     if strict["keyframes"] < 8:
         _fail(f"only {strict['keyframes']} keyframes (need >= 8)")
     if not strict["ate_mm"] < ATE_BOUND_M * 1e3:
@@ -954,6 +977,7 @@ def phase_main_path(n_frames: int = N_FRAMES):
     _no_capture_inside(strict)
     _k3_run_check(strict)
     _k4_run_check(strict)
+    _k5_run_check(strict)
     return launches, calib, images, poses, strict, fs, tracks
 
 
@@ -1326,6 +1350,7 @@ def phase_boxes(n_frames: int = BOX_FRAMES):
     run["phase"] = "4b boxes"
     _k3_run_check(run)
     _k4_run_check(run)
+    _k5_run_check(run)
     if not run["ate_kf_mm"] < ATE_BOUND_M * 1e3:
         _fail(f"boxes: keyframe ATE {run['ate_kf_mm']:.4f} mm >= "
               f"{ATE_BOUND_M * 1e3} mm")
@@ -1354,7 +1379,8 @@ def _mode_line(run: dict) -> str:
             "ms_per_frame_median",
             "ms_per_frame_wall", "wall_s", "k1_launches", "k1_streams",
             "k3_launches", "tracks", "rank_calls", "k4_launches", "traces",
-            "post_bootstrap_keyframes", "retrack_trips", "lm_frames",
+            "k5_launches", "activations", "post_bootstrap_keyframes",
+            "retrack_trips", "lm_frames",
             "graph_captures", "ba_replays", "k12_launches", "gpu")
     return json.dumps({k: run[k] for k in keys})
 
@@ -1388,6 +1414,7 @@ def phase_pipelines(calib, images, poses, strict: dict, device="cuda"):
         if device == "cuda":
             _k3_run_check(run)
             _k4_run_check(run)
+            _k5_run_check(run)
         runs.append(run)
         poses_of.append([f.T_cw.tobytes() for f in fs.all_frames])
     look1, look2, asyn, paced = runs
@@ -1482,6 +1509,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
             k3 = cuda_kernels.LAUNCHES["tracker_trip"]
             k12 = cuda_kernels.LAUNCHES["ba_projector"]
             k4 = cuda_kernels.LAUNCHES["trace"]
+            k5 = cuda_kernels.LAUNCHES["activate"]
         wall = time.time() - t0
         if fs.device.type != device:
             _fail(f"cli {pmode}: ran on {fs.device}, not {device}")
@@ -1513,7 +1541,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
               f"by (thread, stream) {dict(k1)}; K3 launches {k3} for "
               f"{tracks['tracks']} tracks, {tracks['ranks']} rankings and "
               f"{tracks['captures']} captures; K4 launches {k4} for "
-              f"{traces['traces']} traces", flush=True)
+              f"{traces['traces']} traces; K5 launches {k5}", flush=True)
         if not ate < ATE_BOUND_M:
             _fail(f"cli {pmode}: keyframe ATE {ate * 1e3:.4f} mm >= "
                   f"{ATE_BOUND_M * 1e3} mm")
@@ -1521,6 +1549,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
             _k3_check(f"cli {pmode}", k3, time_modes.k3_expected(
                 tracks, fs.cfg, fs.calib.levels))
             _k4_check(f"cli {pmode}", k4, traces["traces"])
+            _k5_check(f"cli {pmode}", k5, post_boot)
             if not launches == post_boot > 0:
                 _fail(f"cli {pmode}: K1 launched {launches} times for "
                       f"{post_boot} post-bootstrap keyframes")
@@ -1534,6 +1563,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         out_launches[f"k3_{pmode}"] = k3
         out_launches[f"k12_{pmode}"] = k12
         out_launches[f"k4_{pmode}"] = k4
+        out_launches[f"k5_{pmode}"] = k5
         if fs.viewer is not None:
             check_viewer(fs.viewer, len(rows), (calib.h[0], calib.w[0]))
     return out_launches
@@ -1718,8 +1748,8 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
           f"{launches['distance_transform']} for {post_boot} post-bootstrap "
           f"keyframes, K3 launches {launches['tracker_trip']} for "
           f"{tracks['tracks']} tracks and {tracks['ranks']} rankings, K4 "
-          f"launches {launches['trace']} for {traces['traces']} traces",
-          flush=True)
+          f"launches {launches['trace']} for {traces['traces']} traces, K5 "
+          f"launches {launches['activate']}", flush=True)
     print("stage timers (host wall, s):\n" + fs.timer.summary(), flush=True)
     print(json.dumps(dict(
         phase="4 loop_slice", kf_ids=kf_frames, loop_pairs=pairs,
@@ -1746,6 +1776,7 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     if launches["distance_transform"] < post_boot:
         _fail(f"loop slice: K1 launched {launches['distance_transform']} "
               f"times for {post_boot} post-bootstrap keyframes")
+    _k5_check("4 loop slice", launches["activate"], post_boot)
     return launches, post_boot, fs.global_map
 
 
@@ -2134,6 +2165,303 @@ def _k4_run_check(run: dict) -> None:
 
 
 
+# float operations of K5's function, counted from csrc/immature_activate.cu
+# by what each unit of work reaches: a live lane's gate (its idm, the
+# projection, the pixel, the distance test) and one tap of one evaluation
+# against one target (the projection, the reciprocal, the pixel, three
+# channels' bilinear blends, the residual, the Huber weight, the energy, H
+# and b terms)
+ACT_OPS = dict(lane=40, tap=75)
+# the arena's bytes per lane that the function needs: for every lane valid,
+# host, idepth_min and idepth_max (the depth it writes for every lane) and
+# the 11 bytes it writes; for a live lane the gate's status, quality,
+# last_interval, u, v and my_type; for a lane the LM runs on, color,
+# weights and energy_th
+ACT_LANE_BYTES = dict(every=13, written=11, live=24, optimised=68)
+
+
+def activate_bound_ms(inputs, parts, calib):
+    """The least time for K5's function on these inputs: the arena's bytes
+    (ACT_LANE_BYTES), the tables once, the distance map's words that the
+    gate's lanes read, and the window images' 4-byte words that this run's
+    taps read (three channels at the four corners of every tap of every
+    evaluation against every target of an optimised lane), against
+    ACT_OPS on the same work. Returns (ms, "bytes" or "operations")."""
+    import torch
+    arena, dist_map = inputs[0], inputs[1]
+    W, H = calib.w[0], calib.h[0]
+    N = arena.host.shape[0]
+    live, to_opt, gate = parts["live"], parts["to_opt"], parts["gate"]
+    n_live, n_opt = int(live.sum()), int(to_opt.sum())
+    words, taps = [], 0
+
+    def floor_cell(x, hi):
+        x = torch.clamp(x, 0.0, hi)
+        return torch.nan_to_num(torch.floor(x)).long()
+    for k, tlive, Ku, Kv in parts["taps"]:
+        m = to_opt & tlive
+        taps += int(m.sum()) * 8
+        x, y = floor_cell(Ku[m], W - 1.001), floor_cell(Kv[m], H - 1.001)
+        for ox in (0, 1):
+            for oy in (0, 1):
+                idx = (k * H * W + (y + oy) * W + x + ox).reshape(-1) * 3
+                words += [idx, idx + 1, idx + 2]
+    n_words = int(torch.unique(torch.cat(words)).numel()) if words else 0
+    h1, w1 = dist_map.shape
+    px, py = parts["pixel"]
+    ui = torch.clamp(px.to(torch.int64), 0, w1 - 1)
+    vi = torch.clamp(py.to(torch.int64), 0, h1 - 1)
+    n_cells = int(torch.unique((vi * w1 + ui)[gate]).numel())
+    n_bytes = (N * (ACT_LANE_BYTES["every"] + ACT_LANE_BYTES["written"])
+               + n_live * ACT_LANE_BYTES["live"]
+               + n_opt * ACT_LANE_BYTES["optimised"]
+               + sum(t.numel() * t.element_size() for t in inputs[2:8])
+               + inputs[9].numel() * 4 + inputs[10].numel()
+               + 4 * n_cells + 4 * n_words)
+    ops = n_live * ACT_OPS["lane"] + taps * ACT_OPS["tap"]
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _activate_check(kc, what, inputs, got, calib):
+    """K5's outputs `got` against the plain version on the card on the
+    same inputs (activate_inputs's tuple): activate_err's report, with the
+    lanes not bitwise equal to the plain version's; fails the run on a
+    fault or on too many flips."""
+    import torch
+    want, parts = kc.plain_activate(inputs, calib)
+    rep = kc.activate_err(want, got, parts, inputs[13])
+    same = torch.ones_like(parts["live"])
+    for g, w in zip(got, want):
+        same &= (g == w) if g.dtype == torch.bool else (
+            g.view(torch.int32) == w.view(torch.int32))
+    rep["not_bitwise"] = int((~same).sum())
+    if not rep["ok"]:
+        _fail(f"K5 {what}: {rep['faults']} (flips {rep['flips'][:20]} of "
+              f"{rep['live']} live lanes, at most "
+              f"{kc.ACT_TIE_SHARE} of them)")
+    return rep, want, parts
+
+
+def _activation_dispatch(kc, scene, sleep_ms: float = 50.0):
+    """FullSystem._activate_points on the card (the scene's window of 8
+    frames, an empty point window, the scene's arena) behind ~sleep_ms of
+    queued sleep under set_sync_debug_mode("error"): it reads nothing
+    back (one K1 and one K5 launch behind one upload that does not wait),
+    returns before the card has run the pass (an event after it is not
+    done), its HostCopy is not ready, and its results equal a run without
+    the sleep bitwise. Returns the host ms of the call."""
+    import torch
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.slam_map import FrameShell
+    from ldso_tpu_torch.system.full_system import FullSystem
+    fs = FullSystem(scene["calib"], scene["cfg"])
+    for k in kc.ACT_WINDOW:
+        fs.window_frames.append(FrameShell(
+            id=k, T_cw=scene["poses"][k], aff=np.zeros(2), exposure=1.0))
+    fs.marg_flags = [False] * len(kc.ACT_WINDOW)
+    fs.imm_live = [s < 3 for s in range(len(kc.ACT_WINDOW))]
+    fs.dIs = torch.stack([scene["dI"][k] for k in kc.ACT_WINDOW])
+    W0 = fs.ef.W
+
+    def run():
+        fs.ef.W, fs.imm_arena = W0, scene["arena"]
+        fs.current_min_act_dist = 2.0
+        fs._activate_points()
+        return (list(fs.ef.W) + list(fs.imm_arena.pool),
+                fs._act_pull[0])
+    want, pull = run()
+    want = [t.clone() for t in want]
+    want_pk = pull.numpy().copy()
+    torch.cuda.synchronize()
+    before = dict(cuda_kernels.LAUNCHES)
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * sleep_ms))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        got, pull = run()
+        host_ms = (time.perf_counter() - t) * 1e3
+        done = torch.cuda.Event()
+        done.record()
+        ready, pulled = done.query(), pull.is_ready()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = {k: cuda_kernels.LAUNCHES[k] - before[k]
+                for k in ("distance_transform", "activate")}
+    torch.cuda.synchronize()
+    if ready or pulled or launched != {"distance_transform": 1,
+                                       "activate": 1}:
+        _fail(f"K5 dispatch: the pass was done before the call returned "
+              f"({ready}, HostCopy ready {pulled}) or launched {launched}")
+    if not all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+               for g, w in zip(got, want)) or not np.array_equal(
+                   pull.numpy(), want_pk):
+        _fail("K5 dispatch: the pass behind the sleep differs from the "
+              "pass without it")
+    return host_ms
+
+
+def phase_activate_kernel(device="cuda"):
+    """K5 (csrc/immature_activate.cu) against its plain version
+    (frontend/immature.activate_arena_ref) on the card, on the bench scene
+    at 640x480 with the full 4,096-lane arena (torch_kernel_checks.
+    activate_scene: one trace's intervals, K1's map of a random occupancy):
+    windows of 2, 4 and 8 frames of the 8 slots, and the planted lanes
+    (patterns out of bounds at the border, masked targets, NaN pixels, Hdd
+    under min_idepth_h_act, a first step that converges, an energy at the
+    outlier limit, host == newest and out of range, outliers,
+    uninitialised lanes, no idepth_max, wide intervals, dead lanes between
+    live ones), each held by activate_err; 20 launches bitwise; the
+    FullSystem's activation under set_sync_debug_mode("error") behind a
+    sleep (`_activation_dispatch`). Returns the kernel record with K5's
+    times on the window of 8 (`ms`, `plain_ms` single calls, `device_ms`
+    20 launches in one CUDA graph) and its bound; phase 3's activations
+    fill in the rest."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kernel_checks()
+    t0 = time.perf_counter()
+    scene = kc.activate_scene(640, 480, device)
+    calib = scene["calib"]
+    cases = kc.activate_cases(scene)
+    worst, flips, ties, lanes, opt, not_bitwise = 0.0, 0, 0, 0, 0, 0
+    launches = cuda_kernels.LAUNCHES["activate"]
+    for name, inputs in cases.items():
+        got = cuda_kernels.activate_arena(*inputs[:13], calib, inputs[13])
+        rep, _, _ = _activate_check(kc, name, inputs, got, calib)
+        worst = max(worst, rep["max_err"])
+        flips += len(rep["flips"])
+        ties += rep["ties"]
+        lanes += rep["live"]
+        opt += rep["optimised"]
+        not_bitwise += rep["not_bitwise"]
+    if cuda_kernels.LAUNCHES["activate"] != launches + len(cases):
+        _fail(f"K5: {cuda_kernels.LAUNCHES['activate'] - launches} launches "
+              f"for {len(cases)} cases")
+    inputs = cases["planted"]
+    kernel = lambda: cuda_kernels.activate_arena(  # noqa: E731
+        *inputs[:13], calib, inputs[13])
+    first = kernel()
+    for rep in range(1, DET_REPEATS):
+        if not all(_same(a, b) for a, b in zip(kernel(), first)):
+            _fail(f"K5: launch {rep} differs from launch 0")
+    inputs = cases[f"window {kc.TRACE_SLOTS}"]
+    kernel = lambda: cuda_kernels.activate_arena(  # noqa: E731
+        *inputs[:13], calib, inputs[13])
+    plain = lambda: kc.plain_activate(inputs, calib)  # noqa: E731
+    rec = dict(ms=_median_event_ms(kernel), device_ms=_graph_device_ms(kernel),
+               plain_ms=_median_event_ms(plain, reps=10, warmup=2))
+    _, parts = plain()
+    rec["bound_ms"], rec["bound_by"] = activate_bound_ms(inputs, parts, calib)
+    dispatch_ms = _activation_dispatch(kc, scene)
+    print(f"K5 activate: {len(cases)} cases at 640x480 (windows of "
+          f"{list(kc.ACT_FRAMES)} frames and the planted lanes "
+          f"{sorted(kc.ACT_PLANTS.values())}), {lanes} live lanes, {opt} "
+          f"optimised: max|kernel - plain| {worst:.3g}, {not_bitwise} lanes "
+          f"not bitwise the plain version's, {flips} flips at the plain "
+          f"version's {ties} tie lanes; {DET_REPEATS} launches bitwise "
+          f"equal; window of 8 ({int(parts['live'].sum())} live lanes, "
+          f"{int(parts['to_opt'].sum())} optimised): kernel "
+          f"{rec['ms']:.4f} ms per single call, "
+          f"{rec['device_ms'] * 1e3:.2f} us of device time per launch (20 "
+          f"in a graph), plain {rec['plain_ms']:.3f} ms; bound "
+          f"{rec['bound_ms'] * 1e3:.3f} us set by {rec['bound_by']}, "
+          f"{100 * rec['bound_ms'] / rec['device_ms']:.2f}% of it reached "
+          f"in device time; FullSystem's activation queued in "
+          f"{dispatch_ms:.2f} ms under set_sync_debug_mode('error') behind "
+          f"50 ms of sleep; {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(name="activate", route="cuda",
+                source="ldso_tpu_torch/csrc/immature_activate.cu",
+                replaces="ldso_tpu/frontend/immature.py:654",
+                max_abs_err=worst, cases=len(cases), flips=flips,
+                not_bitwise=not_bitwise, library_ms=None,
+                dispatch_host_ms=dispatch_ms, **rec)
+
+
+@contextlib.contextmanager
+def recorded_activations():
+    """Yields a list that gets, for each call of K5's wrapper inside (every
+    keyframe's activation), its inputs and output: (activate_inputs's
+    tuple, calib, output). The system writes none of these in place."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    seen = []
+    wrapper = cuda_kernels.activate_arena
+
+    def recorded(*args):
+        out = wrapper(*args)
+        seen.append(((*args[:13], args[14]), args[13], out))
+        return out
+    cuda_kernels.activate_arena = recorded
+    try:
+        yield seen
+    finally:
+        cuda_kernels.activate_arena = wrapper
+
+
+def phase_activate_frame(record, acts):
+    """Every activation of phase 3 again through the plain version on the
+    card, from its recorded inputs, held to K5's recorded output by
+    activate_err; then K5's times on phase 3's last activation (`phase3_ms`,
+    `phase3_plain_ms` single calls, `phase3_device_ms` 20 launches in one
+    CUDA graph) and its bound there. Fills in the record."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kernel_checks()
+    if not acts:
+        _fail("phase 3 activated no arena")
+    flips, ties, lanes, opt, worst, not_bitwise = [], 0, 0, 0, 0.0, 0
+    for k, (inputs, calib, got) in enumerate(acts):
+        rep, _, parts = _activate_check(kc, f"phase 3 activation {k}",
+                                        inputs, got, calib)
+        flips += [(k, i) for i in rep["flips"]]
+        ties += rep["ties"]
+        lanes += rep["live"]
+        opt += rep["optimised"]
+        worst = max(worst, rep["max_err"])
+        not_bitwise += rep["not_bitwise"]
+    kernel = lambda: cuda_kernels.activate_arena(  # noqa: E731
+        *inputs[:13], calib, inputs[13])
+    plain = lambda: kc.plain_activate(inputs, calib)  # noqa: E731
+    rec = dict(phase3_ms=_median_event_ms(kernel),
+               phase3_device_ms=_graph_device_ms(kernel),
+               phase3_plain_ms=_median_event_ms(plain, reps=10, warmup=2))
+    rec["phase3_bound_ms"], _ = activate_bound_ms(inputs, parts, calib)
+    rec.update(phase3_activations=len(acts), phase3_live_lanes=lanes,
+               phase3_optimised_lanes=opt, phase3_flips=len(flips),
+               phase3_tie_lanes=ties, phase3_not_bitwise=not_bitwise,
+               last_live_lanes=int(parts["live"].sum()),
+               last_optimised_lanes=int(parts["to_opt"].sum()),
+               last_window_frames=int(inputs[12]))
+    record["max_abs_err"] = max(record["max_abs_err"], worst)
+    record.update(rec)
+    print(f"K5 on phase 3: {len(acts)} activations, {lanes} live lanes, "
+          f"{opt} optimised, all held by activate_err: {len(flips)} flips "
+          f"{flips[:10]} at the plain version's {ties} tie lanes, "
+          f"{not_bitwise} lanes not bitwise, max|kernel - plain| "
+          f"{worst:.3g}; on the last ({rec['last_live_lanes']} live lanes, "
+          f"{rec['last_optimised_lanes']} optimised, "
+          f"{rec['last_window_frames']} frames): kernel "
+          f"{rec['phase3_ms']:.4f} ms per single call, "
+          f"{rec['phase3_device_ms'] * 1e3:.2f} us of device time per "
+          f"launch, plain {rec['phase3_plain_ms']:.3f} ms; bound "
+          f"{rec['phase3_bound_ms'] * 1e3:.3f} us", flush=True)
+
+
+def _k5_check(what: str, launches: int, post_boot: int) -> None:
+    """K5 ran once for each post-bootstrap keyframe's activation on this
+    path, and no activation went through the plain version."""
+    if not launches == post_boot > 0:
+        _fail(f"{what}: K5 launched {launches} times for {post_boot} "
+              f"post-bootstrap keyframes")
+
+
+def _k5_run_check(run: dict) -> None:
+    what = run.get("phase", run["mode"])
+    if run["k5_launches"] != run["activations"]:
+        _fail(f"{what}: K5 launched {run['k5_launches']} times for "
+              f"{run['activations']} activation passes")
+    _k5_check(what, run["k5_launches"], run["post_bootstrap_keyframes"])
+
+
 @contextlib.contextmanager
 def recorded_ba():
     """Yields a list that gets the inputs of every device-LM call inside
@@ -2417,6 +2745,7 @@ def phase_variants(calib, images, poses, phase3_ba_ms, device="cuda"):
         if device == "cuda":
             _k3_run_check(run)
             _k4_run_check(run)
+            _k5_run_check(run)
         if run["keyframes"] < 8:
             _fail(f"{name}: only {run['keyframes']} keyframes (need >= 8)")
         if not run["ate_mm"] < ATE_BOUND_M * 1e3:
@@ -2608,6 +2937,10 @@ BENCH_BA = ("warmup", "lookahead", "strict", "util", "aggregate_8seq",
 # and those that trace the candidate arena
 BENCH_TRACING = ("warmup", "lookahead", "strict", "async", "util",
                  "aggregate_8seq", "aggregate_16seq")
+# and those that activate a keyframe's candidates (async's windows may map
+# none after their bootstrap, so it is held only to K5 == its passes)
+BENCH_ACTIVATING = ("warmup", "lookahead", "strict", "util",
+                    "aggregate_8seq", "aggregate_16seq")
 
 
 def phase_bench():
@@ -2634,8 +2967,9 @@ def phase_bench():
     if not res["ate_m_sim_aligned"] < ATE_BOUND_M:
         _fail(f"8 bench: ATE {res['ate_m_sim_aligned']} m")
     util = {k: v["ms"] for k, v in res["util"].items()
-            if k in ("frame_step(track)", "ba_lm") or k.startswith("trace(")}
-    if len(util) != 3 or not all(np.isfinite(ms) and ms > 0
+            if k in ("frame_step(track)", "ba_lm")
+            or k.startswith(("trace(", "activate("))}
+    if len(util) != 4 or not all(np.isfinite(ms) and ms > 0
                                  for ms in util.values()):
         _fail(f"8 bench: util device ms {util}")
     for leg, n in res["launches"].items():
@@ -2649,6 +2983,10 @@ def phase_bench():
         elif n["trace"] != res["traces"][leg]:
             _fail(f"8 bench: {leg}: K4 launched {n['trace']} times for "
                   f"{res['traces'][leg]} traces")
+        if n["activate"] != res["activations"][leg] or (
+                leg in BENCH_ACTIVATING and not n["activate"] > 0):
+            _fail(f"8 bench: {leg}: K5 launched {n['activate']} times for "
+                  f"{res['activations'][leg]} activation passes")
         if leg != "batched_ba" and n["ba_projector"] != (
                 graphs["ba_replays"] + graphs["ba_captures"]):
             _fail(f"8 bench: {leg}: K12 launched {n['ba_projector']} times "
@@ -2674,11 +3012,12 @@ def main() -> int:
     trip_edges = phase_trip_edges()
     proj_record = phase_projector()
     trace_record = phase_trace_kernel()
+    act_record = phase_activate_kernel()
     phase_determinism()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
     with ba_times() as phase3_ba_ms, recorded_ba() as ba_records, \
-            recorded_traces() as traces3:
+            recorded_traces() as traces3, recorded_activations() as acts3:
         launches_vo, calib, images, poses, strict, fs, tracks3 = \
             phase_main_path()
     # every device-LM call of phase 3 went through its graph
@@ -2689,6 +3028,8 @@ def main() -> int:
                                    strict["k3_by_mode"])
     phase_trace_frame(trace_record, traces3)
     del traces3
+    phase_activate_frame(act_record, acts3)
+    del acts3
     graph = phase_tracker_graph(fs, images, tracks3)
     del tracks3
     ba_graph = phase_ba_graph(ba_records, phase3_ba_ms,
@@ -2709,7 +3050,7 @@ def main() -> int:
     bench = phase_bench()
     bench_launches = {k: sum(leg[k] for leg in bench["launches"].values())
                       for k in ("distance_transform", "tracker_trip",
-                                "ba_projector", "trace")}
+                                "ba_projector", "trace", "activate")}
     by_path = dict(vo_strict=launches_vo["distance_transform"],
                    loop=launches["distance_transform"],
                    boxes=boxes["k1_launches"],
@@ -2768,6 +3109,20 @@ def main() -> int:
     print(f"K4 launches per path: {k4_by_path}", flush=True)
     trace_record["launches"] = launches_vo["trace"]
     trace_record["launches_by_path"] = k4_by_path
+    k5_by_path = dict(vo_strict=launches_vo["activate"],
+                      loop=launches["activate"],
+                      boxes=boxes["k5_launches"],
+                      vo_lookahead=look["k5_launches"],
+                      vo_async=asyn["k5_launches"],
+                      vo_async_paced=paced["k5_launches"],
+                      cli_lookahead=cli["k5_lookahead"],
+                      cli_async=cli["k5_async"],
+                      **{name.split()[1]: run["k5_launches"]
+                         for name, run in variants.items()},
+                      bench=bench_launches["activate"])
+    print(json.dumps({"k5_by_path": k5_by_path}), flush=True)
+    act_record["launches"] = launches_vo["activate"]
+    act_record["launches_by_path"] = k5_by_path
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for name, run in variants.items():
@@ -2782,7 +3137,7 @@ def main() -> int:
     print(json.dumps({"ba_graph": ba_graph}))
     print(json.dumps(bench))
     print(json.dumps({"kernels": [record, trip_record, proj_record,
-                                  trace_record]}))
+                                  trace_record, act_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

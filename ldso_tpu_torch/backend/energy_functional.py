@@ -120,30 +120,38 @@ def _add_residuals_dev(W: Window, i: int) -> Window:
 def insert_points_dev(W: Window, slot, valid, host, u, v, idepth, prior,
                       energy_th, color, weights) -> Window:
     """Point insertion into `slot` where `valid` (every argument a tensor on
-    the window's device; invalid or out-of-range slots are dropped before
-    the scatter)."""
+    the window's device). Invalid or out-of-range slots write a spare row
+    past the P slots that is then cut, so nothing waits for the device (a
+    boolean index would read its count on the host); the slots kept must
+    be distinct."""
     P, F = W.P, W.F
     keep = valid & (slot >= 0) & (slot < P)
-    sl = slot[keep]
-    hk = host[keep].to(torch.int64)
+    sl = torch.where(keep, slot.to(torch.int64), torch.full_like(
+        slot, P, dtype=torch.int64))
+    hk = host.to(torch.int64)
     rows = W.frame_valid[None, :] & (
         hk[:, None] != torch.arange(F, device=hk.device)[None, :])
 
     def put(t, val):
-        t = t.clone()
-        t[sl] = val if not torch.is_tensor(val) else val.to(t.dtype)
-        return t
+        # a Python value by index_fill_, whose scalar does not go through
+        # a copy to the card that waits
+        t = torch.cat([t, t[:1]])
+        if torch.is_tensor(val):
+            t.index_put_((sl,), val.to(t.dtype))
+        else:
+            t.index_fill_(0, sl, val)
+        return t[:P]
 
     return W._replace(
         pt_valid=put(W.pt_valid, True),
         pt_host=put(W.pt_host, hk),
-        pt_u=put(W.pt_u, u[keep]), pt_v=put(W.pt_v, v[keep]),
-        pt_color=put(W.pt_color, color[keep]),
-        pt_weights=put(W.pt_weights, weights[keep]),
-        idepth=put(W.idepth, idepth[keep]),
-        idepth_zero=put(W.idepth_zero, idepth[keep]),
-        pt_prior=put(W.pt_prior, prior[keep]),
-        pt_energy_th=put(W.pt_energy_th, energy_th[keep]),
+        pt_u=put(W.pt_u, u), pt_v=put(W.pt_v, v),
+        pt_color=put(W.pt_color, color),
+        pt_weights=put(W.pt_weights, weights),
+        idepth=put(W.idepth, idepth),
+        idepth_zero=put(W.idepth_zero, idepth),
+        pt_prior=put(W.pt_prior, prior),
+        pt_energy_th=put(W.pt_energy_th, energy_th),
         pt_num_good_res=put(W.pt_num_good_res, 0),
         pt_max_rel_baseline=put(W.pt_max_rel_baseline, 0.0),
         pt_idepth_hessian=put(W.pt_idepth_hessian, 0.0),

@@ -22,10 +22,12 @@ clock starts), and the legs run in this order on one FullSystem:
              through a new AsyncPipeline built before its clock starts;
   ate        the similarity-aligned ATE (`bench_ate`) over every frame
              before the async leg with a valid pose;
-  util       device ms of three programs at the warm system's state: the
+  util       device ms of four programs at the warm system's state: the
              frame step (pyramid and the captured tracker), the trace of
              the whole arena as the system runs it (labelled with its live
-             lane count) and the device LM as one graph replay;
+             lane count), the keyframe's activation pass over the whole
+             arena (the splat, K1, K5, the insert; same label) and the
+             device LM as one graph replay;
 then, each on systems of its own:
   aggregate  for each S of `seqs`: S FullSystems on S sequences (at most
              `unique_seqs` of them rendered, the rest repeat them), warmed
@@ -54,7 +56,9 @@ graph captures and replays, and the host seconds replays waited for a
 graph's lock: every FullSystem of the process shares the graphs, so S
 systems' replays queue on one lock), `traces` (the arena traces:
 FullSystem._trace_arena's calls, and util's timed trace calls; K4 launches
-once for each on the card), `leg_s` (wall seconds) and
+once for each on the card), `activations` (the activation passes:
+full_system._activate_fused's calls, and util's timed ones; K5 launches
+once for each), `leg_s` (wall seconds) and
 `peak_memory_gb`; and `device` (the card's name and power limit, the
 torch and CUDA versions).
 
@@ -170,6 +174,9 @@ class Run:
     fs: Optional[fsm.FullSystem] = None
     # the arena traces: FullSystem._trace_arena's calls and util's own
     traces: Optional[dict] = None
+    # the activation passes: full_system._activate_fused's calls and
+    # util's own
+    activations: Optional[dict] = None
 
     def ids(self, leg: str) -> range:
         """The frame ids of a leg of the main system, in bench.py's order
@@ -395,6 +402,7 @@ def leg_util(run: Run, result: dict):
     fs, calib, cfg, dev = run.fs, run.calib, run.cfg, run.dev
     util = result.setdefault("util", {})
     shell = [f for f in fs.all_frames if f.pose_valid][-1]
+    W0, arena0 = fs.ef.W, fs.imm_arena
     img = upload_image(run.images[shell.id], dev)
 
     # 1. the frame step: pyramid and the captured tracker, chained
@@ -426,7 +434,19 @@ def leg_util(run: Run, result: dict):
     util[f"trace({n} lanes)"] = program_util(dev, trace, fs.imm_arena,
                                              (pyr.dI[0], transforms))
 
-    # 3. the device LM of the final window, one graph replay
+    # 3. the keyframe's activation pass over the whole arena (the splat,
+    # K1, K5, the slot allocation and the insert) on the final window, its
+    # tables uploaded once; each call starts from the same window and arena
+    tables = fs._activation_tables()
+
+    def activate(arena):
+        out = fsm._activate_fused(W0, arena, fs.dIs, *tables, cfg, calib,
+                                  calib.w[1], calib.h[1])
+        return arena, out
+    util[f"activate({n} lanes)"] = program_util(
+        dev, activate, arena0, (W0, fs.dIs, tables[:8]))
+
+    # 4. the device LM of the final window, one graph replay
     W, *rest = fs.ef.device_lm_inputs(fs.dIs, cfg.max_opt_iterations,
                                       calib.w[0], calib.h[0])
     lm = efm.replay_ba if dev.type == "cuda" else ba_device.optimize_device
@@ -591,10 +611,13 @@ def measure(args: argparse.Namespace) -> dict:
             _reset_peak(run.dev)
             t0 = time.perf_counter()
             try:
-                with time_modes.counted_traces() as run.traces:
+                with time_modes.counted_traces() as run.traces, \
+                        time_modes.counted_activations() as run.activations:
                     fn(run, result)
             finally:
                 result.setdefault("traces", {})[leg] = run.traces["traces"]
+                result.setdefault("activations", {})[leg] = \
+                    run.activations["activations"]
                 result.setdefault("leg_s", {})[leg] = time.perf_counter() - t0
                 result.setdefault("peak_memory_gb", {})[leg] = _peak_gb(
                     run.dev)

@@ -13,7 +13,8 @@ synchronise) per frame (`ms_per_frame_wall`), the median host time of one
 add_active_frame call from the bootstrap on (`ms_per_frame_median`), the
 keyframes, the ATE, K1's launches and the streams they went to, K3's
 launches beside the count the run's tracker calls imply, K4's launches
-beside the arena traces (FullSystem._trace_arena calls), the
+beside the arena traces (FullSystem._trace_arena calls), K5's launches
+beside the activation passes (full_system._activate_fused calls), the
 retrack-gate trips, how many frames the tracker ran on (a pipeline
 re-tracks its frames in flight after each keyframe) and the host time of
 those calls (on the card a graph replay that does not wait for the
@@ -55,6 +56,7 @@ from ldso_tpu_torch.io.trajectory import ate_rmse
 from ldso_tpu_torch.math import lie_np
 from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.synthetic import PlaneScene, default_calib
+from ldso_tpu_torch.system import full_system as fsm
 from ldso_tpu_torch.system.full_system import FullSystem
 from ldso_tpu_torch.utils.device import DEFAULT_DEVICE
 
@@ -174,6 +176,26 @@ def counted_traces():
         FullSystem._trace_arena = trace
 
 
+@contextlib.contextmanager
+def counted_activations():
+    """Count the keyframes' activation passes (full_system._activate_fused
+    calls) while inside, on every thread, and yield the count
+    ({"activations": n}): each is one K5 launch on the card."""
+    counts = dict(activations=0)
+    lock = threading.Lock()
+    fused = fsm._activate_fused
+
+    def counted(*a, **k):
+        with lock:
+            counts["activations"] += 1
+        return fused(*a, **k)
+    fsm._activate_fused = counted
+    try:
+        yield counts
+    finally:
+        fsm._activate_fused = fused
+
+
 def k3_expected(counts: dict, cfg, levels: int) -> int:
     """The K3 launches that `counted_tracks`' counts imply: one track's
     trips (tracker.trips_per_track, from the coarsest level as FullSystem
@@ -206,7 +228,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
     mapping = getattr(drv, "map_stream", None)
     mapping = mapping.cuda_stream if mapping is not None else None
     with traced_k1() as k1, counted_tracks() as tracks, \
-            counted_traces() as traces:
+            counted_traces() as traces, counted_activations() as acts:
         _sync(fs.device)
         cuda_kernels.reset_launch_counts()
         ba_graphs = dict(BA_GRAPHS.counts)
@@ -255,6 +277,8 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                k3_expected=k3_expected(tracks, cfg, calib.levels),
                k12_launches=launches["ba_projector"],
                k4_launches=launches["trace"], traces=traces["traces"],
+               k5_launches=launches["activate"],
+               activations=acts["activations"],
                ba_replays=ba_graphs["replays"],
                ba_captures=ba_graphs["count"],
                tracks=tracks["tracks"],

@@ -20,7 +20,8 @@ capture's tally, and the graph adds the tally to `LAUNCHES` at every replay
 
 The kernels: K1 `distance_transform` (csrc/distance_map.cu), K3
 `tracker_trip` and its modes (csrc/tracker_trip.cu), K12 `ba_projector`
-(csrc/ba_projector.cu) and K4 `trace_arena` (csrc/immature_trace.cu).
+(csrc/ba_projector.cu), K4 `trace_arena` (csrc/immature_trace.cu) and K5
+`activate_arena` (csrc/immature_activate.cu).
 """
 
 from __future__ import annotations
@@ -45,10 +46,12 @@ from ldso_tpu_torch.ops.distance_map import MAX_K, distance_transform_ref
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _SOURCES = ("distance_map.cu", "tracker_trip.cu", "ba_projector.cu",
-            "immature_trace.cu")
-# flags of one source beside NVCC_FLAGS: K4 rounds every multiply and add
-# on its own, as its plain version's separate aten operations do
-_SOURCE_FLAGS = {"immature_trace.cu": ("--fmad=false",)}
+            "immature_trace.cu", "immature_activate.cu")
+# flags of one source beside NVCC_FLAGS: K4 and K5 round every multiply
+# and add on their own, as their plain versions' separate aten operations
+# do
+_SOURCE_FLAGS = {"immature_trace.cu": ("--fmad=false",),
+                 "immature_activate.cu": ("--fmad=false",)}
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "ldso_tpu_torch")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -57,7 +60,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SMEM_LIMIT = 48 * 1024
 
 LAUNCHES = {"distance_transform": 0, "tracker_trip": 0, "ba_projector": 0,
-            "trace": 0}
+            "trace": 0, "activate": 0}
 # K3's launches by mode (TRIP_MODES); each is also one of LAUNCHES's
 TRIP_LAUNCHES = {"trip": 0, "cutoff": 0, "lm": 0}
 
@@ -234,6 +237,10 @@ def _load():
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
             lib.ldso_immature_trace.restype = ctypes.c_int
+            lib.ldso_immature_activate.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
+            lib.ldso_immature_activate.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -738,3 +745,118 @@ def trace_arena(arena, dI_target, KRKis, Kts, affs, calib, cfg):
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
     _count("trace")
     return arena._replace(pool=pool._replace(**out))
+
+
+# ---------------------------------------------------------------------------
+# K5: the keyframe's activation of the candidate arena
+# (csrc/immature_activate.cu)
+# ---------------------------------------------------------------------------
+
+# the most window slots K5 takes: one slot per thread of a lane's warp
+ACTIVATE_MAX_SLOTS = 32
+# the arena's fields the activation reads, in the kernel's pointer order
+_ACTIVATE_FIELDS = ("u", "v", "valid", "color", "weights", "idepth_min",
+                    "idepth_max", "quality", "energy_th", "status",
+                    "last_interval", "my_type")
+ACTIVATE_OUTPUTS = ("to_opt", "remove", "idepth", "ok", "n_good")
+
+
+def activate_params(calib, cfg) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
+    """K5's integer and float launch arguments but the lane, slot, map
+    and window counts: (GN iterations, the pattern's 16 offsets), and
+    (fx, fy, cx, cy, the bilinear clamps W - 1.001 and H - 1.001,
+    min_trace_quality, huber_th, min_idepth_h_act) as float32, as the
+    plain version's Python scalars round."""
+    import numpy as np
+    from ldso_tpu_torch.config import PATTERN
+    W, H = calib.w[0], calib.h[0]
+    ints = (cfg.gn_its_on_point_activation,
+            *(int(c) for c in np.asarray(PATTERN).reshape(-1)))
+    floats = tuple(float(np.float32(x)) for x in (
+        calib.fx[0], calib.fy[0], calib.cx[0], calib.cy[0], W - 1.001,
+        H - 1.001, cfg.min_trace_quality, cfg.huber_th,
+        cfg.min_idepth_h_act))
+    return ints, floats
+
+
+def activate_arena(arena, dist_map, KRKis, Kts, Rs, ts, affs, masks, dIs,
+                   min_act_dist, marg_flags, newest: int, nf: int, calib,
+                   cfg):
+    """The keyframe's activation of every lane of the candidate arena
+    (frontend/immature.activate_arena_ref is the function): the gate
+    against the newest keyframe with K1's distance map, then the
+    depth-only LM against every window slot for the lanes it passes.
+    arena: an ImmatureArena of N lanes; dist_map (h1, w1); KRKis (F, 3, 3),
+    Kts (F, 3), marg_flags (F,) bool per host slot; Rs (F, F, 3, 3), ts
+    (F, F, 3), affs (F, F, 2), masks (F, F) bool per (host, target); dIs
+    (F, H, W, 3); min_act_dist a one-element float32 tensor (a float on
+    the CPU too); newest and nf ints. Returns (to_opt, remove, idepth, ok,
+    n_good) per lane (bool, bool, float32, bool, int32).
+
+    CPU tensors: the plain version. CUDA tensors: K5 in one launch over
+    all N lanes on the current stream, F <= ACTIVATE_MAX_SLOTS (else
+    ValueError). It reads nothing back and allocates with torch.empty
+    only."""
+    pool = arena.pool
+    if pool.u.device.type == "cpu":
+        from ldso_tpu_torch.frontend.immature import activate_arena_ref
+        return activate_arena_ref(arena, dist_map, KRKis, Kts, Rs, ts, affs,
+                                  masks, dIs, min_act_dist, marg_flags,
+                                  newest, nf, calib, cfg)
+    N = pool.u.shape[0]
+    F = KRKis.shape[0]
+    W, H = calib.w[0], calib.h[0]
+    if not 1 <= F <= ACTIVATE_MAX_SLOTS:
+        raise ValueError(f"activate: {F} window slots; K5 takes 1.."
+                         f"{ACTIVATE_MAX_SLOTS}")
+    if N < 1 or dist_map.dim() != 2:
+        raise ValueError(f"activate: {N} lanes and a "
+                         f"{tuple(dist_map.shape)} distance map")
+    dev = pool.u.device
+    shapes = dict(color=(N, 8), weights=(N, 8))
+    dtypes = dict(valid=torch.bool, status=torch.int32, my_type=torch.int32)
+    tensors = [(f, getattr(pool, f), shapes.get(f, (N,)),
+                dtypes.get(f, torch.float32)) for f in _ACTIVATE_FIELDS]
+    f32, b8 = torch.float32, torch.bool
+    tensors += [("host", arena.host, (N,), torch.int32),
+                ("dist_map", dist_map, tuple(dist_map.shape), f32),
+                ("KRKis", KRKis, (F, 3, 3), f32), ("Kts", Kts, (F, 3), f32),
+                ("marg_flags", marg_flags, (F,), b8),
+                ("Rs", Rs, (F, F, 3, 3), f32), ("ts", ts, (F, F, 3), f32),
+                ("affs", affs, (F, F, 2), f32), ("masks", masks, (F, F), b8),
+                ("dIs", dIs, (F, H, W, 3), f32)]
+    if not torch.is_tensor(min_act_dist) or min_act_dist.numel() != 1:
+        raise ValueError("activate: min_act_dist must be a one-element "
+                         "tensor on the card")
+    tensors.append(("min_act_dist", min_act_dist,
+                    tuple(min_act_dist.shape), f32))
+    for name, t, shape, dtype in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"activate: {name} on {t.device}; every input "
+                             f"must be on one CUDA device")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"activate: {name} is {tuple(t.shape)} "
+                             f"{t.dtype}, expected {shape} {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"activate: {name} must be contiguous")
+    ints, floats = activate_params(calib, cfg)
+    h1, w1 = dist_map.shape
+    out = dict(to_opt=torch.empty(N, dtype=b8, device=dev),
+               remove=torch.empty(N, dtype=b8, device=dev),
+               idepth=torch.empty(N, dtype=f32, device=dev),
+               ok=torch.empty(N, dtype=b8, device=dev),
+               n_good=torch.empty(N, dtype=torch.int32, device=dev))
+    ptrs = [t.data_ptr() for _, t, _, _ in tensors]
+    ptrs += [out[f].data_ptr() for f in ACTIVATE_OUTPUTS]
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ldso_immature_activate(
+            (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * (9 + 16))(N, F, W, H, w1, h1, int(newest),
+                                      int(nf), *ints),
+            (ctypes.c_float * len(floats))(*floats), stream)
+    if err != 0:
+        raise RuntimeError(f"activate kernel launch failed: CUDA error {err}")
+    _count("activate")
+    return tuple(out[f] for f in ACTIVATE_OUTPUTS)

@@ -235,7 +235,8 @@ def test_whole_run_prints_every_key_last(whole_run):
     assert result["device"]["type"] == "cpu"
     legs = ["warmup", "lookahead", "strict", "async", "ate", "util",
             "aggregate_2seq", "batched_tracking", "batched_ba"]
-    for key in ("launches", "graphs", "leg_s", "peak_memory_gb"):
+    for key in ("launches", "graphs", "leg_s", "peak_memory_gb",
+                "activations"):
         assert list(result[key]) == legs
     assert set(result["batched_ba_2seq"]) == {
         "S", "trips", "ms", "ms_per_seq_kf", "agg_kf_per_sec"}
@@ -262,6 +263,7 @@ def test_device_times_are_null_on_the_cpu(whole_run):
     util = result["util"]
     assert {"frame_step(track)", "ba_lm", "batched_track(2 seq)"} <= set(util)
     assert any(k.startswith("trace(") for k in util)
+    assert any(k.startswith("activate(") for k in util)
     for name, rec in util.items():
         assert rec["ms"] is None and rec["hbm_pct_min"] is None, name
         assert rec["io_gb"] > 0, name

@@ -1049,3 +1049,90 @@ def test_trace_arena_runs_ahead_of_the_card(cuda):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# K5, the keyframe's activation of the candidate arena
+# (csrc/immature_activate.cu)
+# ---------------------------------------------------------------------------
+
+_ACT_SCENE = {}
+ACT_CASES = [f"window {n}" for n in _kc().ACT_FRAMES] + ["planted"]
+
+
+def _act_scene():
+    """torch_kernel_checks.activate_scene at 640x480 on the card and its
+    activate_cases."""
+    if not _ACT_SCENE:
+        kc = _kc()
+        scene = kc.activate_scene(640, 480, "cuda")
+        _ACT_SCENE.update(scene=scene, cases=kc.activate_cases(scene))
+    return _ACT_SCENE
+
+
+@pytest.mark.parametrize("case", ACT_CASES)
+def test_activate_kernel_matches_plain(cuda, case):
+    """K5 against activate_arena_ref on the card, on the bench scene's
+    4,096 lanes against windows of 2, 4 and 8 frames and on the planted
+    lanes (border, masked targets, NaN pixels, Hdd under the gate, a first
+    step that converges, an energy at the outlier limit, host == newest
+    and out of range, dead lanes between live ones): held by
+    torch_kernel_checks.activate_err, one launch each."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kc()
+    s = _act_scene()
+    inputs = s["cases"][case]
+    calib = s["scene"]["calib"]
+    before = cuda_kernels.LAUNCHES["activate"]
+    got = cuda_kernels.activate_arena(*inputs[:13], calib, inputs[13])
+    assert cuda_kernels.LAUNCHES["activate"] == before + 1
+    want, parts = kc.plain_activate(inputs, calib)
+    rep = kc.activate_err(want, got, parts, inputs[13])
+    assert rep["ok"], (rep["faults"], rep["flips"])
+    assert rep["optimised"] > 500
+
+
+def test_activate_kernel_repeats_bitwise(cuda):
+    """20 launches on the planted case give the same bits."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    s = _act_scene()
+    inputs = s["cases"]["planted"]
+    calib = s["scene"]["calib"]
+    first = cuda_kernels.activate_arena(*inputs[:13], calib, inputs[13])
+    for _ in range(19):
+        again = cuda_kernels.activate_arena(*inputs[:13], calib, inputs[13])
+        for a, b in zip(again, first):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b)
+
+
+def test_activate_kernel_refuses_more_slots_than_a_warp(cuda):
+    """F > ACTIVATE_MAX_SLOTS raises; it is never handed to the plain
+    version."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    s = _act_scene()
+    inputs = list(s["cases"]["window 2"])
+    F = cuda_kernels.ACTIVATE_MAX_SLOTS + 1
+    inputs[2] = torch.zeros((F, 3, 3), device="cuda")
+    before = dict(cuda_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="window slots"):
+        cuda_kernels.activate_arena(*inputs[:13], s["scene"]["calib"],
+                                    inputs[13])
+    assert cuda_kernels.LAUNCHES == before
+
+
+def test_activate_pass_runs_ahead_of_the_card(cuda):
+    """FullSystem._activate_points behind ~50 ms of sleep, under
+    set_sync_debug_mode("error"): no host read (no watermark, no boolean
+    index, the tables up in one pinned copy), one K1 and one K5 launch,
+    the call returns before the card has run the pass, its HostCopy is not
+    ready, and its results equal a run without the sleep bitwise
+    (chip_smoke._activation_dispatch)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    host_ms = chip_smoke._activation_dispatch(_kc(), _act_scene()["scene"])
+    assert host_ms < 25.0

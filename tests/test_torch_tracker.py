@@ -573,13 +573,14 @@ def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
     # warm-up: 3 + 1 launches; the thread's launch during the warm-up: 1
     assert cuda_kernels.LAUNCHES == {"distance_transform": 2,
                                      "tracker_trip": 3, "ba_projector": 0,
-                                     "trace": 0}
+                                     "trace": 0, "activate": 0}
     assert g.launches == {"tracker_trip": 3, "distance_transform": 1}
     for k in range(1, 3):
         out = g.replay((torch.ones(2),))
         assert cuda_kernels.LAUNCHES == {"distance_transform": 2 + k,
                                          "tracker_trip": 3 + 3 * k,
-                                         "ba_projector": 0, "trace": 0}
+                                         "ba_projector": 0, "trace": 0,
+                                         "activate": 0}
     assert torch.equal(out[0], torch.full((2,), 1.0))
     cuda_kernels.reset_launch_counts()
     with cuda_kernels.recording_launches() as tally:

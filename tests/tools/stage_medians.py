@@ -14,6 +14,13 @@ checkout it is run from (a parent commit's too: run it from an unpacked
     with its host ms per call and its device ms per call from CUDA events
     around it, and the rest of the frame step (the read of the tracker's
     result, which waits for the card, the gate, the trace's queueing);
+  * `activate_split` (phase 3): `kf.activate` cut into the host tables
+    and their one upload (`_activation_tables`), the occupancy splat and
+    K1 (`_occupancy`, `distance_transform`), K5 (`activate_arena`) and
+    the insertion (`insert_points_dev`), each with its host ms per call
+    and its device ms per call from CUDA events around it, and the rest
+    (the density policy, the slot allocation, the arena's mask, the pull's
+    queueing); none for a checkout without these functions;
   * `loop_split` (phase 4): `kf.loop` cut into ORB features, BoW
     (vocabulary transform, database query and insert), matching, the
     RANSAC solvers, `refine_sim3` and the pose graph, host ms per
@@ -129,6 +136,73 @@ def track_split():
 
 
 @contextlib.contextmanager
+def activate_split():
+    """`kf.activate` in parts: host ms and CUDA-event device ms of the
+    tables and upload, the splat and K1, K5 and the insert, per
+    FullSystem._activate_points call that ran the pass (one that found no
+    candidates returns at once and is left out); the rest is its host
+    time less theirs. Yields {} for a checkout without the one-pass
+    activation."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system import full_system
+    out = {}
+    if not hasattr(full_system.FullSystem, "_activation_tables"):
+        yield out
+        return
+    calls = []           # per pass: {part: [(host ms, (e0, e1)), ...]}
+    current = []         # the pass being timed
+
+    def timed(part):
+        def wrap(fn):
+            def call(*a, **k):
+                outer = part == "activate"
+                if not (outer or current):
+                    return fn(*a, **k)
+                if outer:
+                    current.append({})
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                e0.record()
+                try:
+                    res = fn(*a, **k)
+                finally:
+                    e1.record()
+                    ms = (time.perf_counter() - t) * 1e3
+                    parts = current[-1]
+                    parts.setdefault(part, []).append((ms, (e0, e1)))
+                    if outer:
+                        current.clear()
+                        if "k5" in parts:
+                            calls.append(parts)
+                return res
+            return call
+        return wrap
+    with contextlib.ExitStack() as stack:
+        for owner, name, part in (
+                (full_system.FullSystem, "_activate_points", "activate"),
+                (full_system.FullSystem, "_activation_tables", "tables"),
+                (full_system, "_occupancy", "splat_k1"),
+                (cuda_kernels, "distance_transform", "splat_k1"),
+                (cuda_kernels, "activate_arena", "k5"),
+                (full_system, "insert_points_dev", "insert")):
+            stack.enter_context(_patched(owner, name, timed(part)))
+        yield out
+    torch.cuda.synchronize()
+    host, dev = collections.defaultdict(list), collections.defaultdict(list)
+    for parts in calls:
+        for part, samples in parts.items():
+            host[part].append(sum(ms for ms, _ in samples))
+            dev[part].append(sum(a.elapsed_time(b) for _, (a, b) in samples))
+        host["rest"].append(host["activate"][-1] - sum(
+            host[p][-1] for p in parts if p != "activate"))
+    for part in host:
+        out[part] = dict(host=_stats(host[part]))
+        if part in dev:
+            out[part]["device"] = _stats(dev[part])
+
+
+@contextlib.contextmanager
 def loop_split():
     """kf.loop in parts, each synchronised on both sides: host ms summed
     per part over the run, and the keyframes it ran on."""
@@ -172,12 +246,13 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke
     chip_smoke.phase_device()
-    with stage_samples() as samples, track_split() as split:
+    with stage_samples() as samples, track_split() as split, \
+            activate_split() as act:
         chip_smoke.phase_main_path()
     print(json.dumps(dict(
         phase="3 strict", stages={k: _stats(v) for k, v in
                                   sorted(samples.items())},
-        track_split=split)), flush=True)
+        track_split=split, activate_split=act)), flush=True)
     with stage_samples() as samples, loop_split() as parts:
         chip_smoke.phase_loop_slice()
     n_loop = len(samples.get("kf.loop", ()))

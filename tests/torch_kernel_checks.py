@@ -1210,3 +1210,272 @@ def trace_cases(scene: dict):
     planted, dI = _plant(scene, narrowed, dI1, in1, cfg)
     cases["planted"] = (planted, dI, *in1, cfg)
     return cases
+
+
+# ---------------------------------------------------------------------------
+# K5: the keyframe's activation of the candidate arena
+# (csrc/immature_activate.cu) against its plain version
+# (frontend/immature.activate_arena_ref)
+# ---------------------------------------------------------------------------
+#
+# K5 runs the plain version's operations in its order, so on the card the
+# two give the same bits. The check still holds them as two float32
+# evaluations of one function, with the tolerances of
+# tests/test_torch_immature.py::test_activate:
+#   * a dead lane (not valid, or no host) bitwise, in all five outputs;
+#   * a live lane's to_opt, remove, ok and n_good exactly, its idepth
+#     within ACT_RTOL relative (ACT_ATOL absolute);
+#   * a lane may differ beyond that only where the plain version's own
+#     numbers tie (`activate_ties`): within TRACE_TIE_ULPS float32 ulps of
+#     one of the function's exact decisions (the gate's rounding to a pixel
+#     and its distance test, an outlier state, the LM's accept test and its
+#     convergence test, the final Hdd >= min_idepth_h_act). Such a lane is
+#     a flip: it is reported by index, and the flips are held to
+#     ACT_TIE_SHARE of the live lanes (the trace's share, which
+#     tests/test_torch_activate_kernel.py::
+#     test_tie_share_covers_the_plain_spread holds against the plain
+#     version's own spread under another order of its sums).
+
+ACT_RTOL = 1e-4
+ACT_ATOL = 1e-6
+ACT_TIE_SHARE = 0.01
+# the relative margin of the LM's accept test within which the JAX package
+# (whose XLA contracts the projections' multiply-adds) may decide the other
+# way (activate_ties's `jax`): its per-target energies differ from the
+# port's by up to 4e-3 relative on the bench scene's arena (2e-4 at the
+# 99th percentile), the lanes whose idepth parts by more than ACT_RTOL
+# have an accept test within 2e-4 of it, and the sums over the targets
+# average the per-target differences
+ACT_JAX_RTOL = 1e-3
+ACT_EXACT = ("to_opt", "remove", "ok", "n_good")
+
+
+def plain_activate(inputs, calib):
+    """The plain version's activation of `inputs` (activate_inputs's
+    tuple) and its intermediate values (parts)."""
+    from ldso_tpu_torch.frontend import immature
+    parts = {}
+    out = immature.activate_arena_ref(*inputs[:13], calib, inputs[13], parts)
+    return out, parts
+
+
+def activate_ties(parts, cfg, jax: bool = False) -> torch.Tensor:
+    """(N,) bool: the live lanes where the plain version's own numbers tie,
+    so that another float32 evaluation may take the other branch. With
+    `jax`, for the JAX package's evaluation too: an accept test within
+    ACT_JAX_RTOL of its threshold is then a tie as well."""
+    reached, gate = parts["reached"], parts["gate"]
+    tie = torch.zeros_like(reached)
+    for x in parts["pixel"]:
+        tie |= reached & _near(x, torch.round(x))
+    tie |= gate & _near(parts["dist"], parts["dist_th"])
+    to_opt = parts["to_opt"]
+    for energy, lim, m in parts.get("outlier", ()):
+        tie |= to_opt & m & _near(energy, lim)
+    for it in parts.get("lm", ()):
+        conv = torch.abs(it["step"])
+        th = 1e-4 * torch.abs(it["idepth"])
+        tie |= to_opt & it["upd"] & (_near(it["e2"], it["e"])
+                                     | _near(conv, th))
+        if jax:
+            scale = torch.maximum(torch.abs(it["e2"]), torch.abs(it["e"]))
+            tie |= to_opt & it["upd"] & (torch.abs(it["e2"] - it["e"])
+                                         <= ACT_JAX_RTOL * scale)
+    tie |= to_opt & _near(parts["Hc"], torch.full_like(
+        parts["Hc"], cfg.min_idepth_h_act))
+    return tie & parts["live"]
+
+
+def activate_err(plain, got, parts, cfg, share: float = ACT_TIE_SHARE):
+    """K5's outputs `got` (to_opt, remove, idepth, ok, n_good) against the
+    plain version's `plain` (and its `parts`, plain_activate's) on the same
+    inputs. Returns a report: lanes, live and optimised lanes, the plain
+    version's tie lanes, `flips` (lanes that differ, all at ties), `faults`
+    ({what: lanes} that differ outside a tie, or a dead lane written),
+    `max_err` (the largest |got - plain| idepth over the optimised lanes,
+    NaNs and infinities aside) and `ok`."""
+    live = parts["live"]
+    dead = ~live
+    ties = activate_ties(parts, cfg)
+    names = ("to_opt", "remove", "idepth", "ok", "n_good")
+    faults, max_err = {}, 0.0
+    differ = torch.zeros_like(live)
+    for name, g, w in zip(names, got, plain):
+        if name == "idepth":
+            d = _differs(g, w, ACT_RTOL, ACT_ATOL)
+            fin = parts["to_opt"] & torch.isfinite(g) & torch.isfinite(w)
+            if bool(fin.any()):
+                max_err = max(max_err, float(torch.abs(g - w)[fin].max()))
+            same = g.view(torch.int32) == w.view(torch.int32)
+        else:
+            d = g != w
+            same = ~d
+        bad = dead & ~same
+        if bool(bad.any()):
+            faults[f"{name} of a dead lane"] = _idx(bad)
+        d = d & live
+        differ |= d
+        if bool((d & ~ties).any()):
+            faults[name] = _idx(d & ~ties)
+    flips = _idx(differ & ties)
+    n_live = int(live.sum())
+    return dict(lanes=int(live.numel()), live=n_live,
+                optimised=int(parts["to_opt"].sum()), ties=int(ties.sum()),
+                flips=flips, faults=faults, max_err=max_err,
+                ok=not faults and len(flips) <= share * max(n_live, 1))
+
+
+# the bench frames of the window's slots: slots 0-2 host the arena's
+# candidates (trace_scene's TRACE_HOSTS), the newest slot is nf - 1
+ACT_WINDOW = (0, 2, 4, 6, 8, 1, 3, 5)
+ACT_FRAMES = (2, 4, 8)               # the windows of activate_cases
+ACT_OCCUPIED = 0.02                  # the share of occupied level-1 cells
+# planted lanes of the `planted` case, by lane % 19
+ACT_PLANTS = {1: "border", 2: "NaN pixels", 3: "Hdd under the gate",
+              4: "converges at the first step", 5: "energy at the limit",
+              6: "host == newest", 7: "host out of range", 8: "outlier",
+              9: "uninitialised", 10: "no idepth_max", 11: "wide interval"}
+
+
+def activate_scene(w: int, h: int, device, n_lanes: int = TRACE_LANES,
+                   seed: int = 15) -> dict:
+    """The bench scene at w x h with an activation arena: trace_scene's
+    n_lanes candidates (hosted by window slots 0-2) after one trace against
+    bench frame 6, so their intervals and statuses are a trace's; the
+    level-0 images of the bench frames ACT_WINDOW; a random occupancy of
+    ACT_OCCUPIED of the level-1 cells and its distance map (K1 on the
+    card, its plain version on the CPU)."""
+    import numpy as np
+    from ldso_tpu_torch.examples import time_modes
+    from ldso_tpu_torch.frontend import immature
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.ops.preprocess import make_pyramid, upload_image
+    scene = trace_scene(w, h, device, n_lanes)
+    calib, cfg = scene["calib"], scene["cfg"]
+    arena = immature.trace_arena_ref(scene["arena"], scene["pyrs"][6].dI[0],
+                                     *trace_inputs(scene, 6), calib, cfg)
+    _, _, images = time_modes.bench_frames(max(ACT_WINDOW) + 1, w, h, device)
+    dI = {k: make_pyramid(upload_image(images[k], device),
+                          calib.levels).dI[0] for k in ACT_WINDOW}
+    rng = np.random.RandomState(seed)
+    w1, h1 = calib.w[1], calib.h[1]
+    occ = torch.from_numpy(rng.rand(h1, w1) < ACT_OCCUPIED).to(device)
+    dist_map = cuda_kernels.distance_transform(occ, cfg.dist_map_steps)
+    return dict(calib=calib, cfg=cfg, poses=scene["poses"], arena=arena,
+                dI=dI, dist_map=dist_map)
+
+
+def activate_inputs(scene: dict, nf: int, arena=None, dIs=None,
+                    marg=(), min_act_dist: float = 2.0):
+    """The activation's inputs with a window of nf frames (ACT_WINDOW's
+    first nf) in TRACE_SLOTS slots, the tables formed in float64 on the
+    host as FullSystem._activate_points forms them: (arena, dist_map,
+    KRKis, Kts, Rs, ts, affs, masks, dIs, min_act_dist, marg_flags,
+    newest, nf, cfg). `marg` lists flagged slots; slots past nf are
+    flagged too."""
+    import numpy as np
+    calib, poses = scene["calib"], scene["poses"]
+    dev = scene["dist_map"].device
+    F = TRACE_SLOTS
+    T = [poses[k] for k in ACT_WINDOW[:nf]]
+    newest = nf - 1
+    K1, Ki0 = calib.K(1), calib.Ki(0)
+    KRKis = np.tile(np.eye(3), (F, 1, 1))
+    Kts = np.zeros((F, 3))
+    Rs = np.tile(np.eye(3), (F, F, 1, 1))
+    ts = np.zeros((F, F, 3))
+    affs = np.tile([1.0, 0.0], (F, F, 1))
+    masks = np.zeros((F, F), bool)
+    for i in range(nf):
+        T_rel = T[newest] @ np.linalg.inv(T[i])
+        KRKis[i] = K1 @ T_rel[:3, :3] @ Ki0
+        Kts[i] = K1 @ T_rel[:3, 3]
+        for j in range(nf):
+            if j != i:
+                T_ht = T[j] @ np.linalg.inv(T[i])
+                Rs[i, j], ts[i, j] = T_ht[:3, :3], T_ht[:3, 3]
+                masks[i, j] = True
+    marg_flags = np.arange(F) >= nf
+    marg_flags[list(marg)] = True
+    if dIs is None:
+        dIs = torch.stack([scene["dI"][ACT_WINDOW[k]] for k in range(F)])
+    f32 = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.float32), device=dev)
+    return (scene["arena"] if arena is None else arena, scene["dist_map"],
+            f32(KRKis), f32(Kts), f32(Rs), f32(ts), f32(affs),
+            torch.as_tensor(masks, device=dev), dIs.contiguous(),
+            f32([min_act_dist]).reshape(()),
+            torch.as_tensor(marg_flags, device=dev), newest, nf,
+            scene["cfg"])
+
+
+def _plant_activation(scene: dict, inputs):
+    """The window of 8 frames with ACT_PLANTS's lanes, dead lanes between
+    live ones (not valid, or no host), two (host, target) pairs masked,
+    slot 1 flagged for marginalization and NaN pixels in two targets (all
+    three channels on 8 rows of slot 3, the intensity alone on 3 columns
+    of slot 4)."""
+    import numpy as np
+    from ldso_tpu_torch.frontend import immature
+    calib = scene["calib"]
+    arena = inputs[0]
+    _, parts = plain_activate(inputs, calib)
+    W, H = calib.w[0], calib.h[0]
+    p = arena.pool
+    dev = p.u.device
+    lane = torch.arange(p.u.shape[0], device=dev)
+    at = {k: (lane % 19) == k for k in ACT_PLANTS}
+    edge = torch.tensor([2.0, 3.0, 4.0, W - 5.0, W - 4.0, W - 3.0],
+                        device=dev)
+    u = torch.where(at[1], edge[lane % edge.numel()], p.u)
+    v = torch.where(at[1] & (lane % 2 == 0), edge[lane % edge.numel()]
+                    * (H / W), p.v)
+    weights = torch.where(at[3][:, None], p.weights * 0.05, p.weights)
+    weights = torch.where(at[4][:, None], torch.zeros_like(weights), weights)
+    # the energy of the lane's first evaluation at slack 1 against its
+    # first live target: that evaluation's outlier test meets its limit
+    F = TRACE_SLOTS
+    e_first = torch.full_like(p.energy_th, float("nan"))
+    for energy, _, m in reversed(parts["outlier"][F:2 * F]):
+        e_first = torch.where(m, energy, e_first)
+    energy_th = torch.where(at[5] & torch.isfinite(e_first), e_first,
+                            p.energy_th)
+    status = torch.where(at[8], immature.IPS_OUTLIER, p.status)
+    status = torch.where(at[9], immature.IPS_UNINITIALIZED, status)
+    idmax = torch.where(at[10], torch.full_like(p.idepth_max, float("inf")),
+                        p.idepth_max)
+    last_int = torch.where(at[11], torch.full_like(p.last_interval, 9.0),
+                           p.last_interval)
+    newest = inputs[11]
+    host = torch.where(at[6], torch.full_like(arena.host, newest),
+                       arena.host)
+    host = torch.where(at[7], torch.full_like(host, F + 2), host)
+    host = torch.where(lane % 11 == 0, torch.full_like(host, -1), host)
+    valid = p.valid & (lane % 13 != 0)
+    pool = p._replace(u=u, v=v, weights=weights, energy_th=energy_th,
+                      status=status.to(torch.int32), idepth_max=idmax,
+                      last_interval=last_int, valid=valid)
+    pool = pool._replace(**{f: getattr(pool, f).contiguous()
+                            for f in pool._fields})
+    masks = inputs[7].clone()
+    masks[0, 3] = masks[1, 5] = False
+    marg = inputs[10].clone()
+    marg[1] = True
+    dIs = inputs[8].clone()
+    dIs[3, H // 2 - 4:H // 2 + 4] = float("nan")
+    dIs[4, :, W // 3:W // 3 + 3, 0] = float("nan")
+    planted = immature.ImmatureArena(pool=pool, host=host.contiguous())
+    return (planted, *inputs[1:7], masks, dIs, inputs[9], marg,
+            *inputs[11:])
+
+
+def activate_cases(scene: dict):
+    """{name: activate_inputs's tuple}: windows of ACT_FRAMES frames on the
+    scene's arena, slot 2 flagged for marginalization in the window of 4,
+    then the planted lanes (`_plant_activation`) in the window of 8."""
+    cases = {}
+    for nf in ACT_FRAMES:
+        cases[f"window {nf}"] = activate_inputs(
+            scene, nf, marg=(2,) if nf == 4 else ())
+    cases["planted"] = _plant_activation(scene, cases[f"window {TRACE_SLOTS}"])
+    return cases
