@@ -75,7 +75,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      set_sync_debug_mode("error") behind 50 ms of sleep (one K1 and one K5
      launch, nothing read back, bitwise a run without the sleep); then,
      right after phase 3, every activation phase 3 ran again through the
-     plain version from its recorded inputs, held the same way;
+     plain version from its recorded inputs, held the same way. K6 (the
+     windowed BA's linearization, csrc/ba_linearize.cu) and K7 (its
+     accumulation, csrc/ba_accumulate.cu) against their plain versions
+     (backend/ba.linearize_ref, _accumulate_top_ref, _sc_sums_ref) at the
+     main path's shape (2,048 points, 8 frames in 8 slots, 640x480,
+     tests/torch_kernel_checks.ba_scene): K6 on the window, its newest
+     column, the planted window (points off the image, outliers, sticky
+     OOB, masked, linearized and missing residuals, one tap on the Huber
+     threshold, a NaN patch) whole and by column and with the affine
+     parameters off, every field and the energy sum bitwise (lin_err);
+     K7's top part in modes 0-2 and its Schur part with and without the
+     shifted prior on the scene's and the planted window, within acc_err
+     (1e-4 of each entry's magnitude sum, NaN where the plain version's
+     is); 20 launches of each bitwise; both under vmap over two windows,
+     one launch each; their times (K7's per call, the mean of
+     build_system's three) beside their bounds; then, right after phase
+     3, every BA call and point marginalization of phase 3 again, eagerly,
+     with each K6 and K7 call held to its plain version (phase_ba_frame);
   3. the pure-VO path: the synchronous monocular VO FullSystem at 640x480
      with the production Config and loop closing off on 64 synthetic uint8
      frames of the bench trajectory, on the package's default device (the
@@ -106,7 +123,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
          ms of sleep, its device ms (queued replays) beside phase 3's wall
          ms per call, the aten operations of an eager call, the live trips
          of every call, K12 against its plain version and its emulation on
-         every call, and K12's device time as a share of a call's;
+         every call, and K12's device time as a share of a call's; a
+         replay's launches: K6 trips + 2, K7 3 x trips, K12 once;
+     3e. the point marginalization (energy_functional.replay_marg, one
+         CUDA graph per call, one packed pull): every keyframe's was one
+         replay and one HostCopy; on phase 3's last recorded inputs the
+         replay bitwise the eager program, one K6 and two K7 launches per
+         replay, the replay and its pull under set_sync_debug_mode
+         ("error") behind 50 ms of sleep (queued inside it, the copy not
+         ready, its result bitwise the eager one), its device ms;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
@@ -154,9 +179,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      7e. phase 3's last 8 BA inputs in one vmapped CUDA graph against 8
          single replays (within BA_ORDER_FACTOR times the spread of a
          single replay with its points reversed, tests/
-         torch_kernel_checks.ba_batch_err), K12 once for the 8, and the
-         device ms of the batch and of the singles; K12 alone on the 8
-         windows, one launch against 8 single ones.
+         torch_kernel_checks.ba_batch_err), K12 once, K6 trips + 2 and
+         K7 3 x trips times for the 8, and the device ms of the batch and
+         of the singles; K12 alone on the 8 windows, one launch against 8
+         single ones.
 Every run of the device LM (3, 4b, 5, 7b) holds K12's launches to its BA
 graph replays, with no graph captured inside the run; K12's record gives
 phase 3's count and each path's.
@@ -171,7 +197,11 @@ the arena (FullSystem._trace_arena's calls, and the bench's util trace
 calls): no trace went through the plain version; and that K5 launched
 once for each post-bootstrap keyframe (the bench: once for each
 activation pass, util's timed ones among them), printed per path in a
-`k5_by_path` line.
+`k5_by_path` line; and that K6 and K7 launched on the path, no call of
+their plain versions ran on the card, every point marginalization was one
+graph replay, and with the device LM every K6 and K7 launch was one of
+the BA's or the marginalization's graphs (`k6_by_path`, `k7_by_path`
+lines; the bench per leg).
   8. the port's benchmark (ldso_tpu_torch/examples/bench.py, bench.py's
      legs) in this process at its defaults: no error; three windows in
      each of lookahead, strict, async and the two aggregate legs; value
@@ -181,7 +211,7 @@ activation pass, util's timed ones among them), printed per path in a
      counted through graph replays; its JSON line and its wall time.
 One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
 captured tracker's numbers, the bench's JSON line, then a JSON record of
-the kernels (K1, K3, K12, K4, K5), then the last line {"ok": true, "device":
+the kernels (K1, K3, K12, K4, K5, K6, K7), then the last line {"ok": true, "device":
 {...}}.
 """
 
@@ -951,7 +981,9 @@ def phase_main_path(n_frames: int = N_FRAMES):
     launches = dict(distance_transform=strict["k1_launches"],
                     tracker_trip=strict["k3_launches"],
                     trace=strict["k4_launches"],
-                    activate=strict["k5_launches"])
+                    activate=strict["k5_launches"],
+                    ba_linearize=strict["k6_launches"],
+                    ba_accumulate=strict["k7_launches"])
     tracked = sum(1 for f in fs.all_frames if f.pose_valid)
     peak = torch.cuda.max_memory_allocated()
     print(f"main path: {n_frames} frames 640x480 uint8, "
@@ -966,7 +998,10 @@ def phase_main_path(n_frames: int = N_FRAMES):
           f"and {strict['rank_calls']} rankings, K4 launches "
           f"{strict['k4_launches']} for {strict['traces']} traces of the "
           f"arena, K5 launches {strict['k5_launches']} for "
-          f"{strict['activations']} activations", flush=True)
+          f"{strict['activations']} activations, K6 and K7 launches "
+          f"{strict['k6_launches']} and {strict['k7_launches']} (all in "
+          f"{strict['ba_replays']} BA and {strict['marg_replays']} "
+          f"marginalization graph replays)", flush=True)
     if strict["keyframes"] < 8:
         _fail(f"only {strict['keyframes']} keyframes (need >= 8)")
     if not strict["ate_mm"] < ATE_BOUND_M * 1e3:
@@ -978,17 +1013,18 @@ def phase_main_path(n_frames: int = N_FRAMES):
     _k3_run_check(strict)
     _k4_run_check(strict)
     _k5_run_check(strict)
+    _k67_run_check(strict)
     return launches, calib, images, poses, strict, fs, tracks
 
 
 def _same(a, b) -> bool:
-    """Bitwise equality of two bool or 32-bit tensors, NaN payloads
-    included."""
+    """Bitwise equality of two bool, 32-bit or 64-bit tensors (0-d ones
+    too), NaN payloads included."""
     import torch
     if a.dtype == torch.bool:
         return bool(torch.equal(a, b))
-    return a.dtype == b.dtype and bool(torch.equal(a.view(torch.int32),
-                                                   b.view(torch.int32)))
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(
+        a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32)))
 
 
 def _track_inputs(fs, images, k: int):
@@ -1351,6 +1387,7 @@ def phase_boxes(n_frames: int = BOX_FRAMES):
     _k3_run_check(run)
     _k4_run_check(run)
     _k5_run_check(run)
+    _k67_run_check(run)
     if not run["ate_kf_mm"] < ATE_BOUND_M * 1e3:
         _fail(f"boxes: keyframe ATE {run['ate_kf_mm']:.4f} mm >= "
               f"{ATE_BOUND_M * 1e3} mm")
@@ -1361,14 +1398,15 @@ def phase_boxes(n_frames: int = BOX_FRAMES):
 
 
 def _no_capture_inside(run: dict) -> None:
-    """The tracker's and the device LM's graphs are captured when the
-    FullSystem is built, never inside a timed run; with the device LM, each
+    """The tracker's, the device LM's and the point marginalization's
+    graphs are captured when the FullSystem is built, never inside a timed
+    run; with the device LM, each
     BA call of the run is one replay with one K12 launch."""
     what = run.get("phase", run["mode"])
-    if run["graph_captures"] or run["ba_captures"]:
-        _fail(f"{what}: {run['graph_captures']} tracker graphs and "
-              f"{run['ba_captures']} BA graphs were captured inside the "
-              f"timed run")
+    if run["graph_captures"] or run["ba_captures"] or run["marg_captures"]:
+        _fail(f"{what}: {run['graph_captures']} tracker graphs, "
+              f"{run['ba_captures']} BA graphs and {run['marg_captures']} "
+              f"marginalization graphs were captured inside the timed run")
     if run["k12_launches"] != run["ba_replays"]:
         _fail(f"{what}: K12 launched {run['k12_launches']} times for "
               f"{run['ba_replays']} BA graph replays")
@@ -1381,7 +1419,8 @@ def _mode_line(run: dict) -> str:
             "k3_launches", "tracks", "rank_calls", "k4_launches", "traces",
             "k5_launches", "activations", "post_bootstrap_keyframes",
             "retrack_trips", "lm_frames",
-            "graph_captures", "ba_replays", "k12_launches", "gpu")
+            "graph_captures", "ba_replays", "k12_launches", "k6_launches",
+            "k7_launches", "marg_replays", "gpu")
     return json.dumps({k: run[k] for k in keys})
 
 
@@ -1415,6 +1454,7 @@ def phase_pipelines(calib, images, poses, strict: dict, device="cuda"):
             _k3_run_check(run)
             _k4_run_check(run)
             _k5_run_check(run)
+            _k67_run_check(run)
         runs.append(run)
         poses_of.append([f.T_cw.tobytes() for f in fs.all_frames])
     look1, look2, asyn, paced = runs
@@ -1503,13 +1543,17 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                 time_modes.counted_tracks() as tracks, \
                 time_modes.counted_traces() as traces:
             cuda_kernels.reset_launch_counts()
-            fs = run_common.run(run_common.parse_args(argv), "kitti",
-                                kitti_output=True, device=device)
+            with k67_counted() as k67:
+                fs = run_common.run(run_common.parse_args(argv), "kitti",
+                                    kitti_output=True, device=device)
             launches = cuda_kernels.LAUNCHES["distance_transform"]
             k3 = cuda_kernels.LAUNCHES["tracker_trip"]
             k12 = cuda_kernels.LAUNCHES["ba_projector"]
             k4 = cuda_kernels.LAUNCHES["trace"]
             k5 = cuda_kernels.LAUNCHES["activate"]
+            k67.update(k6_launches=cuda_kernels.LAUNCHES["ba_linearize"],
+                       k7_launches=cuda_kernels.LAUNCHES["ba_accumulate"],
+                       phase=f"cli {pmode}")
         wall = time.time() - t0
         if fs.device.type != device:
             _fail(f"cli {pmode}: ran on {fs.device}, not {device}")
@@ -1550,6 +1594,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                 tracks, fs.cfg, fs.calib.levels))
             _k4_check(f"cli {pmode}", k4, traces["traces"])
             _k5_check(f"cli {pmode}", k5, post_boot)
+            _k67_run_check(k67, built=1)
             if not launches == post_boot > 0:
                 _fail(f"cli {pmode}: K1 launched {launches} times for "
                       f"{post_boot} post-bootstrap keyframes")
@@ -1564,6 +1609,8 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         out_launches[f"k12_{pmode}"] = k12
         out_launches[f"k4_{pmode}"] = k4
         out_launches[f"k5_{pmode}"] = k5
+        out_launches[f"k6_{pmode}"] = k67["k6_launches"]
+        out_launches[f"k7_{pmode}"] = k67["k7_launches"]
         if fs.viewer is not None:
             check_viewer(fs.viewer, len(rows), (calib.h[0], calib.w[0]))
     return out_launches
@@ -1700,15 +1747,16 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     with time_modes.counted_tracks() as tracks, \
             time_modes.counted_traces() as traces:
         cuda_kernels.reset_launch_counts()
-        for i, img in enumerate(images):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fs.add_active_frame(img, i, 1.0, i * 0.05)
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t) * 1e3)
-            if fs.is_lost or fs.init_failed:
-                _fail(f"loop slice: lost={fs.is_lost} "
-                      f"init_failed={fs.init_failed} at frame {i}")
+        with k67_counted() as k67:
+            for i, img in enumerate(images):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fs.add_active_frame(img, i, 1.0, i * 0.05)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t) * 1e3)
+                if fs.is_lost or fs.init_failed:
+                    _fail(f"loop slice: lost={fs.is_lost} "
+                          f"init_failed={fs.init_failed} at frame {i}")
         launches = dict(cuda_kernels.LAUNCHES)
     _k3_check("4 loop slice", launches["tracker_trip"],
               time_modes.k3_expected(tracks, cfg, calib.levels))
@@ -1777,6 +1825,9 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
         _fail(f"loop slice: K1 launched {launches['distance_transform']} "
               f"times for {post_boot} post-bootstrap keyframes")
     _k5_check("4 loop slice", launches["activate"], post_boot)
+    k67.update(k6_launches=launches["ba_linearize"],
+               k7_launches=launches["ba_accumulate"], phase="4 loop slice")
+    _k67_run_check(k67)
     return launches, post_boot, fs.global_map
 
 
@@ -2462,6 +2513,536 @@ def _k5_run_check(run: dict) -> None:
     _k5_check(what, run["k5_launches"], run["post_bootstrap_keyframes"])
 
 
+# ---------------------------------------------------------------------------
+# K6 and K7: the windowed BA's linearization and accumulation
+# (csrc/ba_linearize.cu, csrc/ba_accumulate.cu)
+# ---------------------------------------------------------------------------
+
+# float operations of K6's function per linearized residual, counted from
+# csrc/ba_linearize.cu: the centre projection and its Jacobians (~90), and
+# per tap its projection, bilinear sample of 3 channels and weights (~70)
+LIN_OPS = dict(residual=90, tap=70)
+# bytes per residual K6 must move: a linearized one reads its state
+# (res_exist, res_linearized, res_state, res_energy: 10) and writes its 10
+# fields (67 floats and an int: 272); any other reads its 272 bytes of
+# fields and writes them; per point 85 bytes (u, v, colour, weights,
+# idepths, host, valid)
+LIN_BYTES = dict(state=10, fields=272, point=85)
+# K7's float operations per residual of its top part (8 taps of 13 rows,
+# 2 each, the 91 products of the upper triangle, 2 each) and its Schur part
+# (JpJdF's 8 entries from the 2x2 products, ~100), per point and (target,
+# target) pair of accD (64 products, 3 each) and per (target) of accE and
+# accEB (40 products, 3 each)
+ACC_OPS = dict(top_tap=2 * 13 + 2 * 91, sc_residual=100, accD=3 * 64,
+               accE=3 * 40)
+# bytes per residual K7's parts must read (every residual: its non-finite
+# terms count): top JIdx, Jpdc, Jpdxi, JabF, Jpdd, the residual column and
+# 3 mask bytes (262); Schur JIdx, JabF, Jpdxi, Jpdd and 2 mask bytes (186)
+ACC_BYTES = dict(top=262, sc=186)
+
+
+def _tap_words(fidx, x, y, H: int, W: int) -> int:
+    """The distinct 4-byte image words the bilinear taps at (x, y) of
+    frames fidx read (three channels at four corners), as
+    backend/ba._bilinear_frames clamps and floors them."""
+    import torch
+
+    def cell(v, hi):
+        v = torch.clamp(v, 0.0, hi)
+        return torch.nan_to_num(torch.floor(v)).long()
+    xi, yi = cell(x, W - 1.001), cell(y, H - 1.001)
+    base = (fidx * (H * W) + yi * W + xi).reshape(-1)
+    idx = torch.cat([base, base + 1, base + W, base + W + 1]) * 3
+    return int(torch.unique(torch.cat([idx, idx + 1, idx + 2])).numel())
+
+
+def lin_bound_ms(W, dIs, cfg, w: int, h: int, tgt=None):
+    """The least time for K6's function on these inputs: LIN_BYTES for the
+    lattice (the linearized residuals' state and fields, the others'
+    fields read and written), the points once, the precalc tables and the
+    window images' words this run's taps read (taken from the plain
+    version's own samples), against LIN_OPS on the same work. Returns (ms,
+    "bytes" or "operations")."""
+    import torch
+    from ldso_tpu_torch.backend import ba
+    seen = []
+    sample = ba._bilinear_frames
+
+    def recorded(d, fidx, x, y):
+        seen.append((fidx, x, y))
+        return sample(d, fidx, x, y)
+    ba._bilinear_frames = recorded
+    try:
+        _kernel_checks().plain_lin(W, dIs, cfg, w, h, tgt)
+    finally:
+        ba._bilinear_frames = sample
+    fidx, x, y = seen[0]
+    lin = ba._lin_mask(W)
+    if tgt is not None:
+        lin = lin & (torch.arange(W.F, device=lin.device) == tgt)
+    n_lin = int(lin.sum())
+    keep = lin if tgt is None else lin[:, int(tgt)]
+    fidx = torch.broadcast_to(fidx, x.shape)[keep]
+    words = _tap_words(fidx, x[keep], y[keep], dIs.shape[1], dIs.shape[2])
+    n_res = W.P * W.F
+    n_bytes = (n_lin * (LIN_BYTES["state"] + LIN_BYTES["fields"])
+               + (n_res - n_lin) * 2 * LIN_BYTES["fields"]
+               + W.P * LIN_BYTES["point"] + W.F * W.F * 104 + 4 * words)
+    ops = n_lin * (LIN_OPS["residual"] + 8 * LIN_OPS["tap"])
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def acc_bound_ms(part: str, W, args):
+    """The least time for K7's `part` on these inputs: ACC_BYTES per
+    residual of the lattice, the per-point inputs and outputs and the
+    blocks written once, against ACC_OPS on this data's work (the masked
+    residuals of the top part; the points with `has` of the Schur part).
+    Returns (ms, "bytes" or "operations")."""
+    from ldso_tpu_torch.backend import ba
+    P, F = W.P, W.F
+    n_res = P * F
+    if part == "top":
+        pc, mode, mask = args
+        n_inc = int(ba._mode_mask(W, mode, mask).sum())
+        n_bytes = (n_res * ACC_BYTES["top"] + P * 17 + P * 24
+                   + F * F * 169 * 4 + F * F * 32)
+        ops = n_inc * 8 * ACC_OPS["top_tap"]
+    else:
+        Hdd, bd, Hcd, shift, mask = args
+        act = W.res_active & W.res_exist & W.frame_valid[None, :] \
+            & mask[:, None]
+        n_has = int(((act.sum(1) > 0) & mask).sum())
+        n_bytes = (n_res * ACC_BYTES["sc"] + P * 41 + n_res * 32 + P * 32
+                   + F * F * 40 * 4 + F ** 3 * 64 * 4 + 80)
+        ops = (n_res * ACC_OPS["sc_residual"]
+               + n_has * (F * F * ACC_OPS["accD"] + F * ACC_OPS["accE"]))
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _lin_call(W, dIs, cfg, w, h, tgt):
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.ops import cuda_kernels
+    pc = ba.make_precalc(W)
+    return lambda: cuda_kernels.ba_linearize(W, dIs, pc, cfg, w, h, tgt)
+
+
+def _vmapped_one_launch(kc, scene, planted):
+    """K6 and K7 under torch.func.vmap over two windows (the scene's and
+    its planted one): one launch of each for the two, each member bitwise
+    its single launch on the same inputs. Returns the launches."""
+    import torch
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.backend.window import Window
+    from ldso_tpu_torch.ops import cuda_kernels as ck
+    Ws = [scene["W"], planted[0]]
+    ds = [scene["dIs"], planted[1]]
+    cfg, w, h = scene["cfg"], scene["w"], scene["h"]
+    pcs = [ba.make_precalc(W) for W in Ws]
+    stack = lambda xs: type(xs[0])(*(torch.stack(t) for t in zip(*xs)))  # noqa: E731
+    Wst, dst, pcst = stack(Ws), torch.stack(ds), stack(pcs)
+    ck.reset_launch_counts()
+    got = torch.func.vmap(lambda W, d, pc: ck.ba_linearize(
+        W, d, pc, cfg, w, h))(Wst, dst, pcst)
+    lin_launches = ck.LAUNCHES["ba_linearize"]
+    for i in range(2):
+        one = ck.ba_linearize(Ws[i], ds[i], pcs[i], cfg, w, h)
+        rep = kc.lin_err(({k: v[i] for k, v in got[0].items()}, got[1][i]),
+                         one)
+        if not rep["ok"]:
+            _fail(f"K6 under vmap: member {i} differs from its single "
+                  f"launch: {rep['not_bitwise']}")
+    Wl = [scene["W_lin"], kc.linearized(*planted[:3], w, h)]
+    Wlst = stack(Wl)
+    pcl = [ba.make_precalc(W) for W in Wl]
+    ck.reset_launch_counts()
+    top = torch.func.vmap(lambda W, pc: ck.ba_accumulate_top(
+        W, pc, 1, W.pt_valid))(Wlst, stack(pcl))
+    sc = torch.func.vmap(lambda W, a, b, c: ck.ba_accumulate_sc(
+        W, a, b, c, True, W.pt_valid))(Wlst, top[1], top[2], top[3])
+    acc_launches = ck.LAUNCHES["ba_accumulate"]
+    for i in range(2):
+        one = ck.ba_accumulate_top(Wl[i], pcl[i], 1, Wl[i].pt_valid)
+        one_sc = ck.ba_accumulate_sc(Wl[i], top[1][i], top[2][i], top[3][i],
+                                     True, Wl[i].pt_valid)
+        if not (all(_same(a[i], b) for a, b in zip(top, one))
+                and all(_same(sc[k][i], one_sc[k]) for k in one_sc)):
+            _fail(f"K7 under vmap: member {i} differs from its single "
+                  f"launches")
+    if (lin_launches, acc_launches) != (1, 2):
+        _fail(f"K6/K7 under vmap over 2 windows: {lin_launches} K6 and "
+              f"{acc_launches} K7 launches (want 1 and 2)")
+    return lin_launches, acc_launches
+
+
+def phase_ba_kernels():
+    """K6 (csrc/ba_linearize.cu) and K7 (csrc/ba_accumulate.cu) against
+    their plain versions on the card, at the main path's shape (8 frames in
+    8 slots, 2,048 points hosted by every frame, 640x480;
+    torch_kernel_checks.ba_scene): K6 on the window, its newest column, the
+    planted window (BA_PLANTS and a NaN patch, the Huber threshold on one
+    tap), its column and with both affine parameters off, every field and
+    the energy sum bitwise (lin_err); K7's top part in modes 0, 1 and 2 and
+    its Schur part with and without the shifted prior, on the scene's
+    linearized window and on the planted one, held by acc_err; 20 launches
+    of each bitwise; both under vmap over two windows, one launch each.
+    Returns the two kernel records with their times (`ms`, `plain_ms`
+    single calls, `device_ms` 20 launches in one CUDA graph; K7's the mean
+    over build_system's three calls) and bounds."""
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kernel_checks()
+    t0 = time.perf_counter()
+    scene = kc.ba_scene(kc.BA_SLOTS, kc.BA_SLOTS, kc.BA_POINTS, 640, 480,
+                        seed=3, device="cuda")
+    w, h = scene["w"], scene["h"]
+    cases = kc.lin_cases(scene)
+    launches = cuda_kernels.LAUNCHES["ba_linearize"]
+    lin_bad = {}
+    for name, (W, dIs, cfg, tgt) in cases.items():
+        rep = kc.lin_err(_lin_call(W, dIs, cfg, w, h, tgt)(),
+                         kc.plain_lin(W, dIs, cfg, w, h, tgt))
+        if not rep["ok"]:
+            _fail(f"K6 {name}: not bitwise its plain version: "
+                  f"{rep['not_bitwise']}, energy bitwise "
+                  f"{rep['energy_bitwise']}, max|err| {rep['max_abs_err']}")
+        lin_bad[name] = rep["max_abs_err"]
+    if cuda_kernels.LAUNCHES["ba_linearize"] != launches + len(cases):
+        _fail("K6: not one launch per case")
+    W, dIs, cfg, tgt = cases["planted"]
+    kernel = _lin_call(W, dIs, cfg, w, h, tgt)
+    first = kernel()
+    for rep in range(1, DET_REPEATS):
+        if not kc.lin_err(kernel(), first)["ok"]:
+            _fail(f"K6: launch {rep} differs from launch 0")
+    W, dIs, cfg, _ = cases["window"]
+    kernel = _lin_call(W, dIs, cfg, w, h, None)
+    lin = dict(name="ba_linearize", route="cuda",
+               source="ldso_tpu_torch/csrc/ba_linearize.cu",
+               replaces="ldso_tpu/backend/ba.py:148",
+               max_abs_err=max(lin_bad.values()), cases=len(cases),
+               ms=_median_event_ms(kernel),
+               device_ms=_graph_device_ms(kernel),
+               plain_ms=_median_event_ms(
+                   lambda: kc.plain_lin(W, dIs, cfg, w, h), reps=10,
+                   warmup=2),
+               library_ms=None, residuals=W.P * W.F,
+               linearized=int(ba._lin_mask(W).sum()))
+    lin["bound_ms"], lin["bound_by"] = lin_bound_ms(W, dIs, cfg, w, h)
+    column = _lin_call(W, dIs, cfg, w, h, kc.BA_SLOTS - 1)
+    lin["column_device_ms"] = _graph_device_ms(column)
+
+    planted = cases["planted"]
+    windows = {"scene": scene["W_lin"],
+               "planted": kc.linearized(*planted[:3], w, h)}
+    worst, acc_faults, n_acc, acc_abs = {}, [], 0, 0.0
+    for tag, Wl in windows.items():
+        for name, (part, args) in kc.acc_cases(Wl).items():
+            rep = kc.acc_err(kc.kernel_acc(part, Wl, args),
+                             kc.plain_acc(part, Wl, args),
+                             kc.acc_scale(part, Wl, args))
+            n_acc += 1
+            acc_abs = max(acc_abs, rep["max_abs_err"])
+            if not rep["ok"]:
+                acc_faults.append(f"{tag} {name}: {rep['faults']}")
+            for k, v in rep["worst"].items():
+                worst[k] = max(worst.get(k, 0.0), v)
+    if acc_faults:
+        _fail(f"K7: {acc_faults}")
+    Wl = windows["scene"]
+    acc_cases = kc.acc_cases(Wl)
+    run = lambda c: lambda: kc.kernel_acc(c[0], Wl, c[1])  # noqa: E731
+    first = run(acc_cases["sc build"])()
+    for rep in range(1, DET_REPEATS):
+        if not all(_same(a, first[k]) for k, a in
+                   run(acc_cases["sc build"])().items()):
+            _fail(f"K7: launch {rep} differs from launch 0")
+    parts = {}
+    for name in ("top mode 0", "top mode 1", "sc build"):
+        part, args = acc_cases[name]
+        t = dict(ms=_median_event_ms(run(acc_cases[name])),
+                 device_ms=_graph_device_ms(run(acc_cases[name])),
+                 plain_ms=_median_event_ms(
+                     lambda p=part, a=args: kc.plain_acc(p, Wl, a), reps=10,
+                     warmup=2))
+        t["bound_ms"], t["bound_by"] = acc_bound_ms(part, Wl, args)
+        parts[name] = t
+    mean = lambda k: float(np.mean([t[k] for t in parts.values()]))  # noqa: E731
+    by = [t["bound_by"] for t in parts.values()]
+    acc = dict(name="ba_accumulate", route="cuda",
+               source="ldso_tpu_torch/csrc/ba_accumulate.cu",
+               replaces="ldso_tpu/backend/ba.py:519",
+               max_abs_err=acc_abs, tol_share=max(worst.values()),
+               cases=n_acc,
+               ms=mean("ms"), device_ms=mean("device_ms"),
+               plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+               bound_by=max(set(by), key=by.count), library_ms=None,
+               parts=parts, worst_share=worst)
+    lin_v, acc_v = _vmapped_one_launch(kc, scene, planted)
+    report = cuda_kernels.ptxas_report("ba_linearize.cu")
+    lin["ptxas"] = ptxas_facts(report, "linearize_kernel")
+    report = cuda_kernels.ptxas_report("ba_accumulate.cu")
+    acc["ptxas"] = {k: ptxas_facts(report, k) for k in (
+        "top_points", "top_blocks", "sc_points", "sc_blocks")}
+    print(f"K6 ba_linearize: {len(cases)} cases at 640x480 ({kc.BA_POINTS} "
+          f"points, {kc.BA_SLOTS} slots, planted {sorted(kc.BA_PLANTS.values())}"
+          f" and a NaN patch), every field and the energy sum bitwise its "
+          f"plain version; {DET_REPEATS} launches bitwise; the window "
+          f"({lin['linearized']} of {lin['residuals']} residuals "
+          f"linearized): {lin['ms']:.4f} ms per single call, "
+          f"{lin['device_ms'] * 1e3:.2f} us of device time per launch (20 in "
+          f"a graph; the column mode {lin['column_device_ms'] * 1e3:.2f} us), "
+          f"plain {lin['plain_ms']:.3f} ms; bound "
+          f"{lin['bound_ms'] * 1e3:.3f} us set by {lin['bound_by']}, "
+          f"{100 * lin['bound_ms'] / lin['device_ms']:.2f}% of it reached; "
+          f"under vmap over 2 windows {lin_v} launch", flush=True)
+    print(f"K7 ba_accumulate: {n_acc} calls (top modes 0, 1, 2 and Schur "
+          f"with and without the prior, on the scene and the planted "
+          f"window) within acc_err, at most {acc['tol_share']:.4f} of the "
+          f"tolerance ({ {k: round(v, 4) for k, v in worst.items()} }); "
+          f"{DET_REPEATS} launches bitwise; per call of build_system's "
+          f"three: {acc['ms']:.4f} ms single, "
+          f"{acc['device_ms'] * 1e3:.2f} us of device time, plain "
+          f"{acc['plain_ms']:.3f} ms, bound {acc['bound_ms'] * 1e3:.3f} us "
+          f"({ {k: round(t['device_ms'] * 1e3, 2) for k, t in parts.items()} } "
+          f"us by part); under vmap over 2 windows {acc_v} launches; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return lin, acc
+
+
+@contextlib.contextmanager
+def held_to_plain(stats: dict):
+    """While inside, every K6 and K7 call on the card also runs its plain
+    version on the same inputs: K6 is held to it bitwise (lin_err), K7 by
+    acc_err; the kernel's result is what the caller gets. Counts and
+    faults go into `stats` (k6, k7, faults, worst)."""
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.ops import cuda_kernels as ck
+    kc = _kernel_checks()
+    lin, top, sc = ck.ba_linearize, ck.ba_accumulate_top, ck.ba_accumulate_sc
+    stats.update(k6=0, k7=0, faults=[], worst=0.0, max_abs_err=0.0)
+
+    def lin_held(W, dIs, pc, cfg, w, h, tgt=None):
+        got = lin(W, dIs, pc, cfg, w, h, tgt)
+        rep = kc.lin_err(got, ba.linearize_ref(W, dIs, pc, cfg, w, h, tgt))
+        stats["k6"] += 1
+        if not rep["ok"]:
+            stats["faults"].append(f"K6 call {stats['k6']}: "
+                                   f"{rep['not_bitwise']}")
+        return got
+
+    def acc_check(part, W, args, got):
+        want = kc.plain_acc(part, W, args)
+        rep = kc.acc_err(got, want, kc.acc_scale(part, W, args))
+        stats["k7"] += 1
+        stats["worst"] = max([stats["worst"]] + list(rep["worst"].values()))
+        stats["max_abs_err"] = max(stats["max_abs_err"], rep["max_abs_err"])
+        if not rep["ok"]:
+            stats["faults"].append(f"K7 {part} call {stats['k7']}: "
+                                   f"{rep['faults']}")
+
+    def top_held(W, pc, mode, mask):
+        got = top(W, pc, mode, mask)
+        acc_check("top", W, (pc, mode, mask), dict(zip(ck.TOP_OUTPUTS, got)))
+        return got
+
+    def sc_held(W, Hdd, bd, Hcd, shift, mask):
+        got = sc(W, Hdd, bd, Hcd, shift, mask)
+        acc_check("sc", W, (Hdd, bd, Hcd, shift, mask), got)
+        return got
+    ck.ba_linearize, ck.ba_accumulate_top = lin_held, top_held
+    ck.ba_accumulate_sc = sc_held
+    try:
+        yield stats
+    finally:
+        ck.ba_linearize, ck.ba_accumulate_top = lin, top
+        ck.ba_accumulate_sc = sc
+
+
+@contextlib.contextmanager
+def recorded_marg():
+    """Yields a list that gets the inputs of every point marginalization
+    through its graph inside (energy_functional.replay_marg; a
+    FullSystem's placeholder capture included): (W, marg_cand, drop, dIs,
+    min_idepth_h, fac, cfg, img_w, img_h). The system writes none of them
+    in place."""
+    from ldso_tpu_torch.backend import energy_functional as efm
+    seen = []
+    replay = efm.replay_marg
+
+    def recorded(*args):
+        seen.append(args)
+        return replay(*args)
+    efm.replay_marg = recorded
+    try:
+        yield seen
+    finally:
+        efm.replay_marg = replay
+
+
+def phase_ba_frame(ba_records, marg_records, lin_rec, acc_rec):
+    """Every device-LM call and every point marginalization of phase 3
+    again, eagerly from its recorded inputs, with each K6 and K7 call held
+    to its plain version on the same inputs (`held_to_plain`): K6 bitwise,
+    K7 within acc_err. Fills in the records."""
+    from ldso_tpu_torch.backend import ba_device, energy_functional as efm
+    calls = _ba_calls(ba_records)
+    margs = [r for r in marg_records if bool(r[0].frame_valid.any())]
+    t0 = time.perf_counter()
+    with held_to_plain({}) as stats:
+        for c in calls:
+            ba_device.optimize_device(*c)
+        n6, n7 = stats["k6"], stats["k7"]
+        for m in margs:
+            efm.marg_points_packed(*m)
+    if stats["faults"]:
+        _fail(f"phase 3's BA and marginalization calls against the plain "
+              f"versions: {stats['faults'][:6]}")
+    want6 = sum(c[-1] + 2 for c in calls) + len(margs)
+    want7 = sum(3 * c[-1] for c in calls) + 2 * len(margs)
+    if (stats["k6"], stats["k7"]) != (want6, want7):
+        _fail(f"phase 3's calls again: {stats['k6']} K6 and {stats['k7']} "
+              f"K7 calls, want {want6} and {want7}")
+    lin_rec.update(phase3_calls=stats["k6"], phase3_bitwise=True)
+    acc_rec.update(phase3_calls=stats["k7"],
+                   phase3_tol_share=stats["worst"])
+    acc_rec["tol_share"] = max(acc_rec["tol_share"], stats["worst"])
+    acc_rec["max_abs_err"] = max(acc_rec["max_abs_err"], stats["max_abs_err"])
+    print(f"K6/K7 on phase 3: its {len(calls)} BA calls ({n6} K6 and {n7} "
+          f"K7 calls) and {len(margs)} point marginalizations "
+          f"({stats['k6'] - n6} and {stats['k7'] - n7}) again, eagerly: every "
+          f"K6 call bitwise its plain version, every K7 call within acc_err "
+          f"(at most {stats['worst']:.4f} of the tolerance); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_marg_graph(marg_records, strict: dict):
+    """3e: the point marginalization as one graph replay
+    (energy_functional.replay_marg) on phase 3's last recorded inputs: the
+    replay bitwise the eager program (marg_points_packed), its launches
+    (1 K6, 2 K7) per replay, and the replay and its HostCopy under
+    torch.cuda.set_sync_debug_mode("error") behind 50 ms of queued sleep
+    (it returns inside the sleep, the copy not ready, its result bitwise
+    the eager one); phase 3 ran one replay and one pull per keyframe that
+    marginalized. Returns the numbers."""
+    import torch
+    from ldso_tpu_torch.backend import energy_functional as efm
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system.full_system import HostCopy
+    margs = [r for r in marg_records if bool(r[0].frame_valid.any())]
+    if not margs or strict["marg_replays"] != strict["marg_dispatches"] \
+            or strict["marg_replays"] < strict["post_bootstrap_keyframes"]:
+        _fail(f"3e: phase 3 ran {strict['marg_replays']} marginalization "
+              f"replays for {strict['marg_dispatches']} dispatches and "
+              f"{strict['post_bootstrap_keyframes']} post-bootstrap "
+              f"keyframes ({len(margs)} recorded)")
+    last = margs[-1]
+    want = efm.marg_points_packed(*last)
+    cuda_kernels.reset_launch_counts()
+    got = efm.replay_marg(*last)
+    per = (cuda_kernels.LAUNCHES["ba_linearize"],
+           cuda_kernels.LAUNCHES["ba_accumulate"])
+    if per != (1, 2):
+        _fail(f"3e: a marginalization replay launched {per} K6, K7 (want "
+              f"1, 2)")
+    for name, g, e in zip(efm.Window._fields + ("packed",),
+                          tuple(got[0]) + (got[1],),
+                          tuple(want[0]) + (want[1],)):
+        if not _same(g, e):
+            _fail(f"3e: the marginalization graph's {name} differs from the "
+                  f"eager program")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * 50.0))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        out = efm.replay_marg(*last)
+        pull = HostCopy(out[1])
+        queued_ms = (time.perf_counter() - t) * 1e3
+        pulled = pull.is_ready()
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode(0)
+        _fail(f"3e: the marginalization's replay or pull synchronised: {e}")
+    torch.cuda.set_sync_debug_mode(0)
+    if pulled or not queued_ms < 25.0 or not np.array_equal(
+            pull.numpy().view(np.int32),
+            want[1].cpu().numpy().view(np.int32)):
+        _fail(f"3e: the replay and pull queued in {queued_ms:.2f} ms behind "
+              f"50 ms of sleep, copy ready {pulled}, or its result differs")
+    res = dict(replays=strict["marg_replays"],
+               dispatches=strict["marg_dispatches"],
+               launches_per_replay=dict(k6=per[0], k7=per[1]),
+               queued_ms_in_sync_check=queued_ms,
+               device_ms=_queued_device_ms(lambda: efm.replay_marg(*last),
+                                           n=5, reps=5),
+               eager_ms=_host_us_per_call(
+                   lambda: efm.marg_points_packed(*last), n=3) / 1e3,
+               packed_shape=list(want[1].shape),
+               captures=efm.MARG_GRAPHS.counts["count"])
+    print(f"3e point marginalization: {res['replays']} graph replays and "
+          f"pulls for {res['dispatches']} dispatches in phase 3; the last "
+          f"replay bitwise the eager program, 1 K6 and 2 K7 launches per "
+          f"replay; replay and pull queued in {queued_ms:.2f} ms under "
+          f"set_sync_debug_mode('error') behind 50 ms of sleep, the copy "
+          f"not ready; {res['device_ms']:.4f} ms of device time per replay, "
+          f"{res['eager_ms']:.2f} ms per eager call; packed "
+          f"{res['packed_shape']}", flush=True)
+    return res
+
+
+def _k67_run_check(run: dict, built: int = 0) -> None:
+    """K6 and K7 ran on this path, no plain version of either ran on the
+    card, every point marginalization was one graph replay (and each of
+    the `built` FullSystems built inside the block one more, its
+    placeholder), and with the device LM every K6 and K7 launch was one of
+    the BA's or the marginalization's graphs (their replays, and the
+    eager warm-up of a graph captured inside)."""
+    what = run.get("phase", run.get("mode"))
+    if run["ba_plain_calls"]:
+        _fail(f"{what}: {run['ba_plain_calls']} calls of K6's or K7's plain "
+              f"version on the card")
+    if not (run["k6_launches"] > 0 and run["k7_launches"] > 0):
+        _fail(f"{what}: K6 launched {run['k6_launches']} and K7 "
+              f"{run['k7_launches']} times")
+    if run["marg_replays"] != run["marg_dispatches"] + built:
+        _fail(f"{what}: {run['marg_replays']} marginalization replays for "
+              f"{run['marg_dispatches']} dispatches and {built} systems "
+              f"built")
+    if run["ba_replays"] and (
+            run["k6_launches"] != run["k6_in_graphs"]
+            or run["k7_launches"] != run["k7_in_graphs"]):
+        _fail(f"{what}: K6 launched {run['k6_launches']} and K7 "
+              f"{run['k7_launches']} times, {run['k6_in_graphs']} and "
+              f"{run['k7_in_graphs']} of them in the BA's and the "
+              f"marginalization's graph replays")
+
+
+@contextlib.contextmanager
+def k67_counted():
+    """K6's and K7's counts over a block that resets cuda_kernels.LAUNCHES
+    at its start (phases 4 and 6): yields a dict that gets, at exit, the
+    graph launches, marginalization replays and dispatches and plain calls
+    as run_mode reports them (`_k67_run_check`'s keys but the launches,
+    which the caller reads)."""
+    from ldso_tpu_torch.backend import energy_functional as efm
+    from ldso_tpu_torch.examples import time_modes
+    res = {}
+    g0 = time_modes.graph_launches()
+    m0 = dict(efm.MARG_GRAPHS.counts)
+    b0 = efm.BA_GRAPHS.counts["replays"]
+    with time_modes.counted_ba() as bas:
+        yield res
+    g1 = time_modes.graph_launches()
+    res.update(k6_in_graphs=g1["ba_linearize"] - g0["ba_linearize"],
+               k7_in_graphs=g1["ba_accumulate"] - g0["ba_accumulate"],
+               marg_replays=efm.MARG_GRAPHS.counts["replays"] - m0["replays"],
+               marg_captures=efm.MARG_GRAPHS.counts["count"] - m0["count"],
+               ba_replays=efm.BA_GRAPHS.counts["replays"] - b0, **bas)
+
+
 @contextlib.contextmanager
 def recorded_ba():
     """Yields a list that gets the inputs of every device-LM call inside
@@ -2525,6 +3106,7 @@ def phase_ba_graph(records, ba_ms, k12_device_ms):
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from ldso_tpu_torch.backend import ba_device, energy_functional as efm
+    from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.ops.preprocess import to_device
     kc = _kernel_checks()
     calls = _ba_calls(records)
@@ -2553,6 +3135,14 @@ def phase_ba_graph(records, ba_ms, k12_device_ms):
     if not (queued_ms < 25.0 and _same(out[1], want[1])):
         _fail(f"3d: the BA replay took {queued_ms:.2f} ms to queue behind "
               f"50 ms of sleep, stats equal {_same(out[1], want[1])}")
+    cuda_kernels.reset_launch_counts()
+    efm.replay_ba(*last)
+    per_replay = {k: cuda_kernels.LAUNCHES[k] for k in
+                  ("ba_linearize", "ba_accumulate", "ba_projector")}
+    if per_replay != dict(ba_linearize=trips + 2, ba_accumulate=3 * trips,
+                          ba_projector=1):
+        _fail(f"3d: a {trips}-trip BA replay launched {per_replay} (K6 "
+              f"trips + 2, K7 3 x trips, K12 once)")
 
     class Count(TorchDispatchMode):
         n = 0
@@ -2580,7 +3170,7 @@ def phase_ba_graph(records, ba_ms, k12_device_ms):
         k12_emu_max_abs_err=k12["emu_max_abs_err"],
         k12_at_gate=k12["at_gate"], k12_device_ms=k12_device_ms,
         captures=efm.BA_GRAPHS.counts["count"],
-        capture_s=efm.BA_GRAPHS.counts["s"])
+        capture_s=efm.BA_GRAPHS.counts["s"], launches_per_replay=per_replay)
     res["k12_share_of_call"] = k12_device_ms / res["device_ms"]
     print(f"3d device LM: {len(calls)} calls in phase 3 (trips {res['trips']}"
           f"), live trips {live} (mean {res['live_trips_mean']:.2f}); the "
@@ -2596,7 +3186,8 @@ def phase_ba_graph(records, ba_ms, k12_device_ms):
           f"tolerance), at the gate {k12['at_gate']}, max|kernel - emulated| "
           f"{k12['emu_max_abs_err']:.3g}; K12's {k12_device_ms * 1e3:.3f} us "
           f"per launch are {100 * res['k12_share_of_call']:.4f}% of a call's "
-          f"device time; {res['captures']} BA graphs captured in "
+          f"device time; a replay launches {per_replay}; "
+          f"{res['captures']} BA graphs captured in "
           f"{res['capture_s']:.2f} s "
           f"(at FullSystem construction)", flush=True)
     return res
@@ -2644,6 +3235,11 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
         return graphs.replay(key, program, stacked)
     out = batch()
     k12 = cuda_kernels.LAUNCHES["ba_projector"]
+    k67 = (cuda_kernels.LAUNCHES["ba_linearize"],
+           cuda_kernels.LAUNCHES["ba_accumulate"])
+    if k67 != (trips + 2, 3 * trips):
+        _fail(f"7e: the batch of {S} launched K6 and K7 {k67} times (want "
+              f"{trips + 2} and {3 * trips}, once for the {S} windows)")
 
     def single(W, *rest):
         return efm.replay_ba(W, *rest, cfg, w, h, trips)
@@ -2662,7 +3258,8 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
         _fail(f"7e: K12 on the {S} bases in one launch differs from {S} "
               f"single launches")
     res = dict(phase="7e batched_ba", windows=S, trips=trips, max_err=worst,
-               tol=tol, k12_launches=k12,
+               tol=tol, k12_launches=k12, k6_launches=k67[0],
+               k7_launches=k67[1],
                device_ms=_queued_device_ms(batch, n=3, reps=5),
                single_device_ms=[_queued_device_ms(
                    lambda c=c: efm.replay_ba(*c), n=3, reps=5) for c in calls],
@@ -2675,7 +3272,8 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
     print(f"7e batched BA: phase 3's last {S} windows ({trips} trips) in one "
           f"vmapped graph against {S} single replays: largest differences "
           f"{worst} within {tol} (BA_ORDER_FACTOR x the reordered spread), "
-          f"bookkeeping equal; K12 launched once; {res['device_ms']:.4f} ms "
+          f"bookkeeping equal; K12 launched once, K6 {k67[0]} and K7 "
+          f"{k67[1]} times for the batch; {res['device_ms']:.4f} ms "
           f"of device time per batch against "
           f"{sum(res['single_device_ms']):.4f} ms for the {S} singles "
           f"({[round(x, 4) for x in res['single_device_ms']]}); K12 alone "
@@ -2746,6 +3344,7 @@ def phase_variants(calib, images, poses, phase3_ba_ms, device="cuda"):
             _k3_run_check(run)
             _k4_run_check(run)
             _k5_run_check(run)
+            _k67_run_check(run)
         if run["keyframes"] < 8:
             _fail(f"{name}: only {run['keyframes']} keyframes (need >= 8)")
         if not run["ate_mm"] < ATE_BOUND_M * 1e3:
@@ -2947,12 +3546,16 @@ def phase_bench():
     """8: the port's benchmark at its defaults, in this process (every
     graph it replays was captured by the phases before, except the
     batched legs' own). Returns its result."""
-    from ldso_tpu_torch.examples import bench
+    from ldso_tpu_torch.examples import bench, time_modes
     t = time.perf_counter()
-    res = bench.measure(bench.parse_args([]))
+    with time_modes.counted_ba() as bas:
+        res = bench.measure(bench.parse_args([]))
     wall = time.perf_counter() - t
     if "error" in res:
         _fail(f"8 bench: {res['error']}")
+    if bas["ba_plain_calls"]:
+        _fail(f"8 bench: {bas['ba_plain_calls']} calls of K6's or K7's "
+              f"plain version on the card")
     windows = dict(sync=res["sync_fps_windows"],
                    strict=res["strict_fps_windows"],
                    piped=res["piped_fps_windows"],
@@ -2974,6 +3577,17 @@ def phase_bench():
         _fail(f"8 bench: util device ms {util}")
     for leg, n in res["launches"].items():
         graphs = res["graphs"][leg]
+        if leg in BENCH_BA and not (n["ba_linearize"] > 0
+                                    and n["ba_accumulate"] > 0):
+            _fail(f"8 bench: K6 or K7 not launched in the {leg} leg")
+        if leg != "batched_ba" and (
+                n["ba_linearize"] != graphs["ba_linearize_in_graphs"]
+                or n["ba_accumulate"] != graphs["ba_accumulate_in_graphs"]):
+            _fail(f"8 bench: {leg}: K6 launched {n['ba_linearize']} and K7 "
+                  f"{n['ba_accumulate']} times, "
+                  f"{graphs['ba_linearize_in_graphs']} and "
+                  f"{graphs['ba_accumulate_in_graphs']} of them through the "
+                  f"BA's and the marginalization's graphs")
         if leg in BENCH_TRACKING and not n["tracker_trip"] > 0:
             _fail(f"8 bench: K3 not launched in the {leg} leg")
         if leg in BENCH_BA and not n["ba_projector"] > 0:
@@ -3013,11 +3627,13 @@ def main() -> int:
     proj_record = phase_projector()
     trace_record = phase_trace_kernel()
     act_record = phase_activate_kernel()
+    lin_record, acc_record = phase_ba_kernels()
     phase_determinism()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
     with ba_times() as phase3_ba_ms, recorded_ba() as ba_records, \
-            recorded_traces() as traces3, recorded_activations() as acts3:
+            recorded_traces() as traces3, recorded_activations() as acts3, \
+            recorded_marg() as margs3:
         launches_vo, calib, images, poses, strict, fs, tracks3 = \
             phase_main_path()
     # every device-LM call of phase 3 went through its graph
@@ -3034,6 +3650,9 @@ def main() -> int:
     del tracks3
     ba_graph = phase_ba_graph(ba_records, phase3_ba_ms,
                               proj_record["device_ms"])
+    phase_ba_frame(ba_records, margs3, lin_record, acc_record)
+    marg_graph = phase_marg_graph(margs3, strict)
+    del margs3
     phase_dispatch_ahead(fs, images)
     phase_checkpoint(fs, root)
     window3 = fs.ef.W
@@ -3050,7 +3669,8 @@ def main() -> int:
     bench = phase_bench()
     bench_launches = {k: sum(leg[k] for leg in bench["launches"].values())
                       for k in ("distance_transform", "tracker_trip",
-                                "ba_projector", "trace", "activate")}
+                                "ba_projector", "trace", "activate",
+                                "ba_linearize", "ba_accumulate")}
     by_path = dict(vo_strict=launches_vo["distance_transform"],
                    loop=launches["distance_transform"],
                    boxes=boxes["k1_launches"],
@@ -3123,6 +3743,22 @@ def main() -> int:
     print(json.dumps({"k5_by_path": k5_by_path}), flush=True)
     act_record["launches"] = launches_vo["activate"]
     act_record["launches_by_path"] = k5_by_path
+    for rec, key, k in ((lin_record, "ba_linearize", "k6"),
+                        (acc_record, "ba_accumulate", "k7")):
+        by_path = dict(vo_strict=launches_vo[key], loop=launches[key],
+                       boxes=boxes[f"{k}_launches"],
+                       vo_lookahead=look[f"{k}_launches"],
+                       vo_async=asyn[f"{k}_launches"],
+                       vo_async_paced=paced[f"{k}_launches"],
+                       cli_lookahead=cli[f"{k}_lookahead"],
+                       cli_async=cli[f"{k}_async"],
+                       **{name.split()[1]: run[f"{k}_launches"]
+                          for name, run in variants.items()},
+                       batched_ba=batched_ba[f"{k}_launches"],
+                       bench=bench_launches[key])
+        print(json.dumps({f"{k}_by_path": by_path}), flush=True)
+        rec["launches"] = launches_vo[key]
+        rec["launches_by_path"] = by_path
     print(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     for name, run in variants.items():
@@ -3135,9 +3771,11 @@ def main() -> int:
     print(json.dumps(batched_ba))
     print(json.dumps({"tracker_graph": graph}))
     print(json.dumps({"ba_graph": ba_graph}))
+    print(json.dumps({"marg_graph": marg_graph}))
     print(json.dumps(bench))
     print(json.dumps({"kernels": [record, trip_record, proj_record,
-                                  trace_record, act_record]}))
+                                  trace_record, act_record, lin_record,
+                                  acc_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -51,8 +51,9 @@ count), `ate_m_sim_aligned`, `util` ({program: {ms, io_gb, hbm_pct_min}}),
 its strict warm-up on S threads, under `aggregate`),
 `batched_tracking_fps_<B>seq`, `batched_ba_<S>seq` ({S, trips, ms,
 ms_per_seq_kf, agg_kf_per_sec}), and per leg: `launches` (the change of
-`cuda_kernels.LAUNCHES`), `graphs` (the tracker's and the device LM's
-graph captures and replays, and the host seconds replays waited for a
+`cuda_kernels.LAUNCHES`), `graphs` (the tracker's, the device LM's and
+the point marginalization's graph captures and replays, K6's and K7's
+launches through the last two, and the host seconds replays waited for a
 graph's lock: every FullSystem of the process shares the graphs, so S
 systems' replays queue on one lock), `traces` (the arena traces:
 FullSystem._trace_arena's calls, and util's timed trace calls; K4 launches
@@ -463,7 +464,11 @@ def _graph_counts() -> dict:
                 tracker_wait_s=track_graph.TRACKER.lock_wait_s(),
                 ba_captures=efm.BA_GRAPHS.counts["count"],
                 ba_replays=efm.BA_GRAPHS.counts["replays"],
-                ba_wait_s=efm.BA_GRAPHS.lock_wait_s())
+                ba_wait_s=efm.BA_GRAPHS.lock_wait_s(),
+                marg_captures=efm.MARG_GRAPHS.counts["count"],
+                marg_replays=efm.MARG_GRAPHS.counts["replays"],
+                **{f"{k}_in_graphs": n
+                   for k, n in time_modes.graph_launches().items()})
 
 
 def _reset_peak(dev):

@@ -48,7 +48,9 @@ import time
 import numpy as np
 import torch
 
-from ldso_tpu_torch.backend.energy_functional import BA_GRAPHS
+from ldso_tpu_torch.backend import ba
+from ldso_tpu_torch.backend.energy_functional import (
+    BA_GRAPHS, MARG_GRAPHS, EnergyFunctional)
 from ldso_tpu_torch.config import Config
 from ldso_tpu_torch.examples.run_common import PIPELINES, make_driver
 from ldso_tpu_torch.frontend import track_graph, tracker
@@ -196,6 +198,51 @@ def counted_activations():
         fsm._activate_fused = fused
 
 
+@contextlib.contextmanager
+def counted_ba():
+    """While inside, on every thread: count the point marginalization's
+    dispatches (EnergyFunctional.marginalize_and_drop_dispatch) and the
+    calls of K6's and K7's plain versions on card tensors (backend/ba.
+    linearize_ref, _accumulate_top_ref, _sc_sums_ref, which the wrappers
+    reach only for CPU tensors: a call here is a linearize or accumulate
+    that did not go through the kernels). Yields {"marg_dispatches": n,
+    "ba_plain_calls": n}."""
+    counts = dict(marg_dispatches=0, ba_plain_calls=0)
+    lock = threading.Lock()
+    dispatch = EnergyFunctional.marginalize_and_drop_dispatch
+    plain = {name: getattr(ba, name) for name in
+             ("linearize_ref", "_accumulate_top_ref", "_sc_sums_ref")}
+
+    def counted_dispatch(self, *a, **k):
+        with lock:
+            counts["marg_dispatches"] += 1
+        return dispatch(self, *a, **k)
+
+    def wrap(fn):
+        def counted(W, *a, **k):
+            if W.state.device.type == "cuda":
+                with lock:
+                    counts["ba_plain_calls"] += 1
+            return fn(W, *a, **k)
+        return counted
+    EnergyFunctional.marginalize_and_drop_dispatch = counted_dispatch
+    for name, fn in plain.items():
+        setattr(ba, name, wrap(fn))
+    try:
+        yield counts
+    finally:
+        EnergyFunctional.marginalize_and_drop_dispatch = dispatch
+        for name, fn in plain.items():
+            setattr(ba, name, fn)
+
+
+def graph_launches() -> dict:
+    """K6's and K7's launches made so far through the device LM's and the
+    point marginalization's graphs (captures' warm-ups and replays)."""
+    return {k: BA_GRAPHS.launches(k) + MARG_GRAPHS.launches(k)
+            for k in ("ba_linearize", "ba_accumulate")}
+
+
 def k3_expected(counts: dict, cfg, levels: int) -> int:
     """The K3 launches that `counted_tracks`' counts imply: one track's
     trips (tracker.trips_per_track, from the coarsest level as FullSystem
@@ -228,10 +275,13 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
     mapping = getattr(drv, "map_stream", None)
     mapping = mapping.cuda_stream if mapping is not None else None
     with traced_k1() as k1, counted_tracks() as tracks, \
-            counted_traces() as traces, counted_activations() as acts:
+            counted_traces() as traces, counted_activations() as acts, \
+            counted_ba() as bas:
         _sync(fs.device)
         cuda_kernels.reset_launch_counts()
         ba_graphs = dict(BA_GRAPHS.counts)
+        marg_graphs = dict(MARG_GRAPHS.counts)
+        in_graphs = graph_launches()
         call_ms = []
         t0 = time.perf_counter()
         for i, img in enumerate(images):
@@ -249,6 +299,9 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
         wall = time.perf_counter() - t0
         launches = dict(cuda_kernels.LAUNCHES)
         ba_graphs = {k: BA_GRAPHS.counts[k] - v for k, v in ba_graphs.items()}
+        marg_graphs = {k: MARG_GRAPHS.counts[k] - v
+                       for k, v in marg_graphs.items()}
+        in_graphs = {k: n - in_graphs[k] for k, n in graph_launches().items()}
         k3_by_mode = dict(cuda_kernels.TRIP_LAUNCHES)
     streams = collections.Counter()
     for (_, s), n in k1.items():
@@ -281,6 +334,14 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                activations=acts["activations"],
                ba_replays=ba_graphs["replays"],
                ba_captures=ba_graphs["count"],
+               k6_launches=launches["ba_linearize"],
+               k7_launches=launches["ba_accumulate"],
+               k6_in_graphs=in_graphs["ba_linearize"],
+               k7_in_graphs=in_graphs["ba_accumulate"],
+               ba_plain_calls=bas["ba_plain_calls"],
+               marg_dispatches=bas["marg_dispatches"],
+               marg_replays=marg_graphs["replays"],
+               marg_captures=marg_graphs["count"],
                tracks=tracks["tracks"],
                rank_calls=tracks["ranks"],
                post_bootstrap_keyframes=sum(1 for kf in kfs if kf.kf_id >= 2),

@@ -20,8 +20,11 @@ capture's tally, and the graph adds the tally to `LAUNCHES` at every replay
 
 The kernels: K1 `distance_transform` (csrc/distance_map.cu), K3
 `tracker_trip` and its modes (csrc/tracker_trip.cu), K12 `ba_projector`
-(csrc/ba_projector.cu), K4 `trace_arena` (csrc/immature_trace.cu) and K5
-`activate_arena` (csrc/immature_activate.cu).
+(csrc/ba_projector.cu), K4 `trace_arena` (csrc/immature_trace.cu), K5
+`activate_arena` (csrc/immature_activate.cu), K6 `ba_linearize`
+(csrc/ba_linearize.cu) and K7 `ba_accumulate_top` / `ba_accumulate_sc`
+(csrc/ba_accumulate.cu; one count in LAUNCHES["ba_accumulate"] per call,
+each call queues its two passes).
 """
 
 from __future__ import annotations
@@ -46,12 +49,14 @@ from ldso_tpu_torch.ops.distance_map import MAX_K, distance_transform_ref
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _SOURCES = ("distance_map.cu", "tracker_trip.cu", "ba_projector.cu",
-            "immature_trace.cu", "immature_activate.cu")
-# flags of one source beside NVCC_FLAGS: K4 and K5 round every multiply
-# and add on their own, as their plain versions' separate aten operations
-# do
+            "immature_trace.cu", "immature_activate.cu", "ba_linearize.cu",
+            "ba_accumulate.cu")
+# flags of one source beside NVCC_FLAGS: K4, K5 and K6 round every
+# multiply and add on their own, as their plain versions' separate aten
+# operations do
 _SOURCE_FLAGS = {"immature_trace.cu": ("--fmad=false",),
-                 "immature_activate.cu": ("--fmad=false",)}
+                 "immature_activate.cu": ("--fmad=false",),
+                 "ba_linearize.cu": ("--fmad=false",)}
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "ldso_tpu_torch")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -60,7 +65,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SMEM_LIMIT = 48 * 1024
 
 LAUNCHES = {"distance_transform": 0, "tracker_trip": 0, "ba_projector": 0,
-            "trace": 0, "activate": 0}
+            "trace": 0, "activate": 0, "ba_linearize": 0, "ba_accumulate": 0}
 # K3's launches by mode (TRIP_MODES); each is also one of LAUNCHES's
 TRIP_LAUNCHES = {"trip": 0, "cutoff": 0, "lm": 0}
 
@@ -241,6 +246,13 @@ def _load():
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
             lib.ldso_immature_activate.restype = ctypes.c_int
+            for name in ("ldso_ba_linearize", "ldso_ba_accumulate"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                               ctypes.POINTER(ctypes.c_int),
+                               ctypes.POINTER(ctypes.c_float),
+                               ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -860,3 +872,317 @@ def activate_arena(arena, dist_map, KRKis, Kts, Rs, ts, affs, masks, dIs,
         raise RuntimeError(f"activate kernel launch failed: CUDA error {err}")
     _count("activate")
     return tuple(out[f] for f in ACTIVATE_OUTPUTS)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the windowed BA's linearization (csrc/ba_linearize.cu) and
+# accumulation (csrc/ba_accumulate.cu)
+# ---------------------------------------------------------------------------
+
+_F32, _I32, _I64, _B8 = torch.float32, torch.int32, torch.int64, torch.bool
+# the fields K6 writes, in its output order
+LIN_FIELDS = ("Jpdxi", "Jpdc", "Jpdd", "JIdx", "JabF", "resF", "center_proj",
+              "res_new_state", "res_new_energy", "res_new_energy_wo")
+_LIN_WINDOW = ("pt_u", "pt_v", "pt_color", "pt_weights", "idepth",
+               "idepth_zero", "pt_host", "pt_valid", "res_exist",
+               "res_linearized", "res_state", "res_energy", "frame_valid",
+               "frame_energy_th")
+_LIN_PRECALC = ("R0", "t0", "KRKi", "Kt", "aff", "b0", "fxycxy")
+# K6's tensor arguments, in its pointer order: the window's, the
+# precalc's, the images, the fields it copies through and the target
+_LIN_INPUTS = _LIN_WINDOW + _LIN_PRECALC + ("dIs",) + LIN_FIELDS + ("tgt",)
+# K7's parts: the top accumulation (modes 0, 1, 2) and the Schur part
+_TOP_INPUTS = ("JIdx", "Jpdc", "Jpdxi", "JabF", "Jpdd", "resF", "res_toZero",
+               "res_active", "res_exist", "res_linearized", "frame_valid",
+               "pt_mask", "pt_host", "adHTdelta", "c_delta", "idepth",
+               "idepth_zero")
+TOP_OUTPUTS = ("acc", "Hdd", "bd", "Hcd", "nres")
+_SC_INPUTS = ("JIdx", "JabF", "Jpdxi", "Jpdd", "res_active", "res_exist",
+              "frame_valid", "pt_mask", "pt_host", "pt_prior", "idepth",
+              "idepth_zero", "Hdd_tot", "bd_tot", "Hcd_tot")
+SC_OUTPUTS = ("HdiF", "bdSum", "Hcd", "JpJdF", "ngood", "Hcc_sc", "bc_sc",
+              "accE", "accEB", "accD")
+# the most window slots K7 takes (its per-target flags are bytes)
+BA_MAX_SLOTS = 32
+
+
+def _ba_shapes(P: int, F: int, H: int = 0, W: int = 0):
+    """The (shape, dtype) of every tensor K6 and K7 take or give for one
+    window of P points, F slots and (H, W) images."""
+    s = dict(
+        pt_u=((P,), _F32), pt_v=((P,), _F32), pt_color=((P, 8), _F32),
+        pt_weights=((P, 8), _F32), idepth=((P,), _F32),
+        idepth_zero=((P,), _F32), pt_host=((P,), _I64),
+        pt_valid=((P,), _B8), pt_mask=((P,), _B8), pt_prior=((P,), _F32),
+        res_exist=((P, F), _B8), res_linearized=((P, F), _B8),
+        res_active=((P, F), _B8), res_state=((P, F), _I32),
+        res_energy=((P, F), _F32), frame_valid=((F,), _B8),
+        frame_energy_th=((F,), _F32), R0=((F, F, 3, 3), _F32),
+        t0=((F, F, 3), _F32), KRKi=((F, F, 3, 3), _F32),
+        Kt=((F, F, 3), _F32), aff=((F, F, 2), _F32), b0=((F,), _F32),
+        fxycxy=((4,), _F32), dIs=((F, H, W, 3), _F32),
+        Jpdxi=((P, F, 2, 6), _F32), Jpdc=((P, F, 2, 4), _F32),
+        Jpdd=((P, F, 2), _F32), JIdx=((P, F, 2, 8), _F32),
+        JabF=((P, F, 2, 8), _F32), resF=((P, F, 8), _F32),
+        res_toZero=((P, F, 8), _F32), center_proj=((P, F, 3), _F32),
+        res_new_state=((P, F), _I32), res_new_energy=((P, F), _F32),
+        res_new_energy_wo=((P, F), _F32), tgt=((), _I64),
+        energy=((), _F32), adHTdelta=((F, F, 8), _F32),
+        c_delta=((4,), _F32), Hdd_tot=((P,), _F32), bd_tot=((P,), _F32),
+        Hcd_tot=((P, 4), _F32), acc=((F, F, 13, 13), _F32),
+        Hdd=((P,), _F32), bd=((P,), _F32), Hcd=((P, 4), _F32),
+        nres=((), _I64), HdiF=((P,), _F32), bdSum=((P,), _F32),
+        JpJdF=((P, F, 8), _F32), ngood=((P,), _I64),
+        Hcc_sc=((4, 4), _F32), bc_sc=((4,), _F32),
+        accE=((F, F, 8, 4), _F32), accEB=((F, F, 8), _F32),
+        accD=((F, F, F, 8, 8), _F32))
+    return s
+
+
+def lin_params(cfg, img_w: int, img_h: int, dIs_hw) -> Tuple[Tuple[int, ...],
+                                                              Tuple[float, ...]]:
+    """K6's integer and float launch arguments but the counts: (the
+    affine flags a and b off, the pattern's 16 offsets), and the plain
+    version's Python scalars as float32: img_w - 3, img_h - 3, the
+    bilinear clamps W - 1.001 and H - 1.001 of the images, the outlier
+    and Huber thresholds, SCALE_IDEPTH, SCALE_F and SCALE_C."""
+    import numpy as np
+    from ldso_tpu_torch.config import PATTERN, SCALE_C, SCALE_F, SCALE_IDEPTH
+    H, W = dIs_hw
+    ints = (int(cfg.affine_opt_mode_a < 0), int(cfg.affine_opt_mode_b < 0),
+            *(int(c) for c in np.asarray(PATTERN).reshape(-1)))
+    floats = tuple(float(np.float32(x)) for x in (
+        img_w - 3.0, img_h - 3.0, W - 1.001, H - 1.001,
+        cfg.outlier_th_sum_component, cfg.huber_th, SCALE_IDEPTH, SCALE_F,
+        SCALE_C))
+    return ints, floats
+
+
+def _ba_check(what: str, x: Dict[str, torch.Tensor], names, shapes, S: int):
+    """Every input on one CUDA device, of its shape (with the leading
+    window axis S) and dtype, contiguous."""
+    dev = x[names[0]].device
+    for name in names:
+        t = x[name]
+        shape, dtype = shapes[name]
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{what}: {name} on {t.device}; every input "
+                             f"must be on one CUDA device")
+        if tuple(t.shape) != (S,) + shape or t.dtype != dtype:
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype}, "
+                             f"expected {(S,) + shape} {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    return dev
+
+
+def _ba_call(what: str, fn, ptrs, ints, floats, dev) -> None:
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
+                 (ctypes.c_int * len(ints))(*ints),
+                 (ctypes.c_float * max(len(floats), 1))(*floats), stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def lin_launch(x: Dict[str, torch.Tensor], mode: int, floats, ints):
+    """Launch K6 on S windows: x holds _LIN_INPUTS by name, each with a
+    leading window axis (tgt (S,) int64, read in mode 1). Returns the 10
+    LIN_FIELDS (S, P, F, ...) and the energy sums (S,)."""
+    S, P = x["pt_u"].shape
+    F = x["frame_valid"].shape[1]
+    H, W = x["dIs"].shape[2], x["dIs"].shape[3]
+    if not 1 <= F <= BA_MAX_SLOTS or P < 1 or min(H, W) < 4:
+        raise ValueError(f"ba_linearize: {P} points, {F} slots (1.."
+                         f"{BA_MAX_SLOTS}), {H}x{W} images")
+    shapes = _ba_shapes(P, F, H, W)
+    dev = _ba_check("ba_linearize", x, _LIN_INPUTS, shapes, S)
+    out = {f: torch.empty((S,) + shapes[f][0], dtype=shapes[f][1],
+                          device=dev) for f in LIN_FIELDS + ("energy",)}
+    from ldso_tpu_torch.backend.ba import LIN_BLOCK
+    nb = -(-(P * F) // LIN_BLOCK)
+    partial = torch.empty((S, nb), dtype=_F32, device=dev)
+    arrived = torch.zeros(S, dtype=_I32, device=dev)
+    ptrs = ([x[n].data_ptr() for n in _LIN_INPUTS]
+            + [out[f].data_ptr() for f in LIN_FIELDS + ("energy",)]
+            + [partial.data_ptr(), arrived.data_ptr()])
+    _ba_call("ba_linearize", _load().ldso_ba_linearize, ptrs,
+             (S, P, F, H, W, int(mode), *ints), floats, dev)
+    _count("ba_linearize")
+    return tuple(out[f] for f in LIN_FIELDS + ("energy",))
+
+
+def top_launch(x: Dict[str, torch.Tensor], mode: int):
+    """Launch K7's top part on S windows (x holds _TOP_INPUTS by name with
+    a leading window axis). Returns TOP_OUTPUTS."""
+    S, P = x["idepth"].shape
+    F = x["frame_valid"].shape[1]
+    if not 1 <= F <= BA_MAX_SLOTS or P < 1 or mode not in (0, 1, 2):
+        raise ValueError(f"ba_accumulate_top: {P} points, {F} slots (1.."
+                         f"{BA_MAX_SLOTS}), mode {mode}")
+    shapes = _ba_shapes(P, F)
+    dev = _ba_check("ba_accumulate_top", x, _TOP_INPUTS, shapes, S)
+    out = {f: torch.empty((S,) + shapes[f][0], dtype=shapes[f][1],
+                          device=dev) for f in TOP_OUTPUTS}
+    flags = torch.empty((S, P, F), dtype=_I32, device=dev)
+    count = torch.empty((S, P), dtype=_I32, device=dev)
+    ptrs = ([x[n].data_ptr() for n in _TOP_INPUTS]
+            + [out[f].data_ptr() for f in TOP_OUTPUTS]
+            + [flags.data_ptr(), count.data_ptr()])
+    _ba_call("ba_accumulate_top", _load().ldso_ba_accumulate, ptrs,
+             (0, S, P, F, int(mode)), (), dev)
+    _count("ba_accumulate")
+    return tuple(out[f] for f in TOP_OUTPUTS)
+
+
+def sc_launch(x: Dict[str, torch.Tensor], shift_prior: bool):
+    """Launch K7's Schur part on S windows (x holds _SC_INPUTS by name with
+    a leading window axis). Returns SC_OUTPUTS."""
+    S, P = x["idepth"].shape
+    F = x["frame_valid"].shape[1]
+    if not 1 <= F <= BA_MAX_SLOTS or P < 1:
+        raise ValueError(f"ba_accumulate_sc: {P} points, {F} slots (1.."
+                         f"{BA_MAX_SLOTS})")
+    shapes = _ba_shapes(P, F)
+    dev = _ba_check("ba_accumulate_sc", x, _SC_INPUTS, shapes, S)
+    out = {f: torch.empty((S,) + shapes[f][0], dtype=shapes[f][1],
+                          device=dev) for f in SC_OUTPUTS}
+    jflags = torch.empty((S, P, F), dtype=_I32, device=dev)
+    pflags = torch.empty((S, P), dtype=_I32, device=dev)
+    ptrs = ([x[n].data_ptr() for n in _SC_INPUTS]
+            + [out[f].data_ptr() for f in SC_OUTPUTS]
+            + [jflags.data_ptr(), pflags.data_ptr()])
+    _ba_call("ba_accumulate_sc", _load().ldso_ba_accumulate, ptrs,
+             (1, S, P, F, int(bool(shift_prior))), (), dev)
+    _count("ba_accumulate")
+    return tuple(out[f] for f in SC_OUTPUTS)
+
+
+def _window_op(names, launch):
+    """An operator's body on one window (a window axis of 1) and its vmap
+    rule (the vmapped axis is the kernel's window axis, one launch for all
+    of it; an input without that axis is repeated along it)."""
+    n = len(names)
+
+    def one(*args):
+        x = {k: t.contiguous()[None] for k, t in zip(names, args[:n])}
+        return tuple(o[0] for o in launch(x, *args[n:]))
+
+    def rule(info, in_dims, *args):
+        S = info.batch_size
+        x = {k: (t.expand((S,) + tuple(t.shape)) if d is None
+                 else t.movedim(d, 0)).contiguous()
+             for k, t, d in zip(names, args[:n], in_dims[:n])}
+        out = launch(x, *args[n:])
+        return out, (0,) * len(out)
+    return one, rule
+
+
+def _register(name: str, names, extra: str, n_out: int, launch) -> None:
+    one, rule = _window_op(names, launch)
+    schema = ("(" + ", ".join(f"Tensor {k}" for k in names) + extra + ") -> ("
+              + ", ".join(["Tensor"] * n_out) + ")")
+    torch.library.custom_op(f"ldso_tpu_torch::{name}", one, mutates_args=(),
+                            schema=schema)
+    torch.library.register_vmap(f"ldso_tpu_torch::{name}", rule)
+
+
+_register("ba_linearize", _LIN_INPUTS, ", int mode, float[] floats, "
+          "int[] ints", len(LIN_FIELDS) + 1, lin_launch)
+_register("ba_accumulate_top", _TOP_INPUTS, ", int mode", len(TOP_OUTPUTS),
+          top_launch)
+_register("ba_accumulate_sc", _SC_INPUTS, ", bool shift_prior",
+          len(SC_OUTPUTS), sc_launch)
+
+
+def _card(what: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def ba_linearize(W, dIs, pc, cfg, img_w: int, img_h: int, tgt=None):
+    """PointFrameResidual::linearize over the window's whole (P, F)
+    residual lattice, or (tgt an int or a 0-d integer tensor) over the
+    column of that target with the sticky OOB (backend/ba.linearize_ref is
+    the function): the 10 fields LIN_FIELDS of the residuals in
+    `_lin_mask`, every other residual copied through, and the energy sum
+    over the lattice's `_lin_mask` in a fixed order. W: a Window; dIs
+    (F, H, W, 3); pc: its precalc (ba.make_precalc). Returns ({field:
+    tensor}, energy_sum).
+
+    CPU tensors: the plain version. CUDA tensors: K6 (csrc/ba_linearize.cu)
+    in one launch over the lattice on the current stream, through the
+    operator `ldso_tpu_torch::ba_linearize`, whose vmap rule launches it
+    once for all S windows. It reads nothing back and allocates with
+    torch.empty (and one torch.zeros of S counters) only, so a CUDA graph
+    can capture it."""
+    if W.state.device.type == "cpu":
+        from ldso_tpu_torch.backend.ba import linearize_ref
+        return linearize_ref(W, dIs, pc, cfg, img_w, img_h, tgt)
+    _card("ba_linearize", W.state)
+    dev = W.state.device
+    if tgt is None:
+        tgt_t = torch.zeros((), dtype=_I64, device=dev)
+    elif torch.is_tensor(tgt):
+        tgt_t = tgt.to(_I64)
+    else:
+        tgt_t = torch.full((), int(tgt), dtype=_I64, device=dev)
+    ints, floats = lin_params(cfg, img_w, img_h, tuple(dIs.shape[-3:-1]))
+    x = ([getattr(W, f) for f in _LIN_WINDOW]
+         + [getattr(pc, f) for f in _LIN_PRECALC] + [dIs]
+         + [getattr(W, f) for f in LIN_FIELDS] + [tgt_t])
+    out = torch.ops.ldso_tpu_torch.ba_linearize(
+        *x, 0 if tgt is None else 1, floats, ints)
+    return dict(zip(LIN_FIELDS, out[:-1])), out[-1]
+
+
+def ba_accumulate_top(W, pc, mode: int, pt_mask):
+    """AccumulatedTopHessianSSE for one mode (0: the active residuals not
+    yet linearized with resF; 1: the linearized ones with res_toZero +
+    J delta; 2: every active residual of the points in pt_mask with
+    res_toZero) over the points in pt_mask (backend/ba._accumulate_top_ref
+    is the function): the 13x13 outer products of each residual's 8 rows
+    summed per (host, target), per point Hdd, bd and Hcd over its targets,
+    and the residual count. Returns (acc (F, F, 13, 13), Hdd, bd (P,), Hcd
+    (P, 4), nres).
+
+    CPU tensors: the plain version. CUDA tensors: K7's top part
+    (csrc/ba_accumulate.cu, one launch: a pass over the points and a pass
+    over the (host, target) blocks, its sums over the points in point
+    order), through the operator `ldso_tpu_torch::ba_accumulate_top` with
+    a vmap rule as ba_linearize's."""
+    if W.state.device.type == "cpu":
+        from ldso_tpu_torch.backend.ba import _accumulate_top_ref
+        return _accumulate_top_ref(W, pc, mode, pt_mask)
+    _card("ba_accumulate_top", W.state)
+    x = dict((f, getattr(W, f)) for f in _TOP_INPUTS
+             if f in W._fields)
+    x.update(pt_mask=pt_mask, adHTdelta=pc.adHTdelta, c_delta=pc.c_delta)
+    return torch.ops.ldso_tpu_torch.ba_accumulate_top(
+        *(x[f] for f in _TOP_INPUTS), int(mode))
+
+
+def ba_accumulate_sc(W, Hdd_tot, bd_tot, Hcd_tot, shift_prior: bool,
+                     pt_mask):
+    """AccumulatedSCHessianSSE's sums over the points in pt_mask
+    (backend/ba._sc_sums_ref is the function): per point HdiF, bdSum, the
+    gated Hcd, JpJdF (P, F, 8) and ngood, and summed over the points
+    Hcc_sc (4, 4), bc_sc (4) and per host accE (F, F, 8, 4), accEB
+    (F, F, 8) and accD (h, t1, t2, 8, 8). Returns them as a dict.
+
+    CPU tensors: the plain version. CUDA tensors: K7's Schur part (one
+    launch: a pass over the points and a pass over the (host, target)
+    blocks), through the operator `ldso_tpu_torch::ba_accumulate_sc` with
+    a vmap rule as ba_linearize's."""
+    if W.state.device.type == "cpu":
+        from ldso_tpu_torch.backend.ba import _sc_sums_ref
+        return _sc_sums_ref(W, Hdd_tot, bd_tot, Hcd_tot, shift_prior,
+                            pt_mask)
+    _card("ba_accumulate_sc", W.state)
+    x = dict((f, getattr(W, f)) for f in _SC_INPUTS if f in W._fields)
+    x.update(pt_mask=pt_mask, Hdd_tot=Hdd_tot, bd_tot=bd_tot,
+             Hcd_tot=Hcd_tot)
+    out = torch.ops.ldso_tpu_torch.ba_accumulate_sc(
+        *(x[f] for f in _SC_INPUTS), bool(shift_prior))
+    return dict(zip(SC_OUTPUTS, out))

@@ -568,7 +568,8 @@ class FullSystem:
         CUDA graphs for one frame and for the retry batch (frontend/
         track_graph, captured on placeholder inputs of this system's
         shapes), the device LM's graph for each of its trip counts
-        (EnergyFunctional.warm_ba_programs) and, with loop closing, the
+        (EnergyFunctional.warm_ba_programs), the point marginalization's
+        graph (EnergyFunctional.warm_marg_program) and, with loop closing, the
         native host library. The constructor calls it on
         the card; repeat calls are free."""
         if self._retrack_warm:
@@ -578,6 +579,8 @@ class FullSystem:
             self._capture_tracker()
             self.ef.warm_ba_programs(self.dIs, self.cfg.max_opt_iterations,
                                      self.calib.w[0], self.calib.h[0])
+            self.ef.warm_marg_program(self.dIs, self.calib.w[0],
+                                      self.calib.h[0])
         if self.loop_closing is not None:
             native.get_lib()
         self._retrack_warm = True
@@ -1029,9 +1032,9 @@ class FullSystem:
             pending_ref = self._dispatch_tracker_ref()
             self._publish_tracker_ref(pending_ref)
         with self.timer.stage("kf.marg_points"):
+            # one graph replay on the card; `marg` is its one HostCopy
             marg = self.ef.marginalize_and_drop_dispatch(
                 marg_dev, drop_dev, self.dIs, calib.w[0], calib.h[0])
-        landed = record_event(self.device)
         with self.timer.stage("kf.new_traces"):
             self._make_new_traces(pyr, idx)
 
@@ -1103,9 +1106,9 @@ class FullSystem:
 
         def ready() -> bool:
             """Whether the point-marginalization result, the last device
-            result finish() reads, is in (an event query; always on the
-            CPU)."""
-            return landed is None or landed.query()
+            result finish() reads, is in (its HostCopy's event; always on
+            the CPU)."""
+            return marg.is_ready()
 
         finish.ready = ready
         return finish

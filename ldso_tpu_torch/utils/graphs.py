@@ -7,7 +7,8 @@ shapes, one fixed sequence of kernels; recorded once into a
 the hashable arguments the program closes over, the inputs' shapes and
 dtypes), shared by every stream, with the family's own lock and counts.
 The tracker's family is frontend/track_graph.TRACKER, the windowed BA's
-backend/energy_functional.BA_GRAPHS.
+backend/energy_functional.BA_GRAPHS, the point marginalization's
+backend/energy_functional.MARG_GRAPHS.
 
 A replay runs under the graph's lock on the caller's current stream: wait
 for the graph's previous replay (an event, whatever stream it ran on),
@@ -65,6 +66,7 @@ class Captured:
         self.lock = threading.Lock()
         self.done = None
         self.wait_s = 0.0       # host seconds replays waited for the lock
+        self.replays = 0
 
     def replay(self, inputs) -> Tuple[torch.Tensor, ...]:
         t = time.perf_counter()
@@ -76,6 +78,7 @@ class Captured:
             for s, x in zip(self.static_in, inputs):
                 s.copy_(x)
             self.graph.replay()
+            self.replays += 1
             cuda_kernels.add_launches(self.launches)
             out = tuple(inputs[self.passthrough[i]] if i in self.passthrough
                         else o.clone() for i, o in enumerate(self.static_out))
@@ -120,6 +123,13 @@ class Programs:
         with self._count_lock:
             self.counts["replays"] += 1
         return out
+
+    def launches(self, name: str) -> int:
+        """The launches of kernel `name` (a key of cuda_kernels.LAUNCHES)
+        this family's graphs have made: each graph's eager warm-up at its
+        capture and each replay, times the launches the capture recorded."""
+        return sum((g.replays + 1) * g.launches.get(name, 0)
+                   for g in list(self.graphs.values()))
 
     def lock_wait_s(self) -> float:
         """The host seconds this family's replays have waited for a graph's

@@ -368,11 +368,12 @@ def test_lookahead_twice_bitwise_on_the_card(cuda):
 
 
 def _same(a, b):
-    """Bitwise equality, NaN payloads included."""
+    """Bitwise equality of bool, 32-bit or 64-bit tensors (0-d ones too),
+    NaN payloads included."""
     if a.dtype == torch.bool:
         return torch.equal(a, b)
-    return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
 
 
 def _tracked_system(n=12):
@@ -1136,3 +1137,178 @@ def test_activate_pass_runs_ahead_of_the_card(cuda):
     import chip_smoke
     host_ms = chip_smoke._activation_dispatch(_kc(), _act_scene()["scene"])
     assert host_ms < 25.0
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the windowed BA's linearization and accumulation
+# (csrc/ba_linearize.cu, csrc/ba_accumulate.cu)
+# ---------------------------------------------------------------------------
+
+_BA_SCENE = {}
+BA_LIN_CASES = ["window", "column", "planted", "planted column",
+                "affine off"]
+BA_ACC_CASES = [f"{tag} {name}" for tag in ("scene", "planted")
+                for name in ("top mode 0", "top mode 1", "top mode 2",
+                             "sc build", "sc marg")]
+
+
+def _ba_scene():
+    """torch_kernel_checks.ba_scene at the main path's shape on the card
+    (8 frames in 8 slots, 2,048 points, 640x480), its K6 cases and its
+    linearized windows (the scene's and the planted one)."""
+    if not _BA_SCENE:
+        kc = _kc()
+        scene = kc.ba_scene(kc.BA_SLOTS, kc.BA_SLOTS, kc.BA_POINTS, 640, 480,
+                            seed=3, device="cuda")
+        cases = kc.lin_cases(scene)
+        _BA_SCENE.update(scene=scene, cases=cases, windows={
+            "scene": scene["W_lin"],
+            "planted": kc.linearized(*cases["planted"][:3], 640, 480)})
+    return _BA_SCENE
+
+
+@pytest.mark.parametrize("case", BA_LIN_CASES)
+def test_ba_linearize_kernel_matches_plain(cuda, case):
+    """K6 against linearize_ref on the card: every field and the energy sum
+    bitwise (torch_kernel_checks.lin_err), one launch."""
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kc()
+    W, dIs, cfg, tgt = _ba_scene()["cases"][case]
+    before = cuda_kernels.LAUNCHES["ba_linearize"]
+    got = cuda_kernels.ba_linearize(W, dIs, ba.make_precalc(W), cfg, 640,
+                                    480, tgt)
+    assert cuda_kernels.LAUNCHES["ba_linearize"] == before + 1
+    rep = kc.lin_err(got, kc.plain_lin(W, dIs, cfg, 640, 480, tgt))
+    assert rep["ok"], rep
+
+
+@pytest.mark.parametrize("case", BA_ACC_CASES)
+def test_ba_accumulate_kernel_matches_plain(cuda, case):
+    """K7 against _accumulate_top_ref / _sc_sums_ref on the card, within
+    torch_kernel_checks.acc_err (ACC_RTOL of each entry's magnitude sum,
+    NaN where the plain version's is, counts exact), one launch; 20
+    launches bitwise."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kc()
+    tag, name = case.split(" ", 1)
+    W = _ba_scene()["windows"][tag]
+    part, args = kc.acc_cases(W)[name]
+    before = cuda_kernels.LAUNCHES["ba_accumulate"]
+    got = kc.kernel_acc(part, W, args)
+    assert cuda_kernels.LAUNCHES["ba_accumulate"] == before + 1
+    rep = kc.acc_err(got, kc.plain_acc(part, W, args),
+                     kc.acc_scale(part, W, args))
+    assert rep["ok"], rep
+    for _ in range(20):
+        again = kc.kernel_acc(part, W, args)
+        assert all(_same(again[k], v) for k, v in got.items())
+
+
+def test_ba_kernels_under_vmap_are_one_launch(cuda):
+    """K6, K7's top part and its Schur part under torch.func.vmap over two
+    windows: one launch each, each member bitwise its single launch on
+    the same inputs."""
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.ops import cuda_kernels as ck
+    s = _ba_scene()
+    scene, planted = s["scene"], s["cases"]["planted"]
+    cfg = scene["cfg"]
+    stack = lambda xs: type(xs[0])(*(torch.stack(t) for t in zip(*xs)))  # noqa: E731
+    Ws, ds = [scene["W"], planted[0]], [scene["dIs"], planted[1]]
+    pcs = [ba.make_precalc(W) for W in Ws]
+    before = dict(ck.LAUNCHES)
+    got = torch.func.vmap(lambda W, d, pc: ck.ba_linearize(
+        W, d, pc, cfg, 640, 480))(stack(Ws), torch.stack(ds), stack(pcs))
+    assert ck.LAUNCHES["ba_linearize"] == before["ba_linearize"] + 1
+    for i in range(2):
+        one = ck.ba_linearize(Ws[i], ds[i], pcs[i], cfg, 640, 480)
+        assert _kc().lin_err(({k: v[i] for k, v in got[0].items()},
+                              got[1][i]), one)["ok"]
+    Wl = [s["windows"]["scene"], s["windows"]["planted"]]
+    pcl = [ba.make_precalc(W) for W in Wl]
+    before = ck.LAUNCHES["ba_accumulate"]
+    top = torch.func.vmap(lambda W, pc: ck.ba_accumulate_top(
+        W, pc, 0, W.pt_valid))(stack(Wl), stack(pcl))
+    sc = torch.func.vmap(lambda W, a, b, c: ck.ba_accumulate_sc(
+        W, a, b, c, True, W.pt_valid))(stack(Wl), top[1], top[2], top[3])
+    assert ck.LAUNCHES["ba_accumulate"] == before + 2
+    for i in range(2):
+        one = ck.ba_accumulate_top(Wl[i], pcl[i], 0, Wl[i].pt_valid)
+        assert all(_same(a[i], b) for a, b in zip(top, one))
+        one = ck.ba_accumulate_sc(Wl[i], top[1][i], top[2][i], top[3][i],
+                                  True, Wl[i].pt_valid)
+        assert all(_same(sc[k][i], v) for k, v in one.items())
+
+
+@pytest.mark.parametrize("nf", [2, 8])
+def test_ba_replay_launches_k6_and_k7(cuda, nf):
+    """One device-LM replay launches K6 trips + 2 times and K7 3 x trips
+    times (the first linearization, one of each per trip, the final one);
+    its eager call, with every K6 and K7 call also run through the plain
+    version, holds K6 bitwise and K7 within acc_err on each."""
+    from ldso_tpu_torch.backend import ba_device, energy_functional as efm
+    from ldso_tpu_torch.ops import cuda_kernels as ck
+    kc = _kc()
+    args, cfg, w, h = _ba_inputs(cuda, nf, seed=nf)
+    trips = efm.ba_trip_counts(cfg.max_opt_iterations)[min(nf, 4) - 2]
+    efm.replay_ba(*args, cfg, w, h, trips)
+    ck.reset_launch_counts()
+    efm.replay_ba(*args, cfg, w, h, trips)
+    assert (ck.LAUNCHES["ba_linearize"], ck.LAUNCHES["ba_accumulate"]) == (
+        trips + 2, 3 * trips)
+    from ldso_tpu_torch.backend import ba
+    lin, top = ck.ba_linearize, ck.ba_accumulate_top
+    seen = []
+
+    def lin_held(W, dIs, pc, cfg, w, h, tgt=None):
+        got = lin(W, dIs, pc, cfg, w, h, tgt)
+        seen.append(kc.lin_err(got, ba.linearize_ref(W, dIs, pc, cfg, w, h,
+                                                     tgt))["ok"])
+        return got
+
+    def top_held(W, pc, mode, mask):
+        got = top(W, pc, mode, mask)
+        args = (pc, mode, mask)
+        seen.append(kc.acc_err(dict(zip(ck.TOP_OUTPUTS, got)),
+                               kc.plain_acc("top", W, args),
+                               kc.acc_scale("top", W, args))["ok"])
+        return got
+    ck.ba_linearize, ck.ba_accumulate_top = lin_held, top_held
+    try:
+        ba_device.optimize_device(*args, cfg, w, h, trips)
+    finally:
+        ck.ba_linearize, ck.ba_accumulate_top = lin, top
+    assert len(seen) == (trips + 2) + 2 * trips and all(seen)
+
+
+def test_marg_graph_equals_eager(cuda):
+    """The point marginalization's graph (energy_functional.replay_marg)
+    against its eager program, bitwise; one K6 and two K7 launches per
+    replay; its replay and pull queue behind a sleep without reading the
+    host."""
+    from ldso_tpu_torch.backend import energy_functional as efm
+    from ldso_tpu_torch.ops import cuda_kernels as ck
+    from ldso_tpu_torch.system.full_system import HostCopy
+    (W, dIs, HM, bM, newest), cfg, w, h = _ba_inputs(cuda, 5, seed=5)
+    cand = W.pt_valid & (torch.arange(W.P, device=cuda) % 3 == 0)
+    drop = W.pt_valid & (torch.arange(W.P, device=cuda) % 7 == 1) & ~cand
+    args = (W, cand, drop, dIs, 50.0, 0.5, cfg, w, h)
+    want = efm.marg_points_packed(*args)
+    efm.replay_marg(*args)
+    ck.reset_launch_counts()
+    got = efm.replay_marg(*args)
+    assert (ck.LAUNCHES["ba_linearize"], ck.LAUNCHES["ba_accumulate"]) == (
+        1, 2)
+    assert _same(got[1], want[1])
+    assert all(_same(a, b) for a, b in zip(got[0], want[0]))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = efm.replay_marg(*args)
+        pull = HostCopy(out[1])
+        assert not pull.is_ready()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert np.array_equal(pull.numpy(), want[1].cpu().numpy())

@@ -573,15 +573,23 @@ def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
     # warm-up: 3 + 1 launches; the thread's launch during the warm-up: 1
     assert cuda_kernels.LAUNCHES == {"distance_transform": 2,
                                      "tracker_trip": 3, "ba_projector": 0,
-                                     "trace": 0, "activate": 0}
+                                     "trace": 0, "activate": 0,
+                                     "ba_linearize": 0, "ba_accumulate": 0}
     assert g.launches == {"tracker_trip": 3, "distance_transform": 1}
     for k in range(1, 3):
         out = g.replay((torch.ones(2),))
         assert cuda_kernels.LAUNCHES == {"distance_transform": 2 + k,
                                          "tracker_trip": 3 + 3 * k,
                                          "ba_projector": 0, "trace": 0,
-                                         "activate": 0}
+                                         "activate": 0, "ba_linearize": 0,
+                                         "ba_accumulate": 0}
     assert torch.equal(out[0], torch.full((2,), 1.0))
+    # a family's launches: each graph's warm-up and replays times its tally
+    family = graphs.Programs()
+    family.graphs["key"] = g
+    assert g.replays == 2
+    assert family.launches("tracker_trip") == 3 * 3
+    assert family.launches("ba_linearize") == 0
     cuda_kernels.reset_launch_counts()
     with cuda_kernels.recording_launches() as tally:
         cuda_kernels._count("tracker_trip")

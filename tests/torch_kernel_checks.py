@@ -1479,3 +1479,337 @@ def activate_cases(scene: dict):
             scene, nf, marg=(2,) if nf == 4 else ())
     cases["planted"] = _plant_activation(scene, cases[f"window {TRACE_SLOTS}"])
     return cases
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: the windowed BA's linearization (ops/cuda_kernels.ba_linearize)
+# and accumulation (ba_accumulate_top, ba_accumulate_sc) against their plain
+# versions (backend/ba.linearize_ref, _accumulate_top_ref, _sc_sums_ref)
+# ---------------------------------------------------------------------------
+#
+# K6 runs the plain version's operations in its order (the plain version
+# writes its projections, 8-tap sums and energy sum out in K6's order, K6
+# contracts no multiply-add), so on the card the two give the same bits:
+# `lin_err` wants every field and the energy sum bitwise (a NaN equal to a
+# NaN).
+#
+# K7 sums over the points in point order, the plain versions in einsum's
+# and matmul's order: two float32 sums of the same terms. A float32 sum of
+# n terms in any order lies within about n 2^-24 of their magnitudes' sum
+# from the exact one, so `acc_err` holds each entry to ACC_RTOL times its
+# own magnitude sum (`acc_scale`: the plain version on the magnitudes of its
+# inputs, which bounds the magnitudes of every product it sums). That is
+# the floor that holds the entries whose terms cancel (b and the residual
+# column near convergence, where they are rounding-sized) without loosening
+# the others; the report also gives each output's error relative to its
+# largest entry. ACC_RTOL is 1e-4: the sequential bound for the ~2,000
+# terms of the largest host's sums is 1.2e-4, their typical rounding some
+# 1e-6 (tests/test_torch_ba_kernels.py::test_acc_err_passes_a_reordered_sum
+# holds the plain version with its points reversed within a tenth of it),
+# and a sum missing one of 256 points moves its entries by some 4e-3
+# (test_acc_err_catches_planted_faults). NaN entries must match (K7 skips
+# masked residuals but writes NaN where the plain version's 0 x term is
+# NaN), counts exactly.
+
+ACC_RTOL = 1e-4
+BA_SLOTS = 8                 # the main path's window slots
+BA_POINTS = 2048             # Config().max_points
+# the planted lanes of `ba_plant`, by the point index they start at (every
+# 23rd point from there): the kinds the CPU tests and chip_smoke.py name
+BA_PLANTS = {1: "centre out of bounds", 2: "outlier", 3: "sticky OOB",
+             4: "masked point", 5: "linearized", 6: "not existing",
+             7: "at the Huber threshold"}
+BA_PLANT_STRIDE = 23
+
+
+def ba_scene(n_frames: int, F: int, n_pts: int, w: int, h: int,
+             seed: int = 0, device="cpu"):
+    """A BA window of the port alone at any size (the CPU tests and
+    chip_smoke.py's phase 2): n_frames of F slots along a lateral path over
+    a PlaneScene (the poses after the first 2e-3 off the truth), n_pts
+    points on a grid hosted by the frames in turn (their idepths 5% off;
+    the second half with a depth prior), linearized by the plain version,
+    its energy thresholds set and its residuals applied; every 5th point's
+    residuals fixed (linearized, res_toZero); then the frames' states and
+    the points' idepths moved by small steps (so J delta is not 0). Returns
+    dict(W (the window a linearization starts from), W_lin (it linearized
+    and applied, the input of an accumulation), dIs, cfg, calib, w, h)."""
+    import numpy as np
+    from ldso_tpu_torch.backend import ba, ba_device
+    from ldso_tpu_torch.backend.energy_functional import EnergyFunctional
+    from ldso_tpu_torch.config import Config, PATTERN
+    from ldso_tpu_torch.math import lie_np
+    from ldso_tpu_torch.ops.interp import bilinear
+    from ldso_tpu_torch.ops.preprocess import make_pyramid
+    from ldso_tpu_torch.synthetic import PlaneScene, default_calib
+    cfg = Config(max_points=n_pts)
+    calib = default_calib(w, h)
+    scene = PlaneScene(freq_hi=18.0, contrast=80.0)
+    rng = np.random.RandomState(seed)
+    ef = EnergyFunctional(cfg, calib, F=F, P=n_pts, device=device)
+    dIs, ideps = [], []
+    for i in range(n_frames):
+        T = lie_np.se3_exp(np.array([0.03 * i, 0.01 * i, 0.0, 0.0, 0.0,
+                                     0.0]))
+        img, idep = scene.render(calib, T, device=device)
+        dIs.append(make_pyramid(img, calib.levels).dI[0])
+        ideps.append(idep.cpu().numpy())
+        if i > 0:
+            T = lie_np.se3_exp(rng.randn(6) * 2e-3) @ T
+        ef.insert_frame(T, exposure=1.0, aff=np.zeros(2), is_first=(i == 0))
+    side = int(np.ceil(np.sqrt(n_pts)))
+    gx, gy = np.meshgrid(np.linspace(8, w - 9, side),
+                         np.linspace(8, h - 9, side))
+    u, v = gx.reshape(-1)[:n_pts], gy.reshape(-1)[:n_pts]
+    host = np.arange(n_pts) % n_frames
+    idep = np.array([ideps[f][int(y), int(x)] for f, x, y in zip(host, u, v)])
+    idep = idep * (1.0 + rng.randn(n_pts) * 0.05)
+    patt = torch.tensor(PATTERN, dtype=torch.float32, device=device)
+    color = np.zeros((n_pts, 8), np.float32)
+    gsq = np.zeros((n_pts, 8), np.float32)
+    for f in range(n_frames):
+        sel = host == f
+        uv = [torch.tensor(a[sel], dtype=torch.float32, device=device)[:, None]
+              + patt[None, :, k] for k, a in enumerate((u, v))]
+        ptc = bilinear(dIs[f], uv[0], uv[1]).cpu().numpy()
+        color[sel] = ptc[..., 0]
+        gsq[sel] = np.sum(ptc[..., 1:3] ** 2, -1)
+    weights = np.sqrt(cfg.outlier_th_sum_component
+                      / (cfg.outlier_th_sum_component + gsq))
+    th = np.full(n_pts, 8.0 * cfg.outlier_th, np.float32)
+    half = n_pts // 2
+    for lo, hi, prior in ((0, half, False), (half, n_pts, True)):
+        ef.insert_points(host[lo:hi], u[lo:hi], v[lo:hi], color[lo:hi],
+                         weights[lo:hi], idep[lo:hi], th[lo:hi],
+                         has_depth_prior=prior)
+    dIs = torch.stack(dIs + [torch.zeros_like(dIs[0])] * (F - n_frames))
+
+    def lin(W):
+        out, _ = ba.linearize_ref(W, dIs, ba.make_precalc(W), cfg, w, h)
+        W = ba.set_new_frame_energy_th(W._replace(**out), n_frames - 1, cfg)
+        return ba.apply_res(W)
+    W = lin(ba_device._reset_oob_dev(ef.W))
+    fixed = torch.zeros(n_pts, dtype=torch.bool, device=device)
+    fixed[::5] = True
+    W = ba.fix_linearization(W, fixed & W.pt_valid)
+    f32 = dict(dtype=torch.float32, device=device)
+    step = torch.zeros((F, 10), **f32)
+    step[1:n_frames, :8] = torch.tensor(rng.randn(n_frames - 1, 8) * 1e-3,
+                                        **f32)
+    W = W._replace(state=W.state + step, idepth=W.idepth * (
+        1.0 + torch.tensor(rng.randn(n_pts) * 0.01, **f32)))
+    return dict(W=W, W_lin=lin(W), dIs=dIs, cfg=cfg, calib=calib, w=w, h=h,
+                n_frames=n_frames)
+
+
+def _every(P: int, start: int, device):
+    m = torch.zeros(P, dtype=torch.bool, device=device)
+    m[start::BA_PLANT_STRIDE] = True
+    return m
+
+
+def ba_plant(scene: dict):
+    """The scene's window with BA_PLANTS planted (points moved an image
+    width left of the border, colours off by 250 grey levels, residuals OOB before, points
+    invalid, residuals linearized or not existing) and a NaN patch in the
+    second frame's image; its Config's Huber threshold set to one tap's
+    |residual| bit for bit (the plain version's own arithmetic), so that
+    tap sits on the threshold. Returns (W, dIs, cfg)."""
+    import dataclasses
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.backend.window import RES_OOB
+    W, dIs, cfg = scene["W"], scene["dIs"].clone(), scene["cfg"]
+    P, F = W.P, W.F
+    dev = W.state.device
+    at = {k: _every(P, k, dev) for k in BA_PLANTS}
+    h, w = dIs.shape[1], dIs.shape[2]
+    dIs[1, h // 3:h // 3 + h // 8, w // 3:w // 3 + w // 6] = float("nan")
+    W = W._replace(
+        pt_u=torch.where(at[1], torch.full_like(W.pt_u, -float(w)), W.pt_u),
+        pt_color=torch.where(at[2][:, None], W.pt_color + 250.0, W.pt_color),
+        res_state=torch.where(at[3][:, None], torch.full_like(
+            W.res_state, RES_OOB), W.res_state),
+        pt_valid=W.pt_valid & ~at[4],
+        res_linearized=W.res_linearized | at[5][:, None],
+        res_exist=W.res_exist & ~(at[6][:, None]
+                                  & (torch.arange(F, device=dev) % 2 == 0)))
+    # the Huber threshold: |resid| of tap 0 of point 7's residual in the
+    # slot after its host's
+    p = 7
+    pc = ba.make_precalc(W)
+    seen = {}
+
+    def hit_fn(Ku, Kv):
+        seen["hit"] = ba._bilinear_frames(
+            dIs, torch.arange(F, device=dev)[None, :, None], Ku, Kv)
+        return seen["hit"]
+    hh = W.pt_host
+    ba._residual_core(W, pc, cfg, scene["w"], scene["h"], pc.R0[hh],
+                      pc.t0[hh], pc.KRKi[hh], pc.Kt[hh], pc.aff[hh],
+                      pc.b0[hh][:, None].expand(P, F), hit_fn,
+                      W.pt_color[:, None, :], W.pt_weights[:, None, :],
+                      W.idepth_zero, W.idepth, torch.zeros((P, F), device=dev),
+                      torch.zeros((P, F), dtype=torch.bool, device=dev),
+                      W.res_energy)
+    aff = pc.aff[hh][:, :, None, :]
+    resid = seen["hit"][..., 0] - (aff[..., 0] * W.pt_color[:, None, :]
+                                   + aff[..., 1])
+    t = (int(hh[p]) + 1) % scene["n_frames"]
+    cfg = dataclasses.replace(cfg, huber_th=float(torch.abs(resid[p, t, 0])))
+    return W, dIs, cfg
+
+
+def lin_cases(scene: dict):
+    """K6's cases on a scene: name -> (W, dIs, cfg, tgt): the window, its
+    newest frame's column, the planted window (whole and the column) and
+    the planted window with both affine parameters off (modes < 0)."""
+    import dataclasses
+    W, dIs, cfg = scene["W"], scene["dIs"], scene["cfg"]
+    newest = scene["n_frames"] - 1
+    Wp, dIp, cfgp = ba_plant(scene)
+    off = dataclasses.replace(cfgp, affine_opt_mode_a=-1.0,
+                              affine_opt_mode_b=-1.0)
+    return {"window": (W, dIs, cfg, None), "column": (W, dIs, cfg, newest),
+            "planted": (Wp, dIp, cfgp, None),
+            "planted column": (Wp, dIp, cfgp, 1),
+            "affine off": (Wp, dIp, off, None)}
+
+
+def linearized(W, dIs, cfg, w: int, h: int):
+    """W linearized by the plain version, its newest frame's energy
+    threshold set and its residuals applied: an accumulation's input."""
+    from ldso_tpu_torch.backend import ba
+    out, _ = plain_lin(W, dIs, cfg, w, h)
+    W = ba.set_new_frame_energy_th(W._replace(**out),
+                                   int(W.frame_valid.sum()) - 1, cfg)
+    return ba.apply_res(W)
+
+
+def plain_lin(W, dIs, cfg, w: int, h: int, tgt=None):
+    from ldso_tpu_torch.backend import ba
+    return ba.linearize_ref(W, dIs, ba.make_precalc(W), cfg, w, h, tgt)
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype == torch.float32:
+        return ((a.view(torch.int32) == b.view(torch.int32))
+                | (torch.isnan(a) & torch.isnan(b)))
+    return a == b
+
+
+def lin_err(got, want) -> dict:
+    """K6's (fields, energy sum) against the plain version's: the entries
+    of each field that are not bitwise equal, the largest difference, and
+    whether the energy sums are; ok when all are bitwise."""
+    (gf, ge), (wf, we) = got, want
+    bad = {k: int((~_bits_equal(gf[k], wf[k])).sum()) for k in wf}
+    err = max(float(torch.nan_to_num(torch.abs(
+        gf[k].float() - wf[k].float()), nan=0.0).max()) for k in wf)
+    energy = bool(_bits_equal(ge, we).all())
+    return dict(ok=energy and not any(bad.values()), not_bitwise=bad,
+                max_abs_err=err, energy_bitwise=energy)
+
+
+def _magnitudes(W, pc=None):
+    """W (and its precalc) with every Jacobian piece, residual and step of
+    the accumulations replaced by its magnitude (the idepth step as
+    idepth - 0), so that the plain versions' sums become sums of their
+    terms' magnitudes."""
+    a = torch.abs
+    W = W._replace(JIdx=a(W.JIdx), Jpdc=a(W.Jpdc), Jpdxi=a(W.Jpdxi),
+                   JabF=a(W.JabF), Jpdd=a(W.Jpdd), resF=a(W.resF),
+                   res_toZero=a(W.res_toZero),
+                   idepth=a(W.idepth - W.idepth_zero),
+                   idepth_zero=torch.zeros_like(W.idepth_zero))
+    if pc is None:
+        return W, None
+    return W, pc._replace(adHTdelta=a(pc.adHTdelta), c_delta=a(pc.c_delta))
+
+
+def acc_cases(W):
+    """K7's calls on a linearized and applied window: name -> (part, the
+    arguments after W): the top part in modes 0 and 1 over the valid
+    points and in mode 2 over every third valid point, the Schur part with
+    the shifted prior over the valid points (build_system's) and without
+    over every third (accumulate_marg's), fed the top part's per-point
+    sums."""
+    from ldso_tpu_torch.backend import ba
+    pc = ba.make_precalc(W)
+    marg = W.pt_valid & (torch.arange(W.P, device=W.pt_valid.device) % 3
+                         == 0)
+    tops = {m: ba._accumulate_top_ref(W, pc, m, W.pt_valid) for m in (0, 1)}
+    t2 = ba._accumulate_top_ref(W, pc, 2, marg)
+    return {"top mode 0": ("top", (pc, 0, W.pt_valid)),
+            "top mode 1": ("top", (pc, 1, W.pt_valid)),
+            "top mode 2": ("top", (pc, 2, marg)),
+            "sc build": ("sc", (tops[0][1] + tops[1][1],
+                                tops[0][2] + tops[1][2],
+                                tops[0][3] + tops[1][3], True, W.pt_valid)),
+            "sc marg": ("sc", (t2[1], t2[2], t2[3], False, marg))}
+
+
+def plain_acc(part: str, W, args) -> dict:
+    """The plain version of K7's `part` ("top" or "sc") as a dict of its
+    outputs (cuda_kernels.TOP_OUTPUTS or SC_OUTPUTS)."""
+    from ldso_tpu_torch.backend import ba
+    from ldso_tpu_torch.ops.cuda_kernels import TOP_OUTPUTS
+    if part == "top":
+        return dict(zip(TOP_OUTPUTS, ba._accumulate_top_ref(W, *args)))
+    return ba._sc_sums_ref(W, *args)
+
+
+def kernel_acc(part: str, W, args) -> dict:
+    """K7's `part` through its wrapper (the plain version on the CPU)."""
+    from ldso_tpu_torch.ops import cuda_kernels as ck
+    if part == "top":
+        return dict(zip(ck.TOP_OUTPUTS, ck.ba_accumulate_top(W, *args)))
+    return ck.ba_accumulate_sc(W, *args)
+
+
+def acc_scale(part: str, W, args) -> dict:
+    """Each output entry's magnitude sum: the plain version on the
+    magnitudes of its inputs (`_magnitudes`; the Schur part's per-point
+    sums bd and Hcd as magnitudes too)."""
+    if part == "top":
+        Wm, pc = _magnitudes(W, args[0])
+        return plain_acc("top", Wm, (pc,) + tuple(args[1:]))
+    Hdd, bd, Hcd, shift, mask = args
+    return plain_acc("sc", _magnitudes(W)[0],
+                     (Hdd, torch.abs(bd), torch.abs(Hcd), shift, mask))
+
+
+def acc_err(got: dict, want: dict, scale: dict,
+            rtol: float = ACC_RTOL) -> dict:
+    """K7's outputs against the plain version's: integer outputs exact;
+    float outputs NaN where the plain version's are and within rtol times
+    each entry's magnitude sum elsewhere. Returns dict(ok, faults, worst:
+    {output: largest err / tolerance}, rel_largest: {output: largest err
+    over the output's largest entry}, max_abs_err)."""
+    faults, worst, rel, max_abs = [], {}, {}, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if not w.is_floating_point():
+            if not torch.equal(g.to(w.dtype), w):
+                faults.append(f"{k}: counts differ")
+            continue
+        if tuple(g.shape) != tuple(w.shape):
+            faults.append(f"{k}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+            continue
+        nan_w, nan_g = torch.isnan(w), torch.isnan(g)
+        if not torch.equal(nan_w, nan_g):
+            faults.append(f"{k}: NaN at {int((nan_w != nan_g).sum())} "
+                          f"entries where the other is not")
+        ok = ~nan_w & ~nan_g
+        err = torch.where(ok, torch.abs(g - w), torch.zeros_like(w))
+        tol = rtol * torch.nan_to_num(scale[k].reshape(w.shape), nan=0.0)
+        ratio = torch.where(err > 0, err / torch.clamp(tol, min=1e-38),
+                            torch.zeros_like(err))
+        worst[k] = float(ratio.max()) if ratio.numel() else 0.0
+        big = float(torch.where(ok, torch.abs(w), torch.zeros_like(w)).max()) \
+            if w.numel() else 0.0
+        rel[k] = float(err.max()) / big if big > 0 else float(err.max())
+        max_abs = max(max_abs, float(err.max()) if err.numel() else 0.0)
+        if worst[k] > 1.0:
+            faults.append(f"{k}: error {worst[k]:.3g} x its tolerance")
+    return dict(ok=not faults, faults=faults, worst=worst, rel_largest=rel,
+                max_abs_err=max_abs)
