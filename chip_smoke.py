@@ -2739,10 +2739,11 @@ def phase_ba_kernels():
     windows = {"scene": scene["W_lin"],
                "planted": kc.linearized(*planted[:3], w, h)}
     worst, acc_faults, n_acc, acc_abs = {}, [], 0, 0.0
+    emu_faults = []
     for tag, Wl in windows.items():
         for name, (part, args) in kc.acc_cases(Wl).items():
-            rep = kc.acc_err(kc.kernel_acc(part, Wl, args),
-                             kc.plain_acc(part, Wl, args),
+            got = kc.kernel_acc(part, Wl, args)
+            rep = kc.acc_err(got, kc.plain_acc(part, Wl, args),
                              kc.acc_scale(part, Wl, args))
             n_acc += 1
             acc_abs = max(acc_abs, rep["max_abs_err"])
@@ -2750,8 +2751,14 @@ def phase_ba_kernels():
                 acc_faults.append(f"{tag} {name}: {rep['faults']}")
             for k, v in rep["worst"].items():
                 worst[k] = max(worst.get(k, 0.0), v)
+            emu = kc.acc_emulated_err(got, kc.acc_emulated(part, Wl, args))
+            if emu:
+                emu_faults.append(f"{tag} {name}: {emu}")
     if acc_faults:
         _fail(f"K7: {acc_faults}")
+    if emu_faults:
+        _fail(f"K7 against its own order written out (acc_emulated), not "
+              f"bitwise: {emu_faults}")
     Wl = windows["scene"]
     acc_cases = kc.acc_cases(Wl)
     run = lambda c: lambda: kc.kernel_acc(c[0], Wl, c[1])  # noqa: E731
@@ -2786,7 +2793,7 @@ def phase_ba_kernels():
     lin["ptxas"] = ptxas_facts(report, "linearize_kernel")
     report = cuda_kernels.ptxas_report("ba_accumulate.cu")
     acc["ptxas"] = {k: ptxas_facts(report, k) for k in (
-        "top_points", "top_blocks", "sc_points", "sc_blocks")}
+        "top_points", "top_chunks", "sc_points", "sc_chunks")}
     print(f"K6 ba_linearize: {len(cases)} cases at 640x480 ({kc.BA_POINTS} "
           f"points, {kc.BA_SLOTS} slots, planted {sorted(kc.BA_PLANTS.values())}"
           f" and a NaN patch), every field and the energy sum bitwise its "
@@ -2802,7 +2809,8 @@ def phase_ba_kernels():
     print(f"K7 ba_accumulate: {n_acc} calls (top modes 0, 1, 2 and Schur "
           f"with and without the prior, on the scene and the planted "
           f"window) within acc_err, at most {acc['tol_share']:.4f} of the "
-          f"tolerance ({ {k: round(v, 4) for k, v in worst.items()} }); "
+          f"tolerance ({ {k: round(v, 4) for k, v in worst.items()} }), "
+          f"and bitwise their own order written out (acc_emulated); "
           f"{DET_REPEATS} launches bitwise; per call of build_system's "
           f"three: {acc['ms']:.4f} ms single, "
           f"{acc['device_ms'] * 1e3:.2f} us of device time, plain "
@@ -2817,7 +2825,8 @@ def phase_ba_kernels():
 def held_to_plain(stats: dict):
     """While inside, every K6 and K7 call on the card also runs its plain
     version on the same inputs: K6 is held to it bitwise (lin_err), K7 by
-    acc_err; the kernel's result is what the caller gets. Counts and
+    acc_err and bitwise to its own order written out (acc_emulated); the
+    kernel's result is what the caller gets. Counts and
     faults go into `stats` (k6, k7, faults, worst)."""
     from ldso_tpu_torch.backend import ba
     from ldso_tpu_torch.ops import cuda_kernels as ck
@@ -2837,6 +2846,10 @@ def held_to_plain(stats: dict):
     def acc_check(part, W, args, got):
         want = kc.plain_acc(part, W, args)
         rep = kc.acc_err(got, want, kc.acc_scale(part, W, args))
+        emu = kc.acc_emulated_err(got, kc.acc_emulated(part, W, args))
+        if emu:
+            stats["faults"].append(f"K7 {part} call {stats['k7'] + 1} against "
+                                   f"acc_emulated: {emu}")
         stats["k7"] += 1
         stats["worst"] = max([stats["worst"]] + list(rep["worst"].values()))
         stats["max_abs_err"] = max(stats["max_abs_err"], rep["max_abs_err"])
@@ -2915,7 +2928,8 @@ def phase_ba_frame(ba_records, marg_records, lin_rec, acc_rec):
           f"K7 calls) and {len(margs)} point marginalizations "
           f"({stats['k6'] - n6} and {stats['k7'] - n7}) again, eagerly: every "
           f"K6 call bitwise its plain version, every K7 call within acc_err "
-          f"(at most {stats['worst']:.4f} of the tolerance); "
+          f"(at most {stats['worst']:.4f} of the tolerance) and bitwise "
+          f"acc_emulated; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 

@@ -29,10 +29,10 @@
 // true divisors; torch's clamp, maximum and where as the same selections.
 // This file is built with --fmad=false, so no multiply and add is
 // contracted, and on the same inputs the two give the same bits. The
-// energy sum's order (warps by the shuffle tree, a block's warps by the
-// same tree, then the blocks by one warp in block order) is the plain
-// version's too (backend/ba.ordered_energy_sum); the blocks' sums meet in
-// the last block to arrive (an integer counter; no float atomics).
+// energy sum's order is the plain version's (backend/ba.
+// ordered_energy_sum): 32-residual warp trees, eight of them a
+// 256-residual group by the same tree (padded with zeros to a warp), then
+// the groups by one warp in group order; no float atomics.
 //
 // What bounds it on this card: bytes. At P = 2048, F = 8 a linearized
 // residual reads its state (10 bytes) and writes 67 floats and an int (272
@@ -43,11 +43,26 @@
 // arithmetic, some 650 float operations a linearized residual, is 0.1 us
 // at 67 TFLOP/s.
 //
-// What the design does about that: one launch for the whole lattice, one
-// thread per residual, its state and point read once, its 10 fields
-// written once; the pixels through the read-only cache (the images fit in
-// the 50 MB L2). A simple first design: the fields are written with a
-// stride of their width, not coalesced.
+// What the design does about that: eight lanes per residual, lane k on
+// tap k, so the grid has 8 threads a residual: 512 blocks of 256 at the
+// main path's window (S = 1), one wave at 64 registers (4 blocks an SM),
+// each thread one tap's chain of projection, bilinear reads and weights.
+// The tap sums (`sum8`) are xor shuffles over the eight lanes with masks
+// 1, 2 and 4: float addition commutes, so each step's pair holds one value
+// and the result is sum8's tree bit for bit. The per-residual work (the
+// FEJ centre projection, Jpdxi, Jpdc, Jpdd, the states) is one
+// instruction stream for the eight lanes (their loads one address a
+// group), the same operations in the same order, and each lane writes
+// its share of the results. The precalc's views (R0, t0, KRKi, b0) are
+// read in place by their strides, so the wrapper copies nothing. A block
+// is 32 residuals: the linearized ones' 10 fields are staged in shared
+// memory and the block stores all of them coalesced, 16 bytes a thread,
+// each 16-byte unit from the stage or, for the residuals not linearized
+// here, from the input.
+// The block's 32 energies are one warp tree of the energy sum; the last
+// block to arrive (an integer counter from torch.zeros) forms the
+// 256-residual groups' trees from eight such sums each and sums the
+// groups in order. One barrier a block before its stores.
 
 #include <cmath>
 #include <cstdint>
@@ -56,9 +71,17 @@
 namespace {
 
 constexpr int kTaps = 8;
-constexpr int kBlock = 256;                     // backend/ba.LIN_BLOCK
-constexpr int kWarps = kBlock / 32;
+constexpr int kLanes = 8;                       // lanes a residual, one a tap
+constexpr int kRes = 32;                        // residuals a block: a warp tree
+constexpr int kBlock = kRes * kLanes;
+constexpr int kGroup = 8;                       // blocks a group: LIN_BLOCK / 32
 constexpr unsigned kFull = 0xffffffffu;
+// the 10 fields: words a residual, and their offsets in the block's stage
+// (in units of kRes words)
+constexpr int kFields = 10;
+constexpr int kWords = 68;
+enum : int { kXi = 0, kJc = 12, kJd = 20, kJI = 22, kJab = 38, kRe = 54,
+             kCp = 62, kSt = 65, kEn = 66, kWo = 67 };
 // window.RES_*
 constexpr int kResIn = 0;
 constexpr int kResOob = 1;
@@ -89,35 +112,22 @@ struct Args {
   const float* b0;
   const float* fxycxy;
   const float* dIs;               // (F, H, W, 3)
-  // the fields copied through where a residual is not linearized
-  const float* Jpdxi;             // (P, F, 2, 6)
-  const float* Jpdc;              // (P, F, 2, 4)
-  const float* Jpdd;              // (P, F, 2)
-  const float* JIdx;              // (P, F, 2, 8)
-  const float* JabF;              // (P, F, 2, 8)
-  const float* resF;              // (P, F, 8)
-  const float* center_proj;       // (P, F, 3)
-  const int* res_new_state;
-  const float* res_new_energy;
-  const float* res_new_energy_wo;
   const int64_t* tgt;             // the column mode's target
-  // outputs
-  float* o_Jpdxi;
-  float* o_Jpdc;
-  float* o_Jpdd;
-  float* o_JIdx;
-  float* o_JabF;
-  float* o_resF;
-  float* o_center_proj;
-  int* o_res_new_state;
-  float* o_res_new_energy;
-  float* o_res_new_energy_wo;
+  // the 10 fields (cuda_kernels.LIN_FIELDS, kWidth words a residual) as
+  // words: copied through from `in` where a residual is not linearized;
+  // written to `out`
+  const unsigned* in[kFields];
+  unsigned* out[kFields];
   float* o_energy;                // (S,)
-  // scratch: the blocks' sums (S, nb) and their arrival counters (S,)
+  // scratch: the blocks' 32-residual sums (S, nunits) and their arrival
+  // counters (S,)
   float* partial;
   unsigned* arrived;
-  int S, P, F, H, W, mode, aff_a_off, aff_b_off, nb;
+  int S, P, F, H, W, mode, aff_a_off, aff_b_off, nunits;
   int patt[2 * kTaps];
+  // the strides (elements) of R0 (S, F, F, 3, 3), t0 (S, F, F, 3), KRKi
+  // and b0 (S, F): the precalc's views, read in place
+  int sR[5], st[4], sK[5], sb[2];
   float wM3, hM3, xmax, ymax, outlier_c, huber, scale_idepth, scale_f,
       scale_c;
 };
@@ -134,8 +144,21 @@ __device__ __forceinline__ float clamp_min_nan(float v, float lo) {
 __device__ __forceinline__ float maximum_nan(float a, float b) {
   return a != a ? a : (b != b ? b : fmaxf(a, b));
 }
-__device__ __forceinline__ float sum8(const float* x) {
-  return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
+// sum8's tree over the eight lanes of a residual (`group` their mask), lane
+// k holding tap k: after the step with mask m each pair (k, k ^ m) holds one
+// value, as float addition commutes, so every lane ends with
+// ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7))
+__device__ __forceinline__ float lane_sum8(float v, unsigned group) {
+  v = v + __shfl_xor_sync(group, v, 1);
+  v = v + __shfl_xor_sync(group, v, 2);
+  return v + __shfl_xor_sync(group, v, 4);
+}
+__device__ __forceinline__ bool lane_all8(bool v, unsigned group) {
+  int x = v ? 1 : 0;
+  x &= __shfl_xor_sync(group, x, 1);
+  x &= __shfl_xor_sync(group, x, 2);
+  x &= __shfl_xor_sync(group, x, 4);
+  return x != 0;
 }
 // a warp's shuffle tree: lane i adds lane i ^ m for m = 16 .. 1
 __device__ __forceinline__ float warp_tree(float v) {
@@ -169,24 +192,52 @@ __device__ __forceinline__ void bilinear3(const float* img, int H, int W,
   }
 }
 
-// The residual (p, f) of window s: its 10 fields written, its new energy
-// returned.
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+// word c of residual j's field at stage offset `off` (kRes words a unit),
+// `width` words a residual
+__device__ __forceinline__ void put(unsigned* st, int off, int width, int j,
+                                    int c, float v) {
+  st[off * kRes + j * width + c] = __float_as_uint(v);
+}
+
+// The residual (p, f) of window s (r its index), held by the 8 lanes of
+// `group`, lane k on tap k: its 10 fields written to the block's stage
+// (slot j), its new energy returned (to every lane). The eight lanes load
+// the residual's and its point's scalars and the (host, target) precalc
+// alike (one address a group) and compute the per-residual values in one
+// instruction stream.
 __device__ float linearize_one(const Args& a, int s, int p, int f,
-                               long long r) {
-  const int P = a.P, F = a.F;
-  const long long ps = (long long)s * P + p;
+                               long long r, int j, int k, unsigned group,
+                               unsigned* st) {
+  const int F = a.F;
+  const long long ps = (long long)s * a.P + p;
   int h = (int)a.pt_host[ps];
   h = h < 0 ? 0 : (h >= F ? F - 1 : h);
-  const long long hf = ((long long)s * F + h) * F + f;
-  const float* R = a.R0 + hf * 9;
-  const float* t = a.t0 + hf * 3;
-  const float* K = a.KRKi + hf * 9;
+  const int hf = (s * F + h) * F + f;
+  // R0, t0, KRKi and b0 read in place by the precalc views' strides
+  const float* Rp = a.R0 + (s * a.sR[0] + h * a.sR[1] + f * a.sR[2]);
+  const float* tp = a.t0 + (s * a.st[0] + h * a.st[1] + f * a.st[2]);
+  const float* Kp = a.KRKi + (s * a.sK[0] + h * a.sK[1] + f * a.sK[2]);
+  float R[9], t[3], K[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    t[i] = tp[i * a.st[3]];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      R[3 * i + c] = Rp[i * a.sR[3] + c * a.sR[4]];
+      K[3 * i + c] = Kp[i * a.sK[3] + c * a.sK[4]];
+    }
+  }
   const float* kt = a.Kt + hf * 3;
   const float* af = a.aff + hf * 2;
-  const float b0 = a.b0[(long long)s * F + h];
-  const float* c4 = a.fxycxy + (long long)s * 4;
+  const float b0 = a.b0[s * a.sb[0] + h * a.sb[1]];
+  const float* c4 = a.fxycxy + s * 4;
   const float fx = c4[0], fy = c4[1], cx = c4[2], cy = c4[3];
 
+  // the centre projection: one instruction stream for the eight lanes
   const float up = a.pt_u[ps], vp = a.pt_v[ps];
   const float x0 = (up - cx) / fx;
   const float y0 = (vp - cy) / fy;
@@ -218,157 +269,220 @@ __device__ float linearize_one(const Args& a, int s, int p, int f,
   dCy2 = dCy2 * a.scale_c;
   dCy3 = (dCy3 + 1.0f) * a.scale_c;
 
-  float* jxi = a.o_Jpdxi + r * 12;
-  jxi[0] = new_idepth * fx;
-  jxi[1] = 0.0f;
-  jxi[2] = ((-new_idepth) * u) * fx;
-  jxi[3] = ((-u) * v) * fx;
-  jxi[4] = (u * u + 1.0f) * fx;
-  jxi[5] = (-v) * fx;
-  jxi[6] = 0.0f;
-  jxi[7] = new_idepth * fy;
-  jxi[8] = ((-new_idepth) * v) * fy;
-  jxi[9] = (-(v * v + 1.0f)) * fy;
-  jxi[10] = (u * v) * fy;
-  jxi[11] = u * fy;
-  float* jc = a.o_Jpdc + r * 8;
-  jc[0] = dCx0; jc[1] = dCx1; jc[2] = dCx2; jc[3] = dCx3;
-  jc[4] = dCy0; jc[5] = dCy1; jc[6] = dCy2; jc[7] = dCy3;
-  a.o_Jpdd[r * 2] = d_d_x;
-  a.o_Jpdd[r * 2 + 1] = d_d_y;
-  a.o_center_proj[r * 3] = Ku_c;
-  a.o_center_proj[r * 3 + 1] = Kv_c;
-  a.o_center_proj[r * 3 + 2] = new_idepth;
+  const float xi[12] = {new_idepth * fx, 0.0f, ((-new_idepth) * u) * fx,
+                        ((-u) * v) * fx, (u * u + 1.0f) * fx, (-v) * fx,
+                        0.0f, new_idepth * fy, ((-new_idepth) * v) * fy,
+                        (-(v * v + 1.0f)) * fy, (u * v) * fy, u * fy};
+  const float jc[8] = {dCx0, dCx1, dCx2, dCx3, dCy0, dCy1, dCy2, dCy3};
+  const float cp[3] = {Ku_c, Kv_c, new_idepth};
+  // lane k writes the words c with c % 8 == k
+#pragma unroll
+  for (int c = 0; c < 12; ++c)
+    if ((c & 7) == k) put(st, kXi, 12, j, c, xi[c]);
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+    if (c == k) put(st, kJc, 8, j, c, jc[c]);
+  if (k == 0) put(st, kJd, 2, j, 0, d_d_x);
+  if (k == 1) put(st, kJd, 2, j, 1, d_d_y);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    if (c == k) put(st, kCp, 3, j, c, cp[c]);
 
-  // the 8 pattern taps at the current state
+  // tap k at the current state
   const float idp = a.idepth[ps];
   const float* img = a.dIs + ((long long)s * F + f) * a.H * a.W * 3;
-  const float* color = a.pt_color + ps * kTaps;
-  const float* weights = a.pt_weights + ps * kTaps;
-  float* jidx = a.o_JIdx + r * 16;
-  float* jab = a.o_JabF + r * 16;
-  float* res = a.o_resF + r * kTaps;
-  float e_terms[kTaps], w_terms[kTaps];
-  bool taps_ok = true;
-  for (int k = 0; k < kTaps; ++k) {
-    const float uP = up + (float)a.patt[2 * k];
-    const float vP = vp + (float)a.patt[2 * k + 1];
-    const float q0 = ((K[0] * uP + K[1] * vP) + K[2]) + kt[0] * idp;
-    const float q1 = ((K[3] * uP + K[4] * vP) + K[5]) + kt[1] * idp;
-    const float q2 = ((K[6] * uP + K[7] * vP) + K[8]) + kt[2] * idp;
-    const float Ku = q0 / q2;
-    const float Kv = q1 / q2;
-    float hit[3];
-    bilinear3(img, a.H, a.W, a.xmax, a.ymax, Ku, Kv, hit);
-    taps_ok = taps_ok && (Ku > 1.1f) && (Kv > 1.1f) && (Ku < a.wM3) &&
-              (Kv < a.hM3) && isfinite(hit[0]);
+  const float color = a.pt_color[ps * kTaps + k];
+  const float weight = a.pt_weights[ps * kTaps + k];
+  const float uP = up + (float)a.patt[2 * k];
+  const float vP = vp + (float)a.patt[2 * k + 1];
+  const float q0 = ((K[0] * uP + K[1] * vP) + K[2]) + kt[0] * idp;
+  const float q1 = ((K[3] * uP + K[4] * vP) + K[5]) + kt[1] * idp;
+  const float q2 = ((K[6] * uP + K[7] * vP) + K[8]) + kt[2] * idp;
+  const float Ku = q0 / q2;
+  const float Kv = q1 / q2;
+  float hit[3];
+  bilinear3(img, a.H, a.W, a.xmax, a.ymax, Ku, Kv, hit);
+  const bool tap_ok = (Ku > 1.1f) && (Kv > 1.1f) && (Ku < a.wM3) &&
+                      (Kv < a.hM3) && isfinite(hit[0]);
 
-    const float resid = hit[0] - (af[0] * color[k] + af[1]);
-    const float drdA = color[k] - b0;
-    const float gsq = hit[1] * hit[1] + hit[2] * hit[2];
-    const float wg = sqrtf((1.0f / (gsq + a.outlier_c)) * a.outlier_c);
-    const float wgt = 0.5f * (wg + weights[k]);
-    const float ar = fabsf(resid);
-    const float hw_e = ar < a.huber
-                           ? 1.0f
-                           : (1.0f / clamp_min_nan(ar, 1e-12f)) * a.huber;
-    e_terms[k] = ((((wgt * wgt) * hw_e) * resid) * resid) * (2.0f - hw_e);
-    const float hw = (hw_e < 1.0f ? sqrtf(hw_e) : hw_e) * wgt;
-    jidx[k] = hit[1] * hw;
-    jidx[kTaps + k] = hit[2] * hw;
-    jab[k] = a.aff_a_off ? 0.0f : drdA * hw;
-    jab[kTaps + k] = a.aff_b_off ? 0.0f : hw;
-    res[k] = resid * hw;
-    w_terms[k] = (hw * hw) * gsq;
-  }
-  const float energy = sum8(e_terms);
-  const float wJI2 = sum8(w_terms);
+  const float resid = hit[0] - (af[0] * color + af[1]);
+  const float drdA = color - b0;
+  const float gsq = hit[1] * hit[1] + hit[2] * hit[2];
+  const float wg = sqrtf((1.0f / (gsq + a.outlier_c)) * a.outlier_c);
+  const float wgt = 0.5f * (wg + weight);
+  const float ar = fabsf(resid);
+  const float hw_e = ar < a.huber
+                         ? 1.0f
+                         : (1.0f / clamp_min_nan(ar, 1e-12f)) * a.huber;
+  const float e_term =
+      ((((wgt * wgt) * hw_e) * resid) * resid) * (2.0f - hw_e);
+  const float hw = (hw_e < 1.0f ? sqrtf(hw_e) : hw_e) * wgt;
+  put(st, kJI, 16, j, k, hit[1] * hw);
+  put(st, kJI, 16, j, kTaps + k, hit[2] * hw);
+  put(st, kJab, 16, j, k, a.aff_a_off ? 0.0f : drdA * hw);
+  put(st, kJab, 16, j, kTaps + k, a.aff_b_off ? 0.0f : hw);
+  put(st, kRe, 8, j, k, resid * hw);
+  const float w_term = (hw * hw) * gsq;
+
+  const float energy = lane_sum8(e_term, group);
+  const float wJI2 = lane_sum8(w_term, group);
+  const bool taps_ok = lane_all8(tap_ok, group);
   const bool oob = (a.res_state[r] == kResOob) || !center_ok || !taps_ok;
-  const float th = maximum_nan(a.frame_energy_th[(long long)s * F + h],
-                               a.frame_energy_th[(long long)s * F + f]);
+  const float th = maximum_nan(a.frame_energy_th[s * F + h],
+                               a.frame_energy_th[s * F + f]);
   const bool outlier = (energy > th) || (wJI2 < 2.0f);
   float new_energy = outlier ? th : energy;
-  a.o_res_new_state[r] = oob ? kResOob : (outlier ? kResOutlier : kResIn);
   new_energy = oob ? a.res_energy[r] : new_energy;
-  a.o_res_new_energy[r] = new_energy;
-  a.o_res_new_energy_wo[r] = oob ? -1.0f : energy;
+  if (k == 0)
+    st[kSt * kRes + j] = (unsigned)(oob ? kResOob
+                                        : (outlier ? kResOutlier : kResIn));
+  if (k == 1) put(st, kEn, 1, j, 0, new_energy);
+  if (k == 2) put(st, kWo, 1, j, 0, oob ? -1.0f : energy);
   return new_energy;
 }
 
-__device__ void copy_one(const Args& a, long long r) {
-  for (int i = 0; i < 12; ++i) a.o_Jpdxi[r * 12 + i] = a.Jpdxi[r * 12 + i];
-  for (int i = 0; i < 8; ++i) a.o_Jpdc[r * 8 + i] = a.Jpdc[r * 8 + i];
-  for (int i = 0; i < 2; ++i) a.o_Jpdd[r * 2 + i] = a.Jpdd[r * 2 + i];
-  for (int i = 0; i < 16; ++i) a.o_JIdx[r * 16 + i] = a.JIdx[r * 16 + i];
-  for (int i = 0; i < 16; ++i) a.o_JabF[r * 16 + i] = a.JabF[r * 16 + i];
-  for (int i = 0; i < 8; ++i) a.o_resF[r * 8 + i] = a.resF[r * 8 + i];
-  for (int i = 0; i < 3; ++i)
-    a.o_center_proj[r * 3 + i] = a.center_proj[r * 3 + i];
-  a.o_res_new_state[r] = a.res_new_state[r];
-  a.o_res_new_energy[r] = a.res_new_energy[r];
-  a.o_res_new_energy_wo[r] = a.res_new_energy_wo[r];
+// The block's 10 fields from the stage to the outputs, 16 bytes a thread
+// where the addresses allow: a word of a residual linearized here from the
+// stage, any other word copied through from the input (16-byte loads). A
+// field's stage starts on 16 bytes, so a 4-word unit lies in one field.
+__device__ void store_fields(const Args& a, long long base, int nv,
+                             const bool* app, const unsigned* st) {
+  for (int x = threadIdx.x; x < kWords * kRes / 4; x += kBlock) {
+    const int word = 4 * x;
+    int q = 0, off = kXi, wd = 12;
+    if (word >= kJc * kRes) { q = 1; off = kJc; wd = 8; }
+    if (word >= kJd * kRes) { q = 2; off = kJd; wd = 2; }
+    if (word >= kJI * kRes) { q = 3; off = kJI; wd = 16; }
+    if (word >= kJab * kRes) { q = 4; off = kJab; wd = 16; }
+    if (word >= kRe * kRes) { q = 5; off = kRe; wd = 8; }
+    if (word >= kCp * kRes) { q = 6; off = kCp; wd = 3; }
+    if (word >= kSt * kRes) { q = 7; off = kSt; wd = 1; }
+    if (word >= kEn * kRes) { q = 8; off = kEn; wd = 1; }
+    if (word >= kWo * kRes) { q = 9; off = kWo; wd = 1; }
+    const int w = word - off * kRes;         // the word in the field's block
+    const int n = min(4, nv * wd - w);
+    if (n <= 0) continue;
+    const float inv = 1.0f / (float)wd;
+    const uint4 sv = *reinterpret_cast<const uint4*>(st + word);
+    unsigned v[4] = {sv.x, sv.y, sv.z, sv.w};
+    bool from_st[4];
+    bool copy = false;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      from_st[c] = c < n && app[(int)(((float)(w + c) + 0.5f) * inv)];
+      copy = copy || (c < n && !from_st[c]);
+    }
+    if (copy) {
+      const unsigned* src = a.in[q] + base * wd + w;
+      unsigned in[4] = {0u, 0u, 0u, 0u};
+      if (n == 4 && aligned16(src)) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
+        in[0] = u.x;
+        in[1] = u.y;
+        in[2] = u.z;
+        in[3] = u.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c < n) in[c] = __ldg(src + c);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (!from_st[c]) v[c] = in[c];
+    }
+    unsigned* dst = a.out[q] + base * wd + w;
+    if (n == 4 && aligned16(dst)) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c < n) dst[c] = v[c];
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kBlock) linearize_kernel(Args a) {
-  __shared__ float warp_sums[kWarps];
+// group b of the energy sum (LIN_BLOCK residuals: the 32-residual sums
+// 8b .. 8b + 7 of `unit`, zeros past nunits) as a warp tree of the eight
+// padded with zeros to a warp gives it on lane 0: y_i = x_i + 0, then
+// ((y0 + y4) + (y2 + y6)) + ((y1 + y5) + (y3 + y7))
+__device__ float group_sum(const float* unit, int b, int nunits) {
+  float y[kGroup];
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) {
+    const int q = kGroup * b + u;
+    y[u] = __fadd_rn(q < nunits ? __ldcg(unit + q) : 0.0f, 0.0f);
+  }
+  return __fadd_rn(__fadd_rn(__fadd_rn(y[0], y[4]), __fadd_rn(y[2], y[6])),
+                   __fadd_rn(__fadd_rn(y[1], y[5]), __fadd_rn(y[3], y[7])));
+}
+
+__global__ void __launch_bounds__(kBlock, 4) linearize_kernel(Args a) {
+  __shared__ __align__(16) unsigned st[kWords * kRes];
+  __shared__ bool app[kRes];
+  __shared__ float es[kRes];
   __shared__ bool last;
   const int s = blockIdx.y;
-  const int P = a.P, F = a.F;
-  const long long n = (long long)P * F;
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  float e = 0.0f;
+  const int F = a.F;
+  const int n = a.P * F;
+  const int j = threadIdx.x / kLanes, k = threadIdx.x % kLanes;
+  const int lane = threadIdx.x & 31;
+  const unsigned group = 0xffu << (lane & ~(kLanes - 1));
+  const int i0 = blockIdx.x * kRes;
+  const int i = i0 + j;
+  const int nv = min(kRes, n - i0);
+  bool lin = false, apply = false;
+  int p = 0, f = 0;
+  long long r = 0;
   if (i < n) {
-    const int p = (int)(i / F);
-    const int f = (int)(i % F);
-    const long long r = (long long)s * n + i;
-    const bool lin = a.res_exist[r] && a.pt_valid[(long long)s * P + p] &&
-                     !a.res_linearized[r] &&
-                     a.frame_valid[(long long)s * F + f];
-    const bool apply = lin && (a.mode == 0 || (long long)f == a.tgt[s]);
-    float en;
-    if (apply) {
-      en = linearize_one(a, s, p, f, r);
-    } else {
-      copy_one(a, r);
-      en = a.res_new_energy[r];
-    }
-    e = lin ? en : 0.0f;
+    p = i / F;
+    f = i - p * F;
+    r = (long long)s * n + i;
+    lin = a.res_exist[r] && a.pt_valid[(long long)s * a.P + p] &&
+          !a.res_linearized[r] && a.frame_valid[s * F + f];
+    apply = lin && (a.mode == 0 || (long long)f == a.tgt[s]);
   }
-  // this block's sum: each warp's by the tree, then its 8 warps' (padded
-  // with zeros to a warp) by the tree
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  e = warp_tree(e);
-  if (lane == 0) warp_sums[warp] = e;
+  if (k == 0) app[j] = apply;
+  float en = 0.0f;
+  if (apply)
+    en = linearize_one(a, s, p, f, r, j, k, group, st);
+  else if (i < n)
+    en = __uint_as_float(__ldg(a.in[8] + r));
+  if (k == 0) es[j] = lin ? en : 0.0f;
   __syncthreads();
-  if (warp == 0) {
-    float w = lane < kWarps ? warp_sums[lane] : 0.0f;
-    w = warp_tree(w);
+  // the block's 32 energies: one warp tree of the energy sum
+  if (threadIdx.x < 32) {
+    const float e = warp_tree(es[lane]);
     if (lane == 0) {
-      a.partial[(long long)s * a.nb + blockIdx.x] = w;
+      a.partial[(long long)s * a.nunits + blockIdx.x] = e;
       __threadfence();
-      last = atomicAdd(a.arrived + s, 1u) == (unsigned)(a.nb - 1);
+      last = atomicAdd(a.arrived + s, 1u) == (unsigned)(a.nunits - 1);
     }
   }
+  store_fields(a, (long long)s * n + i0, nv, app, st);
   __syncthreads();
-  if (!last || warp != 0) return;
-  // the last block of window s: lane l adds blocks l, l + 32, ... in
-  // order from 0.0, then the lanes by the tree
+  if (!last || threadIdx.x >= 32) return;
+  // the last block of window s: lane l adds groups l, l + 32, ... in order
+  // from 0.0, then the lanes by the tree
   __threadfence();
+  const float* unit = a.partial + (long long)s * a.nunits;
+  const int nb = (a.nunits + kGroup - 1) / kGroup;
   float acc = 0.0f;
-  for (int b = lane; b < ((a.nb + 31) / 32) * 32; b += 32)
-    acc = acc + (b < a.nb ? __ldcg(a.partial + (long long)s * a.nb + b)
-                          : 0.0f);
+  for (int b = lane; b < ((nb + 31) / 32) * 32; b += 32)
+    acc = acc + (b < nb ? group_sum(unit, b, a.nunits) : 0.0f);
   acc = warp_tree(acc);
   if (lane == 0) a.o_energy[s] = acc;
 }
 
 }  // namespace
 
-// ptrs: cuda_kernels._LIN_INPUTS, then the 10 fields and the energy sums,
-// then the partial sums and the counters. ints: S, P, F, H, W, mode, the
-// affine a and b flags, the pattern's 16 offsets. floats: img_w - 3,
-// img_h - 3, W - 1.001, H - 1.001, the outlier and Huber thresholds,
-// SCALE_IDEPTH, SCALE_F, SCALE_C. Returns the launch's CUDA error.
+// ptrs: cuda_kernels._LIN_INPUTS (the window's, the precalc's, the images,
+// the 10 fields copied through, the target), then the 10 fields and the
+// energy sums, then the 32-residual sums and the counters. ints: S, P, F,
+// H, W, mode, the affine a and b flags, the pattern's 16 offsets, the
+// strides of R0 (5), t0 (4), KRKi (5) and b0 (2). floats:
+// img_w - 3, img_h - 3, W - 1.001, H - 1.001, the outlier and Huber
+// thresholds, SCALE_IDEPTH, SCALE_F, SCALE_C. Returns the launch's CUDA
+// error.
 extern "C" int ldso_ba_linearize(void** ptrs, const int* ints,
                                  const float* floats, void* stream) {
   Args a;
@@ -395,27 +509,9 @@ extern "C" int ldso_ba_linearize(void** ptrs, const int* ints,
   a.b0 = (const float*)ptrs[k++];
   a.fxycxy = (const float*)ptrs[k++];
   a.dIs = (const float*)ptrs[k++];
-  a.Jpdxi = (const float*)ptrs[k++];
-  a.Jpdc = (const float*)ptrs[k++];
-  a.Jpdd = (const float*)ptrs[k++];
-  a.JIdx = (const float*)ptrs[k++];
-  a.JabF = (const float*)ptrs[k++];
-  a.resF = (const float*)ptrs[k++];
-  a.center_proj = (const float*)ptrs[k++];
-  a.res_new_state = (const int*)ptrs[k++];
-  a.res_new_energy = (const float*)ptrs[k++];
-  a.res_new_energy_wo = (const float*)ptrs[k++];
+  for (int q = 0; q < kFields; ++q) a.in[q] = (const unsigned*)ptrs[k++];
   a.tgt = (const int64_t*)ptrs[k++];
-  a.o_Jpdxi = (float*)ptrs[k++];
-  a.o_Jpdc = (float*)ptrs[k++];
-  a.o_Jpdd = (float*)ptrs[k++];
-  a.o_JIdx = (float*)ptrs[k++];
-  a.o_JabF = (float*)ptrs[k++];
-  a.o_resF = (float*)ptrs[k++];
-  a.o_center_proj = (float*)ptrs[k++];
-  a.o_res_new_state = (int*)ptrs[k++];
-  a.o_res_new_energy = (float*)ptrs[k++];
-  a.o_res_new_energy_wo = (float*)ptrs[k++];
+  for (int q = 0; q < kFields; ++q) a.out[q] = (unsigned*)ptrs[k++];
   a.o_energy = (float*)ptrs[k++];
   a.partial = (float*)ptrs[k++];
   a.arrived = (unsigned*)ptrs[k++];
@@ -428,6 +524,11 @@ extern "C" int ldso_ba_linearize(void** ptrs, const int* ints,
   a.aff_a_off = ints[6];
   a.aff_b_off = ints[7];
   for (int i = 0; i < 2 * kTaps; ++i) a.patt[i] = ints[8 + i];
+  const int* strides = ints + 8 + 2 * kTaps;
+  for (int i = 0; i < 5; ++i) a.sR[i] = strides[i];
+  for (int i = 0; i < 4; ++i) a.st[i] = strides[5 + i];
+  for (int i = 0; i < 5; ++i) a.sK[i] = strides[9 + i];
+  for (int i = 0; i < 2; ++i) a.sb[i] = strides[14 + i];
   a.wM3 = floats[0];
   a.hM3 = floats[1];
   a.xmax = floats[2];
@@ -438,8 +539,8 @@ extern "C" int ldso_ba_linearize(void** ptrs, const int* ints,
   a.scale_f = floats[7];
   a.scale_c = floats[8];
   const long long n = (long long)a.P * a.F;
-  a.nb = (int)((n + kBlock - 1) / kBlock);
-  dim3 grid(a.nb, a.S);
+  a.nunits = (int)((n + kRes - 1) / kRes);
+  dim3 grid(a.nunits, a.S);
   linearize_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

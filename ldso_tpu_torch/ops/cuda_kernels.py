@@ -24,7 +24,7 @@ The kernels: K1 `distance_transform` (csrc/distance_map.cu), K3
 `activate_arena` (csrc/immature_activate.cu), K6 `ba_linearize`
 (csrc/ba_linearize.cu) and K7 `ba_accumulate_top` / `ba_accumulate_sc`
 (csrc/ba_accumulate.cu; one count in LAUNCHES["ba_accumulate"] per call,
-each call queues its two passes).
+each call queues its two stages).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ import torch
 from ldso_tpu_torch.config import (SCALE_A, SCALE_B, SCALE_XI_ROT,
                                    SCALE_XI_TRANS)
 from ldso_tpu_torch.ops.distance_map import MAX_K, distance_transform_ref
+from ldso_tpu_torch.utils.static import device_const
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -53,10 +54,12 @@ _SOURCES = ("distance_map.cu", "tracker_trip.cu", "ba_projector.cu",
             "ba_accumulate.cu")
 # flags of one source beside NVCC_FLAGS: K4, K5 and K6 round every
 # multiply and add on their own, as their plain versions' separate aten
-# operations do
+# operations do; K7 too, so that its order of sums written out in plain
+# PyTorch (tests/torch_kernel_checks.acc_emulated) gives its bits
 _SOURCE_FLAGS = {"immature_trace.cu": ("--fmad=false",),
                  "immature_activate.cu": ("--fmad=false",),
-                 "ba_linearize.cu": ("--fmad=false",)}
+                 "ba_linearize.cu": ("--fmad=false",),
+                 "ba_accumulate.cu": ("--fmad=false",)}
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "ldso_tpu_torch")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -246,6 +249,10 @@ def _load():
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_float), ctypes.c_void_p]
             lib.ldso_immature_activate.restype = ctypes.c_int
+            lib.ldso_ba_accumulate_scratch.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_longlong)]
+            lib.ldso_ba_accumulate_scratch.restype = ctypes.c_int
             for name in ("ldso_ba_linearize", "ldso_ba_accumulate"):
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
@@ -891,6 +898,19 @@ _LIN_PRECALC = ("R0", "t0", "KRKi", "Kt", "aff", "b0", "fxycxy")
 # K6's tensor arguments, in its pointer order: the window's, the
 # precalc's, the images, the fields it copies through and the target
 _LIN_INPUTS = _LIN_WINDOW + _LIN_PRECALC + ("dIs",) + LIN_FIELDS + ("tgt",)
+# the precalc's views (slices of the relative poses, a permuted product, a
+# column) that K6 reads by their strides instead of copying them
+_LIN_STRIDED = ("R0", "t0", "KRKi", "b0")
+# K6's residuals a block: one 32-residual warp tree of the energy sum
+# (backend/ba.ordered_energy_sum), eight lanes a residual
+LIN_UNIT = 32
+# K7's order of sums (csrc/ba_accumulate.cu, written out by
+# tests/torch_kernel_checks.acc_emulated): a host's listed points in
+# chunks of ACC_CHUNK; Hcc_sc and bc_sc per point-stage block (ACC_RESIDUALS
+# // F whole points), the blocks in ACC_HCC_RUNS runs of consecutive ones
+ACC_CHUNK = 32
+ACC_RESIDUALS = 32
+ACC_HCC_RUNS = 8
 # K7's parts: the top accumulation (modes 0, 1, 2) and the Schur part
 _TOP_INPUTS = ("JIdx", "Jpdc", "Jpdxi", "JabF", "Jpdd", "resF", "res_toZero",
                "res_active", "res_exist", "res_linearized", "frame_valid",
@@ -958,9 +978,10 @@ def lin_params(cfg, img_w: int, img_h: int, dIs_hw) -> Tuple[Tuple[int, ...],
     return ints, floats
 
 
-def _ba_check(what: str, x: Dict[str, torch.Tensor], names, shapes, S: int):
+def _ba_check(what: str, x: Dict[str, torch.Tensor], names, shapes, S: int,
+              strided=()):
     """Every input on one CUDA device, of its shape (with the leading
-    window axis S) and dtype, contiguous."""
+    window axis S) and dtype, contiguous but those in `strided`."""
     dev = x[names[0]].device
     for name in names:
         t = x[name]
@@ -971,7 +992,7 @@ def _ba_check(what: str, x: Dict[str, torch.Tensor], names, shapes, S: int):
         if tuple(t.shape) != (S,) + shape or t.dtype != dtype:
             raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype}, "
                              f"expected {(S,) + shape} {dtype}")
-        if not t.is_contiguous():
+        if name not in strided and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     return dev
 
@@ -997,20 +1018,31 @@ def lin_launch(x: Dict[str, torch.Tensor], mode: int, floats, ints):
         raise ValueError(f"ba_linearize: {P} points, {F} slots (1.."
                          f"{BA_MAX_SLOTS}), {H}x{W} images")
     shapes = _ba_shapes(P, F, H, W)
-    dev = _ba_check("ba_linearize", x, _LIN_INPUTS, shapes, S)
+    dev = _ba_check("ba_linearize", x, _LIN_INPUTS, shapes, S, _LIN_STRIDED)
     out = {f: torch.empty((S,) + shapes[f][0], dtype=shapes[f][1],
                           device=dev) for f in LIN_FIELDS + ("energy",)}
-    from ldso_tpu_torch.backend.ba import LIN_BLOCK
-    nb = -(-(P * F) // LIN_BLOCK)
-    partial = torch.empty((S, nb), dtype=_F32, device=dev)
+    partial = torch.empty((S, -(-(P * F) // LIN_UNIT)), dtype=_F32,
+                          device=dev)
     arrived = torch.zeros(S, dtype=_I32, device=dev)
     ptrs = ([x[n].data_ptr() for n in _LIN_INPUTS]
             + [out[f].data_ptr() for f in LIN_FIELDS + ("energy",)]
             + [partial.data_ptr(), arrived.data_ptr()])
+    strides = [d for n in _LIN_STRIDED for d in x[n].stride()]
     _ba_call("ba_linearize", _load().ldso_ba_linearize, ptrs,
-             (S, P, F, H, W, int(mode), *ints), floats, dev)
+             (S, P, F, H, W, int(mode), *ints, *strides), floats, dev)
     _count("ba_linearize")
     return tuple(out[f] for f in LIN_FIELDS + ("energy",))
+
+
+def _acc_scratch(part: int, S: int, P: int, F: int, dev):
+    """K7's scratch for one call of `part` on S windows (its point lists,
+    counters, flag words and chunk partials; the sizes from
+    csrc/ba_accumulate.cu's own layout), allocated with torch.empty: the
+    point stage writes all of it before the chunk stage reads it."""
+    sizes = (ctypes.c_longlong * 2)()
+    _load().ldso_ba_accumulate_scratch(part, P, F, sizes)
+    return (torch.empty((S, sizes[0]), dtype=_I32, device=dev),
+            torch.empty((S, max(sizes[1], 1)), dtype=_F32, device=dev))
 
 
 def top_launch(x: Dict[str, torch.Tensor], mode: int):
@@ -1025,11 +1057,9 @@ def top_launch(x: Dict[str, torch.Tensor], mode: int):
     dev = _ba_check("ba_accumulate_top", x, _TOP_INPUTS, shapes, S)
     out = {f: torch.empty((S,) + shapes[f][0], dtype=shapes[f][1],
                           device=dev) for f in TOP_OUTPUTS}
-    flags = torch.empty((S, P, F), dtype=_I32, device=dev)
-    count = torch.empty((S, P), dtype=_I32, device=dev)
     ptrs = ([x[n].data_ptr() for n in _TOP_INPUTS]
             + [out[f].data_ptr() for f in TOP_OUTPUTS]
-            + [flags.data_ptr(), count.data_ptr()])
+            + [t.data_ptr() for t in _acc_scratch(0, S, P, F, dev)])
     _ba_call("ba_accumulate_top", _load().ldso_ba_accumulate, ptrs,
              (0, S, P, F, int(mode)), (), dev)
     _count("ba_accumulate")
@@ -1048,39 +1078,44 @@ def sc_launch(x: Dict[str, torch.Tensor], shift_prior: bool):
     dev = _ba_check("ba_accumulate_sc", x, _SC_INPUTS, shapes, S)
     out = {f: torch.empty((S,) + shapes[f][0], dtype=shapes[f][1],
                           device=dev) for f in SC_OUTPUTS}
-    jflags = torch.empty((S, P, F), dtype=_I32, device=dev)
     pflags = torch.empty((S, P), dtype=_I32, device=dev)
     ptrs = ([x[n].data_ptr() for n in _SC_INPUTS]
-            + [out[f].data_ptr() for f in SC_OUTPUTS]
-            + [jflags.data_ptr(), pflags.data_ptr()])
+            + [out[f].data_ptr() for f in SC_OUTPUTS] + [pflags.data_ptr()]
+            + [t.data_ptr() for t in _acc_scratch(1, S, P, F, dev)])
     _ba_call("ba_accumulate_sc", _load().ldso_ba_accumulate, ptrs,
              (1, S, P, F, int(bool(shift_prior))), (), dev)
     _count("ba_accumulate")
     return tuple(out[f] for f in SC_OUTPUTS)
 
 
-def _window_op(names, launch):
+def _window_op(names, launch, strided=()):
     """An operator's body on one window (a window axis of 1) and its vmap
     rule (the vmapped axis is the kernel's window axis, one launch for all
-    of it; an input without that axis is repeated along it)."""
+    of it; an input without that axis is repeated along it). Inputs are
+    made contiguous, but those in `strided`, which the kernel reads in
+    place by their strides."""
     n = len(names)
 
+    def dense(k, t):
+        return t if k in strided else t.contiguous()
+
     def one(*args):
-        x = {k: t.contiguous()[None] for k, t in zip(names, args[:n])}
+        x = {k: dense(k, t)[None] for k, t in zip(names, args[:n])}
         return tuple(o[0] for o in launch(x, *args[n:]))
 
     def rule(info, in_dims, *args):
         S = info.batch_size
-        x = {k: (t.expand((S,) + tuple(t.shape)) if d is None
-                 else t.movedim(d, 0)).contiguous()
+        x = {k: dense(k, t.expand((S,) + tuple(t.shape)) if d is None
+                      else t.movedim(d, 0))
              for k, t, d in zip(names, args[:n], in_dims[:n])}
         out = launch(x, *args[n:])
         return out, (0,) * len(out)
     return one, rule
 
 
-def _register(name: str, names, extra: str, n_out: int, launch) -> None:
-    one, rule = _window_op(names, launch)
+def _register(name: str, names, extra: str, n_out: int, launch,
+              strided=()) -> None:
+    one, rule = _window_op(names, launch, strided)
     schema = ("(" + ", ".join(f"Tensor {k}" for k in names) + extra + ") -> ("
               + ", ".join(["Tensor"] * n_out) + ")")
     torch.library.custom_op(f"ldso_tpu_torch::{name}", one, mutates_args=(),
@@ -1089,7 +1124,7 @@ def _register(name: str, names, extra: str, n_out: int, launch) -> None:
 
 
 _register("ba_linearize", _LIN_INPUTS, ", int mode, float[] floats, "
-          "int[] ints", len(LIN_FIELDS) + 1, lin_launch)
+          "int[] ints", len(LIN_FIELDS) + 1, lin_launch, _LIN_STRIDED)
 _register("ba_accumulate_top", _TOP_INPUTS, ", int mode", len(TOP_OUTPUTS),
           top_launch)
 _register("ba_accumulate_sc", _SC_INPUTS, ", bool shift_prior",
@@ -1114,16 +1149,17 @@ def ba_linearize(W, dIs, pc, cfg, img_w: int, img_h: int, tgt=None):
     CPU tensors: the plain version. CUDA tensors: K6 (csrc/ba_linearize.cu)
     in one launch over the lattice on the current stream, through the
     operator `ldso_tpu_torch::ba_linearize`, whose vmap rule launches it
-    once for all S windows. It reads nothing back and allocates with
-    torch.empty (and one torch.zeros of S counters) only, so a CUDA graph
-    can capture it."""
+    once for all S windows; the precalc's views R0, t0, KRKi and b0 are
+    read in place by their strides. It reads nothing back and allocates
+    with torch.empty (and one torch.zeros of S counters) only, so a CUDA
+    graph can capture it."""
     if W.state.device.type == "cpu":
         from ldso_tpu_torch.backend.ba import linearize_ref
         return linearize_ref(W, dIs, pc, cfg, img_w, img_h, tgt)
     _card("ba_linearize", W.state)
     dev = W.state.device
     if tgt is None:
-        tgt_t = torch.zeros((), dtype=_I64, device=dev)
+        tgt_t = device_const(0, dev, _I64)        # not read in mode 0
     elif torch.is_tensor(tgt):
         tgt_t = tgt.to(_I64)
     else:
@@ -1148,10 +1184,10 @@ def ba_accumulate_top(W, pc, mode: int, pt_mask):
     (P, 4), nres).
 
     CPU tensors: the plain version. CUDA tensors: K7's top part
-    (csrc/ba_accumulate.cu, one launch: a pass over the points and a pass
-    over the (host, target) blocks, its sums over the points in point
-    order), through the operator `ldso_tpu_torch::ba_accumulate_top` with
-    a vmap rule as ba_linearize's."""
+    (csrc/ba_accumulate.cu, one launch: the point stage and the chunk
+    stage, its sums over a host's points in chunks, the chunks in order),
+    through the operator `ldso_tpu_torch::ba_accumulate_top` with a vmap
+    rule as ba_linearize's."""
     if W.state.device.type == "cpu":
         from ldso_tpu_torch.backend.ba import _accumulate_top_ref
         return _accumulate_top_ref(W, pc, mode, pt_mask)
@@ -1172,9 +1208,9 @@ def ba_accumulate_sc(W, Hdd_tot, bd_tot, Hcd_tot, shift_prior: bool,
     (F, F, 8) and accD (h, t1, t2, 8, 8). Returns them as a dict.
 
     CPU tensors: the plain version. CUDA tensors: K7's Schur part (one
-    launch: a pass over the points and a pass over the (host, target)
-    blocks), through the operator `ldso_tpu_torch::ba_accumulate_sc` with
-    a vmap rule as ba_linearize's."""
+    launch: the point stage and the chunk stage), through the operator
+    `ldso_tpu_torch::ba_accumulate_sc` with a vmap rule as
+    ba_linearize's."""
     if W.state.device.type == "cpu":
         from ldso_tpu_torch.backend.ba import _sc_sums_ref
         return _sc_sums_ref(W, Hdd_tot, bd_tot, Hcd_tot, shift_prior,

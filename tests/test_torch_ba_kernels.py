@@ -4,10 +4,13 @@ the CPU: their plain versions (backend/ba.linearize_ref, written out in
 K6's order; _accumulate_top_ref and _sc_sums_ref) against the JAX
 package's functions on one window, whole and with planted residuals; the
 checks that hold the kernels to the plain versions on the card
-(torch_kernel_checks.lin_err and acc_err) against planted faults; and the
-point marginalization as one program with one packed result
-(energy_functional.marg_points_packed) against the JAX package's
-`_marg_points_fused`, reading nothing on the host.
+(torch_kernel_checks.lin_err and acc_err) against planted faults; the
+kernels' own orders of sums (the eight-lane tap sums, K7's chunked order
+written out by torch_kernel_checks.acc_emulated) against the plain
+versions and the JAX package; and the point marginalization as one
+program with one packed result (energy_functional.marg_points_packed)
+against the JAX package's `_marg_points_fused`, reading nothing on the
+host.
 
 Windows: torch_kernel_checks.ba_scene, 5 frames of 6 slots (one slot
 empty), 144 points hosted by every frame, 96x64 images."""
@@ -213,6 +216,105 @@ def test_acc_err_passes_a_reordered_sum(scene, case):
     rep = kc.acc_err(got, want, kc.acc_scale(part, W, args))
     assert rep["ok"], rep["faults"]
     assert max(rep["worst"].values()) < 0.1, rep["worst"]
+
+
+BUTTERFLY_INPUTS = ("spread", "ties", "infinities", "nan")
+
+
+def _butterfly_inputs(kind: str):
+    """(N, 8) float32 tap terms of one kind, from a seed: spread over many
+    magnitudes and both signs; exact ties and signed zeros; infinities of
+    both signs among finite terms; NaN among finite terms."""
+    gen = np.random.RandomState(11)
+    x = (gen.randn(512, 8) * 10.0 ** gen.randint(-6, 7, (512, 8)))
+    x = x.astype(np.float32)
+    if kind == "ties":
+        x = gen.choice(np.float32([1.0, -1.0, 0.5, 3.0, 0.0, -0.0, 2.0 ** -24,
+                                   2.0 ** 24]), (512, 8))
+    elif kind == "infinities":
+        x[gen.rand(512, 8) < 0.2] = np.inf
+        x[gen.rand(512, 8) < 0.2] = -np.inf
+    elif kind == "nan":
+        x[gen.rand(512, 8) < 0.15] = np.nan
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+
+@pytest.mark.parametrize("kind", BUTTERFLY_INPUTS)
+def test_lane_butterfly_gives_sum8(kind):
+    """K6 and K7 take a residual's sums over its 8 taps with lane k on tap
+    k, as xor shuffles over the eight lanes with masks 1, 2 and 4 (each
+    lane adds its partner's value). Emulated here in float32 on seeded
+    inputs with ties, signed zeros, infinities and NaN, every lane ends
+    with the bits of sum8's tree ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6
+    + x7)) and of the port's `_sum8` (frontend/immature), which the plain
+    versions use (backend/ba._residual_core), NaN where they are NaN."""
+    from ldso_tpu_torch.frontend.immature import _sum8
+    x = _butterfly_inputs(kind)
+    lanes = x.clone()
+    for m in (1, 2, 4):
+        lanes = lanes + lanes[:, torch.arange(8) ^ m]
+    tree = ((x[:, 0] + x[:, 1]) + (x[:, 2] + x[:, 3])) + (
+        (x[:, 4] + x[:, 5]) + (x[:, 6] + x[:, 7]))
+    for want in (tree, _sum8(x)):
+        for k in range(8):
+            assert bool(kc._bits_equal(lanes[:, k], want).all()), (kind, k)
+    if kind in ("infinities", "nan"):
+        assert bool(torch.isnan(tree).any())
+
+
+def _acc_windows(scene, lin_cases):
+    planted = kc.linearized(*lin_cases["planted"][:3], scene["w"], scene["h"])
+    return {"scene": scene["W_lin"], "planted": planted}
+
+
+@pytest.mark.parametrize("window", ["scene", "planted"])
+@pytest.mark.parametrize("case", ACC_CASES)
+def test_acc_emulated_matches_plain(scene, lin_cases, window, case):
+    """K7's own order of sums written out in plain float32 PyTorch
+    (torch_kernel_checks.acc_emulated, which the card holds K7 to bit for
+    bit) against K7's plain versions: within acc_err at the unchanged
+    ACC_RTOL, NaN where they are NaN (the planted window's NaN patch),
+    counts exact."""
+    W = _acc_windows(scene, lin_cases)[window]
+    part, args = kc.acc_cases(W)[case]
+    rep = kc.acc_err(kc.acc_emulated(part, W, args),
+                     kc.plain_acc(part, W, args), kc.acc_scale(part, W, args))
+    assert rep["ok"], rep["faults"]
+    if window == "planted" and part == "top":
+        assert bool(torch.isnan(kc.acc_emulated(part, W, args)["acc"]).any())
+
+
+@pytest.mark.parametrize("case", ACC_CASES)
+def test_acc_emulated_matches_jax(scene, case, monkeypatch):
+    """K7's order (acc_emulated) against the JAX package's `_accumulate_top`
+    and `_accumulate_sc` (with its stitch: the port's stitch fed the
+    emulated sums) on the scene's linearized window: every output within
+    ACC_RTOL of its largest entry, the counts equal."""
+    W = scene["W_lin"]
+    part, args = kc.acc_cases(W)[case]
+    Wj = _jax_window(W)
+    pcj = jba.make_precalc(Wj)
+    got = kc.acc_emulated(part, W, args)
+    if part == "top":
+        _, mode, mask = args
+        want = jba._accumulate_top(Wj, pcj, mode, jnp.asarray(npy(mask)))
+        for name, g, w in zip(ck.TOP_OUTPUTS[:4], ck.TOP_OUTPUTS[:4], want):
+            _rel(got[g], w, kc.ACC_RTOL, f"{case} {name}")
+        assert int(got["nres"]) == int(want[4])
+        return
+    Hdd, bd, Hcd, shift, mask = args
+    monkeypatch.setattr(ck, "ba_accumulate_sc",
+                        lambda W_, *a: kc.acc_emulated("sc", W_, a))
+    H, b, aux = ba._accumulate_sc(W, ba.make_precalc(W), Hdd, bd, Hcd, shift,
+                                  mask)
+    Hj, bj, auxj = jba._accumulate_sc(
+        Wj, pcj, *(jnp.asarray(npy(x)) for x in (Hdd, bd, Hcd)), shift,
+        jnp.asarray(npy(mask)))
+    _rel(H, Hj, kc.ACC_RTOL, f"{case} H")
+    _rel(b, bj, kc.ACC_RTOL, f"{case} b")
+    for k in ("HdiF", "bdSum", "Hcd", "JpJdF"):
+        _rel(aux[k], auxj[k], kc.ACC_RTOL, f"{case} {k}")
+    equal(aux["ngood"], auxj["ngood"])
 
 
 FAULTS = ("missing point", "wrong host", "NaN lost", "NaN added",

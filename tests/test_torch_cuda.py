@@ -1205,6 +1205,20 @@ def test_ba_accumulate_kernel_matches_plain(cuda, case):
         assert all(_same(again[k], v) for k, v in got.items())
 
 
+@pytest.mark.parametrize("case", BA_ACC_CASES)
+def test_ba_accumulate_kernel_matches_its_emulation(cuda, case):
+    """K7 against its own order of sums written out in plain PyTorch
+    (torch_kernel_checks.acc_emulated, run on the card): every output
+    bitwise, NaN where it is NaN."""
+    kc = _kc()
+    tag, name = case.split(" ", 1)
+    W = _ba_scene()["windows"][tag]
+    part, args = kc.acc_cases(W)[name]
+    bad = kc.acc_emulated_err(kc.kernel_acc(part, W, args),
+                              kc.acc_emulated(part, W, args))
+    assert not bad, bad
+
+
 def test_ba_kernels_under_vmap_are_one_launch(cuda):
     """K6, K7's top part and its Schur part under torch.func.vmap over two
     windows: one launch each, each member bitwise its single launch on

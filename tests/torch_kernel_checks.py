@@ -1813,3 +1813,215 @@ def acc_err(got: dict, want: dict, scale: dict,
             faults.append(f"{k}: error {worst[k]:.3g} x its tolerance")
     return dict(ok=not faults, faults=faults, worst=worst, rel_largest=rel,
                 max_abs_err=max_abs)
+
+
+def _seq(terms):
+    """sum_k terms[k] in order from 0.0, each add its own rounding."""
+    acc = torch.zeros_like(terms[0])
+    for x in terms:
+        acc = acc + x
+    return acc
+
+
+def _tree8(x):
+    """The last axis (8) by the tree ((x0 + x1) + (x2 + x3)) + ((x4 + x5)
+    + (x6 + x7))."""
+    x = x[..., 0::2] + x[..., 1::2]
+    x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0] + x[..., 1]
+
+
+def _acc_chunks(host, listed, F: int, chunk: int):
+    """K7's chunks of a window: the points in `listed` by host, in point
+    order within a host, cut into chunks of `chunk` (a host with none has
+    one empty chunk). Returns (M (T, chunk) point indices, -1 past a
+    chunk's end, and per host its chunks' rows of M in order (F, n) padded
+    with -1)."""
+    rows, per_host = [], []
+    for h in range(F):
+        pts = torch.nonzero(listed & (host == h))[:, 0]
+        n = max(1, -(-pts.numel() // chunk))
+        per_host.append(list(range(len(rows), len(rows) + n)))
+        for c in range(n):
+            part = pts[c * chunk:(c + 1) * chunk]
+            rows.append(torch.nn.functional.pad(part, (0, chunk - part.numel()),
+                                                value=-1))
+    width = max(len(c) for c in per_host)
+    order = torch.tensor([c + [-1] * (width - len(c)) for c in per_host],
+                         dtype=torch.long)
+    return torch.stack(rows), order
+
+
+def _chunk_sums(M, order, include, terms):
+    """Each entry summed over every chunk's included points in order from
+    0.0, then over each host's chunks in order from 0.0: M, order from
+    `_acc_chunks`; include (P, X) bool, terms (P, X, ...) float32 per
+    point. Returns (F, X, ...)."""
+    M = M.to(terms.device)
+    acc = torch.zeros((M.shape[0],) + tuple(terms.shape[1:]),
+                      dtype=terms.dtype, device=terms.device)
+    ext = (None,) * (terms.dim() - include.dim())
+    for i in range(M.shape[1]):
+        idx = M[:, i]
+        ok = (idx >= 0)[:, None] & include[idx.clamp(min=0)]
+        acc = torch.where(ok[(...,) + ext], acc + terms[idx.clamp(min=0)], acc)
+    tot = torch.zeros((order.shape[0],) + tuple(acc.shape[1:]),
+                      dtype=acc.dtype, device=acc.device)
+    for c in range(order.shape[1]):
+        idx = order[:, c].to(acc.device)
+        tot = torch.where((idx >= 0).reshape((-1,) + (1,) * (acc.dim() - 1)),
+                          tot + acc[idx.clamp(min=0)], tot)
+    return tot
+
+
+def _nonfinite_bits(x):
+    """(P, F, ..., n) -> (F,) int: bit c set where entry c of the last axis
+    is not finite at any point of that column."""
+    bad = ~torch.isfinite(x)
+    bad = bad.reshape(x.shape[0], x.shape[1], -1, x.shape[-1]).any(2).any(0)
+    weights = 2 ** torch.arange(x.shape[-1], device=x.device)
+    return (bad.long() * weights).sum(-1)
+
+
+def _bit(words, bit):
+    return (words >> bit) & 1 == 1
+
+
+def acc_emulated(part: str, W, args) -> dict:
+    """K7's `part` in K7's own order of operations and sums (csrc/
+    ba_accumulate.cu), written out in float32 PyTorch: every multiply and
+    add rounded on its own (K7 is built with --fmad=false), a residual's
+    sums over its taps by sum8's tree, a host's listed points in chunks of
+    ACC_CHUNK summed in order and the chunks in order, Hcc_sc and bc_sc
+    per point-stage block of ACC_RESIDUALS // F points and the blocks in
+    ACC_HCC_RUNS runs, NaN from the same flags. On the card K7 gives these
+    bits. The arguments and outputs are plain_acc's."""
+    from ldso_tpu_torch.ops.cuda_kernels import (ACC_CHUNK, ACC_HCC_RUNS,
+                                                 ACC_RESIDUALS)
+    P, F = W.P, W.F
+    dev = W.state.device
+    host = W.pt_host.clamp(0, F - 1)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    nan = torch.full((), float("nan"), device=dev)
+    ji0, ji1 = W.JIdx[:, :, 0], W.JIdx[:, :, 1]              # (P, F, 8)
+    jab0, jab1 = W.JabF[:, :, 0], W.JabF[:, :, 1]
+    jd0, jd1 = W.Jpdd[..., 0], W.Jpdd[..., 1]                  # (P, F)
+    if part == "top":
+        pc, mode, pt_mask = args
+        mask = (W.res_active & W.res_exist & W.frame_valid[None, :]
+                & pt_mask[:, None])
+        if mode == 0:
+            mask = mask & ~W.res_linearized
+        elif mode == 1:
+            mask = mask & W.res_linearized
+        res = W.resF if mode == 0 else W.res_toZero
+        if mode == 1:
+            dp = pc.adHTdelta[host]                                # (P, F, 8)
+            dd = (W.idepth - W.idepth_zero)[:, None]
+            Jp = [(_seq([W.Jpdxi[:, :, x, j] * dp[..., j] for j in range(6)])
+                   + _seq([W.Jpdc[:, :, x, j] * pc.c_delta[j]
+                           for j in range(4)])) + W.Jpdd[..., x] * dd
+                  for x in range(2)]
+            res = res + (((ji0 * Jp[0][..., None] + ji1 * Jp[1][..., None])
+                          + jab0 * dp[..., 6:7]) + jab1 * dp[..., 7:8])
+        jc, xi = W.Jpdc[:, :, None], W.Jpdxi[:, :, None]          # (P, F, 1, 2, .)
+        rows = torch.cat([ji0[..., None] * jc[..., 0, :]
+                          + ji1[..., None] * jc[..., 1, :],
+                          ji0[..., None] * xi[..., 0, :]
+                          + ji1[..., None] * xi[..., 1, :],
+                          jab0[..., None], jab1[..., None], res[..., None]],
+                         dim=-1)                                   # (P, F, 8, 13)
+        jr0, jr1 = _tree8(ji0 * res), _tree8(ji1 * res)
+        j00, j01, j11 = _tree8(ji0 * ji0), _tree8(ji0 * ji1), _tree8(ji1 * ji1)
+        g0 = j00 * jd0 + j01 * jd1
+        g1 = j01 * jd0 + j11 * jd1
+        mf = mask.to(torch.float32)
+        terms = [mf * (jr0 * jd0 + jr1 * jd1), mf * (g0 * jd0 + g1 * jd1)]
+        terms += [mf * (W.Jpdc[:, :, 0, c] * g0 + W.Jpdc[:, :, 1, c] * g1)
+                  for c in range(4)]
+        point = [_seq([x[:, t] for t in range(F)]) for x in terms]
+        iu, ju = torch.triu_indices(13, 13, device=dev)
+        prod = _tree8((rows[..., iu] * rows[..., ju]).transpose(-1, -2))
+        M, order = _acc_chunks(host.cpu(), pt_mask.cpu(), F, ACC_CHUNK)
+        tot = _chunk_sums(M, order, mask, prod)                    # (F, F, 91)
+        nf = _nonfinite_bits(rows)                                 # (F,)
+        bad = _bit(nf[None, :, None], iu) | _bit(nf[None, :, None], ju)
+        tot = torch.where(bad, nan, tot)
+        acc = torch.zeros((F, F, 13, 13), dtype=torch.float32, device=dev)
+        acc[:, :, iu, ju] = tot
+        acc[:, :, ju, iu] = tot
+        return dict(acc=acc, Hdd=point[1], bd=point[0],
+                    Hcd=torch.stack(point[2:], -1), nres=mask.sum())
+    Hdd_tot, bd_tot, Hcd_tot, shift, pt_mask = args
+    act = (W.res_active & W.res_exist & W.frame_valid[None, :]
+           & pt_mask[:, None])
+    j00, j01, j11 = _tree8(ji0 * ji0), _tree8(ji0 * ji1), _tree8(ji1 * ji1)
+    a00, a01 = _tree8(jab0 * ji0), _tree8(jab0 * ji1)
+    a10, a11 = _tree8(jab1 * ji0), _tree8(jab1 * ji1)
+    g0 = j00 * jd0 + j01 * jd1
+    g1 = j01 * jd0 + j11 * jd1
+    af = act.to(torch.float32)
+    JpJdF = torch.stack(
+        [(W.Jpdxi[:, :, 0, i] * g0 + W.Jpdxi[:, :, 1, i] * g1) * af
+         for i in range(6)]
+        + [(a00 * jd0 + a01 * jd1) * af, (a10 * jd0 + a11 * jd1) * af], -1)
+    ngood = act.sum(1)
+    has = (ngood > 0) & pt_mask
+    Hd = Hdd_tot + W.pt_prior
+    Hd = torch.where(torch.isnan(Hd), Hd, torch.clamp(Hd, min=1e-10))
+    HdiF = torch.where(has, torch.ones_like(Hd) / Hd, zero)
+    bdSum = bd_tot + (W.pt_prior * (W.idepth - W.idepth_zero) if shift
+                      else zero)
+    bdSum = torch.where(has, bdSum, zero)
+    Hcd = torch.where(has[:, None], Hcd_tot, zero)
+    nfj = _nonfinite_bits(JpJdF)
+    nf_h = bool((~torch.isfinite(HdiF)).any())
+    nf_hb = bool((~torch.isfinite(HdiF * bdSum)).any())
+    nf_c = (~torch.isfinite(Hcd)).any(0)                         # (4,)
+    # Hcc_sc and bc_sc: per block of `per` points in order, then the blocks
+    # in runs of `run` consecutive ones, then the runs
+    per = ACC_RESIDUALS // F
+    nb = -(-P // per)
+    x = HdiF[:, None] * Hcd                                        # (P, 4)
+    e = torch.cat([(x[:, :, None] * Hcd[:, None, :]).reshape(P, 16),
+                   x * bdSum[:, None]], -1)                        # (P, 20)
+    e = torch.nn.functional.pad(e, (0, 0, 0, nb * per - P)).reshape(nb, per,
+                                                                     20)
+    n_in = torch.clamp(P - torch.arange(nb, device=dev) * per, max=per)
+    blocks = torch.zeros((nb, 20), dtype=torch.float32, device=dev)
+    for u in range(per):
+        blocks = torch.where((u < n_in)[:, None], blocks + e[:, u], blocks)
+    run = -(-nb // ACC_HCC_RUNS)
+    hcc = _seq([_seq(list(blocks[g * run:(g + 1) * run])
+                     or [torch.zeros_like(blocks[0])])
+                for g in range(ACC_HCC_RUNS)])
+    # accD (t1, i, t2, j), accE (t1, i, c), accEB (t1, i) per point
+    left = HdiF[:, None, None] * JpJdF                             # (P, F, 8)
+    D = left[:, :, :, None, None] * JpJdF[:, None, None]
+    E = left[..., None] * Hcd[:, None, None, :]
+    EB = (HdiF * bdSum)[:, None, None] * JpJdF
+    terms = torch.cat([D.permute(0, 1, 3, 2, 4).reshape(P, F, -1),
+                       E.reshape(P, F, 32), EB], -1)               # (P, F, .)
+    M, order = _acc_chunks(host.cpu(), pt_mask.cpu(), F, ACC_CHUNK)
+    tot = _chunk_sums(M, order, has[:, None].expand(P, F), terms)  # (F, F, .)
+    nD = F * 64
+    accD = tot[..., :nD].reshape(F, F, F, 8, 8)
+    accE = tot[..., nD:nD + 32].reshape(F, F, 8, 4)
+    accEB = tot[..., nD + 32:]
+    t1i = _bit(nfj[:, None], torch.arange(8, device=dev))         # (F, 8)
+    bad_d = nf_h | t1i[:, None, :, None] | t1i[None, :, None, :]
+    accD = torch.where(bad_d[None], nan, accD)
+    accE = torch.where((nf_h | t1i[:, :, None] | nf_c)[None], nan, accE)
+    accEB = torch.where((nf_hb | t1i)[None], nan, accEB)
+    return dict(HdiF=HdiF, bdSum=bdSum, Hcd=Hcd, JpJdF=JpJdF, ngood=ngood,
+                Hcc_sc=hcc[:16].reshape(4, 4), bc_sc=hcc[16:], accE=accE,
+                accEB=accEB, accD=accD)
+
+
+def acc_emulated_err(got: dict, emu: dict) -> dict:
+    """K7's outputs against acc_emulated's: {output: entries whose bits
+    differ (NaN against NaN counts as equal)} for the outputs that are not
+    bitwise; empty when all are."""
+    bad = {k: int((~_bits_equal(got[k], v.to(got[k].dtype))).sum())
+           for k, v in emu.items()}
+    return {k: n for k, n in bad.items() if n}
