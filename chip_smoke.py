@@ -2687,8 +2687,10 @@ def phase_ba_kernels():
     tap), its column and with both affine parameters off, every field and
     the energy sum bitwise (lin_err); K7's top part in modes 0, 1 and 2 and
     its Schur part with and without the shifted prior, on the scene's
-    linearized window and on the planted one, held by acc_err; 20 launches
-    of each bitwise; both under vmap over two windows, one launch each.
+    linearized window and on the planted one, held by acc_err, and those
+    five at 23 and 32 slots, all bitwise their own order (acc_emulated);
+    20 launches of each bitwise; both under vmap over two windows, one
+    launch each.
     Returns the two kernel records with their times (`ms`, `plain_ms`
     single calls, `device_ms` 20 launches in one CUDA graph; K7's the mean
     over build_system's three calls) and bounds."""
@@ -2754,6 +2756,18 @@ def phase_ba_kernels():
             emu = kc.acc_emulated_err(got, kc.acc_emulated(part, Wl, args))
             if emu:
                 emu_faults.append(f"{tag} {name}: {emu}")
+    # wider windows than the main path's (the Schur finisher's shared
+    # memory grows with the slots): 23 and 32 slots, 48 points a slot,
+    # 96x64, bitwise their own order
+    wide = (23, cuda_kernels.BA_MAX_SLOTS)
+    for F in wide:
+        Wf = kc.ba_scene(F, F, 48 * F, 96, 64, seed=5,
+                         device="cuda")["W_lin"]
+        for name, (part, args) in kc.acc_cases(Wf).items():
+            emu = kc.acc_emulated_err(kc.kernel_acc(part, Wf, args),
+                                      kc.acc_emulated(part, Wf, args))
+            if emu:
+                emu_faults.append(f"{F} slots {name}: {emu}")
     if acc_faults:
         _fail(f"K7: {acc_faults}")
     if emu_faults:
@@ -2810,8 +2824,9 @@ def phase_ba_kernels():
           f"with and without the prior, on the scene and the planted "
           f"window) within acc_err, at most {acc['tol_share']:.4f} of the "
           f"tolerance ({ {k: round(v, 4) for k, v in worst.items()} }), "
-          f"and bitwise their own order written out (acc_emulated); "
-          f"{DET_REPEATS} launches bitwise; per call of build_system's "
+          f"and bitwise their own order written out (acc_emulated), as "
+          f"are the five at {wide[0]} and {wide[1]} slots (96x64, 48 points "
+          f"a slot); {DET_REPEATS} launches bitwise; per call of build_system's "
           f"three: {acc['ms']:.4f} ms single, "
           f"{acc['device_ms'] * 1e3:.2f} us of device time, plain "
           f"{acc['plain_ms']:.3f} ms, bound {acc['bound_ms'] * 1e3:.3f} us "

@@ -904,13 +904,6 @@ _LIN_STRIDED = ("R0", "t0", "KRKi", "b0")
 # K6's residuals a block: one 32-residual warp tree of the energy sum
 # (backend/ba.ordered_energy_sum), eight lanes a residual
 LIN_UNIT = 32
-# K7's order of sums (csrc/ba_accumulate.cu, written out by
-# tests/torch_kernel_checks.acc_emulated): a host's listed points in
-# chunks of ACC_CHUNK; Hcc_sc and bc_sc per point-stage block (ACC_RESIDUALS
-# // F whole points), the blocks in ACC_HCC_RUNS runs of consecutive ones
-ACC_CHUNK = 32
-ACC_RESIDUALS = 32
-ACC_HCC_RUNS = 8
 # K7's parts: the top accumulation (modes 0, 1, 2) and the Schur part
 _TOP_INPUTS = ("JIdx", "Jpdc", "Jpdxi", "JabF", "Jpdd", "resF", "res_toZero",
                "res_active", "res_exist", "res_linearized", "frame_valid",
@@ -1035,14 +1028,16 @@ def lin_launch(x: Dict[str, torch.Tensor], mode: int, floats, ints):
 
 
 def _acc_scratch(part: int, S: int, P: int, F: int, dev):
-    """K7's scratch for one call of `part` on S windows (its point lists,
-    counters, flag words and chunk partials; the sizes from
-    csrc/ba_accumulate.cu's own layout), allocated with torch.empty: the
-    point stage writes all of it before the chunk stage reads it."""
-    sizes = (ctypes.c_longlong * 2)()
+    """K7's scratch for one call of `part` on S windows, the sizes from
+    csrc/ba_accumulate.cu's own layout: its point lists and chunk partials
+    with torch.empty (the point stage writes them before the chunk stage
+    reads them), and its arrival counters and flag and count words with
+    torch.zeros."""
+    sizes = (ctypes.c_longlong * 3)()
     _load().ldso_ba_accumulate_scratch(part, P, F, sizes)
     return (torch.empty((S, sizes[0]), dtype=_I32, device=dev),
-            torch.empty((S, max(sizes[1], 1)), dtype=_F32, device=dev))
+            torch.empty((S, max(sizes[1], 1)), dtype=_F32, device=dev),
+            torch.zeros((S, sizes[2]), dtype=_I32, device=dev))
 
 
 def top_launch(x: Dict[str, torch.Tensor], mode: int):

@@ -284,6 +284,21 @@ def test_acc_emulated_matches_plain(scene, lin_cases, window, case):
         assert bool(torch.isnan(kc.acc_emulated(part, W, args)["acc"]).any())
 
 
+@pytest.mark.parametrize("F,P", [(1, 48), (2, 96), (13, 624), (32, 1536),
+                                 (8, 4096)])
+def test_acc_emulated_matches_plain_at_other_widths(F, P):
+    """acc_emulated against K7's plain versions on the windows the card
+    test of every slot count runs (torch_kernel_checks.ba_scene, F frames
+    in F slots at 96x64; 4,096 points: K7's point lists in two rounds):
+    every call within acc_err at the unchanged ACC_RTOL, counts exact."""
+    W = kc.ba_scene(F, F, P, 96, 64, seed=5)["W_lin"]
+    for name, (part, args) in kc.acc_cases(W).items():
+        rep = kc.acc_err(kc.acc_emulated(part, W, args),
+                         kc.plain_acc(part, W, args),
+                         kc.acc_scale(part, W, args))
+        assert rep["ok"], (name, rep["faults"])
+
+
 @pytest.mark.parametrize("case", ACC_CASES)
 def test_acc_emulated_matches_jax(scene, case, monkeypatch):
     """K7's order (acc_emulated) against the JAX package's `_accumulate_top`

@@ -1219,6 +1219,30 @@ def test_ba_accumulate_kernel_matches_its_emulation(cuda, case):
     assert not bad, bad
 
 
+# K7 at every slot count it takes (its Schur finisher's shared memory
+# depends on F), 48 points a slot, and at 4,096 points (its point lists
+# built in two rounds)
+BA_ACC_SHAPES = [(F, 48 * F) for F in range(1, 33)] + [(8, 4096)]
+
+
+@pytest.mark.parametrize("F,P", BA_ACC_SHAPES,
+                         ids=[f"F{F}-P{P}" for F, P in BA_ACC_SHAPES])
+def test_ba_accumulate_kernel_matches_its_emulation_at_every_width(cuda, F,
+                                                                   P):
+    """K7's five calls (top modes 0, 1 and 2, the Schur part's two) on a
+    window of F frames in F slots (torch_kernel_checks.ba_scene at 96x64),
+    one launch each, every output bitwise acc_emulated's."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kc()
+    W = kc.ba_scene(F, F, P, 96, 64, seed=5, device="cuda")["W_lin"]
+    for name, (part, args) in kc.acc_cases(W).items():
+        before = cuda_kernels.LAUNCHES["ba_accumulate"]
+        got = kc.kernel_acc(part, W, args)
+        assert cuda_kernels.LAUNCHES["ba_accumulate"] == before + 1
+        bad = kc.acc_emulated_err(got, kc.acc_emulated(part, W, args))
+        assert not bad, (name, bad)
+
+
 def test_ba_kernels_under_vmap_are_one_launch(cuda):
     """K6, K7's top part and its Schur part under torch.func.vmap over two
     windows: one launch each, each member bitwise its single launch on

@@ -15,7 +15,8 @@ the 64 strict frames of chip_smoke.py's phase 3
 device ms per 6-trip BA call (the last call's graph replayed behind a
 sleep, chip_smoke._queued_device_ms) and 7e's per vmapped batch of its
 last 8 calls (chip_smoke.phase_batched_ba); and the card's name and power
-limit. The helpers, the window and the frames come from the checkout's
+limit. With --kernels-only it stops after K6's and K7's times. The
+helpers, the window and the frames come from the checkout's
 own chip_smoke.py and tests/, so the script times a parent commit too:
 unpack it (`git archive`) into a directory of the repo, and run this file
 with the parent as the current directory and on PYTHONPATH. Compare two
@@ -35,6 +36,8 @@ import sys
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default=os.path.basename(os.getcwd()))
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="K6's and K7's times alone, without phase 3")
     args = ap.parse_args()
     root = os.getcwd()
     sys.path[:0] = [root, os.path.join(root, "tests")]
@@ -60,23 +63,27 @@ def main() -> int:
     k7 = {name: cs._graph_device_ms(
         lambda c=cases[name]: kc.kernel_acc(c[0], Wl, c[1]))
         for name in ("top mode 0", "top mode 1", "sc build")}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    line = dict(label=args.label, k6_us=k6 * 1e3,
+                k6_column_us=k6_column * 1e3,
+                k7_us={k: v * 1e3 for k, v in k7.items()},
+                k7_mean_us=sum(k7.values()) / len(k7) * 1e3,
+                gpu=smi.stdout.strip())
+    if args.kernels_only:
+        print(json.dumps(line), flush=True)
+        return 0
     calib, poses, images = time_modes.bench_frames(cs.N_FRAMES)
     with cs.recorded_ba() as records:
         strict, _ = time_modes.run_mode("strict", calib, poses, images)
     last = cs._ba_calls(records)[-1]
     ba_ms = cs._queued_device_ms(lambda: efm.replay_ba(*last), n=5, reps=5)
     batched = cs.phase_batched_ba(records)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(json.dumps(dict(
-        label=args.label, k6_us=k6 * 1e3, k6_column_us=k6_column * 1e3,
-        k7_us={k: v * 1e3 for k, v in k7.items()},
-        k7_mean_us=sum(k7.values()) / len(k7) * 1e3,
-        ba_trips=last[-1], ba_device_ms=ba_ms,
-        batched_ba_device_ms=batched["device_ms"],
-        phase3_ate_mm=strict["ate_mm"], keyframes=strict["keyframes"],
-        gpu=smi.stdout.strip())), flush=True)
+    line.update(ba_trips=last[-1], ba_device_ms=ba_ms,
+                batched_ba_device_ms=batched["device_ms"],
+                phase3_ate_mm=strict["ate_mm"], keyframes=strict["keyframes"])
+    print(json.dumps(line), flush=True)
     return 0
 
 

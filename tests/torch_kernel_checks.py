@@ -1887,6 +1887,15 @@ def _bit(words, bit):
     return (words >> bit) & 1 == 1
 
 
+# K7's order of sums: these mirror csrc/ba_accumulate.cu's kChunk (a
+# host's listed points in chunks of ACC_CHUNK), kRes (Hcc_sc and bc_sc per
+# point-stage block of ACC_RESIDUALS // F whole points) and kHccSplit (the
+# blocks in ACC_HCC_RUNS runs of consecutive ones)
+ACC_CHUNK = 32
+ACC_RESIDUALS = 32
+ACC_HCC_RUNS = 8
+
+
 def acc_emulated(part: str, W, args) -> dict:
     """K7's `part` in K7's own order of operations and sums (csrc/
     ba_accumulate.cu), written out in float32 PyTorch: every multiply and
@@ -1896,8 +1905,6 @@ def acc_emulated(part: str, W, args) -> dict:
     per point-stage block of ACC_RESIDUALS // F points and the blocks in
     ACC_HCC_RUNS runs, NaN from the same flags. On the card K7 gives these
     bits. The arguments and outputs are plain_acc's."""
-    from ldso_tpu_torch.ops.cuda_kernels import (ACC_CHUNK, ACC_HCC_RUNS,
-                                                 ACC_RESIDUALS)
     P, F = W.P, W.F
     dev = W.state.device
     host = W.pt_host.clamp(0, F - 1)
