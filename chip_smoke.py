@@ -2079,13 +2079,16 @@ def phase_trace_kernel(device="cuda"):
     """K4 (csrc/immature_trace.cu) against its plain version
     (frontend/immature.trace_arena_ref) on the card, on the bench scene at
     640x480 (torch_kernel_checks.trace_scene, every one of its 4,096 lanes
-    live): each search of TRACE_VARIANTS on an uninitialised arena and on
-    the arena its first trace narrowed, and the planted lanes (at and past
-    the border, sticky OOB, skipped, badcondition, idepth_min < 0, steps at
+    live): each search of TRACE_VARIANTS (the step cap of 100 and 15
+    re-score steps among them) on an uninitialised arena and on the arena
+    its first trace narrowed, and the planted lanes (at and past the
+    border, sticky OOB, skipped, badcondition, idepth_min < 0, steps at
     the cap, uninitialised, a former outlier, dead lanes between live
     ones, NaN pixels in the target), each held by trace_err; 20 launches
-    bitwise equal. Returns the kernel record (times and launches are
-    filled in after phase 3, on its last arena)."""
+    bitwise equal; K4's device time on the bench scene's first trace
+    (`bench_4096`) and ptxas's registers of each search's kernel. Returns
+    the kernel record (the main times and launches are filled in after
+    phase 3, on its last arena)."""
     import torch
     from ldso_tpu_torch.ops import cuda_kernels
     kc = _kernel_checks()
@@ -2118,18 +2121,39 @@ def phase_trace_kernel(device="cuda"):
         if not all(_same(getattr(again, f), getattr(first, f))
                    for f in cuda_kernels.TRACE_OUTPUTS):
             _fail(f"K4: launch {rep} differs from launch 0")
+    # the bench scene's 4,096 live lanes in their first trace (the default
+    # search), timed in every run beside phase 3's last arena
+    arena, dI, KRKis, Kts, affs, cfg = cases["packed uninitialised"]
+    kernel = lambda: cuda_kernels.trace_arena(  # noqa: E731
+        arena, dI, KRKis, Kts, affs, calib, cfg)
+    _, parts = kc.plain_trace(arena, dI, KRKis, Kts, affs, calib, cfg)
+    bench = dict(device_ms=_graph_device_ms(kernel),
+                 live_lanes=int(parts["active"].sum()),
+                 searched_lanes=int(parts["do_search"].sum()))
+    bench["bound_ms"], _ = trace_bound_ms(arena, dI, KRKis, Kts, affs, parts,
+                                          cfg, calib)
+    report = cuda_kernels.ptxas_report("immature_trace.cu")
+    ptx = {("nearest " if nearest else "") + ("packed" if packed else
+                                                "rotated"):
+           ptxas_facts(report, f"immature_trace_kernelILi{k}E")
+           for (nearest, packed), k in cuda_kernels.TRACE_SEARCHES.items()}
     print(f"K4 trace: {len(cases)} cases at 640x480 ({len(kc.TRACE_VARIANTS)}"
           f" searches, uninitialised and narrowing, and the planted lanes "
           f"{sorted(kc.TRACE_PLANTS.values())}), {lanes} live lanes: "
           f"max|kernel - plain| {worst:.3g}, {not_bitwise} lanes not "
           f"bitwise the plain version's, {flips} flips at the plain "
           f"version's {ties} tie lanes; {DET_REPEATS} launches bitwise "
-          f"equal; {time.perf_counter() - t0:.1f} s", flush=True)
+          f"equal; the bench scene's {bench['live_lanes']} live lanes "
+          f"({bench['searched_lanes']} searched): "
+          f"{bench['device_ms'] * 1e3:.2f} us of device time per launch (20 "
+          f"in a graph), bound {bench['bound_ms'] * 1e3:.3f} us; ptxas {ptx}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return dict(name="trace", route="cuda",
                 source="ldso_tpu_torch/csrc/immature_trace.cu",
                 replaces="ldso_tpu/frontend/immature.py:119",
                 max_abs_err=worst, cases=len(cases), flips=flips,
-                not_bitwise=not_bitwise, library_ms=None)
+                not_bitwise=not_bitwise, library_ms=None,
+                bench_4096=bench, ptxas=ptx)
 
 
 @contextlib.contextmanager
@@ -2216,6 +2240,9 @@ def _k4_run_check(run: dict) -> None:
 
 
 
+# the windows past the main path's 8 slots that phase 2 holds K5 to: a
+# group of 8 slots and a partial one, and K5's most (ACTIVATE_MAX_SLOTS)
+ACT_WIDE_SLOTS = (23, 32)
 # float operations of K5's function, counted from csrc/immature_activate.cu
 # by what each unit of work reaches: a live lane's gate (its idm, the
 # projection, the pixel, the distance test) and one tap of one evaluation
@@ -2358,7 +2385,8 @@ def phase_activate_kernel(device="cuda"):
     (frontend/immature.activate_arena_ref) on the card, on the bench scene
     at 640x480 with the full 4,096-lane arena (torch_kernel_checks.
     activate_scene: one trace's intervals, K1's map of a random occupancy):
-    windows of 2, 4 and 8 frames of the 8 slots, and the planted lanes
+    windows of 2, 4 and 8 frames of the 8 slots, windows of ACT_WIDE_SLOTS
+    frames in as many slots, and the planted lanes
     (patterns out of bounds at the border, masked targets, NaN pixels, Hdd
     under min_idepth_h_act, a first step that converges, an energy at the
     outlier limit, host == newest and out of range, outliers,
@@ -2367,14 +2395,17 @@ def phase_activate_kernel(device="cuda"):
     FullSystem's activation under set_sync_debug_mode("error") behind a
     sleep (`_activation_dispatch`). Returns the kernel record with K5's
     times on the window of 8 (`ms`, `plain_ms` single calls, `device_ms`
-    20 launches in one CUDA graph) and its bound; phase 3's activations
-    fill in the rest."""
+    20 launches in one CUDA graph), its bound and ptxas's registers; phase
+    3's activations fill in the rest."""
     from ldso_tpu_torch.ops import cuda_kernels
     kc = _kernel_checks()
     t0 = time.perf_counter()
-    scene = kc.activate_scene(640, 480, device)
+    scene = kc.activate_scene(640, 480, device, slots=max(ACT_WIDE_SLOTS))
     calib = scene["calib"]
     cases = kc.activate_cases(scene)
+    for F in ACT_WIDE_SLOTS:
+        cases[f"window {F} in {F} slots"] = kc.activate_inputs(scene, F,
+                                                               slots=F)
     worst, flips, ties, lanes, opt, not_bitwise = 0.0, 0, 0, 0, 0, 0
     launches = cuda_kernels.LAUNCHES["activate"]
     for name, inputs in cases.items():
@@ -2404,9 +2435,12 @@ def phase_activate_kernel(device="cuda"):
                plain_ms=_median_event_ms(plain, reps=10, warmup=2))
     _, parts = plain()
     rec["bound_ms"], rec["bound_by"] = activate_bound_ms(inputs, parts, calib)
+    rec["ptxas"] = ptxas_facts(cuda_kernels.ptxas_report(
+        "immature_activate.cu"), "immature_activate_kernel")
     dispatch_ms = _activation_dispatch(kc, scene)
     print(f"K5 activate: {len(cases)} cases at 640x480 (windows of "
-          f"{list(kc.ACT_FRAMES)} frames and the planted lanes "
+          f"{list(kc.ACT_FRAMES)} frames in 8 slots, of {list(ACT_WIDE_SLOTS)}"
+          f" frames in as many slots, and the planted lanes "
           f"{sorted(kc.ACT_PLANTS.values())}), {lanes} live lanes, {opt} "
           f"optimised: max|kernel - plain| {worst:.3g}, {not_bitwise} lanes "
           f"not bitwise the plain version's, {flips} flips at the plain "
@@ -2418,7 +2452,8 @@ def phase_activate_kernel(device="cuda"):
           f"in a graph), plain {rec['plain_ms']:.3f} ms; bound "
           f"{rec['bound_ms'] * 1e3:.3f} us set by {rec['bound_by']}, "
           f"{100 * rec['bound_ms'] / rec['device_ms']:.2f}% of it reached "
-          f"in device time; FullSystem's activation queued in "
+          f"in device time; ptxas {rec['ptxas']}; FullSystem's activation "
+          f"queued in "
           f"{dispatch_ms:.2f} ms under set_sync_debug_mode('error') behind "
           f"50 ms of sleep; {time.perf_counter() - t0:.1f} s", flush=True)
     return dict(name="activate", route="cuda",

@@ -43,31 +43,55 @@
 // activate_err still allows a lane to differ where the plain version's own
 // numbers tie.
 //
-// What bounds it on this card: bytes. At 640x480 with 4,096 lanes and 8
-// window slots, the work is at most 4,096 x 8 x 8 taps x 4 evaluations,
-// about 1 M bilinear taps of 3 channels and some 100 M float operations
-// (1.5 us at 67 TFLOP/s). The bytes are the arena's lane state (48 bytes
-// a live lane for the gate and the 11 written, 68 more for a lane the LM
-// runs on), the tables, the distance map's words the gate reads and the
-// window images' pixels the taps read (at most 8 x 3.7 MB, far fewer in a
-// run): 1.7 us at 3.35 TB/s on the bench scene's arena against 8 slots
-// (chip_smoke.activate_bound_ms). The plain version's time is its
-// launches, not its arithmetic.
+// What bounds it on this card: bytes, by the function's own count. At
+// 640x480 with 4,096 lanes and 8 window slots, the work is at most 4,096 x
+// 8 x 8 taps x 4 evaluations, about 1 M bilinear taps of 3 channels and
+// some 100 M float operations (1.5 us at 67 TFLOP/s). The bytes are the
+// arena's lane state (48 bytes a live lane for the gate and the 11
+// written, 68 more for a lane the LM runs on), the tables, the distance
+// map's words the gate reads and the window images' pixels the taps read
+// (at most 8 x 3.7 MB, far fewer in a run): 1.7 us at 3.35 TB/s on the
+// bench scene's arena against 8 slots (chip_smoke.activate_bound_ms). The
+// plain version's time is its launches, not its arithmetic.
 //
-// What the design does about that: one launch for the whole arena, each
-// lane's state read once, the 5 outputs written once, the pixels read
-// through the read-only cache (`__ldg`; the window images fit in the 50 MB
-// L2). One warp per lane:
-//   * every thread computes the lane's gate itself (a few dozen scalar
-//     operations), so the warp decides alike and nothing is broadcast;
-//   * thread k < F evaluates window slot k, its 8 taps in order and summed
-//     in the tree; a slot that is not a target is skipped;
-//   * each evaluation's three sums over the slots are taken in slot order
-//     from 0.0 by shuffles from threads 0..F-1, so every thread holds them
-//     and runs the LM's scalar steps itself;
-//   * the inlier count is a ballot over the slots' states;
+// What held the first design (one warp per lane, slot k on thread k, 4
+// lanes a block; globaltimer stamps of each lane's phases from a stamped
+// copy, not kept, on an H100 at 700 W): on the bench scene's arena
+// against 8 slots its blocks ran in two waves (115 registers, 16 lanes an
+// SM at once; the last lanes started 17.5 us after the first), and an
+// optimised lane took 14.8 us (median): each LM
+// evaluation 2.8-3.3 us, the first 4.9 with the tables' trip. Each of its
+// 8 working threads ran a slot's 8 taps in series; 24 of 32 threads
+// idled.
+//
+// The design: one launch for the whole arena, one warp per lane and a
+// block per lane, so a lane that leaves early frees its place at once:
+//   * the warp loads the lane's fields alike in one trip, then the gate's
+//     and the LM's host tables in a second, and computes the gate in one
+//     instruction stream, once per lane; a dead lane writes its outputs
+//     after the first trip, a lane the gate drops after the second;
+//   * a lane the gate keeps loads its distance-map word together with the
+//     first evaluation's pixels (that evaluation, at idm, does not wait on
+//     the map), and a lane whose distance test fails discards it;
+//   * the LM: window slot j of a group of 8 on threads 4j..4j+3, thread
+//     4j + q holding taps 2q and 2q + 1, so at 8 slots every thread works;
+//     each thread adds its pair, then the xor shuffles 1 and 2 over the 4
+//     threads give ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)),
+//     sum8's tree, and the all-taps-in-bounds test is an AND over them;
+//     the 24 pixel words of a thread's two taps go out together;
+//   * each evaluation's three sums over the slots fetch the 8 slots'
+//     values by independent shuffles and add them in slot order from
+//     0.0, so the dependent chain is one add a slot; the inlier count is a
+//     ballot over the slots' leading threads;
+//   * past 8 slots (up to 32) the slots run in groups of 8, in slot order,
+//     each group's tables read again at each evaluation;
 //   * thread 0 writes the lane's outputs.
-// Nothing is summed across lanes, so there are no atomics.
+// Nothing is summed across lanes, so there are no atomics. Stamped again,
+// an evaluation takes 1.5 us and an optimised lane 7.6 us; at 118
+// registers an SM still holds 16 lanes at once, so the bench's 2,533
+// optimised lanes still run in two waves (the last lanes start 10.0 us
+// after the first): the next lever. Held to 96 registers or 64 (copies not
+// kept) it ran no faster.
 
 #include <cmath>
 #include <cstdint>
@@ -76,8 +100,8 @@
 namespace {
 
 constexpr int kTaps = 8;
-constexpr int kMaxSlots = 32;                   // one slot per thread
-constexpr int kLanesPerBlock = 4;               // one warp per lane
+constexpr int kGroupSlots = 8;                  // slots a group, 4 threads each
+constexpr int kMaxSlots = 32;                   // cuda_kernels.ACTIVATE_MAX_SLOTS
 constexpr unsigned kFull = 0xffffffffu;
 
 // immature.IPS_*
@@ -86,10 +110,6 @@ constexpr int kOob = 1;
 constexpr int kOutlier = 2;
 constexpr int kSkipped = 3;
 constexpr int kBadCondition = 4;
-// immature.RES_*
-constexpr int kResIn = 0;
-constexpr int kResOob = 1;
-constexpr int kResOutlier = 2;
 
 struct Args {
   // the arena (N lanes)
@@ -140,144 +160,215 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
   return isnan(x) ? x : fmaxf(x, lo);
 }
 
-// immature._sum8's tree
-__device__ __forceinline__ float sum8(const float* x) {
-  return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
-}
-
-// the slots' values summed in slot order from 0.0, slot k's on thread k;
-// every thread gets the sum
-__device__ __forceinline__ float slot_sum(float x, int n_slots) {
-  float s = 0.0f;
-  for (int k = 0; k < n_slots; ++k) {
-    s = s + __shfl_sync(kFull, x, k);
-  }
-  return s;
-}
-
 // the plain version's th / x is x.reciprocal() * th (Tensor.__rtruediv__)
 __device__ __forceinline__ float huber_w(float ar, float th) {
   return ar < th ? 1.0f : (1.0f / clamp_min(ar, 1e-12f)) * th;
 }
 
-// interp.bilinear of the three channels of image `img` at (x, y): the
-// W - 1.001 clamp, a NaN coordinate at cell 0 with its NaN weights
-__device__ __forceinline__ void bilinear3(const Args& a, const float* img,
-                                          float x, float y, float* out) {
-  x = clamp_f(x, 0.0f, a.x_hi);
-  y = clamp_f(y, 0.0f, a.y_hi);
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const int xi = isnan(x0) ? 0 : static_cast<int>(x0);
-  const int yi = isnan(y0) ? 0 : static_cast<int>(y0);
-  const float dx = x - x0;
-  const float dy = y - y0;
-  const float dxdy = dx * dy;
-  const float* p00 = img + 3 * (yi * a.w + xi);
-  const float* p10 = p00 + 3 * a.w;
-  for (int c = 0; c < 3; ++c) {
-    const float v00 = __ldg(p00 + c), v01 = __ldg(p00 + 3 + c);
-    const float v10 = __ldg(p10 + c), v11 = __ldg(p10 + 3 + c);
-    out[c] = dxdy * v11 + (dy - dxdy) * v10 + (dx - dxdy) * v01 +
-             (1.0f - dx - dy + dxdy) * v00;
-  }
+// sum8's tree over a slot's 4 threads, each holding the sum of its pair of
+// taps: xor 1 forms (x0 + x1) + (x2 + x3) and (x4 + x5) + (x6 + x7), xor 2
+// their sum (a + b and b + a being the same bits)
+__device__ __forceinline__ float slot_sum8(float pair) {
+  pair = pair + __shfl_xor_sync(kFull, pair, 1);
+  return pair + __shfl_xor_sync(kFull, pair, 2);
 }
 
-// one slot's table and the lane's pattern rays, as a thread holds them
+// one (host, target) pair's tables, as the threads of its slot hold them
 struct Target {
   float R[9], t[3], aff[2];
   const float* img;
   bool live;
 };
 
-struct Residual {
-  float e, H, b;
-  int state;
-};
-
-// linearize_depth_residual of the lane against one target at idepth
-__device__ Residual residual(const Args& a, const Target& T, const float* x,
-                             const float* y, const float* color,
-                             const float* weights, float energy_th,
-                             float idepth, float slack) {
-  const float W = static_cast<float>(a.w), H = static_cast<float>(a.h);
-  float e_t[kTaps], h_t[kTaps], b_t[kTaps];
-  bool all_ok = true;
-  for (int p = 0; p < kTaps; ++p) {
-    const float p0 = (T.R[0] * x[p] + T.R[1] * y[p] + T.R[2]) +
-                     T.t[0] * idepth;
-    const float p1 = (T.R[3] * x[p] + T.R[4] * y[p] + T.R[5]) +
-                     T.t[1] * idepth;
-    const float p2 = (T.R[6] * x[p] + T.R[7] * y[p] + T.R[8]) +
-                     T.t[2] * idepth;
-    const float dr = 1.0f / p2;
-    const float uu = p0 * dr;
-    const float vv = p1 * dr;
-    const float Ku = uu * a.fx + a.cx;
-    const float Kv = vv * a.fy + a.cy;
-    const bool inb = (dr > 0.0f) & (Ku > 1.1f) & (Kv > 1.1f) &
-                     (Ku < W - 3.0f) & (Kv < H - 3.0f);
-    float hit[3];
-    bilinear3(a, T.img, Ku, Kv, hit);
-    const bool pix_ok = inb & isfinite(hit[0]);
-    all_ok = all_ok & pix_ok;
-    const float r = hit[0] - (T.aff[0] * color[p] + T.aff[1]);
-    const float hw = huber_w(fabsf(r), a.huber_th);
-    const float w2 = weights[p] * weights[p];
-    e_t[p] = pix_ok ? w2 * hw * r * r * (2.0f - hw) : 0.0f;
-    const float dxI = hit[1] * a.fx;
-    const float dyI = hit[2] * a.fy;
-    const float d = dxI * dr * (T.t[0] - T.t[2] * uu) +
-                    dyI * dr * (T.t[1] - T.t[2] * vv);
-    const float hww = hw * w2;
-    h_t[p] = pix_ok ? hww * d * d : 0.0f;
-    b_t[p] = pix_ok ? hww * r * d : 0.0f;
+__device__ __forceinline__ Target load_target(const Args& a, int hs,
+                                              int slot) {
+  Target T;
+  T.live = false;
+  T.img = a.dIs;
+  if (slot < a.n_slots) {
+    const int pair = hs * a.n_slots + slot;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) T.R[k] = __ldg(a.Rs + 9 * pair + k);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) T.t[k] = __ldg(a.ts + 3 * pair + k);
+    T.aff[0] = __ldg(a.affs + 2 * pair);
+    T.aff[1] = __ldg(a.affs + 2 * pair + 1);
+    T.live = a.masks[pair];
+    T.img = a.dIs + static_cast<size_t>(slot) * a.h * a.w * 3;
   }
-  Residual out;
-  const float energy = sum8(e_t);
-  const float lim = energy_th * slack;
-  const bool over = energy > lim;
-  out.e = over ? lim : energy;
-  out.state = !all_ok ? kResOob : (over ? kResOutlier : kResIn);
-  out.H = all_ok ? sum8(h_t) : 0.0f;
-  out.b = all_ok ? sum8(b_t) : 0.0f;
-  return out;
+  return T;
 }
 
-// all_targets: this thread's slot (masked: 0 and OOB where it is not a
-// target), and the three sums over the slots
+// The lane's pattern rays, colours and weights for this thread's two taps
+struct Taps {
+  float x[2], y[2], color[2], weight[2];
+};
+
 struct Sums {
   float e, H, b;
-  int state;
+  int n_in;                  // slots with an inlier residual
 };
-__device__ Sums evaluate(const Args& a, const Target& T, int slot,
-                         const float* x, const float* y, const float* color,
-                         const float* weights, float energy_th,
-                         float idepth, float slack) {
-  Residual r{0.0f, 0.0f, 0.0f, kResOob};
-  if (slot < a.n_slots && T.live) {
-    r = residual(a, T, x, y, color, weights, energy_th, idepth, slack);
+
+// linearize_depth_residual's two taps of this thread against target T at
+// idepth: the pair sums of the energy, Hdd and bd terms, and whether both
+// taps are in bounds with a finite pixel. Both taps' 24 pixel words are
+// loaded before any is used, so they are in flight together.
+__device__ __forceinline__ void tap_pair(const Args& a, const Target& T,
+                                         const Taps& P, float idepth,
+                                         float& e, float& hd, float& bd,
+                                         bool& ok) {
+  const float W = static_cast<float>(a.w), H = static_cast<float>(a.h);
+  float dr[2], uu[2], vv[2], dx[2], dy[2], wd[2][3][4];
+  bool inb[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float p0 = (T.R[0] * P.x[k] + T.R[1] * P.y[k] + T.R[2]) +
+                     T.t[0] * idepth;
+    const float p1 = (T.R[3] * P.x[k] + T.R[4] * P.y[k] + T.R[5]) +
+                     T.t[1] * idepth;
+    const float p2 = (T.R[6] * P.x[k] + T.R[7] * P.y[k] + T.R[8]) +
+                     T.t[2] * idepth;
+    dr[k] = 1.0f / p2;
+    uu[k] = p0 * dr[k];
+    vv[k] = p1 * dr[k];
+    const float Ku = uu[k] * a.fx + a.cx;
+    const float Kv = vv[k] * a.fy + a.cy;
+    inb[k] = (dr[k] > 0.0f) & (Ku > 1.1f) & (Kv > 1.1f) & (Ku < W - 3.0f) &
+             (Kv < H - 3.0f);
+    // interp.bilinear's cell: the W - 1.001 clamp, a NaN coordinate at
+    // cell 0 with its NaN weights
+    const float x = clamp_f(Ku, 0.0f, a.x_hi);
+    const float y = clamp_f(Kv, 0.0f, a.y_hi);
+    const float x0 = floorf(x);
+    const float y0 = floorf(y);
+    const int xi = isnan(x0) ? 0 : static_cast<int>(x0);
+    const int yi = isnan(y0) ? 0 : static_cast<int>(y0);
+    dx[k] = x - x0;
+    dy[k] = y - y0;
+    const float* p00 = T.img + 3 * (yi * a.w + xi);
+    const float* p10 = p00 + 3 * a.w;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      wd[k][c][0] = __ldg(p00 + c);
+      wd[k][c][1] = __ldg(p00 + 3 + c);
+      wd[k][c][2] = __ldg(p10 + c);
+      wd[k][c][3] = __ldg(p10 + 3 + c);
+    }
   }
-  Sums s;
-  s.e = slot_sum(r.e, a.n_slots);
-  s.H = slot_sum(r.H, a.n_slots);
-  s.b = slot_sum(r.b, a.n_slots);
-  s.state = r.state;
+  float et[2], ht[2], bt[2];
+  ok = true;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    // interp.bilinear of the three channels
+    float hit[3];
+    const float dxdy = dx[k] * dy[k];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      hit[c] = dxdy * wd[k][c][3] + (dy[k] - dxdy) * wd[k][c][2] +
+               (dx[k] - dxdy) * wd[k][c][1] +
+               (1.0f - dx[k] - dy[k] + dxdy) * wd[k][c][0];
+    }
+    const bool pix_ok = inb[k] & isfinite(hit[0]);
+    ok = ok & pix_ok;
+    const float r = hit[0] - (T.aff[0] * P.color[k] + T.aff[1]);
+    const float hw = huber_w(fabsf(r), a.huber_th);
+    const float w2 = P.weight[k] * P.weight[k];
+    et[k] = pix_ok ? w2 * hw * r * r * (2.0f - hw) : 0.0f;
+    const float dxI = hit[1] * a.fx;
+    const float dyI = hit[2] * a.fy;
+    const float d = dxI * dr[k] * (T.t[0] - T.t[2] * uu[k]) +
+                    dyI * dr[k] * (T.t[1] - T.t[2] * vv[k]);
+    const float hww = hw * w2;
+    ht[k] = pix_ok ? hww * d * d : 0.0f;
+    bt[k] = pix_ok ? hww * r * d : 0.0f;
+  }
+  e = et[0] + et[1];
+  hd = ht[0] + ht[1];
+  bd = bt[0] + bt[1];
+}
+
+// all_targets at idepth: every slot's residual (masked: 0 and OOB where it
+// is not a target), the three sums over the slots in slot order from 0.0
+// and the slots with an inlier. Slot 8m + j on threads 4j..4j+3; group 0's
+// tables are T0, a later group's are read here.
+__device__ Sums evaluate(const Args& a, const Target& T0, int hs,
+                         const Taps& P, float energy_th, float idepth,
+                         float slack, int t) {
+  const int j = t >> 2;
+  Sums s{0.0f, 0.0f, 0.0f, 0};
+  const int groups = (a.n_slots + kGroupSlots - 1) / kGroupSlots;
+#pragma unroll 1
+  for (int m = 0; m < groups; ++m) {
+    const int slot = kGroupSlots * m + j;
+    const Target T = m == 0 ? T0 : load_target(a, hs, slot);
+    float e = 0.0f, hd = 0.0f, bd = 0.0f;
+    bool ok = true;
+    if (T.live) tap_pair(a, T, P, idepth, e, hd, bd, ok);
+    const float energy = slot_sum8(e);
+    hd = slot_sum8(hd);
+    bd = slot_sum8(bd);
+    ok = ok & __shfl_xor_sync(kFull, ok, 1);
+    ok = ok & __shfl_xor_sync(kFull, ok, 2);
+    const float lim = energy_th * slack;
+    const bool over = energy > lim;
+    // a slot that is not a target gives 0 and OOB
+    const float re = T.live ? (over ? lim : energy) : 0.0f;
+    const float rh = T.live & ok ? hd : 0.0f;
+    const float rb = T.live & ok ? bd : 0.0f;
+    const bool in = T.live & ok & !over;
+    s.n_in += __popc(__ballot_sync(kFull, ((t & 3) == 0) & in));
+    // the slots' values by independent shuffles, then added in slot order
+    float ve[kGroupSlots], vh[kGroupSlots], vb[kGroupSlots];
+#pragma unroll
+    for (int k = 0; k < kGroupSlots; ++k) {
+      ve[k] = __shfl_sync(kFull, re, 4 * k);
+      vh[k] = __shfl_sync(kFull, rh, 4 * k);
+      vb[k] = __shfl_sync(kFull, rb, 4 * k);
+    }
+#pragma unroll
+    for (int k = 0; k < kGroupSlots; ++k) {
+      if (kGroupSlots * m + k < a.n_slots) {
+        s.e = s.e + ve[k];
+        s.H = s.H + vh[k];
+        s.b = s.b + vb[k];
+      }
+    }
+  }
   return s;
 }
 
-__global__ void __launch_bounds__(32 * kLanesPerBlock)
-    immature_activate_kernel(const Args a) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kLanesPerBlock + (threadIdx.x >> 5);
-  if (i >= a.n) return;                       // whole warps
-  const float id_max = a.idepth_max[i];
-  const float id_min = a.idepth_min[i];
+__global__ void __launch_bounds__(32) immature_activate_kernel(const Args a) {
+  const int t = threadIdx.x;
+  const int i = blockIdx.x;
+  // the lane's fields in one trip, alike on every thread; taps 2q and
+  // 2q + 1 on thread 4j + q
+  const int q = t & 3;
+  const bool valid = a.valid[i];
+  const int hst = __ldg(a.host + i);
+  const float id_max = __ldg(a.idepth_max + i);
+  const float id_min = __ldg(a.idepth_min + i);
+  const int st = __ldg(a.status + i);
+  const float last_interval = __ldg(a.last_interval + i);
+  const float quality = __ldg(a.quality + i);
+  const float u = __ldg(a.u + i), v = __ldg(a.v + i);
+  const int my_type = __ldg(a.my_type + i);
+  const float eth = __ldg(a.energy_th + i);
+  const float min_act = __ldg(a.min_act_dist);
+  Taps P;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int p = 2 * q + k;
+    // a true division by the focal length, as the plain version's by a
+    // 0-d tensor
+    P.x[k] = (u + static_cast<float>(a.patt[p][0]) - a.cx) / a.fx;
+    P.y[k] = (v + static_cast<float>(a.patt[p][1]) - a.cy) / a.fy;
+    P.color[k] = __ldg(a.color + kTaps * i + p);
+    P.weight[k] = __ldg(a.weights + kTaps * i + p);
+  }
   const bool finite_max = isfinite(id_max);
   const float idm = 0.5f * ((finite_max ? id_max : 0.0f) + id_min);
-  const int hst = a.host[i];
-  if (!(a.valid[i] & (hst >= 0))) {           // a dead lane
-    if (lane == 0) {
+  if (!(valid & (hst >= 0))) {                // a dead lane
+    if (t == 0) {
       a.o_to_opt[i] = false;
       a.o_remove[i] = false;
       a.o_idepth[i] = idm;
@@ -288,21 +379,28 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock)
   }
   const int hs = min(hst, a.n_slots - 1);
 
+  // the host's tables in one trip: the gate's, and the LM's first group
+  const float* K = a.KRKi + 9 * hs;
+  const float* kt = a.Kt + 3 * hs;
+  float Kr[9], ktr[3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) Kr[k] = __ldg(K + k);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) ktr[k] = __ldg(kt + k);
+  const bool marg = a.marg[hs];
+  const Target T0 = load_target(a, hs, t >> 2);
+
   // the gate (gate_candidates), alike on every thread
-  const int st = a.status[i];
   const bool drop = !finite_max | (st == kOutlier);
   bool can = !drop &
              ((st == kGood) | (st == kSkipped) | (st == kBadCondition) |
               (st == kOob)) &
-             (a.last_interval[i] < 8.0f) & (a.quality[i] > a.min_quality) &
+             (last_interval < 8.0f) & (quality > a.min_quality) &
              (id_max + id_min > 0.0f);
-  bool kill = !drop & !can & (a.marg[hs] | (st == kOob));
-  const float u = a.u[i], v = a.v[i];
-  const float* K = a.KRKi + 9 * hs;
-  const float* kt = a.Kt + 3 * hs;
-  const float q0 = (K[0] * u + K[1] * v + K[2]) + kt[0] * idm;
-  const float q1 = (K[3] * u + K[4] * v + K[5]) + kt[1] * idm;
-  const float q2 = (K[6] * u + K[7] * v + K[8]) + kt[2] * idm;
+  bool kill = !drop & !can & (marg | (st == kOob));
+  const float q0 = (Kr[0] * u + Kr[1] * v + Kr[2]) + ktr[0] * idm;
+  const float q1 = (Kr[3] * u + Kr[4] * v + Kr[5]) + ktr[1] * idm;
+  const float q2 = (Kr[6] * u + Kr[7] * v + Kr[8]) + ktr[2] * idm;
   const bool z_ok = q2 > 1e-6f;
   const float zs = z_ok ? q2 : 1.0f;
   const float uu = q0 / zs;
@@ -315,14 +413,20 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock)
   const bool inb = z_ok & (ui > 0) & (vi > 0) & (ui < a.w1) & (vi < a.h1);
   kill = kill | (can & !inb);
   can = can & inb;
-  const float dist = __ldg(a.dist_map + vi * a.w1 + ui) + (uu - floorf(uu));
-  const bool to_opt = can &
-                      (dist >= *a.min_act_dist *
-                                   static_cast<float>(a.my_type[i])) &
-                      (hst < a.nf) & (hst != a.newest);
   const bool remove = (drop | kill) & (hst < a.nf);
+  const bool kept = can & (hst < a.nf) & (hst != a.newest);
+  // the distance test's map word, and the first evaluation (at idm, which
+  // does not wait on it) in the same trip
+  float dist = 0.0f;
+  Sums c{0.0f, 0.0f, 0.0f, 0};
+  if (kept) {                                 // uniform over the warp
+    dist = __ldg(a.dist_map + vi * a.w1 + ui) + (uu - floorf(uu));
+    c = evaluate(a, T0, hs, P, eth, idm, 1000.0f, t);
+  }
+  const bool to_opt = kept &
+                      (dist >= min_act * static_cast<float>(my_type));
   if (!to_opt) {                              // uniform over the warp
-    if (lane == 0) {
+    if (t == 0) {
       a.o_to_opt[i] = false;
       a.o_remove[i] = remove;
       a.o_idepth[i] = idm;
@@ -332,39 +436,14 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock)
     return;
   }
 
-  // the depth-only LM; thread `lane` evaluates slot `lane`
-  Target T;
-  T.live = false;
-  T.img = a.dIs;
-  if (lane < a.n_slots) {
-    const int pair = hs * a.n_slots + lane;
-    for (int k = 0; k < 9; ++k) T.R[k] = a.Rs[9 * pair + k];
-    for (int k = 0; k < 3; ++k) T.t[k] = a.ts[3 * pair + k];
-    T.aff[0] = a.affs[2 * pair];
-    T.aff[1] = a.affs[2 * pair + 1];
-    T.live = a.masks[pair];
-    T.img = a.dIs + static_cast<size_t>(lane) * a.h * a.w * 3;
-  }
-  float x[kTaps], y[kTaps], color[kTaps], weights[kTaps];
-  for (int p = 0; p < kTaps; ++p) {
-    // a true division by the focal length, as the plain version's by a
-    // 0-d tensor
-    x[p] = (u + static_cast<float>(a.patt[p][0]) - a.cx) / a.fx;
-    y[p] = (v + static_cast<float>(a.patt[p][1]) - a.cy) / a.fy;
-    color[p] = a.color[kTaps * i + p];
-    weights[p] = a.weights[kTaps * i + p];
-  }
-  const float eth = a.energy_th[i];
-
+  // the depth-only LM
   float idepth = idm;
-  Sums c = evaluate(a, T, lane, x, y, color, weights, eth, idepth, 1000.0f);
   float lam = 0.1f;
   bool done = false;
   for (int it = 0; it < a.gn_iterations; ++it) {
     const float step = (1.0f / (c.H * (1.0f + lam) + 1e-12f)) * c.b;
     const float new_id = idepth - step;
-    const Sums c2 =
-        evaluate(a, T, lane, x, y, color, weights, eth, new_id, 1.0f);
+    const Sums c2 = evaluate(a, T0, hs, P, eth, new_id, 1.0f, t);
     const bool accept = c2.e < c.e;
     const bool upd = !done;
     const bool converged = fabsf(step) < 1e-4f * fabsf(idepth);
@@ -375,14 +454,12 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock)
     if (upd) lam = accept ? lam * 0.5f : lam * 5.0f;
     done = done | converged;
   }
-  const unsigned good = __ballot_sync(
-      kFull, (lane < a.n_slots) & T.live & (c.state == kResIn));
-  if (lane == 0) {
+  if (t == 0) {
     a.o_to_opt[i] = true;
     a.o_remove[i] = remove;
     a.o_idepth[i] = idepth;
     a.o_ok[i] = isfinite(c.e) & isfinite(idepth) & (c.H >= a.min_h);
-    a.o_n_good[i] = __popc(good);
+    a.o_n_good[i] = c.n_in;
   }
 }
 
@@ -457,9 +534,8 @@ int ldso_immature_activate(void* const* ptrs, const int* ints,
       a.h < 2 || a.w1 < 1 || a.h1 < 1 || a.gn_iterations < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (a.n + kLanesPerBlock - 1) / kLanesPerBlock;
-  immature_activate_kernel<<<blocks, 32 * kLanesPerBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(a);
+  immature_activate_kernel<<<a.n, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      a);
   return static_cast<int>(cudaGetLastError());
 }
 

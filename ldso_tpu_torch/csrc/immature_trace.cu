@@ -41,31 +41,64 @@
 // give the same bits; tests/torch_kernel_checks.trace_err still allows a
 // lane to differ where the plain version's own numbers tie.
 //
-// What bounds it on this card: bytes. The work is small: at 640x480 about
-// 1,300 live lanes, 34 steps and 8 bilinear taps each, some 0.35 M taps
-// and 20 M float operations (0.3 us at 67 TFLOP/s). The bytes are the
-// arena's lane state, 125 bytes a lane read and 28 written (0.6 MB at
-// 4,096 lanes), the host tables, and the target image's pixels that the
-// taps read (at most its 3.7 MB), about 1.3 us at 3.35 TB/s. The plain
-// version's time is its launches, not its arithmetic.
+// What bounds it on this card: bytes, by the function's own count. The
+// work is small: at 640x480 about 1,300 live lanes, 34 steps and 8
+// bilinear taps each, some 0.35 M taps and 20 M float operations (0.3 us
+// at 67 TFLOP/s). The bytes are the arena's lane state (125 bytes a lane
+// read and 28 written, 0.6 MB at 4,096 lanes), the host tables and the
+// target image's pixels that the taps read (at most its 3.7 MB), about 1.3
+// us at 3.35 TB/s. The plain version's time is its launches, not its
+// arithmetic.
 //
-// What the design does about that: one launch for the whole arena, each
-// lane's state read once into registers, the 7 outputs written once, and
-// the taps read through the read-only cache (`__ldg`; the image fits in
-// the 50 MB L2, and neighbouring steps and taps share its lines). One warp
-// per lane:
-//   * every thread of the warp computes the lane's interval and gates (a
-//     few dozen scalar operations) itself, so nothing is broadcast;
-//   * thread t scores steps t, t + 32, t + 64, t + 96 (34 steps at
-//     640x480, at most 100), each step's 8 taps summed in the tree order;
-//   * the argmin and the second best are xor-shuffle reductions, lowest
-//     step on a tie, so every thread ends with the same result;
-//   * the re-score puts its 2K + 1 candidates on threads 0..2K;
-//   * a Gauss-Newton step puts tap p on the threads t with t % 8 == p; the
-//     xor shuffles 1, 2, 4 sum the 8 taps in the tree order;
-//   * thread 0 writes the lane's 7 outputs.
-// A dead or inactive lane costs its warp one read and one write of its 7
-// fields. Nothing is summed across lanes, so there are no atomics.
+// What held the first design (one warp per lane, 4 lanes a block, every
+// thread computing the interval; globaltimer stamps of each lane's phases
+// from a stamped copy, not kept, on an H100 at 700 W): at the bench
+// scene's 4,096 live lanes its 1,024 blocks ran in two waves (80
+// registers, 24 lanes an SM at once; the last lanes started 13.4 us after
+// the first), and a searching lane took 12.7 us (median): 2.7 us
+// to its interval, 7.6 of search, 1.5 of Gauss-Newton. At phase 3's last
+// arena, with some 7 searching lanes an SM, its search still took 6.0 us:
+// a chain, not a queue: its tap arrays sat in a 144-byte stack frame
+// (ptxas), one warp scored 2 rounds of 32 steps for 34 steps, and each
+// lane's interval and GN taps were computed by 32 and 4 threads.
+//
+// The design: one launch for the whole arena, a group of 16 threads per
+// lane, 2 lanes a warp (neighbouring lanes on neighbouring groups), 8
+// lanes a block of 128 threads, so a warp issues one instruction stream
+// for 2 lanes. Sixteen, not the 8 first tried: with 8 threads a lane the
+// search's 5 rounds made the chain longer (in turns in one call, 8 threads
+// took 14.6 us at 4,096 lanes and 12.5 at phase 3's last arena against
+// 12.6-12.8 and 10.7-10.9 for 16, both with the host tables then staged
+// in shared memory; tests/tools/arena_kernel_turns.py). Read in place
+// instead, they cost no more (12.1-12.4 and 10.2-10.4 us against the
+// staged 12.3-12.4 and 10.5-10.7 in one call).
+//   * the group reads its lane's fields alike in one trip, then its host
+//     slot's tables (14 floats) in place through the read-only cache, and
+//     computes the interval and gates in one instruction stream;
+//   * the search: thread g of the group scores steps g, g + 16, g + 32, ...
+//     (3 rounds at 34 steps, 7 at the cap of 100), a step's 32 pixel loads
+//     issued before any is used (`fetch`, then `energy`), its 8 taps summed
+//     in sum8's tree in the thread;
+//   * the argmin and the second best are xor-shuffle reductions over the
+//     group under `before`, a total order (lowest step on a tie, a NaN
+//     first), and nan_min, which is order-free, so any tree gives the plain
+//     version's result;
+//   * the re-score puts candidate j of its 2K + 1 on thread j % 16 (2
+//     rounds at most) and recomputes the winner's position from its index;
+//   * a Gauss-Newton step puts tap p on threads p and p + 8 of the group
+//     (one instruction for both); the xor shuffles 1, 2, 4 sum the 8 taps
+//     in sum8's tree (a + b and b + a being the same bits), and the 12
+//     words of a tap's three channels go out together;
+//   * thread 0 of the group writes the lane's 7 outputs.
+// Every shuffle names its group's threads, so the 2 lanes of a warp may
+// take different branches. A dead or inactive lane costs its group one
+// read and one write of its 7 fields. Nothing is summed across lanes, so
+// there are no atomics. Stamped again (the tables then staged), every
+// lane starts within 0.3 us of the first (one wave, 32 lanes an SM at
+// once); a searching lane takes 10.1 us at 4,096 lanes (1.6 to its
+// interval, 6.8 of search, 1.4 of GN) and 8.1 at phase 3's last arena
+// (5.2 of search): the search's 3 rounds, each its loads then its taps'
+// arithmetic, are what is left.
 
 #include <cmath>
 #include <cstdint>
@@ -75,10 +108,12 @@ namespace {
 
 constexpr int kTaps = 8;
 constexpr int kMaxSteps = 100;                  // immature.MAX_STEPS
-constexpr int kStepsPerThread = (kMaxSteps + 31) / 32;
-constexpr int kLanesPerBlock = 4;               // one warp per lane
-constexpr int kMaxRefine = 15;                  // 2K + 1 <= 32 threads
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGroup = 16;                      // threads a lane
+constexpr int kStepsPerThread = (kMaxSteps + kGroup - 1) / kGroup;
+constexpr int kMaxRefine = 15;                  // cuda_kernels.TRACE_MAX_REFINE
+constexpr int kRefinePerThread = (2 * kMaxRefine + kGroup) / kGroup;
+constexpr int kThreads = 128;
+constexpr int kLanesPerBlock = kThreads / kGroup;
 constexpr int kNone = 0x7fffffff;               // no step on this thread
 
 // immature.IPS_*
@@ -154,13 +189,14 @@ __device__ __forceinline__ float sum8(const float* x) {
   return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
 }
 
-// the same sum across the 8 threads of a group, tap p on thread t % 8 == p:
-// each xor shuffle adds the partner's partial, a + b and b + a being the
-// same bits, so every thread ends with the tree's sum
-__device__ __forceinline__ float sum8_shfl(float x) {
-  x = x + __shfl_xor_sync(kFull, x, 1);
-  x = x + __shfl_xor_sync(kFull, x, 2);
-  return x + __shfl_xor_sync(kFull, x, 4);
+// the same sum with tap p on threads p and p + 8 of a 16-thread group
+// (`group` its mask): the xor shuffles 1, 2, 4 run within each 8-thread
+// half, each adding the partner's partial, a + b and b + a being the same
+// bits, so every thread ends with the tree's sum
+__device__ __forceinline__ float sum8_shfl(float x, unsigned group) {
+  x = x + __shfl_xor_sync(group, x, 1);
+  x = x + __shfl_xor_sync(group, x, 2);
+  return x + __shfl_xor_sync(group, x, 4);
 }
 
 // torch.argmin's order (LessOrNan): a NaN before any number, the lower
@@ -173,12 +209,13 @@ __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
   return a == b ? ia < ib : a < b;
 }
 
-// the warp's first minimum; every thread gets it
-__device__ __forceinline__ void warp_argmin(float& val, int& idx) {
+// the group's first minimum; every thread of it gets it
+__device__ __forceinline__ void group_argmin(float& val, int& idx,
+                                             unsigned group) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, val, off);
-    const int oi = __shfl_xor_sync(kFull, idx, off);
+  for (int off = 1; off < kGroup; off <<= 1) {
+    const float ov = __shfl_xor_sync(group, val, off);
+    const int oi = __shfl_xor_sync(group, idx, off);
     if (before(ov, oi, val, idx)) {
       val = ov;
       idx = oi;
@@ -186,11 +223,11 @@ __device__ __forceinline__ void warp_argmin(float& val, int& idx) {
   }
 }
 
-// torch.amin over the warp (NaN propagates)
-__device__ __forceinline__ float warp_amin(float x) {
+// torch.amin over the group (NaN propagates)
+__device__ __forceinline__ float group_amin(float x, unsigned group) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = nan_min(x, __shfl_xor_sync(kFull, x, off));
+  for (int off = 1; off < kGroup; off <<= 1) {
+    x = nan_min(x, __shfl_xor_sync(group, x, off));
   }
   return x;
 }
@@ -238,12 +275,6 @@ __device__ __forceinline__ float blend(float dx, float dy, float v00,
   return dxdy * v11 + (dy - dxdy) * v10 + (dx - dxdy) * v01 +
          (1.0f - dx - dy + dxdy) * v00;
 }
-// interp.bilinear of channel c at (x, y)
-__device__ __forceinline__ float bilinear(const Args& a, const Cell& q,
-                                          int c) {
-  return blend(q.dx, q.dy, pixel(a, q.y, q.x, c), pixel(a, q.y, q.x + 1, c),
-               pixel(a, q.y + 1, q.x, c), pixel(a, q.y + 1, q.x + 1, c));
-}
 // interp.nearest's index: round half to even, then clamp to the image
 __device__ __forceinline__ int nearest_index(float x, int n) {
   const float r = rintf(x);
@@ -251,33 +282,76 @@ __device__ __forceinline__ int nearest_index(float x, int n) {
                                   static_cast<float>(n - 1)));
 }
 
+// A lane's fields, loaded alike by the threads of its group; tap g % 8's
+// colour and GN weight on thread g.
+struct Fields {
+  float u, v, idepth_min, idepth_max, quality, energy_th, last_u, last_v,
+      last_interval, g[4], color_g, weight_g;
+  int status, host;
+  bool valid;
+};
+
+__device__ __forceinline__ Fields load_fields(const Args& a, int i, int g) {
+  Fields f;
+  f.u = __ldg(a.u + i);
+  f.v = __ldg(a.v + i);
+  f.idepth_min = __ldg(a.idepth_min + i);
+  f.idepth_max = __ldg(a.idepth_max + i);
+  f.quality = __ldg(a.quality + i);
+  f.energy_th = __ldg(a.energy_th + i);
+  f.last_u = __ldg(a.last_u + i);
+  f.last_v = __ldg(a.last_v + i);
+  f.last_interval = __ldg(a.last_interval + i);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) f.g[k] = __ldg(a.gradH + 4 * i + k);
+  f.color_g = __ldg(a.color + kTaps * i + (g & (kTaps - 1)));
+  f.weight_g = __ldg(a.weights + kTaps * i + (g & (kTaps - 1)));
+  f.status = __ldg(a.status + i);
+  f.host = __ldg(a.host + i);
+  f.valid = a.valid[i];
+  return f;
+}
+
 // The lane's state after the interval projection and its gates
-// (immature.trace up to `do_search`), computed alike by every thread.
+// (immature.trace up to `do_search`), computed alike by the group.
 struct Lane {
-  float pr[3], kt[3], af[2];
+  float pr[3], kt[3], af[2], k2[4];   // k2: K R K^-1's 2x2 block
   float u_min, v_min, u_max, v_max, dist, dxn, dyn, error_px, ptx0, pty0;
-  float rot[kTaps][2];
   int n_steps;
   bool oob, skipped, badcond;
 };
 
-__device__ Lane interval(const Args& a, int i) {
+// tap p of the pattern rotated by K R K^-1's 2x2 block, (px r0 + py r1)
+// per row
+__device__ __forceinline__ float rot_x(const Args& a, const Lane& L, int p) {
+  return static_cast<float>(a.patt[p][0]) * L.k2[0] +
+         static_cast<float>(a.patt[p][1]) * L.k2[1];
+}
+__device__ __forceinline__ float rot_y(const Args& a, const Lane& L, int p) {
+  return static_cast<float>(a.patt[p][0]) * L.k2[2] +
+         static_cast<float>(a.patt[p][1]) * L.k2[3];
+}
+
+__device__ Lane interval(const Args& a, const Fields& f) {
   Lane L;
-  const int hs = min(max(a.host[i], 0), a.n_hosts - 1);
-  const float* K = a.KRKi + 9 * hs;
-  for (int k = 0; k < 3; ++k) {
-    L.kt[k] = a.Kt[3 * hs + k];
-  }
-  L.af[0] = a.aff[2 * hs];
-  L.af[1] = a.aff[2 * hs + 1];
-  const float u = a.u[i], v = a.v[i];
+  const int hs = min(max(f.host, 0), a.n_hosts - 1);
+  float K[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) K[k] = __ldg(a.KRKi + 9 * hs + k);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) L.kt[k] = __ldg(a.Kt + 3 * hs + k);
+  L.af[0] = __ldg(a.aff + 2 * hs);
+  L.af[1] = __ldg(a.aff + 2 * hs + 1);
+  L.k2[0] = K[0];
+  L.k2[1] = K[1];
+  L.k2[2] = K[3];
+  L.k2[3] = K[4];
   for (int r = 0; r < 3; ++r) {
-    L.pr[r] = K[3 * r] * u + K[3 * r + 1] * v + K[3 * r + 2];
+    L.pr[r] = K[3 * r] * f.u + K[3 * r + 1] * f.v + K[3 * r + 2];
   }
   const float W = static_cast<float>(a.w), H = static_cast<float>(a.h);
   const float mps = a.max_pix_search;
-  const float id_min = a.idepth_min[i];
-  const float id_max_in = a.idepth_max[i];
+  const float id_min = f.idepth_min;
   const float p0 = L.pr[0] + L.kt[0] * id_min;
   const float p1 = L.pr[1] + L.kt[1] * id_min;
   const float p2 = L.pr[2] + L.kt[2] * id_min;
@@ -285,8 +359,8 @@ __device__ Lane interval(const Args& a, int i) {
   L.v_min = p1 / p2;
   const bool inb_min = (L.u_min > 4.0f) & (L.v_min > 4.0f) &
                        (L.u_min < W - 5.0f) & (L.v_min < H - 5.0f);
-  const bool finite_max = isfinite(id_max_in);
-  const float id_max = finite_max ? id_max_in : 0.01f;
+  const bool finite_max = isfinite(f.idepth_max);
+  const float id_max = finite_max ? f.idepth_max : 0.01f;
   const float q0 = L.pr[0] + L.kt[0] * id_max;
   const float q1 = L.pr[1] + L.kt[1] * id_max;
   const float q2 = L.pr[2] + L.kt[2] * id_max;
@@ -311,7 +385,7 @@ __device__ Lane interval(const Args& a, int i) {
   // the error bound from gradH
   const float dx0 = a.stepsize * (L.u_max - L.u_min);
   const float dy0 = a.stepsize * (L.v_max - L.v_min);
-  const float* g = a.gradH + 4 * i;
+  const float* g = f.g;
   const float A = dx0 * (g[0] * dx0 + g[1] * dy0) +
                   dy0 * (g[2] * dx0 + g[3] * dy0);
   const float B = dy0 * (g[0] * dy0 - g[1] * dx0) -
@@ -333,91 +407,115 @@ __device__ Lane interval(const Args& a, int i) {
   const bool bad_dir = !isfinite(L.dxn) | !isfinite(L.dyn);
   L.oob = oob | bad_dir;
 
-  // the pattern rotated by K R K^-1's 2x2 block
-  for (int p = 0; p < kTaps; ++p) {
-    const float px = static_cast<float>(a.patt[p][0]);
-    const float py = static_cast<float>(a.patt[p][1]);
-    L.rot[p][0] = px * K[0] + py * K[1];
-    L.rot[p][1] = px * K[3] + py * K[4];
-  }
   const float rand_shift = L.u_min * 1000.0f - floorf(L.u_min * 1000.0f);
   L.ptx0 = L.u_min - rand_shift * L.dxn;
   L.pty0 = L.v_min - rand_shift * L.dyn;
   return L;
 }
 
-// the search's pattern energy at (sx, sy) in its sampling
-__device__ float search_energy(const Args& a, const Lane& L,
-                               const float* color, float sx, float sy) {
-  float e[kTaps];
-  if (a.search == kPacked) {
+// One step's 8 taps: each tap's pixel words (the 4 corners of its
+// bilinear cell; a nearest sampling has one) and its cell's fractions.
+// `fetch` issues all of a step's loads before `energy` reads any, so they
+// are in flight together.
+struct Taps {
+  float v[kTaps][4];
+  float dx[kTaps], dy[kTaps];
+};
+
+// the step's taps at (sx, sy) in sampling kSearch (kRotated also serves
+// the re-score: the reference's bilinear over the rotated pattern)
+template <int kSearch>
+__device__ __forceinline__ void fetch(const Args& a, const Lane& L, float sx,
+                                      float sy, Taps& T) {
+  if (kSearch == kPacked) {
     // immature._search_samples: one fraction, each tap's row and column
     // clamped to the image
     const Cell q = bilinear_cell(a, sx, sy);
+#pragma unroll
     for (int p = 0; p < kTaps; ++p) {
       const int cx = min(max(q.x + a.patt[p][0], 0), a.w - 1);
       const int cy = min(max(q.y + a.patt[p][1], 0), a.h - 1);
       const int cx1 = min(cx + 1, a.w - 1);
       const int cy1 = min(cy + 1, a.h - 1);
-      const float hit =
-          blend(q.dx, q.dy, pixel(a, cy, cx, 0), pixel(a, cy, cx1, 0),
-                pixel(a, cy1, cx, 0), pixel(a, cy1, cx1, 0));
-      e[p] = pattern_term(hit, color[p], L.af, a.huber_th);
+      T.v[p][0] = pixel(a, cy, cx, 0);
+      T.v[p][1] = pixel(a, cy, cx1, 0);
+      T.v[p][2] = pixel(a, cy1, cx, 0);
+      T.v[p][3] = pixel(a, cy1, cx1, 0);
+      T.dx[p] = q.dx;
+      T.dy[p] = q.dy;
     }
-  } else if (a.search == kRotated) {
+  } else if (kSearch == kRotated) {
+#pragma unroll
     for (int p = 0; p < kTaps; ++p) {
-      const Cell q = bilinear_cell(a, sx + L.rot[p][0], sy + L.rot[p][1]);
-      e[p] = pattern_term(bilinear(a, q, 0), color[p], L.af, a.huber_th);
+      const Cell q = bilinear_cell(a, sx + rot_x(a, L, p),
+                                   sy + rot_y(a, L, p));
+      T.v[p][0] = pixel(a, q.y, q.x, 0);
+      T.v[p][1] = pixel(a, q.y, q.x + 1, 0);
+      T.v[p][2] = pixel(a, q.y + 1, q.x, 0);
+      T.v[p][3] = pixel(a, q.y + 1, q.x + 1, 0);
+      T.dx[p] = q.dx;
+      T.dy[p] = q.dy;
     }
-  } else if (a.search == kNearestPacked) {
+  } else if (kSearch == kNearestPacked) {
     // immature._nearest_samples: the rounded centre clamped, then each tap
     const int xi = nearest_index(sx, a.w), yi = nearest_index(sy, a.h);
+#pragma unroll
     for (int p = 0; p < kTaps; ++p) {
       const int cx = min(max(xi + a.patt[p][0], 0), a.w - 1);
       const int cy = min(max(yi + a.patt[p][1], 0), a.h - 1);
-      e[p] = pattern_term(pixel(a, cy, cx, 0), color[p], L.af, a.huber_th);
+      T.v[p][0] = pixel(a, cy, cx, 0);
     }
   } else {
+#pragma unroll
     for (int p = 0; p < kTaps; ++p) {
-      const int xi = nearest_index(sx + L.rot[p][0], a.w);
-      const int yi = nearest_index(sy + L.rot[p][1], a.h);
-      e[p] = pattern_term(pixel(a, yi, xi, 0), color[p], L.af, a.huber_th);
+      const int xi = nearest_index(sx + rot_x(a, L, p), a.w);
+      const int yi = nearest_index(sy + rot_y(a, L, p), a.h);
+      T.v[p][0] = pixel(a, yi, xi, 0);
     }
   }
-  return sum8(e);
 }
 
-// the reference's bilinear energy over the rotated pattern (the re-score)
-__device__ float rotated_energy(const Args& a, const Lane& L,
-                                const float* color, float sx, float sy) {
+// pattern_energy of fetched taps: each tap's term, summed in sum8's tree
+template <int kSearch>
+__device__ __forceinline__ float energy(const Args& a, const Lane& L,
+                                        const float* color, const Taps& T) {
   float e[kTaps];
+#pragma unroll
   for (int p = 0; p < kTaps; ++p) {
-    const Cell q = bilinear_cell(a, sx + L.rot[p][0], sy + L.rot[p][1]);
-    e[p] = pattern_term(bilinear(a, q, 0), color[p], L.af, a.huber_th);
+    const float hit =
+        (kSearch == kNearestPacked || kSearch == kNearestRotated)
+            ? T.v[p][0]
+            : blend(T.dx[p], T.dy[p], T.v[p][0], T.v[p][1], T.v[p][2],
+                    T.v[p][3]);
+    e[p] = pattern_term(hit, color[p], L.af, a.huber_th);
   }
   return sum8(e);
 }
 
 // The discrete search: the first minimum's step and energy, and the
-// second best outside +-2 steps, every thread of the warp alike.
+// second best outside +-2 steps, every thread of the group alike. Thread
+// g scores steps g, g + 16, g + 32, ..., each step's 32 loads in flight
+// together.
 struct Search {
   int best;
   float best_e, second;
 };
 
+template <int kSearch>
 __device__ Search search(const Args& a, const Lane& L, const float* color,
-                         int lane) {
+                         int g, unsigned group) {
   float e[kStepsPerThread];
   float val = 0.0f;
   int idx = kNone;
 #pragma unroll
   for (int k = 0; k < kStepsPerThread; ++k) {
-    const int s = lane + 32 * k;
+    const int s = g + kGroup * k;
     e[k] = 0.0f;
-    if (s < a.n_cap) {
+    if (kGroup * k < a.n_cap && s < a.n_cap) {
       const float fs = static_cast<float>(s);
-      const float en = search_energy(a, L, color, L.ptx0 + fs * L.dxn,
-                                     L.pty0 + fs * L.dyn);
+      Taps T;
+      fetch<kSearch>(a, L, L.ptx0 + fs * L.dxn, L.pty0 + fs * L.dyn, T);
+      const float en = energy<kSearch>(a, L, color, T);
       e[k] = fs < static_cast<float>(L.n_steps) ? en : 1e10f;
       if (before(e[k], s, val, idx)) {
         val = e[k];
@@ -425,7 +523,7 @@ __device__ Search search(const Args& a, const Lane& L, const float* color,
       }
     }
   }
-  warp_argmin(val, idx);
+  group_argmin(val, idx, group);
   Search r;
   r.best = idx;
   r.best_e = val;
@@ -433,62 +531,83 @@ __device__ Search search(const Args& a, const Lane& L, const float* color,
   float second = 1e10f;
 #pragma unroll
   for (int k = 0; k < kStepsPerThread; ++k) {
-    const int s = lane + 32 * k;
+    const int s = g + kGroup * k;
     if (s < a.n_cap &&
         fabsf(static_cast<float>(s) - static_cast<float>(r.best)) > 2.0f) {
       second = nan_min(second, e[k]);
     }
   }
-  r.second = warp_amin(second);
+  r.second = group_amin(second, group);
   return r;
 }
 
-// the bilinear re-score of +-K steps around the nearest search's best:
-// candidate j on thread j
+// the bilinear re-score of +-K steps around the nearest search's best
+// (the reference's energy over the rotated pattern): candidate j on thread
+// j % 16; the winner's position is recomputed from its index, as its thread
+// computed it
 __device__ void refine(const Args& a, const Lane& L, const float* color,
-                       int lane, int best, float& best_e, float& best_u,
-                       float& best_v) {
+                       int g, unsigned group, int best, float& best_e,
+                       float& best_u, float& best_v) {
   const int K = a.refine;
-  float val = 0.0f, cu = 0.0f, cv = 0.0f;
+  float val = 0.0f;
   int idx = kNone;
-  if (lane <= 2 * K) {
-    const float cand = static_cast<float>(best) + static_cast<float>(lane - K);
-    const bool live = (cand >= 0.0f) & (cand < static_cast<float>(L.n_steps));
-    cu = L.ptx0 + cand * L.dxn;
-    cv = L.pty0 + cand * L.dyn;
-    const float en = rotated_energy(a, L, color, cu, cv);
-    val = live ? en : 1e10f;
-    idx = lane;
+#pragma unroll
+  for (int r = 0; r < kRefinePerThread; ++r) {
+    const int j = g + kGroup * r;
+    if (j <= 2 * K) {
+      const float cand = static_cast<float>(best) + static_cast<float>(j - K);
+      const bool live = (cand >= 0.0f) &
+                        (cand < static_cast<float>(L.n_steps));
+      Taps T;
+      fetch<kRotated>(a, L, L.ptx0 + cand * L.dxn, L.pty0 + cand * L.dyn, T);
+      const float en = energy<kRotated>(a, L, color, T);
+      const float e = live ? en : 1e10f;
+      if (before(e, j, val, idx)) {
+        val = e;
+        idx = j;
+      }
+    }
   }
-  warp_argmin(val, idx);
+  group_argmin(val, idx, group);
+  const float cand = static_cast<float>(best) + static_cast<float>(idx - K);
   best_e = val;
-  best_u = __shfl_sync(kFull, cu, idx);
-  best_v = __shfl_sync(kFull, cv, idx);
+  best_u = L.ptx0 + cand * L.dxn;
+  best_v = L.pty0 + cand * L.dyn;
 }
 
-// Gauss-Newton along the line with backtracking, tap t % 8 on thread t;
+// Gauss-Newton along the line with backtracking, tap p on threads p and
+// p + 8;
 // returns the final (u, v) and the energy of the last kept step
-__device__ void gauss_newton(const Args& a, const Lane& L, int i, int lane,
-                             float& bu, float& bv, float& be) {
-  const int p = lane & (kTaps - 1);
-  const float color = a.color[kTaps * i + p];
-  const float wt = a.weights[kTaps * i + p];
+__device__ void gauss_newton(const Args& a, const Lane& L, const Fields& f,
+                             int p, unsigned group, float& bu, float& bv,
+                             float& be) {
+  const float color = f.color_g;
+  const float wt = f.weight_g;
+  const float rx = rot_x(a, L, p), ry = rot_y(a, L, p);
   float ubak = bu, vbak = bv, stepback = 0.0f;
   be = 1e5f;
   bool done = false;
   for (int it = 0; it < a.gn_iterations; ++it) {
-    const Cell q = bilinear_cell(a, bu + L.rot[p][0], bv + L.rot[p][1]);
-    const float h0 = bilinear(a, q, 0);
-    const float h1 = bilinear(a, q, 1);
-    const float h2 = bilinear(a, q, 2);
+    const Cell q = bilinear_cell(a, bu + rx, bv + ry);
+    float w[3][4];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      w[c][0] = pixel(a, q.y, q.x, c);
+      w[c][1] = pixel(a, q.y, q.x + 1, c);
+      w[c][2] = pixel(a, q.y + 1, q.x, c);
+      w[c][3] = pixel(a, q.y + 1, q.x + 1, c);
+    }
+    const float h0 = blend(q.dx, q.dy, w[0][0], w[0][1], w[0][2], w[0][3]);
+    const float h1 = blend(q.dx, q.dy, w[1][0], w[1][1], w[1][2], w[1][3]);
+    const float h2 = blend(q.dx, q.dy, w[2][0], w[2][1], w[2][2], w[2][3]);
     const bool finite = isfinite(h0);
     const float r = h0 - (L.af[0] * color + L.af[1]);
     const float d = L.dxn * h1 + L.dyn * h2;
     const float hw = huber_w(fabsf(r), a.huber_th);
-    const float e = sum8_shfl(finite ? wt * wt * hw * r * r * (2.0f - hw)
-                                     : 1e5f);
-    const float Hc = 1.0f + sum8_shfl(finite ? hw * d * d : 0.0f);
-    const float bc = sum8_shfl(finite ? hw * r * d : 0.0f);
+    const float e = sum8_shfl(
+        finite ? wt * wt * hw * r * r * (2.0f - hw) : 1e5f, group);
+    const float Hc = 1.0f + sum8_shfl(finite ? hw * d * d : 0.0f, group);
+    const float bc = sum8_shfl(finite ? hw * r * d : 0.0f, group);
 
     const bool worse = e > be;
     const float sb_half = stepback * 0.5f;
@@ -512,53 +631,57 @@ __device__ void gauss_newton(const Args& a, const Lane& L, int i, int lane,
   }
 }
 
-__global__ void __launch_bounds__(32 * kLanesPerBlock)
+template <int kSearch>
+__global__ void __launch_bounds__(kThreads)
     immature_trace_kernel(const Args a) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kLanesPerBlock + (threadIdx.x >> 5);
-  if (i >= a.n) return;                       // whole warps
-  const int status = a.status[i];
-  const bool active = a.valid[i] & (a.host[i] >= 0) & (status != kOob);
+  const int g = threadIdx.x & (kGroup - 1);
+  const unsigned group = (0xffffffffu >> (32 - kGroup))
+                         << (threadIdx.x & (32 - kGroup));
+  const int i = blockIdx.x * kLanesPerBlock + threadIdx.x / kGroup;
+  if (i >= a.n) return;                       // whole groups
+  const Fields f = load_fields(a, i, g);
+  const bool active = f.valid & (f.host >= 0) & (f.status != kOob);
   if (!active) {
-    if (lane == 0) {
-      a.o_idepth_min[i] = a.idepth_min[i];
-      a.o_idepth_max[i] = a.idepth_max[i];
-      a.o_quality[i] = a.quality[i];
-      a.o_status[i] = status;
-      a.o_last_u[i] = a.last_u[i];
-      a.o_last_v[i] = a.last_v[i];
-      a.o_last_interval[i] = a.last_interval[i];
+    if (g == 0) {
+      a.o_idepth_min[i] = f.idepth_min;
+      a.o_idepth_max[i] = f.idepth_max;
+      a.o_quality[i] = f.quality;
+      a.o_status[i] = f.status;
+      a.o_last_u[i] = f.last_u;
+      a.o_last_v[i] = f.last_v;
+      a.o_last_interval[i] = f.last_interval;
     }
     return;
   }
-  const Lane L = interval(a, i);
+  const Lane L = interval(a, f);
   const bool do_search = !L.oob & !L.skipped & !L.badcond;
 
-  float quality = a.quality[i];
+  float quality = f.quality;
   float best_u = 0.0f, best_v = 0.0f, best_e = 0.0f;
   bool is_outlier = false, interval_bad = false;
   float new_min = 0.0f, new_max = 0.0f;
-  if (do_search) {                            // uniform over the warp
+  if (do_search) {                            // uniform over the group
     float color[kTaps];
+#pragma unroll
     for (int p = 0; p < kTaps; ++p) {
-      color[p] = a.color[kTaps * i + p];
+      color[p] = __shfl_sync(group, f.color_g, p, kGroup);
     }
-    const Search s = search(a, L, color, lane);
+    const Search s = search<kSearch>(a, L, color, g, group);
     const float new_q = s.second / clamp_min(s.best_e, 1e-12f);
     quality = (new_q < quality) | (L.n_steps > 10) ? new_q : quality;
     best_e = s.best_e;
     best_u = L.ptx0 + static_cast<float>(s.best) * L.dxn;
     best_v = L.pty0 + static_cast<float>(s.best) * L.dyn;
-    if ((a.search == kNearestPacked || a.search == kNearestRotated) &&
+    if ((kSearch == kNearestPacked || kSearch == kNearestRotated) &&
         a.refine > 0) {
-      refine(a, L, color, lane, s.best, best_e, best_u, best_v);
+      refine(a, L, color, g, group, s.best, best_e, best_u, best_v);
     }
     if (a.gn_iterations > 0) {
-      gauss_newton(a, L, i, lane, best_u, best_v, best_e);
+      gauss_newton(a, L, f, g & (kTaps - 1), group, best_u, best_v, best_e);
     }
 
     // the outlier test and the new interval
-    is_outlier = !(best_e < a.energy_th[i] * a.extra_slack);
+    is_outlier = !(best_e < f.energy_th * a.extra_slack);
     const bool use_x = L.dxn * L.dxn > L.dyn * L.dyn;
     const float px_lo = use_x ? best_u - L.error_px * L.dxn
                               : best_v - L.error_px * L.dyn;
@@ -572,9 +695,10 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock)
     new_max = nan_max(id_lo, id_hi);
     interval_bad = !isfinite(new_min) | !isfinite(new_max) | (new_max < 0.0f);
   }
-  if (lane != 0) return;
+  if (g != 0) return;
 
   // the status precedence (the plain version's torch.where chain)
+  const int status = f.status;
   const bool failed = do_search & (is_outlier | interval_bad);
   const bool good = do_search & !is_outlier & !interval_bad;
   int st = status;
@@ -586,15 +710,15 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock)
 
   const bool sb = L.skipped | L.badcond;
   float last_u = good ? best_u : (sb ? (L.u_max + L.u_min) * 0.5f
-                                     : a.last_u[i]);
+                                     : f.last_u);
   float last_v = good ? best_v : (sb ? (L.v_max + L.v_min) * 0.5f
-                                     : a.last_v[i]);
+                                     : f.last_v);
   if (L.oob | failed) {
     last_u = -1.0f;
     last_v = -1.0f;
   }
-  a.o_idepth_min[i] = good ? new_min : a.idepth_min[i];
-  a.o_idepth_max[i] = good ? new_max : a.idepth_max[i];
+  a.o_idepth_min[i] = good ? new_min : f.idepth_min;
+  a.o_idepth_max[i] = good ? new_max : f.idepth_max;
   a.o_quality[i] = quality;
   a.o_status[i] = st;
   a.o_last_u[i] = last_u;
@@ -610,8 +734,8 @@ extern "C" {
 // n_hosts, w, h, n_cap, search, refine, gn_iterations, then the pattern's
 // 16 offsets (x0, y0, x1, ...); floats: max_pix_search, stepsize,
 // slack_interval, min_improvement, huber_th, gn_threshold, extra_slack,
-// x_hi, y_hi. Launches one warp per lane on `stream` and returns the launch
-// error (cudaError_t, 0 on success).
+// x_hi, y_hi. Launches a group of 16 threads per lane on `stream` and
+// returns the launch error (cudaError_t, 0 on success).
 int ldso_immature_trace(void* const* ptrs, const int* ints,
                         const float* floats, void* stream) {
   for (int k = 0; k < 26; ++k) {
@@ -673,8 +797,22 @@ int ldso_immature_trace(void* const* ptrs, const int* ints,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = (a.n + kLanesPerBlock - 1) / kLanesPerBlock;
-  immature_trace_kernel<<<blocks, 32 * kLanesPerBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (a.search) {
+    case kPacked:
+      immature_trace_kernel<kPacked><<<blocks, kThreads, 0, st>>>(a);
+      break;
+    case kRotated:
+      immature_trace_kernel<kRotated><<<blocks, kThreads, 0, st>>>(a);
+      break;
+    case kNearestPacked:
+      immature_trace_kernel<kNearestPacked><<<blocks, kThreads, 0, st>>>(
+          a);
+      break;
+    default:
+      immature_trace_kernel<kNearestRotated>
+          <<<blocks, kThreads, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -771,7 +771,7 @@ def trace_arena(arena, dI_target, KRKis, Kts, affs, calib, cfg):
 # (csrc/immature_activate.cu)
 # ---------------------------------------------------------------------------
 
-# the most window slots K5 takes: one slot per thread of a lane's warp
+# the most window slots K5 takes: four groups of 8 slots, 4 threads a slot
 ACTIVATE_MAX_SLOTS = 32
 # the arena's fields the activation reads, in the kernel's pointer order
 _ACTIVATE_FIELDS = ("u", "v", "valid", "color", "weights", "idepth_min",

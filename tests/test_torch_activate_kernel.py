@@ -10,6 +10,7 @@ prefix pass, the activation is shown to read nothing back until
 (torch_kernel_checks.activate_err) is shown to catch planted faults and to
 pass a flip at a tie."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +32,9 @@ from ldso_tpu_torch.utils import convert
 
 W, H = 640, 480
 _HOST_READS = ("__bool__", "item", "tolist", "cpu", "numpy")
+# the windows of 1..ACTIVATE_MAX_SLOTS frames, at a small size
+WIDE_W, WIDE_H, WIDE_LANES = 160, 120, 512
+WIDTHS = range(1, cuda_kernels.ACTIVATE_MAX_SLOTS + 1)
 
 
 @pytest.fixture(scope="module")
@@ -98,6 +102,53 @@ def test_plain_activation_matches_jax(cases, scene):
                        np.where(cand.numpy(), np.asarray(oj[0]), 0), ties)
     assert flips <= kc.ACT_TIE_SHARE * live, (flips, live)
     assert int(ot[1].sum()) > 300
+
+
+@pytest.fixture(scope="module")
+def wide_scene():
+    return kc.activate_scene(WIDE_W, WIDE_H, "cpu", n_lanes=WIDE_LANES,
+                             slots=max(WIDTHS))
+
+
+@pytest.mark.parametrize("F", WIDTHS, ids=[f"F{F}" for F in WIDTHS])
+def test_plain_activation_matches_jax_at_every_width(wide_scene, F):
+    """The cases of tests/test_torch_cuda.py::
+    test_activate_kernel_matches_plain_at_every_width at 160x120 with 512
+    lanes: a window of F frames in F slots, F = 1..ACTIVATE_MAX_SLOTS (K5
+    runs its slots in groups of 8). The wrapper on CPU tensors is the plain
+    version bit for bit, and the plain version's depth LM is held against
+    the JAX package's `activate` (run op by op) from the same gate as
+    test_plain_activation_matches_jax holds it: ok, n_good and the states
+    exactly, the idepths within 1e-4 relative (1e-6 absolute) but at the
+    LM's ties, on at most ACT_TIE_SHARE of the live lanes. At one frame no
+    lane is optimised (its host is the newest)."""
+    calib = wide_scene["calib"]
+    inputs = kc.activate_inputs(wide_scene, F, slots=F)
+    arena, dist_map, KRKis, Kts, Rs, ts, affs, masks, dIs, mad, marg, \
+        newest, nf, cfg = inputs
+    got = cuda_kernels.activate_arena(*inputs[:13], calib, cfg)
+    want, parts = kc.plain_activate(inputs, calib)
+    _bitwise(got, want)
+    p = arena.pool
+    h = torch.clamp(arena.host, 0, F - 1).long()
+    to_opt, _, idm = tim.gate_candidates(
+        p._replace(valid=p.valid & (arena.host >= 0)), KRKis[h], Kts[h],
+        dist_map, mad, marg[h], cfg)
+    cand = to_opt & (arena.host < nf) & (arena.host != newest)
+    assert torch.equal(cand, got[0])
+    assert int(cand.sum()) > (100 if F > 1 else -1)
+    args = (p.u, p.v, p.color, p.weights, p.energy_th, idm, cand, Rs[h],
+            ts[h], affs[h], masks[h])
+    ot = tim.activate(*args, dIs, calib, cfg)
+    with jax.disable_jit():
+        oj = jim.activate(*(jnp.asarray(a.numpy()) for a in args),
+                          jnp.asarray(dIs.numpy()), calib, JC())
+    for k in (1, 2, 3):
+        np.testing.assert_array_equal(ot[k].numpy(), np.asarray(oj[k]))
+    ties = kc.activate_ties(parts, cfg, jax=True).numpy()
+    flips = _jax_flips(torch.where(cand, ot[0], 0).numpy(),
+                       np.where(cand.numpy(), np.asarray(oj[0]), 0), ties)
+    assert flips <= kc.ACT_TIE_SHARE * int(parts["live"].sum()), flips
 
 
 @pytest.mark.parametrize("case", [*(f"window {n}" for n in kc.ACT_FRAMES),

@@ -961,6 +961,41 @@ def test_trace_kernel_matches_plain(cuda, case):
             assert getattr(got.pool, f) is getattr(arena.pool, f)
 
 
+# K4 at its limits: the step cap of 100 (immature.MAX_STEPS) and the most
+# re-score steps (cuda_kernels.TRACE_MAX_REFINE) under both nearest searches
+TRACE_LIMIT_CASES = [f"{v} {k}" for v in ("long search",
+                                          "nearest packed refine 15",
+                                          "nearest rotated refine 15")
+                     for k in ("uninitialised", "narrowing")]
+
+
+@pytest.mark.parametrize("case", TRACE_LIMIT_CASES)
+def test_trace_kernel_is_bitwise_at_its_limits(cuda, case):
+    """K4 at the step cap of 100 at 640x480 (a Config with max_pix_search
+    0.09) and with 15 re-score steps after both nearest searches, on the
+    bench scene's 4,096 lanes: one launch, every output bit for bit the
+    plain version's (so trace_err holds with no flip); the uninitialised
+    long search has lanes that score past step 64."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kc()
+    s = _trace_scene()
+    arena, dI, KRKis, Kts, affs, cfg = s["cases"][case]
+    calib = s["scene"]["calib"]
+    ints, _ = cuda_kernels.trace_params(calib, cfg)
+    assert ints[2] == (100 if case.startswith("long") else 34)
+    before = cuda_kernels.LAUNCHES["trace"]
+    got = cuda_kernels.trace_arena(arena, dI, KRKis, Kts, affs, calib, cfg)
+    assert cuda_kernels.LAUNCHES["trace"] == before + 1
+    want, parts = kc.plain_trace(arena, dI, KRKis, Kts, affs, calib, cfg)
+    for f in cuda_kernels.TRACE_OUTPUTS:
+        a, b = getattr(got.pool, f), getattr(want.pool, f)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+    rep = kc.trace_err(want, got, parts, cfg)
+    assert rep["ok"] and not rep["flips"], (rep["faults"], rep["flips"])
+    if case == "long search uninitialised":
+        assert int((parts["do_search"] & (parts["n_steps"] > 64)).sum()) > 0
+
+
 def test_trace_kernel_repeats_bitwise(cuda):
     """20 launches on the planted case give the same bits."""
     from ldso_tpu_torch.ops import cuda_kernels
@@ -1059,14 +1094,15 @@ def test_trace_arena_runs_ahead_of_the_card(cuda):
 
 _ACT_SCENE = {}
 ACT_CASES = [f"window {n}" for n in _kc().ACT_FRAMES] + ["planted"]
+ACT_MAX_SLOTS = 32                     # cuda_kernels.ACTIVATE_MAX_SLOTS
 
 
 def _act_scene():
-    """torch_kernel_checks.activate_scene at 640x480 on the card and its
-    activate_cases."""
+    """torch_kernel_checks.activate_scene at 640x480 on the card, with the
+    frames of K5's most slots, and its activate_cases."""
     if not _ACT_SCENE:
         kc = _kc()
-        scene = kc.activate_scene(640, 480, "cuda")
+        scene = kc.activate_scene(640, 480, "cuda", slots=ACT_MAX_SLOTS)
         _ACT_SCENE.update(scene=scene, cases=kc.activate_cases(scene))
     return _ACT_SCENE
 
@@ -1093,6 +1129,34 @@ def test_activate_kernel_matches_plain(cuda, case):
     assert rep["optimised"] > 500
 
 
+@pytest.mark.parametrize("F", range(1, ACT_MAX_SLOTS + 1),
+                         ids=[f"F{F}" for F in range(1, ACT_MAX_SLOTS + 1)])
+def test_activate_kernel_matches_plain_at_every_width(cuda, F):
+    """K5 at every slot count it takes (it runs the slots in groups of 8)
+    on the bench scene's 4,096 lanes against a window of F frames in F
+    slots (torch_kernel_checks.activate_inputs): one launch, every output
+    bit for bit the plain version's, so activate_err holds with no flip.
+    tests/test_torch_activate_kernel.py::
+    test_plain_activation_matches_jax_at_every_width holds the same cases'
+    plain version against the JAX package at a small size."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    kc = _kc()
+    s = _act_scene()
+    calib = s["scene"]["calib"]
+    inputs = kc.activate_inputs(s["scene"], F, slots=F)
+    before = cuda_kernels.LAUNCHES["activate"]
+    got = cuda_kernels.activate_arena(*inputs[:13], calib, inputs[13])
+    assert cuda_kernels.LAUNCHES["activate"] == before + 1
+    want, parts = kc.plain_activate(inputs, calib)
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    rep = kc.activate_err(want, got, parts, inputs[13])
+    assert rep["ok"] and not rep["flips"], (rep["faults"], rep["flips"])
+    assert rep["optimised"] > (500 if F > 1 else -1)
+
+
 def test_activate_kernel_repeats_bitwise(cuda):
     """20 launches on the planted case give the same bits."""
     from ldso_tpu_torch.ops import cuda_kernels
@@ -1109,8 +1173,8 @@ def test_activate_kernel_repeats_bitwise(cuda):
 
 
 def test_activate_kernel_refuses_more_slots_than_a_warp(cuda):
-    """F > ACTIVATE_MAX_SLOTS raises; it is never handed to the plain
-    version."""
+    """F > ACTIVATE_MAX_SLOTS (four groups of 8 slots) raises; it is never
+    handed to the plain version."""
     from ldso_tpu_torch.ops import cuda_kernels
     s = _act_scene()
     inputs = list(s["cases"]["window 2"])

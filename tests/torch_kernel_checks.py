@@ -1069,8 +1069,10 @@ TRACE_HOSTS = (0, 2, 4)
 TRACE_TARGETS = (6, 8)
 TRACE_SLOTS = 8                      # the main path's window slots
 TRACE_LANES = 4096                   # 2 * Config().max_immature
-# the searches of tests/test_torch_immature.py::test_trace_searches, and
-# the default (packed bilinear)
+# the searches of tests/test_torch_immature.py::test_trace_searches, the
+# default (packed bilinear), a search whose step cap at 640x480 is K4's
+# limit (immature.MAX_STEPS: 100 steps, 99 scored), and the nearest
+# searches with K4's most re-score steps (cuda_kernels.TRACE_MAX_REFINE)
 TRACE_VARIANTS = {
     "packed": dict(),
     "rotated": dict(trace_packed=False),
@@ -1081,7 +1083,13 @@ TRACE_VARIANTS = {
                             trace_refine_steps=0),
     "nearest rotated refine 2": dict(trace_packed=False,
                                      trace_search_nearest=True,
-                                     trace_refine_steps=2)}
+                                     trace_refine_steps=2),
+    "long search": dict(max_pix_search=0.09),
+    "nearest packed refine 15": dict(trace_search_nearest=True,
+                                     trace_refine_steps=15),
+    "nearest rotated refine 15": dict(trace_packed=False,
+                                      trace_search_nearest=True,
+                                      trace_refine_steps=15)}
 # planted lanes of the `planted` case, by lane % 17
 TRACE_PLANTS = {1: "sticky OOB", 2: "border", 3: "skipped",
                 4: "badcondition", 5: "idepth_min < 0", 6: "steps at the cap",
@@ -1326,8 +1334,11 @@ def activate_err(plain, got, parts, cfg, share: float = ACT_TIE_SHARE):
 
 
 # the bench frames of the window's slots: slots 0-2 host the arena's
-# candidates (trace_scene's TRACE_HOSTS), the newest slot is nf - 1
+# candidates (trace_scene's TRACE_HOSTS), the newest slot is nf - 1; past
+# the main path's 8 slots, bench frames 9, 10, ... up to K5's 32 slots
+# (cuda_kernels.ACTIVATE_MAX_SLOTS)
 ACT_WINDOW = (0, 2, 4, 6, 8, 1, 3, 5)
+ACT_SLOT_FRAMES = ACT_WINDOW + tuple(range(9, 33))
 ACT_FRAMES = (2, 4, 8)               # the windows of activate_cases
 ACT_OCCUPIED = 0.02                  # the share of occupied level-1 cells
 # planted lanes of the `planted` case, by lane % 19
@@ -1338,12 +1349,13 @@ ACT_PLANTS = {1: "border", 2: "NaN pixels", 3: "Hdd under the gate",
 
 
 def activate_scene(w: int, h: int, device, n_lanes: int = TRACE_LANES,
-                   seed: int = 15) -> dict:
+                   seed: int = 15, slots: int = TRACE_SLOTS) -> dict:
     """The bench scene at w x h with an activation arena: trace_scene's
     n_lanes candidates (hosted by window slots 0-2) after one trace against
     bench frame 6, so their intervals and statuses are a trace's; the
-    level-0 images of the bench frames ACT_WINDOW; a random occupancy of
-    ACT_OCCUPIED of the level-1 cells and its distance map (K1 on the
+    level-0 images and poses of the bench frames of the first `slots`
+    window slots (ACT_SLOT_FRAMES, at least ACT_WINDOW); a random occupancy
+    of ACT_OCCUPIED of the level-1 cells and its distance map (K1 on the
     card, its plain version on the CPU)."""
     import numpy as np
     from ldso_tpu_torch.examples import time_modes
@@ -1354,30 +1366,31 @@ def activate_scene(w: int, h: int, device, n_lanes: int = TRACE_LANES,
     calib, cfg = scene["calib"], scene["cfg"]
     arena = immature.trace_arena_ref(scene["arena"], scene["pyrs"][6].dI[0],
                                      *trace_inputs(scene, 6), calib, cfg)
-    _, _, images = time_modes.bench_frames(max(ACT_WINDOW) + 1, w, h, device)
+    frames = ACT_SLOT_FRAMES[:max(slots, len(ACT_WINDOW))]
+    _, poses, images = time_modes.bench_frames(max(frames) + 1, w, h, device)
     dI = {k: make_pyramid(upload_image(images[k], device),
-                          calib.levels).dI[0] for k in ACT_WINDOW}
+                          calib.levels).dI[0] for k in frames}
     rng = np.random.RandomState(seed)
     w1, h1 = calib.w[1], calib.h[1]
     occ = torch.from_numpy(rng.rand(h1, w1) < ACT_OCCUPIED).to(device)
     dist_map = cuda_kernels.distance_transform(occ, cfg.dist_map_steps)
-    return dict(calib=calib, cfg=cfg, poses=scene["poses"], arena=arena,
-                dI=dI, dist_map=dist_map)
+    return dict(calib=calib, cfg=cfg, poses=poses, arena=arena, dI=dI,
+                dist_map=dist_map)
 
 
 def activate_inputs(scene: dict, nf: int, arena=None, dIs=None,
-                    marg=(), min_act_dist: float = 2.0):
-    """The activation's inputs with a window of nf frames (ACT_WINDOW's
-    first nf) in TRACE_SLOTS slots, the tables formed in float64 on the
-    host as FullSystem._activate_points forms them: (arena, dist_map,
-    KRKis, Kts, Rs, ts, affs, masks, dIs, min_act_dist, marg_flags,
-    newest, nf, cfg). `marg` lists flagged slots; slots past nf are
-    flagged too."""
+                    marg=(), min_act_dist: float = 2.0,
+                    slots: int = TRACE_SLOTS):
+    """The activation's inputs with a window of nf frames (ACT_SLOT_FRAMES's
+    first nf) in `slots` slots, the tables formed in float64 on the host as
+    FullSystem._activate_points forms them: (arena, dist_map, KRKis, Kts,
+    Rs, ts, affs, masks, dIs, min_act_dist, marg_flags, newest, nf, cfg).
+    `marg` lists flagged slots; slots past nf are flagged too."""
     import numpy as np
     calib, poses = scene["calib"], scene["poses"]
     dev = scene["dist_map"].device
-    F = TRACE_SLOTS
-    T = [poses[k] for k in ACT_WINDOW[:nf]]
+    F = slots
+    T = [poses[k] for k in ACT_SLOT_FRAMES[:nf]]
     newest = nf - 1
     K1, Ki0 = calib.K(1), calib.Ki(0)
     KRKis = np.tile(np.eye(3), (F, 1, 1))
@@ -1398,7 +1411,7 @@ def activate_inputs(scene: dict, nf: int, arena=None, dIs=None,
     marg_flags = np.arange(F) >= nf
     marg_flags[list(marg)] = True
     if dIs is None:
-        dIs = torch.stack([scene["dI"][ACT_WINDOW[k]] for k in range(F)])
+        dIs = torch.stack([scene["dI"][ACT_SLOT_FRAMES[k]] for k in range(F)])
     f32 = lambda a: torch.as_tensor(  # noqa: E731
         np.asarray(a, np.float32), device=dev)
     return (scene["arena"] if arena is None else arena, scene["dist_map"],
