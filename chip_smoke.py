@@ -132,6 +132,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
          replay, the replay and its pull under set_sync_debug_mode
          ("error") behind 50 ms of sleep (queued inside it, the copy not
          ready, its result bitwise the eager one), its device ms;
+     3f. the keyframe's dispatch with no host read: the post-BA flags
+         and packed row, the tracker reference and the new candidates are
+         one captured program each (system/full_system's POST_BA_GRAPHS,
+         TRACKER_REF_GRAPHS, NEW_TRACES_GRAPHS), replayed once per
+         keyframe dispatch of phase 3 with no capture inside the run; on
+         phase 3's last inputs each replay bitwise its eager program, its
+         device ms (20 replays behind a sleep); then phase 3's first 24
+         frames again, each keyframe's dispatch from the BA through the
+         new candidates under set_sync_debug_mode("error") behind 50 ms
+         of queued sleep: returned within 25 ms, finish.ready() false
+         until the sleep ends, keyframes and tracked poses bitwise phase
+         3's;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
@@ -201,7 +213,9 @@ activation pass, util's timed ones among them), printed per path in a
 their plain versions ran on the card, every point marginalization was one
 graph replay, and with the device LM every K6 and K7 launch was one of
 the BA's or the marginalization's graphs (`k6_by_path`, `k7_by_path`
-lines; the bench per leg).
+lines; the bench per leg); and that each of the keyframe's three
+programs replayed once per keyframe dispatch (and once per system built
+inside the block), with no graph captured inside a run.
   8. the port's benchmark (ldso_tpu_torch/examples/bench.py, bench.py's
      legs) in this process at its defaults: no error; three windows in
      each of lookahead, strict, async and the two aggregate legs; value
@@ -210,7 +224,8 @@ lines; the bench per leg).
      (and capture) in every leg and in every leg that runs the BA, both
      counted through graph replays; its JSON line and its wall time.
 One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
-captured tracker's numbers, the bench's JSON line, then a JSON record of
+captured tracker's numbers, the BA's, the marginalization's and the
+keyframe programs' (3f), the bench's JSON line, then a JSON record of
 the kernels (K1, K3, K12, K4, K5, K6, K7), then the last line {"ok": true, "device":
 {...}}.
 """
@@ -255,6 +270,16 @@ DIST_TIMED = ((240, 320), (540, 960))
 # rate outside the tensor cores, taken for the map's integer compares
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# the keyframe's captured programs (system/full_system's POST_BA_GRAPHS,
+# TRACKER_REF_GRAPHS, NEW_TRACES_GRAPHS) by the names time_modes.run_mode
+# reports their replays and captures under
+KF_PROGRAMS = ("post_ba", "tracker_ref", "new_traces")
+# 3f: the sleep queued ahead of each watched keyframe's BA, the host time
+# its dispatch from the BA through the new candidates must return within,
+# and the frames of phase 3's scene it drives again
+KF_SLEEP_MS = 50.0
+KF_QUEUED_MS = 25.0
+KF_FRAMES = 24
 
 
 def _kernel_checks():
@@ -1403,10 +1428,14 @@ def _no_capture_inside(run: dict) -> None:
     run; with the device LM, each
     BA call of the run is one replay with one K12 launch."""
     what = run.get("phase", run["mode"])
-    if run["graph_captures"] or run["ba_captures"] or run["marg_captures"]:
+    kf = {k: run[k] for k in run if k.endswith("_captures") and k.split(
+        "_captures")[0] in KF_PROGRAMS}
+    if run["graph_captures"] or run["ba_captures"] or run["marg_captures"] \
+            or any(kf.values()):
         _fail(f"{what}: {run['graph_captures']} tracker graphs, "
-              f"{run['ba_captures']} BA graphs and {run['marg_captures']} "
-              f"marginalization graphs were captured inside the timed run")
+              f"{run['ba_captures']} BA graphs, {run['marg_captures']} "
+              f"marginalization graphs and the keyframe programs' {kf} were "
+              f"captured inside the timed run")
     if run["k12_launches"] != run["ba_replays"]:
         _fail(f"{what}: K12 launched {run['k12_launches']} times for "
               f"{run['ba_replays']} BA graph replays")
@@ -1594,6 +1623,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                 tracks, fs.cfg, fs.calib.levels))
             _k4_check(f"cli {pmode}", k4, traces["traces"])
             _k5_check(f"cli {pmode}", k5, post_boot)
+            k67["post_bootstrap_keyframes"] = post_boot
             _k67_run_check(k67, built=1)
             if not launches == post_boot > 0:
                 _fail(f"cli {pmode}: K1 launched {launches} times for "
@@ -1826,7 +1856,8 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
               f"times for {post_boot} post-bootstrap keyframes")
     _k5_check("4 loop slice", launches["activate"], post_boot)
     k67.update(k6_launches=launches["ba_linearize"],
-               k7_launches=launches["ba_accumulate"], phase="4 loop slice")
+               k7_launches=launches["ba_accumulate"], phase="4 loop slice",
+               post_bootstrap_keyframes=post_boot)
     _k67_run_check(k67)
     return launches, post_boot, fs.global_map
 
@@ -2995,7 +3026,7 @@ def phase_marg_graph(marg_records, strict: dict):
     import torch
     from ldso_tpu_torch.backend import energy_functional as efm
     from ldso_tpu_torch.ops import cuda_kernels
-    from ldso_tpu_torch.system.full_system import HostCopy
+    from ldso_tpu_torch.utils.device import HostCopy
     margs = [r for r in marg_records if bool(r[0].frame_valid.any())]
     if not margs or strict["marg_replays"] != strict["marg_dispatches"] \
             or strict["marg_replays"] < strict["post_bootstrap_keyframes"]:
@@ -3057,6 +3088,119 @@ def phase_marg_graph(marg_records, strict: dict):
     return res
 
 
+@contextlib.contextmanager
+def recorded_kf_programs():
+    """Yields a dict that gets, for each of the keyframe's three program
+    families, the last call inside (full_system._program: family ->
+    [static, program, inputs, calls]). The system writes none of the
+    inputs in place."""
+    from ldso_tpu_torch.system import full_system as fsm
+    fams = (fsm.POST_BA_GRAPHS, fsm.TRACKER_REF_GRAPHS,
+            fsm.NEW_TRACES_GRAPHS)
+    seen = {}
+    program = fsm._program
+
+    def recorded(family, static, fn, inputs):
+        if any(family is f for f in fams):
+            calls = seen[family][3] + 1 if family in seen else 1
+            seen[family] = [static, fn, tuple(inputs), calls]
+        return program(family, static, fn, inputs)
+    fsm._program = recorded
+    try:
+        yield seen
+    finally:
+        fsm._program = program
+
+
+def phase_keyframe_programs(records, calib, images, strict: dict, fs3):
+    """3f: the keyframe's dispatch with no host read. On phase 3's last
+    recorded inputs of each of the three programs (the post-BA flags and
+    packed row, the tracker reference, the new candidates) the graph's
+    replay is bitwise the eager program on the card, and its device ms
+    (20 replays behind a sleep); phase 3 ran one replay of each per
+    keyframe dispatch. Then a fresh strict system over phase 3's first
+    KF_FRAMES frames, each keyframe's dispatch watched from the BA through
+    the new candidates under torch.cuda.set_sync_debug_mode("error")
+    behind KF_SLEEP_MS of queued sleep: it returns within KF_QUEUED_MS,
+    finish.ready() is false until the sleep ends, no graph is captured,
+    and the run's keyframes and tracked poses are bitwise phase 3's.
+    Returns the numbers."""
+    import torch
+    from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.examples import time_modes
+    from ldso_tpu_torch.system import full_system as fsm
+    t0 = time.perf_counter()
+    names = {id(f): n for n, f in time_modes.KF_FAMILIES.items()}
+    if sorted(names.values()) != sorted(KF_PROGRAMS) or len(records) != 3:
+        _fail(f"3f: {len(records)} keyframe programs recorded in phase 3")
+    res = {}
+    for fam, (static, fn, inputs, calls) in records.items():
+        name = names[id(fam)]
+        want = fn(*inputs)
+        got = fam.replay(static, fn, inputs)
+        bad = [i for i, (g, w) in enumerate(zip(got, want))
+               if not _same(g, w)]
+        if bad or len(got) != len(want):
+            _fail(f"3f: {name}'s replay differs from its eager program in "
+                  f"outputs {bad} of {len(want)}")
+        res[name] = dict(
+            phase3_calls=calls, phase3_replays=strict[f"{name}_replays"],
+            outputs=len(got), bitwise=True,
+            device_ms=_queued_device_ms(
+                lambda: fam.replay(static, fn, inputs), n=20, reps=5),
+            eager_ms=_host_us_per_call(lambda: fn(*inputs), n=3) / 1e3)
+        # one call per keyframe dispatch, and the placeholder's when the
+        # system was built
+        if calls != strict["kf_dispatches"] + 1:
+            _fail(f"3f: {calls} {name} calls in phase 3 for "
+                  f"{strict['kf_dispatches']} keyframe dispatches")
+
+    cfg = dataclasses.replace(Config(), enable_loop_closing=False)
+    fs = fsm.FullSystem(calib, cfg)
+    before = time_modes.kf_graph_counts()
+    cycles = int(_sleep_cycles_per_ms() * KF_SLEEP_MS)
+    try:
+        with _kernel_checks().watched_keyframes(fs, cycles) as rows:
+            for i, img in enumerate(images[:KF_FRAMES]):
+                fs.add_active_frame(img, i, 1.0, i * 0.05)
+    except RuntimeError as e:
+        _fail(f"3f: a keyframe's dispatch read the card: {e}")
+    torch.cuda.synchronize()
+    after = time_modes.kf_graph_counts()
+    captured = {k: after[k] - before[k] for k in after
+                if k.endswith("_captures")}
+    kf_ids = [f.id for f in fs.all_frames if f.kf_id >= 0]
+    kf3 = [f.id for f in fs3.all_frames if f.kf_id >= 0 and f.id < KF_FRAMES]
+    moved = [f.id for f, g in zip(fs.all_frames, fs3.all_frames)
+             if f.kf_id < 0 and not np.array_equal(f.T_cw, g.T_cw)]
+    ms = [r[0] for r in rows]
+    print(f"3f keyframe programs: phase 3's {strict['kf_dispatches']} "
+          f"keyframe dispatches replayed "
+          f"{[strict[f'{n}_replays'] for n in KF_PROGRAMS]} times "
+          f"({', '.join(KF_PROGRAMS)}), each replay bitwise its eager "
+          f"program, device ms "
+          f"{[round(res[n]['device_ms'], 4) for n in KF_PROGRAMS]}, eager "
+          f"host ms {[round(res[n]['eager_ms'], 2) for n in KF_PROGRAMS]}; "
+          f"{len(rows)} keyframe dispatches of {KF_FRAMES} frames behind "
+          f"{KF_SLEEP_MS} ms of sleep under set_sync_debug_mode('error'): "
+          f"BA through new candidates queued in {max(ms):.2f} ms at most "
+          f"(median {np.median(ms):.2f}), ready at return "
+          f"{sum(r[1] for r in rows)}, graphs captured {captured}, "
+          f"keyframes {kf_ids} (phase 3's {kf3}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if len(rows) < 3 or not max(ms) < KF_QUEUED_MS or any(r[1] for r in rows):
+        _fail(f"3f: the keyframe's dispatch queued in {ms} ms, ready at "
+              f"return {[r[1] for r in rows]}")
+    if any(captured.values()):
+        _fail(f"3f: keyframe programs captured inside the run: {captured}")
+    if kf_ids != kf3 or moved:
+        _fail(f"3f: behind the sleep the run made keyframes {kf_ids} "
+              f"(phase 3: {kf3}), and frames {moved} tracked elsewhere")
+    res.update(dispatches=len(rows), queued_ms=ms,
+               sleep_ms=KF_SLEEP_MS)
+    return res
+
+
 def _k67_run_check(run: dict, built: int = 0) -> None:
     """K6 and K7 ran on this path, no plain version of either ran on the
     card, every point marginalization was one graph replay (and each of
@@ -3082,6 +3226,19 @@ def _k67_run_check(run: dict, built: int = 0) -> None:
               f"{run['k7_launches']} times, {run['k6_in_graphs']} and "
               f"{run['k7_in_graphs']} of them in the BA's and the "
               f"marginalization's graph replays")
+    # the keyframe's three programs: one replay of each per keyframe
+    # dispatch (and one per system built inside, its placeholder), no
+    # graph captured but at a system's construction
+    for name in KF_PROGRAMS:
+        if run[f"{name}_replays"] != run["kf_dispatches"] + built \
+                or run[f"{name}_captures"] > built:
+            _fail(f"{what}: {run[f'{name}_replays']} {name} replays and "
+                  f"{run[f'{name}_captures']} captures for "
+                  f"{run['kf_dispatches']} keyframe dispatches and {built} "
+                  f"systems built")
+    if run["kf_dispatches"] < run.get("post_bootstrap_keyframes", 0):
+        _fail(f"{what}: {run['kf_dispatches']} keyframe dispatches for "
+              f"{run['post_bootstrap_keyframes']} post-bootstrap keyframes")
 
 
 @contextlib.contextmanager
@@ -3097,9 +3254,11 @@ def k67_counted():
     g0 = time_modes.graph_launches()
     m0 = dict(efm.MARG_GRAPHS.counts)
     b0 = efm.BA_GRAPHS.counts["replays"]
+    kf0 = time_modes.kf_graph_counts()
     with time_modes.counted_ba() as bas:
         yield res
     g1 = time_modes.graph_launches()
+    res.update({k: n - kf0[k] for k, n in time_modes.kf_graph_counts().items()})
     res.update(k6_in_graphs=g1["ba_linearize"] - g0["ba_linearize"],
                k7_in_graphs=g1["ba_accumulate"] - g0["ba_accumulate"],
                marg_replays=efm.MARG_GRAPHS.counts["replays"] - m0["replays"],
@@ -3697,7 +3856,7 @@ def main() -> int:
                         "chip_smoke")
     with ba_times() as phase3_ba_ms, recorded_ba() as ba_records, \
             recorded_traces() as traces3, recorded_activations() as acts3, \
-            recorded_marg() as margs3:
+            recorded_marg() as margs3, recorded_kf_programs() as kf3:
         launches_vo, calib, images, poses, strict, fs, tracks3 = \
             phase_main_path()
     # every device-LM call of phase 3 went through its graph
@@ -3717,6 +3876,8 @@ def main() -> int:
     phase_ba_frame(ba_records, margs3, lin_record, acc_record)
     marg_graph = phase_marg_graph(margs3, strict)
     del margs3
+    kf_programs = phase_keyframe_programs(kf3, calib, images, strict, fs)
+    del kf3
     phase_dispatch_ahead(fs, images)
     phase_checkpoint(fs, root)
     window3 = fs.ef.W
@@ -3836,6 +3997,7 @@ def main() -> int:
     print(json.dumps({"tracker_graph": graph}))
     print(json.dumps({"ba_graph": ba_graph}))
     print(json.dumps({"marg_graph": marg_graph}))
+    print(json.dumps({"keyframe_programs": kf_programs}))
     print(json.dumps(bench))
     print(json.dumps({"kernels": [record, trip_record, proj_record,
                                   trace_record, act_record, lin_record,

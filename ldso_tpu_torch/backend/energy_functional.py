@@ -10,7 +10,9 @@ EnergyFunctional.cc plus the optimization driver of FullSystem.cc:725-864):
     card one CUDA graph per shape and trip count (`BA_GRAPHS`, captured
     before a FullSystem's first frame by `warm_ba_programs`), the prior
     uploaded through pinned memory and the stats read once after the
-    replay; every other configuration
+    replay (or later, `optimize(..., defer_stats=True)` then
+    `consume_stats`, as FullSystem's keyframe does); every other
+    configuration
     runs the host-orchestrated LM `_optimize_host`: the accept/reject
     loop, each solve assembled on the device and solved in float64 numpy
     (`solve_system`, with every SOLVER_* branch), the momentum modes and
@@ -39,6 +41,7 @@ from ldso_tpu_torch.backend.window import (RES_IN, RES_OUTLIER, Window,
                                            aff_g2l_zero, empty_window)
 from ldso_tpu_torch.math import lie
 from ldso_tpu_torch.ops.preprocess import to_device
+from ldso_tpu_torch.utils.device import HostCopy
 from ldso_tpu_torch.utils.graphs import Programs
 
 # the device LM's CUDA graphs (utils/graphs.Programs): one per
@@ -509,7 +512,6 @@ class EnergyFunctional:
         replay, `replay_marg`) and starts the one copy of the packed
         results to the host (a HostCopy, pinned memory and an event), which
         marginalize_and_drop_consume reads."""
-        from ldso_tpu_torch.system.full_system import HostCopy
         args = self._marg_args(marg_cand, drop, dIs, img_w, img_h)
         if self.device.type == "cuda":
             self.W, packed = replay_marg(*args)
@@ -671,16 +673,26 @@ class EnergyFunctional:
         return float(ba.calc_L_energy(self.W))
 
     # ------------------------------------------------------------------ optimize
-    def optimize(self, dIs, max_iterations: int, img_w: int, img_h: int) -> float:
+    def optimize(self, dIs, max_iterations: int, img_w: int, img_h: int,
+                 defer_stats: bool = False):
         """The windowed BA (FullSystem::optimize, :725-864). Returns the final
         RMSE; sets self.is_lost on divergence. The default mode
         (ba_device_lm, force-accept, no momentum) runs on the device
-        (backend/ba_device.py); every other mode runs `_optimize_host`."""
+        (backend/ba_device.py); every other mode runs `_optimize_host`.
+
+        defer_stats (the device LM only): return the stats [energy,
+        res_in_a, rmse] as a HostCopy on its way to pinned memory instead
+        of waiting for them, so the caller can queue more work behind the
+        BA; `consume_stats(handle)` then reads them and does the
+        bookkeeping (the JAX package's pair)."""
         cfg = self.cfg
         nf = self.n_frames
         if nf < 2:
             return 0.0
         if not device_lm(cfg):
+            if defer_stats:
+                raise ValueError("defer_stats needs the device LM "
+                                 "(force_accept_step, no SOLVER_MOMENTUM)")
             return self._optimize_host(
                 dIs, ba_trip_counts(max_iterations)[min(nf, 4) - 2], img_w,
                 img_h, nf - 1, bool(cfg.solver_mode & SOLVER_MOMENTUM))
@@ -689,7 +701,14 @@ class EnergyFunctional:
             self.W, stats = replay_ba(*args)
         else:
             self.W, stats = ba_device.optimize_device(*args)
-        stats = stats.cpu().numpy()     # the one host read, after the LM
+        handle = HostCopy(stats)
+        return handle if defer_stats else self.consume_stats(handle)
+
+    def consume_stats(self, handle) -> float:
+        """The device LM's one host read: its stats (a HostCopy from
+        `optimize(..., defer_stats=True)`) applied to res_in_a and is_lost.
+        Returns the final RMSE."""
+        stats = handle.numpy()
         self.res_in_a = int(stats[1])
         if not np.isfinite(stats[0]):
             self.is_lost = True

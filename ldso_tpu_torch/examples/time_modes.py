@@ -21,7 +21,10 @@ those calls (on the card a graph replay that does not wait for the
 track), the tracker graphs captured inside the run (0: the FullSystem
 captures them when it is built), K12's launches and the device LM's graph
 replays and captures (one replay per BA call; 0 captures, as the
-tracker's), the host time of the mapping stages per
+tracker's), the keyframe's dispatches and its three programs' replays and
+captures (the post-BA flags, the tracker reference and the new
+candidates: one replay each per dispatch, 0 captures), the host time of
+the mapping stages per
 frame (`mapping_ms_per_frame`), and the card's name and power limit.
 With `--async-paces`, each turn then feeds async one frame per PACE times
 its strict run's `ms_per_frame_wall`, for each PACE (async keeps a
@@ -198,18 +201,41 @@ def counted_activations():
         fsm._activate_fused = fused
 
 
+# the keyframe's captured programs by the name run_mode reports them under
+KF_FAMILIES = dict(post_ba=fsm.POST_BA_GRAPHS,
+                   tracker_ref=fsm.TRACKER_REF_GRAPHS,
+                   new_traces=fsm.NEW_TRACES_GRAPHS)
+
+
+def kf_graph_counts() -> dict:
+    """The keyframe programs' graphs captured and replays so far:
+    {"<name>_captures": n, "<name>_replays": n} for each of KF_FAMILIES."""
+    out = {}
+    for name, fam in KF_FAMILIES.items():
+        out[f"{name}_captures"] = fam.counts["count"]
+        out[f"{name}_replays"] = fam.counts["replays"]
+    return out
+
+
 @contextlib.contextmanager
 def counted_ba():
-    """While inside, on every thread: count the point marginalization's
+    """While inside, on every thread: count the keyframe's dispatches
+    (FullSystem.make_keyframe_dispatch), the point marginalization's
     dispatches (EnergyFunctional.marginalize_and_drop_dispatch) and the
     calls of K6's and K7's plain versions on card tensors (backend/ba.
     linearize_ref, _accumulate_top_ref, _sc_sums_ref, which the wrappers
     reach only for CPU tensors: a call here is a linearize or accumulate
-    that did not go through the kernels). Yields {"marg_dispatches": n,
-    "ba_plain_calls": n}."""
-    counts = dict(marg_dispatches=0, ba_plain_calls=0)
+    that did not go through the kernels). Yields {"kf_dispatches": n,
+    "marg_dispatches": n, "ba_plain_calls": n}."""
+    counts = dict(kf_dispatches=0, marg_dispatches=0, ba_plain_calls=0)
     lock = threading.Lock()
     dispatch = EnergyFunctional.marginalize_and_drop_dispatch
+    kf_dispatch = FullSystem.make_keyframe_dispatch
+
+    def counted_kf(self, *a, **k):
+        with lock:
+            counts["kf_dispatches"] += 1
+        return kf_dispatch(self, *a, **k)
     plain = {name: getattr(ba, name) for name in
              ("linearize_ref", "_accumulate_top_ref", "_sc_sums_ref")}
 
@@ -226,12 +252,14 @@ def counted_ba():
             return fn(W, *a, **k)
         return counted
     EnergyFunctional.marginalize_and_drop_dispatch = counted_dispatch
+    FullSystem.make_keyframe_dispatch = counted_kf
     for name, fn in plain.items():
         setattr(ba, name, wrap(fn))
     try:
         yield counts
     finally:
         EnergyFunctional.marginalize_and_drop_dispatch = dispatch
+        FullSystem.make_keyframe_dispatch = kf_dispatch
         for name, fn in plain.items():
             setattr(ba, name, fn)
 
@@ -281,6 +309,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
         cuda_kernels.reset_launch_counts()
         ba_graphs = dict(BA_GRAPHS.counts)
         marg_graphs = dict(MARG_GRAPHS.counts)
+        kf_graphs = kf_graph_counts()
         in_graphs = graph_launches()
         call_ms = []
         t0 = time.perf_counter()
@@ -301,6 +330,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
         ba_graphs = {k: BA_GRAPHS.counts[k] - v for k, v in ba_graphs.items()}
         marg_graphs = {k: MARG_GRAPHS.counts[k] - v
                        for k, v in marg_graphs.items()}
+        kf_graphs = {k: n - kf_graphs[k] for k, n in kf_graph_counts().items()}
         in_graphs = {k: n - in_graphs[k] for k, n in graph_launches().items()}
         k3_by_mode = dict(cuda_kernels.TRIP_LAUNCHES)
     streams = collections.Counter()
@@ -342,6 +372,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                marg_dispatches=bas["marg_dispatches"],
                marg_replays=marg_graphs["replays"],
                marg_captures=marg_graphs["count"],
+               kf_dispatches=bas["kf_dispatches"], **kf_graphs,
                tracks=tracks["tracks"],
                rank_calls=tracks["ranks"],
                post_bootstrap_keyframes=sum(1 for kf in kfs if kf.kf_id >= 2),

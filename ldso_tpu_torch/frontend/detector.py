@@ -132,7 +132,7 @@ def detect_status_map(dI: torch.Tensor, abs_grad: torch.Tensor,
     """DetectCorners' candidate selection (FeatureDetector.cc:33-95) as an
     (H, W) int32 status map. Per cell, the top `per_cell` Shi-Tomasi scores
     among pixels above max(0.5 * cell max gradient, 5); ties keep the lower
-    index, as lax.top_k does."""
+    index, as lax.top_k does. It reads nothing back from the card."""
     H, W = abs_grad.shape
     dev = abs_grad.device
     st = shi_tomasi_map(dI)
@@ -162,9 +162,12 @@ def detect_status_map(dI: torch.Tensor, abs_grad: torch.Tensor,
     u = (x_lo + cx * gridsize + xx).reshape(-1)
     v = (y_lo + cy * gridsize + yy).reshape(-1)
     ok = (top_val > 0).reshape(-1)
-    out = torch.zeros(H * W, dtype=torch.int32, device=dev)
-    out[(v * W + u)[ok]] = 1          # mask first: no out-of-range "drop"
-    return out.reshape(H, W)
+    # unselected picks go to a spare cell past the map that is then cut:
+    # a boolean index would read its count on the host
+    cell = torch.where(ok, v * W + u, torch.full_like(u, H * W))
+    out = torch.zeros(H * W + 1, dtype=torch.int32, device=dev)
+    out.index_fill_(0, cell, 1)
+    return out[:H * W].reshape(H, W)
 
 
 def detect_grid_params(H: int, W: int, n_features: int):

@@ -110,7 +110,8 @@ def _first_min(e):
 
 
 def make_pool(status_map, dI0, cap: int, cfg: Config) -> ImmaturePool:
-    """Pool from a selection status map ((H,W) int, 0 = unselected)."""
+    """Pool from a selection status map ((H,W) int, 0 = unselected). Reads
+    nothing back from the card."""
     H, W = status_map.shape
     dev = status_map.device
     flat = status_map.reshape(-1)
@@ -492,32 +493,34 @@ def empty_arena(N: int, cfg: Config, device) -> ImmatureArena:
                                          device=device))
 
 
-def arena_add(arena: ImmatureArena, new_pool: ImmaturePool, host_idx: int):
+def arena_add(arena: ImmatureArena, new_pool: ImmaturePool, host_idx):
     """Move a freshly selected pool into free arena slots: the k-th valid
-    candidate goes to the k-th free slot, overflow is dropped."""
+    candidate goes to the k-th free slot, overflow is dropped. host_idx:
+    the host's window slot, an int or a 0-d integer tensor on the arena's
+    device. Reads nothing back from the card: the dropped candidates write
+    a spare lane past the arena that is then cut."""
     N = arena.host.shape[0]
     cap = new_pool.u.shape[0]
+    dev = arena.host.device
     free = nonzero_padded(~arena.pool.valid, cap, N)
     rank = torch.cumsum(new_pool.valid.to(torch.int64), 0) - 1
     slot = torch.where(new_pool.valid, free[torch.clamp(rank, 0, cap - 1)],
                        torch.full_like(rank, N))
-    keep = slot < N          # drop out-of-range slots before the scatter
-    dst = slot[keep]
+    hosts = torch.zeros(cap, dtype=torch.int32, device=dev) + host_idx
 
     def put(d, s):
-        d = d.clone()
-        d[dst] = s[keep].to(d.dtype)
-        return d
+        d = torch.cat([d, d[:1]])
+        d.index_copy_(0, slot, s.to(d.dtype))
+        return d[:N]
 
     pool = ImmaturePool(*[put(d, s) for d, s in zip(arena.pool, new_pool)])
-    host = arena.host.clone()
-    host[dst] = int(host_idx)
-    return ImmatureArena(pool=pool, host=host)
+    return ImmatureArena(pool=pool, host=put(arena.host, hosts))
 
 
 def arena_add_from_status(arena: ImmatureArena, status_map, dI0, host_idx,
                           cap: int, cfg: Config):
-    """make_pool + arena_add (the per-keyframe candidate creation)."""
+    """make_pool + arena_add (the per-keyframe candidate creation); reads
+    nothing back from the card."""
     return arena_add(arena, make_pool(status_map, dI0, cap, cfg), host_idx)
 
 
@@ -567,7 +570,9 @@ def arena_watermark(arena: ImmatureArena) -> int:
 
 
 def arena_compact(arena: ImmatureArena) -> ImmatureArena:
-    """Stable-partition live candidates into a contiguous prefix."""
+    """Stable-partition live candidates into a contiguous prefix (a stable
+    argsort, so live lanes keep their order); reads nothing back from the
+    card."""
     live = arena.pool.valid & (arena.host >= 0)
     order = torch.argsort((~live).to(torch.int32), stable=True)
     pool = ImmaturePool(*[x[order] for x in arena.pool])

@@ -101,7 +101,10 @@ def make_tracker_ref(proj_u, proj_v, proj_idepth, weight, point_valid,
                      caps: Tuple[int, ...]) -> TrackerRef:
     """proj_*: (NP,) projections of the active points into the reference
     KF, weight (NP,) = sqrt(1e-3 / (HdiF + 1e-12)), point_valid (NP,) bool,
-    ref_dI: the reference pyramid's (H,W,3) levels."""
+    ref_dI: the reference pyramid's (H,W,3) levels; ref_exposure (0-d)
+    and ref_aff (2,) float32 tensors on the points' device (a host value
+    there would be an upload). Reads nothing back from the card, so a
+    CUDA graph can capture it (FullSystem's TRACKER_REF_GRAPHS)."""
     dev = proj_u.device
     levels = calib.levels
     W0, H0 = calib.w[0], calib.h[0]

@@ -6,7 +6,10 @@ run. XLA's scatter sums in ascending source order on every run, and the
 loop-closing gates (integer counts of matches and inliers) turn such
 last-bit differences into different loop sets. `segment_sum` fixes the
 order by construction on every device: a stable sort by destination,
-then one sequential sum per destination in ascending source order.
+then one sequential sum per destination in ascending source order. It
+reads nothing back from the card (the segments' offsets come from a
+search of the sorted destinations, where a `bincount` would read its
+size), so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ def segment_sum(values: torch.Tensor, index: torch.Tensor,
     `index_add_`). values: (N, ...) float; index: (N,) int in [0, n).
     Returns (n, ...)."""
     index = index.to(torch.int64)
-    _, perm = torch.sort(index, stable=True)
-    lengths = torch.bincount(index, minlength=n)
+    dest, perm = torch.sort(index, stable=True)
+    # offsets[k] = the number of sources with a destination below k
+    offsets = torch.searchsorted(dest, torch.arange(n + 1,
+                                                    device=index.device))
     rest = values.shape[1:]
     # 2-D data takes segment_reduce's one-thread-per-segment kernel, which
     # adds each segment's values one after another in order
@@ -30,5 +35,5 @@ def segment_sum(values: torch.Tensor, index: torch.Tensor,
     for d in rest:
         width *= d
     out = torch.segment_reduce(values[perm].reshape(values.shape[0], width),
-                               "sum", lengths=lengths, axis=0, unsafe=True)
+                               "sum", offsets=offsets, axis=0, unsafe=True)
     return out.reshape((n,) + rest)

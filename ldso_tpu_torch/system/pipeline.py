@@ -45,8 +45,8 @@ import torch
 
 from ldso_tpu_torch.loop import posegraph
 from ldso_tpu_torch.slam_map import FrameShell
-from ldso_tpu_torch.system.full_system import (FullSystem, record_event,
-                                               use_on_current_stream)
+from ldso_tpu_torch.system.full_system import FullSystem, use_on_current_stream
+from ldso_tpu_torch.utils.device import record_event
 
 
 def _on_stream(stream):

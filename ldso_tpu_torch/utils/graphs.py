@@ -8,7 +8,10 @@ the hashable arguments the program closes over, the inputs' shapes and
 dtypes), shared by every stream, with the family's own lock and counts.
 The tracker's family is frontend/track_graph.TRACKER, the windowed BA's
 backend/energy_functional.BA_GRAPHS, the point marginalization's
-backend/energy_functional.MARG_GRAPHS.
+backend/energy_functional.MARG_GRAPHS; the keyframe's post-BA flags and
+packed row, its tracker reference and its new candidates are
+system/full_system.POST_BA_GRAPHS, TRACKER_REF_GRAPHS and
+NEW_TRACES_GRAPHS.
 
 A replay runs under the graph's lock on the caller's current stream: wait
 for the graph's previous replay (an event, whatever stream it ran on),

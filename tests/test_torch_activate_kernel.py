@@ -29,6 +29,7 @@ from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.slam_map import FrameShell
 from ldso_tpu_torch.system import full_system as tfs
 from ldso_tpu_torch.utils import convert
+from ldso_tpu_torch.utils.device import HostCopy
 
 W, H = 640, 480
 _HOST_READS = ("__bool__", "item", "tolist", "cpu", "numpy")
@@ -373,7 +374,7 @@ def test_activation_reads_nothing_back(scene, monkeypatch):
         assert torch.equal(g, w)
     pk = got[-1].numpy()
     assert int((pk[:, 2] > 0).sum()) > 100
-    fs._act_pull = (tfs.HostCopy(got[-1]), len(fs.window_frames))
+    fs._act_pull = (HostCopy(got[-1]), len(fs.window_frames))
     fs.ef.pt_valid_np[:] = False
     fs._consume_activation()
     assert fs._act_pull is None

@@ -515,7 +515,7 @@ def test_energy_functional_pulls_the_packed_result_once(scene):
     """EnergyFunctional's dispatch hands back one HostCopy of the packed
     array, and consume reads only it: the same rec, really, dropped and
     prior as the unpacked results applied by hand."""
-    from ldso_tpu_torch.system.full_system import HostCopy
+    from ldso_tpu_torch.utils.device import HostCopy
     Wl, cand, drop, dIs, cfg = _marg_inputs(scene, False)
     ef = efm.EnergyFunctional(cfg, scene["calib"], F=SLOTS, P=Wl.P,
                               device="cpu")

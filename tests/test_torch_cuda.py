@@ -8,6 +8,8 @@ without JAX, where tests/conftest.py (which imports jax) cannot load:
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -206,8 +208,8 @@ def test_cross_stream_handoff_matches_one_stream(cuda):
     ahead of the pyramid) so that a missing wait or a reused block would
     show."""
     from ldso_tpu_torch.ops.preprocess import make_pyramid
-    from ldso_tpu_torch.system.full_system import (record_event,
-                                                   use_on_current_stream)
+    from ldso_tpu_torch.system.full_system import use_on_current_stream
+    from ldso_tpu_torch.utils.device import record_event
     g = torch.Generator(cuda).manual_seed(0)
     img = torch.rand((480, 640), generator=g, device=cuda) * 255.0
     want = [t.clone() for t in make_pyramid(img, 6).dI]
@@ -909,7 +911,15 @@ def test_bench_gives_device_times_on_the_card(cuda):
     result = json.loads(out.getvalue().splitlines()[-1])
     assert rc == 0, result.get("error")
     assert result["device"]["type"] == "cuda" and result["device"]["name"]
-    assert len(result["util"]) == 4
+    # the five programs of the bench's util, by name: the frame step, the
+    # trace and the activation (named by their lanes), the device LM and
+    # the batched-tracking leg's batched track (B = --batch 2)
+    names = sorted(result["util"])
+    assert len(names) == 5, names
+    assert {"frame_step(track)", "ba_lm", "batched_track(2 seq)"} <= set(
+        names), names
+    assert [k.split("(")[0] for k in names if k.startswith(
+        ("trace(", "activate("))] == ["activate", "trace"], names
     for name, rec in result["util"].items():
         assert rec["ms"] > 0 and rec["hbm_pct_min"] > 0, (name, rec)
     ba = result["batched_ba_2seq"]
@@ -1391,7 +1401,7 @@ def test_marg_graph_equals_eager(cuda):
     host."""
     from ldso_tpu_torch.backend import energy_functional as efm
     from ldso_tpu_torch.ops import cuda_kernels as ck
-    from ldso_tpu_torch.system.full_system import HostCopy
+    from ldso_tpu_torch.utils.device import HostCopy
     (W, dIs, HM, bM, newest), cfg, w, h = _ba_inputs(cuda, 5, seed=5)
     cand = W.pt_valid & (torch.arange(W.P, device=cuda) % 3 == 0)
     drop = W.pt_valid & (torch.arange(W.P, device=cuda) % 7 == 1) & ~cand
@@ -1414,3 +1424,62 @@ def test_marg_graph_equals_eager(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert np.array_equal(pull.numpy(), want[1].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# the keyframe's dispatch: the post-BA flags, the tracker reference and the
+# new candidates as captured programs (system/full_system)
+# ---------------------------------------------------------------------------
+
+def _kf_run(monkeypatch, watch=False, n=20):
+    """A card FullSystem over n pipeline frames, with the last call of each
+    keyframe program recorded (family -> (static, program, inputs)) and,
+    with `watch`, each keyframe's dispatch from the BA through the new
+    candidates under set_sync_debug_mode("error") behind ~50 ms of sleep
+    (torch_kernel_checks.watched_keyframes): rows of (host ms,
+    finish.ready() at return)."""
+    from ldso_tpu_torch.system import full_system as fsm
+    calib, poses, imgs = _pipeline_frames(n)
+    fs = fsm.FullSystem(calib, _pipeline_cfg())
+    fams = (fsm.POST_BA_GRAPHS, fsm.TRACKER_REF_GRAPHS, fsm.NEW_TRACES_GRAPHS)
+    counts = [f.counts["count"] for f in fams]
+    seen = {}
+    program = fsm._program
+
+    def recorded(family, static, fn, inputs):
+        seen[family] = (static, fn, tuple(inputs))
+        return program(family, static, fn, inputs)
+    monkeypatch.setattr(fsm, "_program", recorded)
+    with (_kc().watched_keyframes(fs, 100_000_000) if watch
+          else contextlib.nullcontext([])) as rows:
+        for i, im in enumerate(imgs):
+            fs.add_active_frame(im, i, 1.0, i * 0.05)
+    assert fs.initialized and not fs.is_lost
+    # captured when the system was built, none in the run
+    assert [f.counts["count"] for f in fams] == counts
+    return fs, seen, rows
+
+
+def test_keyframe_programs_replay_equals_eager(cuda, monkeypatch):
+    """Each of the keyframe's three programs, on the run's last inputs:
+    the graph's replay bitwise the eager program."""
+    fs, seen, _ = _kf_run(monkeypatch)
+    assert len(seen) == 3
+    for family, (static, fn, inputs) in seen.items():
+        want = fn(*inputs)
+        got = family.replay(static, fn, inputs)
+        assert len(got) == len(want)
+        assert all(_same(g, w) for g, w in zip(got, want))
+
+
+def test_keyframe_dispatch_runs_ahead_of_the_card(cuda, monkeypatch):
+    """Every keyframe's dispatch from the BA through the new candidates
+    queues behind ~50 ms of sleep under set_sync_debug_mode("error"),
+    returns before the sleep ends (finish.ready() false), and the run's
+    keyframes and poses are bitwise those of a run without the sleep."""
+    fs, _, rows = _kf_run(monkeypatch, watch=True, n=24)
+    ref, _, _ = _kf_run(monkeypatch, n=24)
+    assert len(rows) >= 3 and not any(r[1] for r in rows), rows
+    assert [f.kf_id for f in fs.all_frames] == [f.kf_id for f in ref.all_frames]
+    for a, b in zip(fs.all_frames, ref.all_frames):
+        assert np.array_equal(a.T_cw, b.T_cw), a.id

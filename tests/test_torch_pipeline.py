@@ -18,6 +18,7 @@ from ldso_tpu_torch.config import Config as TC
 from ldso_tpu_torch.system import full_system as tfs
 from ldso_tpu_torch.system.pipeline import AsyncPipeline, DeterministicPipeline
 from ldso_tpu_torch.utils import convert
+from ldso_tpu_torch.utils.device import HostCopy
 
 KW = dict(max_points=512, max_immature=512,
           tracker_caps=(4096, 2048, 1024, 512, 256, 128),
@@ -153,7 +154,7 @@ def test_chain_frame_step_matches(frames):
 
 def test_host_copy_on_the_cpu():
     x = torch.arange(5.0)
-    h = tfs.HostCopy(x)
+    h = HostCopy(x)
     assert h.is_ready()
     equal(h.numpy(), np.arange(5.0))
 

@@ -21,6 +21,11 @@ checkout it is run from (a parent commit's too: run it from an unpacked
     and its device ms per call from CUDA events around it, and the rest
     (the density policy, the slot allocation, the arena's mask, the pull's
     queueing); none for a checkout without these functions;
+  * `keyframe_split` (phases 3 and 4): each keyframe's host ms in its
+    two halves, `make_keyframe_dispatch` (from the trace through the new
+    candidates) and its `finish()` (the reads of the device results, the
+    host mirrors, the frame marginalization, loop closing), and their
+    sum; the same wrappers time a parent checkout;
   * `loop_split` (phase 4): `kf.loop` cut into ORB features, BoW
     (vocabulary transform, database query and insert), matching, the
     RANSAC solvers, `refine_sim3` and the pose graph, host ms per
@@ -203,6 +208,33 @@ def activate_split():
 
 
 @contextlib.contextmanager
+def keyframe_split():
+    """Host ms of each keyframe's dispatch (FullSystem.make_keyframe_
+    dispatch) and of its finish() closure, and their sum per keyframe."""
+    from ldso_tpu_torch.system import full_system
+    out = {}
+    dispatch, finish = [], []
+
+    def wrap(fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            fin = fn(*a, **k)
+            dispatch.append((time.perf_counter() - t) * 1e3)
+
+            def timed():
+                t = time.perf_counter()
+                fin()
+                finish.append((time.perf_counter() - t) * 1e3)
+            timed.ready = fin.ready
+            return timed
+        return call
+    with _patched(full_system.FullSystem, "make_keyframe_dispatch", wrap):
+        yield out
+    out.update(dispatch=_stats(dispatch), finish=_stats(finish),
+               sum=_stats([a + b for a, b in zip(dispatch, finish)]))
+
+
+@contextlib.contextmanager
 def loop_split():
     """kf.loop in parts, each synchronised on both sides: host ms summed
     per part over the run, and the keyframes it ran on."""
@@ -247,18 +279,21 @@ def main() -> int:
     import chip_smoke
     chip_smoke.phase_device()
     with stage_samples() as samples, track_split() as split, \
-            activate_split() as act:
+            activate_split() as act, keyframe_split() as kf:
         chip_smoke.phase_main_path()
     print(json.dumps(dict(
         phase="3 strict", stages={k: _stats(v) for k, v in
                                   sorted(samples.items())},
-        track_split=split, activate_split=act)), flush=True)
-    with stage_samples() as samples, loop_split() as parts:
+        track_split=split, activate_split=act, keyframe_split=kf)),
+        flush=True)
+    with stage_samples() as samples, loop_split() as parts, \
+            keyframe_split() as kf:
         chip_smoke.phase_loop_slice()
     n_loop = len(samples.get("kf.loop", ()))
     print(json.dumps(dict(
         phase="4 loop_slice", stages={k: _stats(v) for k, v in
                                       sorted(samples.items())},
+        keyframe_split=kf,
         loop_split_ms_per_keyframe={k: v / max(n_loop, 1)
                                     for k, v in parts.items()},
         loop_keyframes=n_loop)), flush=True)

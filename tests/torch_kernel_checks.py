@@ -2045,3 +2045,46 @@ def acc_emulated_err(got: dict, emu: dict) -> dict:
     bad = {k: int((~_bits_equal(got[k], v.to(got[k].dtype))).sum())
            for k, v in emu.items()}
     return {k: n for k, n in bad.items() if n}
+
+
+# ---------------------------------------------------------------------------
+# the keyframe's dispatch with no host read (system/full_system)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def watched_keyframes(fs, sleep_cycles: int):
+    """While inside, each keyframe `fs` makes (its make_keyframe) queues
+    `sleep_cycles` of the card's sleep before its BA and runs its dispatch
+    from the BA through the new candidates under
+    torch.cuda.set_sync_debug_mode("error"), so a read of the card there
+    raises. Yields a list that gets (the span's host ms, finish.ready()
+    when the dispatch returned) per keyframe. On the card only."""
+    import time
+    rows, span = [], {}
+    optimize, new_traces = fs.ef.optimize, fs._make_new_traces
+
+    def watched_optimize(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(sleep_cycles)
+        torch.cuda.set_sync_debug_mode("error")
+        span["t"] = time.perf_counter()
+        return optimize(*a, **k)
+
+    def watched_new_traces(*a, **k):
+        out = new_traces(*a, **k)
+        span["ms"] = (time.perf_counter() - span["t"]) * 1e3
+        torch.cuda.set_sync_debug_mode(0)
+        return out
+
+    def make_keyframe(shell, pyr):
+        fin = fs.make_keyframe_dispatch(shell, pyr)
+        rows.append((span.pop("ms"), fin.ready()))
+        fin()
+    fs.ef.optimize = watched_optimize
+    fs._make_new_traces = watched_new_traces
+    fs.make_keyframe = make_keyframe
+    try:
+        yield rows
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del fs.ef.optimize, fs._make_new_traces, fs.make_keyframe
