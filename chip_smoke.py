@@ -139,11 +139,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
          keyframe dispatch of phase 3 with no capture inside the run; on
          phase 3's last inputs each replay bitwise its eager program, its
          device ms (20 replays behind a sleep); then phase 3's first 24
-         frames again, each keyframe's dispatch from the BA through the
-         new candidates under set_sync_debug_mode("error") behind 50 ms
-         of queued sleep: returned within 25 ms, finish.ready() false
-         until the sleep ends, keyframes and tracked poses bitwise phase
-         3's;
+         frames again, each keyframe's dispatch from the activation
+         through the new candidates under set_sync_debug_mode("error")
+         behind 50 ms of queued sleep: returned within 25 ms,
+         finish.ready() false until the sleep ends, no graph captured,
+         keyframes and tracked poses bitwise phase 3's;
+     3g. the activation pass as one captured program (full_system.
+         ACTIVATE_GRAPHS, a graph per window size, captured when the
+         system is built): every post-bootstrap activation of phase 3 one
+         replay with one K1 and one K5 launch, no capture inside the run,
+         every replay's outputs bitwise its eager program; on the last
+         inputs the replay again, its device ms (20 replays behind a
+         sleep), and the card memory of the graphs;
+     3h. the bootstrap's frames as one captured program (initializer.
+         INIT_GRAPHS): in phase 3 captured at the first frame only, one
+         replay and one pull per bootstrap frame; a fresh bootstrap of
+         phase 3's frames with each frame's dispatch under
+         set_sync_debug_mode("error") behind 50 ms of queued sleep
+         (returned before its pull was ready), each replay bitwise its
+         eager masked program, the live trips per level beside the
+         early-exit loop's (tests/torch_init_parent.py), and the device
+         ms per replay;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
@@ -214,8 +230,12 @@ their plain versions ran on the card, every point marginalization was one
 graph replay, and with the device LM every K6 and K7 launch was one of
 the BA's or the marginalization's graphs (`k6_by_path`, `k7_by_path`
 lines; the bench per leg); and that each of the keyframe's three
-programs replayed once per keyframe dispatch (and once per system built
-inside the block), with no graph captured inside a run.
+programs after the BA replayed once per keyframe dispatch (and once per
+system built inside the block), the activation once per pass and the
+bootstrap once per bootstrap frame, with no graph captured inside a run
+(the bootstrap's at its first frame; a system built inside a counted
+block adds one K1 and one K5 launch for each activation graph it
+captures).
   8. the port's benchmark (ldso_tpu_torch/examples/bench.py, bench.py's
      legs) in this process at its defaults: no error; three windows in
      each of lookahead, strict, async and the two aggregate legs; value
@@ -224,8 +244,9 @@ inside the block), with no graph captured inside a run.
      (and capture) in every leg and in every leg that runs the BA, both
      counted through graph replays; its JSON line and its wall time.
 One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
-captured tracker's numbers, the BA's, the marginalization's and the
-keyframe programs' (3f), the bench's JSON line, then a JSON record of
+captured tracker's numbers, the BA's, the marginalization's, the
+keyframe programs' (3f), the activation's (3g) and the bootstrap's (3h),
+the bench's JSON line, then a JSON record of
 the kernels (K1, K3, K12, K4, K5, K6, K7), then the last line {"ok": true, "device":
 {...}}.
 """
@@ -274,11 +295,13 @@ PEAK_OPS_S = 67e12
 # TRACKER_REF_GRAPHS, NEW_TRACES_GRAPHS) by the names time_modes.run_mode
 # reports their replays and captures under
 KF_PROGRAMS = ("post_ba", "tracker_ref", "new_traces")
-# 3f: the sleep queued ahead of each watched keyframe's BA, the host time
-# its dispatch from the BA through the new candidates must return within,
-# and the frames of phase 3's scene it drives again
+# 3f: the sleep queued ahead of each watched keyframe's activation, the
+# host time its dispatch from the activation through the new candidates
+# must return within, and the frames of phase 3's scene it drives again
 KF_SLEEP_MS = 50.0
 KF_QUEUED_MS = 25.0
+# 3h: the sleep queued ahead of each watched bootstrap frame's dispatch
+INIT_SLEEP_MS = 50.0
 KF_FRAMES = 24
 
 
@@ -531,8 +554,10 @@ def phase_determinism(seed: int = 7):
     Lf = Lf._replace(iR=0.5 + rnd(n), last_hessian=rnd(n) * 100.0,
                      is_good=Lf.valid & (rnd(n) < 0.8))
 
+    unsnapped = torch.zeros((), dtype=torch.bool, device="cuda")
+
     def level_mean():
-        return list(initializer._propagate_up(Lf, Lc, False)[:])
+        return list(initializer._propagate_up(Lf, Lc, unsnapped)[:])
 
     for name, fn, points in (("make_tracker_ref", splat, P),
                              ("initializer._propagate_up", level_mean, n)):
@@ -1429,13 +1454,22 @@ def _no_capture_inside(run: dict) -> None:
     BA call of the run is one replay with one K12 launch."""
     what = run.get("phase", run["mode"])
     kf = {k: run[k] for k in run if k.endswith("_captures") and k.split(
-        "_captures")[0] in KF_PROGRAMS}
+        "_captures")[0] in KF_PROGRAMS + ("activate",)}
     if run["graph_captures"] or run["ba_captures"] or run["marg_captures"] \
             or any(kf.values()):
         _fail(f"{what}: {run['graph_captures']} tracker graphs, "
               f"{run['ba_captures']} BA graphs, {run['marg_captures']} "
               f"marginalization graphs and the keyframe programs' {kf} were "
               f"captured inside the timed run")
+    # the bootstrap's graph: captured at the first frame if at all (its
+    # level capacities are set_first's), one replay and one pull a frame
+    if set(run["init_capture_frames"]) - {0} or not (
+            run["init_replays"] == run["boot_dispatches"]
+            == run["boot_pulls"] > 0):
+        _fail(f"{what}: the bootstrap's graph captured at frames "
+              f"{run['init_capture_frames']}, {run['init_replays']} replays "
+              f"for {run['boot_dispatches']} bootstrap frames and "
+              f"{run['boot_pulls']} pulls")
     if run["k12_launches"] != run["ba_replays"]:
         _fail(f"{what}: K12 launched {run['k12_launches']} times for "
               f"{run['ba_replays']} BA graph replays")
@@ -1552,6 +1586,7 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
     from ldso_tpu_torch.examples import run_common, time_modes
     from ldso_tpu_torch.io.trajectory import ate_rmse
     from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system import full_system as fsm
     seq = os.path.join(root, "kitti_00")
     t0 = time.time()
     write_kitti_sequence(seq, calib, images)
@@ -1572,14 +1607,18 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                 time_modes.counted_tracks() as tracks, \
                 time_modes.counted_traces() as traces:
             cuda_kernels.reset_launch_counts()
+            act_caps = fsm.ACTIVATE_GRAPHS.counts["count"]
             with k67_counted() as k67:
                 fs = run_common.run(run_common.parse_args(argv), "kitti",
                                     kitti_output=True, device=device)
-            launches = cuda_kernels.LAUNCHES["distance_transform"]
+            # the activation graphs the run's FullSystem captured when it
+            # was built ran K1 and K5 once each, eagerly, before capture
+            act_caps = fsm.ACTIVATE_GRAPHS.counts["count"] - act_caps
+            launches = cuda_kernels.LAUNCHES["distance_transform"] - act_caps
             k3 = cuda_kernels.LAUNCHES["tracker_trip"]
             k12 = cuda_kernels.LAUNCHES["ba_projector"]
             k4 = cuda_kernels.LAUNCHES["trace"]
-            k5 = cuda_kernels.LAUNCHES["activate"]
+            k5 = cuda_kernels.LAUNCHES["activate"] - act_caps
             k67.update(k6_launches=cuda_kernels.LAUNCHES["ba_linearize"],
                        k7_launches=cuda_kernels.LAUNCHES["ba_accumulate"],
                        phase=f"cli {pmode}")
@@ -2497,11 +2536,29 @@ def phase_activate_kernel(device="cuda"):
 
 @contextlib.contextmanager
 def recorded_activations():
-    """Yields a list that gets, for each call of K5's wrapper inside (every
-    keyframe's activation), its inputs and output: (activate_inputs's
-    tuple, calib, output). The system writes none of these in place."""
+    """Yields a list that gets, for each activation pass inside (each
+    keyframe's replay of the activation's graph: full_system._program with
+    ACTIVATE_GRAPHS), its K5 launch's inputs and output: (activate_inputs's
+    tuple, calib, output). A replay runs no Python, so when the block ends
+    each recorded pass runs again as its eager program with K5's wrapper
+    recording, and the eager program's outputs must be bitwise the
+    replay's (so the replay's K5 gave the recorded output). The system
+    writes none of the inputs in place."""
     from ldso_tpu_torch.ops import cuda_kernels
-    seen = []
+    from ldso_tpu_torch.system import full_system as fsm
+    seen, passes = [], []
+    program = fsm._program
+
+    def recorded_pass(family, static, fn, inputs):
+        out = program(family, static, fn, inputs)
+        if family is fsm.ACTIVATE_GRAPHS:
+            passes.append((fn, tuple(inputs), out))
+        return out
+    fsm._program = recorded_pass
+    try:
+        yield seen
+    finally:
+        fsm._program = program
     wrapper = cuda_kernels.activate_arena
 
     def recorded(*args):
@@ -2510,7 +2567,13 @@ def recorded_activations():
         return out
     cuda_kernels.activate_arena = recorded
     try:
-        yield seen
+        for k, (fn, inputs, out) in enumerate(passes):
+            want = fn(*inputs)
+            bad = [i for i, (g, w) in enumerate(zip(out, want))
+                   if not _same(g, w)]
+            if bad or len(out) != len(want):
+                _fail(f"activation pass {k}: the replay differs from its "
+                      f"eager program in outputs {bad} of {len(want)}")
     finally:
         cuda_kernels.activate_arena = wrapper
 
@@ -2576,6 +2639,9 @@ def _k5_run_check(run: dict) -> None:
     if run["k5_launches"] != run["activations"]:
         _fail(f"{what}: K5 launched {run['k5_launches']} times for "
               f"{run['activations']} activation passes")
+    if run["activate_replays"] != run["activations"]:
+        _fail(f"{what}: {run['activate_replays']} replays of the "
+              f"activation's graph for {run['activations']} passes")
     _k5_check(what, run["k5_launches"], run["post_bootstrap_keyframes"])
 
 
@@ -3090,12 +3156,12 @@ def phase_marg_graph(marg_records, strict: dict):
 
 @contextlib.contextmanager
 def recorded_kf_programs():
-    """Yields a dict that gets, for each of the keyframe's three program
-    families, the last call inside (full_system._program: family ->
-    [static, program, inputs, calls]). The system writes none of the
-    inputs in place."""
+    """Yields a dict that gets, for each of the keyframe's four program
+    families (the activation's and the three after the BA), the last call
+    inside (full_system._program: family -> [static, program, inputs,
+    calls]). The system writes none of the inputs in place."""
     from ldso_tpu_torch.system import full_system as fsm
-    fams = (fsm.POST_BA_GRAPHS, fsm.TRACKER_REF_GRAPHS,
+    fams = (fsm.ACTIVATE_GRAPHS, fsm.POST_BA_GRAPHS, fsm.TRACKER_REF_GRAPHS,
             fsm.NEW_TRACES_GRAPHS)
     seen = {}
     program = fsm._program
@@ -3112,6 +3178,200 @@ def recorded_kf_programs():
         fsm._program = program
 
 
+def phase_bootstrap_program(calib, images, strict: dict):
+    """3h: the bootstrap's frames as one captured program. In phase 3's
+    run the bootstrap's graph was captured at the first frame only (none,
+    where an earlier system had captured its key) and each bootstrap frame
+    was one replay and one pull (_no_capture_inside). Then a bootstrap of
+    phase 3's frames on a family of its own: set_first and the graph's
+    capture at the first frame, no capture after; each later frame's
+    dispatch under set_sync_debug_mode("error") behind INIT_SLEEP_MS of
+    queued sleep returns before its pull is ready; each replay's outputs
+    are bitwise the eager masked program's on the recorded inputs; the
+    early-exit loop (tests/torch_init_parent.py) on each frame's entry
+    state gives the live trips per level, which the masked program reports
+    too; device ms per replay from replays behind a sleep. Returns the
+    numbers."""
+    import copy
+    import torch
+    from ldso_tpu_torch.config import Config
+    from ldso_tpu_torch.frontend import initializer
+    from ldso_tpu_torch.ops.preprocess import make_pyramid, upload_image
+    from ldso_tpu_torch.utils.graphs import Programs
+    _kernel_checks()                      # tests/ on the path
+    import torch_init_parent
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(Config(), enable_loop_closing=False)
+    saved, run = initializer.INIT_GRAPHS, initializer._run
+    fam = initializer.INIT_GRAPHS = Programs()
+    calls = []
+
+    def recorded(family, static, fn, inputs):
+        out = run(family, static, fn, inputs)
+        calls.append((static, fn, tuple(inputs), out))
+        return out
+    initializer._run = recorded
+    cycles = int(_sleep_cycles_per_ms() * INIT_SLEEP_MS)
+    rows = []
+    try:
+        pyr0 = make_pyramid(upload_image(images[0], "cuda"), calib.levels)
+        st = initializer.set_first(pyr0, calib, cfg)
+        initializer.capture_frame_program(st, pyr0, calib, cfg)
+        captured0 = fam.counts["count"]
+        for k in range(1, len(images)):
+            pyr = make_pyramid(upload_image(images[k], "cuda"), calib.levels)
+            entry = copy.deepcopy(st)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t = time.perf_counter()
+                pull = initializer.track_frame_dispatch(st, pyr0, pyr, calib,
+                                                        cfg)
+                host_ms = (time.perf_counter() - t) * 1e3
+                ready = pull.is_ready()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            done = initializer.track_frame_finish(st, pull)
+            trips = []
+            torch_init_parent.track_frame(entry, pyr0, pyr, calib, cfg,
+                                          trips=trips)
+            rows.append(dict(frame=k, host_ms=host_ms, ready=ready,
+                             trips=list(st.trips), early_exit_trips=trips,
+                             snapped=st.snapped))
+            if done:
+                break
+        captured = fam.counts["count"]
+        replays = fam.counts["replays"]
+        bad = []
+        for k, (static, fn, inputs, out) in enumerate(calls):
+            want = fn(*inputs)
+            if len(out) != len(want) or not all(
+                    _same(g, w) for g, w in zip(out, want)):
+                bad.append(k)
+        static, fn, inputs, _ = calls[-1]
+        device_ms = _queued_device_ms(
+            lambda: fam.replay(static, fn, inputs, capture=False), n=5,
+            reps=3)
+        eager_ms = _host_us_per_call(lambda: fn(*inputs), n=1) / 1e3
+    finally:
+        initializer.INIT_GRAPHS, initializer._run = saved, run
+    live = [sum(r["trips"]) for r in rows]
+    full = sum(initializer.MAX_ITERATIONS[:calib.levels]) + calib.levels
+    res = dict(phase3_frames=strict["boot_dispatches"],
+               phase3_capture_frames=strict["init_capture_frames"],
+               frames=len(rows), captured_at_first=captured0,
+               captured=captured, replays=replays,
+               not_bitwise=bad, device_ms=device_ms, eager_host_ms=eager_ms,
+               trips_per_frame=full, rows=rows,
+               trips_agree=sum(r["trips"] == r["early_exit_trips"]
+                               for r in rows))
+    print(f"3h bootstrap program: phase 3's {strict['boot_dispatches']} "
+          f"bootstrap frames were as many replays and pulls, the graph "
+          f"captured at frames {strict['init_capture_frames']}; a fresh "
+          f"bootstrap of {len(rows)} frames: {captured0} graph captured at "
+          f"the first frame, {captured} in all, {replays} replays, each "
+          f"bitwise its eager program but {bad}; dispatch host ms "
+          f"{[round(r['host_ms'], 2) for r in rows]} behind "
+          f"{INIT_SLEEP_MS} ms of sleep, pull ready at return "
+          f"{sum(r['ready'] for r in rows)}; live trips per frame {live} of "
+          f"{full} (per level, coarsest first: "
+          f"{[r['trips'] for r in rows]}; the early-exit loop's "
+          f"{[r['early_exit_trips'] for r in rows]}); device "
+          f"{device_ms:.3f} ms a replay, eager {eager_ms:.1f} host ms; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (captured0 == captured == 1 and replays == len(rows) > 0):
+        _fail(f"3h: {captured0} bootstrap graphs captured at the first "
+              f"frame, {captured} in all, {replays} replays for "
+              f"{len(rows)} frames")
+    if bad or any(r["ready"] for r in rows):
+        _fail(f"3h: replays {bad} differ from their eager program, or a "
+              f"frame's pull was ready when its dispatch returned")
+    if not rows[-1]["snapped"]:
+        _fail("3h: the bootstrap did not snap on phase 3's frames")
+    return res
+
+
+def _static_mib(family) -> float:
+    """The MiB of a program family's graphs' static inputs and outputs."""
+    return sum(x.numel() * x.element_size() for g in family.graphs.values()
+               for x in g.static_in + g.static_out) / 2 ** 20
+
+
+def phase_activation_program(records, strict: dict, fs3):
+    """3g: the activation pass as one captured program. Phase 3 activated
+    once per post-bootstrap keyframe, each activation one replay of the
+    activation's graph (captured when the system was built, none in the
+    run), each replay one K1 and one K5 launch (recorded_activations held
+    every replay's outputs bitwise to its eager program). On phase 3's last
+    recorded inputs the replay is bitwise the eager program again, and its
+    device ms come from 20 replays behind a sleep. The graphs' static
+    buffers and the card memory their capture took are reported. Pops the
+    activation's record from `records`; returns the numbers."""
+    import torch
+    from ldso_tpu_torch.system import full_system as fsm
+    from ldso_tpu_torch.utils.graphs import Programs
+    t0 = time.perf_counter()
+    fam = fsm.ACTIVATE_GRAPHS
+    if fam not in records:
+        _fail("3g: phase 3 made no activation pass")
+    static, fn, inputs, calls = records.pop(fam)
+    per_replay = {tuple(sorted(g.launches.items()))
+                  for g in fam.graphs.values()}
+    if per_replay != {(("activate", 1), ("distance_transform", 1))}:
+        _fail(f"3g: the activation's graphs launch {per_replay} per replay")
+    if not (calls == strict["activations"] == strict["activate_replays"]
+            == strict["post_bootstrap_keyframes"] > 0) \
+            or strict["activate_captures"]:
+        _fail(f"3g: {calls} activation calls, {strict['activations']} "
+              f"passes, {strict['activate_replays']} replays and "
+              f"{strict['activate_captures']} captures in phase 3 for "
+              f"{strict['post_bootstrap_keyframes']} post-bootstrap "
+              f"keyframes")
+    want = fn(*inputs)
+    got = fam.replay(static, fn, inputs)
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if not _same(g, w)]
+    if bad or len(got) != len(want):
+        _fail(f"3g: the activation's replay differs from its eager program "
+              f"in outputs {bad} of {len(want)}")
+    device_ms = _queued_device_ms(lambda: fam.replay(static, fn, inputs),
+                                  n=20, reps=5)
+    eager_ms = _host_us_per_call(lambda: fn(*inputs), n=3) / 1e3
+    replay_ms = _host_us_per_call(lambda: fam.replay(static, fn, inputs),
+                                  n=20) / 1e3
+    # the card memory (allocated) of capturing every window size again,
+    # into a family of its own
+    torch.cuda.synchronize()
+    fresh, alloc0 = Programs(), torch.cuda.memory_allocated()
+    fsm.ACTIVATE_GRAPHS = fresh
+    try:
+        fs3._capture_activation()
+    finally:
+        fsm.ACTIVATE_GRAPHS = fam
+    torch.cuda.synchronize()
+    mem = dict(graphs=len(fresh.graphs), static_mib=_static_mib(fresh),
+               allocated_mib=(torch.cuda.memory_allocated() - alloc0)
+               / 2 ** 20, capture_s=fresh.counts["s"])
+    del fresh
+    res = dict(phase3_passes=calls, phase3_replays=strict["activate_replays"],
+               captures_in_run=strict["activate_captures"], bitwise=True,
+               last_window_frames=static[0], device_ms=device_ms,
+               eager_host_ms=eager_ms, replay_host_ms=replay_ms,
+               wait_s=fam.lock_wait_s(), memory=mem)
+    print(f"3g activation program: phase 3's {calls} passes were "
+          f"{strict['activate_replays']} replays, "
+          f"{strict['activate_captures']} captured in the run, one K1 and "
+          f"one K5 launch a replay, each bitwise its eager program; on the "
+          f"last ({static[0]} frames) device {device_ms:.4f} ms a replay, "
+          f"host {replay_ms:.3f} ms a replay against {eager_ms:.2f} ms "
+          f"eager; {mem['graphs']} graphs (one per window size) hold "
+          f"{mem['static_mib']:.1f} MiB of static buffers, their capture "
+          f"took {mem['allocated_mib']:.1f} MiB of card memory in "
+          f"{mem['capture_s']:.2f} s; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res
+
+
 def phase_keyframe_programs(records, calib, images, strict: dict, fs3):
     """3f: the keyframe's dispatch with no host read. On phase 3's last
     recorded inputs of each of the three programs (the post-BA flags and
@@ -3119,8 +3379,8 @@ def phase_keyframe_programs(records, calib, images, strict: dict, fs3):
     replay is bitwise the eager program on the card, and its device ms
     (20 replays behind a sleep); phase 3 ran one replay of each per
     keyframe dispatch. Then a fresh strict system over phase 3's first
-    KF_FRAMES frames, each keyframe's dispatch watched from the BA through
-    the new candidates under torch.cuda.set_sync_debug_mode("error")
+    KF_FRAMES frames, each keyframe's dispatch watched from the activation
+    through the new candidates under torch.cuda.set_sync_debug_mode("error")
     behind KF_SLEEP_MS of queued sleep: it returns within KF_QUEUED_MS,
     finish.ready() is false until the sleep ends, no graph is captured,
     and the run's keyframes and tracked poses are bitwise phase 3's.
@@ -3183,7 +3443,8 @@ def phase_keyframe_programs(records, calib, images, strict: dict, fs3):
           f"host ms {[round(res[n]['eager_ms'], 2) for n in KF_PROGRAMS]}; "
           f"{len(rows)} keyframe dispatches of {KF_FRAMES} frames behind "
           f"{KF_SLEEP_MS} ms of sleep under set_sync_debug_mode('error'): "
-          f"BA through new candidates queued in {max(ms):.2f} ms at most "
+          f"activation through new candidates queued in {max(ms):.2f} ms "
+          f"at most "
           f"(median {np.median(ms):.2f}), ready at return "
           f"{sum(r[1] for r in rows)}, graphs captured {captured}, "
           f"keyframes {kf_ids} (phase 3's {kf3}); "
@@ -3820,10 +4081,15 @@ def phase_bench():
         elif n["trace"] != res["traces"][leg]:
             _fail(f"8 bench: {leg}: K4 launched {n['trace']} times for "
                   f"{res['traces'][leg]} traces")
-        if n["activate"] != res["activations"][leg] or (
+        # each activation graph captured in the leg ran K5 once before its
+        # capture
+        if n["activate"] != (res["activations"][leg]
+                             + graphs["activate_captures"]) or (
                 leg in BENCH_ACTIVATING and not n["activate"] > 0):
             _fail(f"8 bench: {leg}: K5 launched {n['activate']} times for "
-                  f"{res['activations'][leg]} activation passes")
+                  f"{res['activations'][leg]} activation passes and "
+                  f"{graphs['activate_captures']} activation graphs "
+                  f"captured")
         if leg != "batched_ba" and n["ba_projector"] != (
                 graphs["ba_replays"] + graphs["ba_captures"]):
             _fail(f"8 bench: {leg}: K12 launched {n['ba_projector']} times "
@@ -3876,10 +4142,12 @@ def main() -> int:
     phase_ba_frame(ba_records, margs3, lin_record, acc_record)
     marg_graph = phase_marg_graph(margs3, strict)
     del margs3
+    act_program = phase_activation_program(kf3, strict, fs)
     kf_programs = phase_keyframe_programs(kf3, calib, images, strict, fs)
     del kf3
     phase_dispatch_ahead(fs, images)
     phase_checkpoint(fs, root)
+    boot_program = phase_bootstrap_program(calib, images, strict)
     window3 = fs.ef.W
     del fs
     launches, post_boot, map4 = phase_loop_slice()
@@ -3998,6 +4266,8 @@ def main() -> int:
     print(json.dumps({"ba_graph": ba_graph}))
     print(json.dumps({"marg_graph": marg_graph}))
     print(json.dumps({"keyframe_programs": kf_programs}))
+    print(json.dumps({"activation_program": act_program}))
+    print(json.dumps({"bootstrap_program": boot_program}))
     print(json.dumps(bench))
     print(json.dumps({"kernels": [record, trip_record, proj_record,
                                   trace_record, act_record, lin_record,

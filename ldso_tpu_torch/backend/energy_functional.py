@@ -139,11 +139,12 @@ def insert_points_dev(W: Window, slot, valid, host, u, v, idepth, prior,
         hk[:, None] != torch.arange(F, device=hk.device)[None, :])
 
     def put(t, val):
-        # a Python value by index_fill_, whose scalar does not go through
-        # a copy to the card that waits
+        # a tensor by index_copy_ (the spare row takes every dropped lane's
+        # copy), a Python value by index_fill_, whose scalar does not go
+        # through a copy to the card that waits
         t = torch.cat([t, t[:1]])
         if torch.is_tensor(val):
-            t.index_put_((sl,), val.to(t.dtype))
+            t.index_copy_(0, sl, val.to(t.dtype))
         else:
             t.index_fill_(0, sl, val)
         return t[:P]

@@ -51,14 +51,15 @@ count), `ate_m_sim_aligned`, `util` ({program: {ms, io_gb, hbm_pct_min}}),
 its strict warm-up on S threads, under `aggregate`),
 `batched_tracking_fps_<B>seq`, `batched_ba_<S>seq` ({S, trips, ms,
 ms_per_seq_kf, agg_kf_per_sec}), and per leg: `launches` (the change of
-`cuda_kernels.LAUNCHES`), `graphs` (the tracker's, the device LM's and
-the point marginalization's graph captures and replays, K6's and K7's
-launches through the last two, and the host seconds replays waited for a
-graph's lock: every FullSystem of the process shares the graphs, so S
-systems' replays queue on one lock), `traces` (the arena traces:
+`cuda_kernels.LAUNCHES`), `graphs` (the tracker's, the device LM's, the
+point marginalization's, the activation's and the bootstrap frame's graph
+captures and replays, K6's and K7's launches through the BA's and the
+marginalization's, and the host seconds replays waited for a graph's
+lock: every FullSystem of the process shares the graphs, so S systems'
+replays queue on one lock), `traces` (the arena traces:
 FullSystem._trace_arena's calls, and util's timed trace calls; K4 launches
 once for each on the card), `activations` (the activation passes:
-full_system._activate_fused's calls, and util's timed ones; K5 launches
+FullSystem._activation_pass's calls, and util's timed ones; K5 launches
 once for each), `leg_s` (wall seconds) and
 `peak_memory_gb`; and `device` (the card's name and power limit, the
 torch and CUDA versions).
@@ -97,7 +98,8 @@ from ldso_tpu_torch.backend import energy_functional as efm
 from ldso_tpu_torch.backend.window import Window
 from ldso_tpu_torch.config import Config
 from ldso_tpu_torch.examples import time_modes
-from ldso_tpu_torch.frontend import immature, track_graph, tracker
+from ldso_tpu_torch.frontend import (immature, initializer, track_graph,
+                                     tracker)
 from ldso_tpu_torch.math import lie_np
 from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.ops.preprocess import (FramePyramid, make_pyramid,
@@ -175,7 +177,7 @@ class Run:
     fs: Optional[fsm.FullSystem] = None
     # the arena traces: FullSystem._trace_arena's calls and util's own
     traces: Optional[dict] = None
-    # the activation passes: full_system._activate_fused's calls and
+    # the activation passes: FullSystem._activation_pass's calls and
     # util's own
     activations: Optional[dict] = None
 
@@ -436,16 +438,19 @@ def leg_util(run: Run, result: dict):
                                              (pyr.dI[0], transforms))
 
     # 3. the keyframe's activation pass over the whole arena (the splat,
-    # K1, K5, the slot allocation and the insert) on the final window, its
-    # tables uploaded once; each call starts from the same window and arena
-    tables = fs._activation_tables()
+    # K1, K5, the slot allocation and the insert) on the final window, one
+    # replay of its graph, its tables uploaded once; each call starts from
+    # the same window and arena
+    up = fs._activation_upload()
+    nf = len(fs.window_frames)
 
     def activate(arena):
-        out = fsm._activate_fused(W0, arena, fs.dIs, *tables, cfg, calib,
-                                  calib.w[1], calib.h[1])
+        run.activations["activations"] += 1
+        out = fsm._program(*fs._activation_call(W0, arena, fs.dIs, up,
+                                                   nf))
         return arena, out
     util[f"activate({n} lanes)"] = program_util(
-        dev, activate, arena0, (W0, fs.dIs, tables[:8]))
+        dev, activate, arena0, (W0, fs.dIs, up))
 
     # 4. the device LM of the final window, one graph replay
     W, *rest = fs.ef.device_lm_inputs(fs.dIs, cfg.max_opt_iterations,
@@ -467,6 +472,12 @@ def _graph_counts() -> dict:
                 ba_wait_s=efm.BA_GRAPHS.lock_wait_s(),
                 marg_captures=efm.MARG_GRAPHS.counts["count"],
                 marg_replays=efm.MARG_GRAPHS.counts["replays"],
+                activate_captures=fsm.ACTIVATE_GRAPHS.counts["count"],
+                activate_replays=fsm.ACTIVATE_GRAPHS.counts["replays"],
+                activate_wait_s=fsm.ACTIVATE_GRAPHS.lock_wait_s(),
+                init_captures=initializer.INIT_GRAPHS.counts["count"],
+                init_replays=initializer.INIT_GRAPHS.counts["replays"],
+                init_wait_s=initializer.INIT_GRAPHS.lock_wait_s(),
                 **{f"{k}_in_graphs": n
                    for k, n in time_modes.graph_launches().items()})
 

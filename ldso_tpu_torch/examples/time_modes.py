@@ -14,7 +14,7 @@ add_active_frame call from the bootstrap on (`ms_per_frame_median`), the
 keyframes, the ATE, K1's launches and the streams they went to, K3's
 launches beside the count the run's tracker calls imply, K4's launches
 beside the arena traces (FullSystem._trace_arena calls), K5's launches
-beside the activation passes (full_system._activate_fused calls), the
+beside the activation passes (FullSystem._activation_pass calls), the
 retrack-gate trips, how many frames the tracker ran on (a pipeline
 re-tracks its frames in flight after each keyframe) and the host time of
 those calls (on the card a graph replay that does not wait for the
@@ -23,8 +23,11 @@ captures them when it is built), K12's launches and the device LM's graph
 replays and captures (one replay per BA call; 0 captures, as the
 tracker's), the keyframe's dispatches and its three programs' replays and
 captures (the post-BA flags, the tracker reference and the new
-candidates: one replay each per dispatch, 0 captures), the host time of
-the mapping stages per
+candidates: one replay each per dispatch, 0 captures), the activation's
+replays and captures (one replay per pass, 0 captures), the bootstrap's
+frames, pulls, replays and captures and the frames it captured at (one
+replay and one pull per frame; its graph captured at the first frame or
+before), the host time of the mapping stages per
 frame (`mapping_ms_per_frame`), and the card's name and power limit.
 With `--async-paces`, each turn then feeds async one frame per PACE times
 its strict run's `ms_per_frame_wall`, for each PACE (async keeps a
@@ -56,7 +59,7 @@ from ldso_tpu_torch.backend.energy_functional import (
     BA_GRAPHS, MARG_GRAPHS, EnergyFunctional)
 from ldso_tpu_torch.config import Config
 from ldso_tpu_torch.examples.run_common import PIPELINES, make_driver
-from ldso_tpu_torch.frontend import track_graph, tracker
+from ldso_tpu_torch.frontend import initializer, track_graph, tracker
 from ldso_tpu_torch.io.trajectory import ate_rmse
 from ldso_tpu_torch.math import lie_np
 from ldso_tpu_torch.ops import cuda_kernels
@@ -111,20 +114,24 @@ def bench_frames(n: int, w: int = 640, h: int = 480, device="cuda",
 @contextlib.contextmanager
 def traced_k1():
     """Count K1's launches by (thread name, CUDA stream handle) while
-    inside; the launch counts themselves stay the wrapper's."""
+    inside. On the card K1 runs only inside the activation's graph, one
+    launch per activation pass (FullSystem._activation_pass, one replay
+    on the caller's stream), so each pass on the card counts once for its
+    thread and stream; the eager launches of a graph's capture are not the
+    run's. The launch counts themselves stay the graphs'."""
     seen = collections.Counter()
-    kernel = cuda_kernels.distance_transform
+    act = FullSystem._activation_pass
 
-    def traced(occ, max_k=cuda_kernels.MAX_K):
-        if occ.is_cuda:
-            stream = torch.cuda.current_stream(occ.device).cuda_stream
+    def traced_pass(self, *a, **k):
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device).cuda_stream
             seen[(threading.current_thread().name, stream)] += 1
-        return kernel(occ, max_k)
-    cuda_kernels.distance_transform = traced
+        return act(self, *a, **k)
+    FullSystem._activation_pass = traced_pass
     try:
         yield seen
     finally:
-        cuda_kernels.distance_transform = kernel
+        FullSystem._activation_pass = act
 
 
 @contextlib.contextmanager
@@ -183,35 +190,68 @@ def counted_traces():
 
 @contextlib.contextmanager
 def counted_activations():
-    """Count the keyframes' activation passes (full_system._activate_fused
+    """Count the keyframes' activation passes (FullSystem._activation_pass
     calls) while inside, on every thread, and yield the count
-    ({"activations": n}): each is one K5 launch on the card."""
+    ({"activations": n}): each is one replay of the activation's graph on
+    the card, with one K1 and one K5 launch."""
     counts = dict(activations=0)
     lock = threading.Lock()
-    fused = fsm._activate_fused
+    act = FullSystem._activation_pass
 
-    def counted(*a, **k):
+    def counted(self, *a, **k):
         with lock:
             counts["activations"] += 1
-        return fused(*a, **k)
-    fsm._activate_fused = counted
+        return act(self, *a, **k)
+    FullSystem._activation_pass = counted
     try:
         yield counts
     finally:
-        fsm._activate_fused = fused
+        FullSystem._activation_pass = act
+
+
+@contextlib.contextmanager
+def counted_boot():
+    """Count the bootstrap's frames while inside, on every thread: its
+    dispatches (initializer.track_frame_dispatch, each one program and one
+    HostCopy) and its pulls (track_frame_finish, each one read of the
+    card). Yields {"boot_dispatches": n, "boot_pulls": n}."""
+    counts = dict(boot_dispatches=0, boot_pulls=0)
+    lock = threading.Lock()
+    saved = dict(boot_dispatches=initializer.track_frame_dispatch,
+                 boot_pulls=initializer.track_frame_finish)
+
+    def wrap(name, fn):
+        def counted(*a, **k):
+            with lock:
+                counts[name] += 1
+            return fn(*a, **k)
+        return counted
+    initializer.track_frame_dispatch = wrap("boot_dispatches",
+                                            saved["boot_dispatches"])
+    initializer.track_frame_finish = wrap("boot_pulls", saved["boot_pulls"])
+    try:
+        yield counts
+    finally:
+        initializer.track_frame_dispatch = saved["boot_dispatches"]
+        initializer.track_frame_finish = saved["boot_pulls"]
 
 
 # the keyframe's captured programs by the name run_mode reports them under
 KF_FAMILIES = dict(post_ba=fsm.POST_BA_GRAPHS,
                    tracker_ref=fsm.TRACKER_REF_GRAPHS,
                    new_traces=fsm.NEW_TRACES_GRAPHS)
+# the programs that do not run once per keyframe dispatch: the activation
+# (only where a slot hosts candidates) and the bootstrap frame
+PASS_FAMILIES = dict(activate=fsm.ACTIVATE_GRAPHS,
+                     init=initializer.INIT_GRAPHS)
 
 
 def kf_graph_counts() -> dict:
-    """The keyframe programs' graphs captured and replays so far:
-    {"<name>_captures": n, "<name>_replays": n} for each of KF_FAMILIES."""
+    """The keyframe programs' and the bootstrap's graphs captured and
+    replays so far: {"<name>_captures": n, "<name>_replays": n} for each of
+    KF_FAMILIES and PASS_FAMILIES."""
     out = {}
-    for name, fam in KF_FAMILIES.items():
+    for name, fam in {**KF_FAMILIES, **PASS_FAMILIES}.items():
         out[f"{name}_captures"] = fam.counts["count"]
         out[f"{name}_replays"] = fam.counts["replays"]
     return out
@@ -304,7 +344,7 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
     mapping = mapping.cuda_stream if mapping is not None else None
     with traced_k1() as k1, counted_tracks() as tracks, \
             counted_traces() as traces, counted_activations() as acts, \
-            counted_ba() as bas:
+            counted_ba() as bas, counted_boot() as boot:
         _sync(fs.device)
         cuda_kernels.reset_launch_counts()
         ba_graphs = dict(BA_GRAPHS.counts)
@@ -312,14 +352,18 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
         kf_graphs = kf_graph_counts()
         in_graphs = graph_launches()
         call_ms = []
+        init_capture_frames = []
         t0 = time.perf_counter()
         for i, img in enumerate(images):
             if interval_s > 0:
                 time.sleep(max(0.0, t0 + i * interval_s
                                - time.perf_counter()))
             t = time.perf_counter()
+            n_init = initializer.INIT_GRAPHS.counts["count"]
             drv.add_active_frame(img, i, 1.0, i * 0.05)
             call_ms.append((time.perf_counter() - t) * 1e3)
+            if initializer.INIT_GRAPHS.counts["count"] != n_init:
+                init_capture_frames.append(i)
             if fs.is_lost or fs.init_failed:
                 break
         if drv is not fs:
@@ -373,6 +417,9 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                marg_replays=marg_graphs["replays"],
                marg_captures=marg_graphs["count"],
                kf_dispatches=bas["kf_dispatches"], **kf_graphs,
+               boot_dispatches=boot["boot_dispatches"],
+               boot_pulls=boot["boot_pulls"],
+               init_capture_frames=init_capture_frames,
                tracks=tracks["tracks"],
                rank_calls=tracks["ranks"],
                post_bootstrap_keyframes=sum(1 for kf in kfs if kf.kf_id >= 2),

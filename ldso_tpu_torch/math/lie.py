@@ -137,9 +137,10 @@ def se3_exp(xi):
 
 
 def se3_log(T):
-    """(...,4,4) -> (...,6) [v, w]."""
+    """(...,4,4) -> (...,6) [v, w]. The solve is solve_ex's: its error
+    check would read the card."""
     w = so3_log(T[..., :3, :3])
-    v = torch.linalg.solve(_V(w), T[..., :3, 3:4])[..., 0]
+    v = torch.linalg.solve_ex(_V(w), T[..., :3, 3:4])[0][..., 0]
     return torch.cat([v, w], dim=-1)
 
 

@@ -23,16 +23,18 @@ device-resident tracking chain (`TrackChain`, `track_chain_dispatch`,
 and its `finish` closure, and the (ref, shell, event) tracking reference
 that a tracking thread reads while the mapping thread republishes it.
 `FullSystem(calib, cfg)` places every tensor on the CUDA card (and raises
-where there is none); `device="cpu"` runs it on the CPU. On the card the
-keyframe's activation runs as one device pass (`_activate_fused`) through
-the hand-written kernels of ops/cuda_kernels.py: K1's distance map, then
-K5's gate and depth-only LM over every lane of the candidate arena. From
-the BA through the new candidates the keyframe's dispatch reads nothing
-from the card, as the JAX package's does: the BA's stats, the post-BA row
-and the point marginalization's result go home as HostCopys that finish()
-reads, and the post-BA flags, the tracker reference and the new
-candidates are one captured program each (POST_BA_GRAPHS,
-TRACKER_REF_GRAPHS, NEW_TRACES_GRAPHS).
+where there is none); `device="cpu"` runs it on the CPU. From the
+activation through the new candidates the keyframe's dispatch reads
+nothing from the card, as the JAX package's does. The activation is one
+captured program (`_activate_fused` in ACTIVATE_GRAPHS, a graph per
+window size) through the hand-written kernels of ops/cuda_kernels.py:
+K1's distance map, then K5's gate and depth-only LM over every lane of
+the candidate arena; its rows, the BA's stats, the post-BA row and the
+point marginalization's result go home as HostCopys that finish() reads,
+and the post-BA flags, the tracker reference and the new candidates are
+one captured program each (POST_BA_GRAPHS, TRACKER_REF_GRAPHS,
+NEW_TRACES_GRAPHS). The bootstrap's frames are one captured program each
+too (frontend/initializer.INIT_GRAPHS, captured at the first frame).
 """
 
 from __future__ import annotations
@@ -73,11 +75,14 @@ RETRY_K = 8          # retry hypotheses LM-refined after the coarse ranking
 # the keyframe's captured programs (utils/graphs.Programs), each a CUDA
 # graph per key that FullSystem.warm_retrack_programs captures before a
 # run: the post-BA flags and their packed row (`post_ba_packed`), the
-# tracker reference (`tracker_ref_fused`) and the new candidates
+# tracker reference (`tracker_ref_fused`), the new candidates
 # (`new_candidates`, or `add_candidates` behind another selection's map)
 POST_BA_GRAPHS = Programs()
 TRACKER_REF_GRAPHS = Programs()
 NEW_TRACES_GRAPHS = Programs()
+# the activation pass (`_activation_program`), a graph per window size
+# (the frames in the window, 1..F), all captured when the system is built
+ACTIVATE_GRAPHS = Programs()
 
 
 def _occupancy(W: Window, newest: int, w1: int, h1: int):
@@ -148,6 +153,54 @@ def _activate_fused(W: Window, arena, dIs, KRKis, Kts, Rs, ts, affs, masks,
     packed = torch.stack([slot.to(torch.int32), hostc.to(torch.int32),
                           okn.to(torch.int32), remove.to(torch.int32)], 1)
     return W, arena, packed
+
+
+# the window fields the activation pass reads or writes
+ACT_FIELDS = ("frame_valid", "center_proj", "pt_valid", "pt_host", "pt_u",
+              "pt_v", "pt_color", "pt_weights", "idepth", "idepth_zero",
+              "pt_prior", "pt_energy_th", "pt_num_good_res",
+              "pt_max_rel_baseline", "pt_idepth_hessian", "res_exist",
+              "res_active", "res_linearized", "res_state", "res_energy")
+_NO_WINDOW = Window(*([None] * len(Window._fields)))
+
+
+def activation_upload_size(F: int) -> int:
+    """The floats of the activation's one upload for F window slots."""
+    return F * 12 + F * F * 15 + 1 + F
+
+
+def activation_tables(up, F: int):
+    """The activation's tables on the device from its one upload `up`
+    (FullSystem._activation_upload): (KRKis (F, 3, 3), Kts (F, 3), Rs (F,
+    F, 3, 3), ts (F, F, 3), affs (F, F, 2), masks (F, F) bool,
+    min_act_dist (0-d), marg_flags (F,) bool), views of `up` but the
+    masks."""
+    cut = np.cumsum([0, F * 9, F * 3, F * F * 9, F * F * 3, F * F * 2,
+                     F * F, 1, F])
+    KRKis, Kts, Rs, ts, affs, masks, mad, marg = (
+        up[cut[k]:cut[k + 1]] for k in range(8))
+    return (KRKis.view(F, 3, 3), Kts.view(F, 3), Rs.view(F, F, 3, 3),
+            ts.view(F, F, 3), affs.view(F, F, 2), masks.view(F, F) > 0.5,
+            mad.view(()), marg > 0.5)
+
+
+def _activation_program(nf: int, cfg: Config, calib: Calibration, w1: int,
+                        h1: int):
+    """`_activate_fused` for a window of nf frames (the newest nf - 1)
+    over (ACT_FIELDS..., the arena's fields..., dIs, the activation's
+    upload): the ACT_FIELDS, the arena's fields and the packed rows."""
+    nw = len(ACT_FIELDS)
+    na = len(immature.ImmaturePool._fields) + 1
+
+    def program(*xs):
+        W = _NO_WINDOW._replace(**dict(zip(ACT_FIELDS, xs[:nw])))
+        dIs, up = xs[nw + na:]
+        W, arena, packed = _activate_fused(
+            W, _arena_of(xs[nw:nw + na]), dIs,
+            *activation_tables(up, W.F), nf - 1, nf, cfg, calib, w1, h1)
+        return (tuple(getattr(W, f) for f in ACT_FIELDS) + _arena_flat(arena)
+                + (packed,))
+    return program
 
 
 def _col(x, i):
@@ -559,6 +612,9 @@ class FullSystem:
         if self.init_state is None:
             self.init_state = initializer.set_first(pyr, calib, cfg,
                                                     self.selector)
+            # the bootstrap frame's graph, for these level capacities
+            initializer.capture_frame_program(self.init_state, pyr, calib,
+                                              cfg)
             self.first_pyr = pyr
             self.first_shell = shell
             shell.T_cw = np.eye(4)
@@ -713,10 +769,12 @@ class FullSystem:
         track_graph, captured on placeholder inputs of this system's
         shapes), the device LM's graph for each of its trip counts
         (EnergyFunctional.warm_ba_programs), the point marginalization's
-        graph (EnergyFunctional.warm_marg_program), the keyframe's post-BA,
-        tracker-reference and new-candidate programs (`_capture_keyframe`)
-        and, with loop closing, the native host library. The constructor
-        calls it on the card; repeat calls are free."""
+        graph (EnergyFunctional.warm_marg_program), the keyframe's
+        activation, post-BA, tracker-reference and new-candidate programs
+        (`_capture_keyframe`) and, with loop closing, the native host
+        library. The bootstrap's graph, keyed on set_first's level
+        capacities, is captured at the first frame (_do_initialize). The
+        constructor calls it on the card; repeat calls are free."""
         if self._retrack_warm:
             return
         if self.device.type == "cuda":
@@ -754,11 +812,14 @@ class FullSystem:
                 calib.levels - 1)
 
     def _capture_keyframe(self):
-        """Run the keyframe's three programs once on placeholder inputs of
+        """Capture the activation's graphs (`_capture_activation`) and run
+        the keyframe's three other programs once on placeholder inputs of
         this system's shapes (the window and arena as built, zero images,
         an upload of zeros), so that their graphs exist before the first
-        frame: POST_BA_GRAPHS, TRACKER_REF_GRAPHS and NEW_TRACES_GRAPHS
-        (the arena half alone where another selection makes the map)."""
+        frame: ACTIVATE_GRAPHS, POST_BA_GRAPHS, TRACKER_REF_GRAPHS and
+        NEW_TRACES_GRAPHS (the arena half alone where another selection
+        makes the map)."""
+        self._capture_activation()
         calib, dev = self.calib, self.device
         f32 = dict(dtype=torch.float32, device=dev)
         up = torch.zeros(self.ef.F + 3, **f32)
@@ -772,6 +833,20 @@ class FullSystem:
                      self._candidates_call(self.imm_arena, dI[0], second,
                                            up)):
             _program(*call)
+
+    def _capture_activation(self):
+        """Capture the activation program for every window size (1..F
+        frames) on this system's window, arena and images and an upload of
+        zeros, so that no activation captures mid-run (ACTIVATE_GRAPHS).
+        None for a one-level pyramid: the pass reads pyramid level 1."""
+        if self.calib.levels < 2:
+            return
+        up = torch.zeros(activation_upload_size(self.ef.F),
+                         dtype=torch.float32, device=self.device)
+        for nf in range(1, self.ef.F + 1):
+            family, static, fn, inputs = self._activation_call(
+                self.ef.W, self.imm_arena, self.dIs, up, nf)
+            family.capture(static, fn, inputs)
 
     def _post_ba_call(self, W, up):
         """The post-BA program's (family, static, program, inputs)."""
@@ -1071,11 +1146,12 @@ class FullSystem:
     def _activate_points(self):
         """activatePointsMT (:1052-1206): distance-map gate, batched
         depth-only LM, point insertion, candidate cleanup, as one device
-        pass (`_activate_fused`) that reads nothing back: its result rides
-        home as one HostCopy that finish() applies. The reference's greedy
-        incremental map update is a single-pass test against the initial
-        map (the JAX package's documented deviation)."""
-        cfg, calib = self.cfg, self.calib
+        pass (`_activate_fused`; on the card one graph replay) that reads
+        nothing back: its result rides home as one HostCopy that finish()
+        applies. The reference's greedy incremental map update is a
+        single-pass test against the initial map (the JAX package's
+        documented deviation)."""
+        cfg = self.cfg
         n_points = int(self.ef.pt_valid_np.sum())
         d = cfg.desired_point_density
         delta = 0.0
@@ -1099,18 +1175,38 @@ class FullSystem:
             self.current_min_act_dist + delta, 0.0, 4.0))
         if not any(self.imm_live):
             return          # no slot hosts candidates: nothing to activate
-        self.ef.W, self.imm_arena, packed = _activate_fused(
-            self.ef.W, self.imm_arena, self.dIs, *self._activation_tables(),
-            cfg, calib, calib.w[1], calib.h[1])
-        # the one result goes home while the BA (queued behind it) runs;
-        # finish() applies it first (_consume_activation)
-        self._act_pull = (HostCopy(packed), len(self.window_frames))
+        self._activation_pass()
 
-    def _activation_tables(self):
+    def _activation_pass(self):
+        """The activation pass over the window as it stands (on the card one
+        replay of ACTIVATE_GRAPHS) on its one upload; its packed rows go
+        home while the BA (queued behind it) runs, and finish() applies
+        them first (_consume_activation)."""
+        nf = len(self.window_frames)
+        out = _program(*self._activation_call(
+            self.ef.W, self.imm_arena, self.dIs, self._activation_upload(),
+            nf))
+        nw = len(ACT_FIELDS)
+        self.ef.W = self.ef.W._replace(**dict(zip(ACT_FIELDS, out[:nw])))
+        self.imm_arena = _arena_of(out[nw:-1])
+        self._act_pull = (HostCopy(out[-1]), nf)
+
+    def _activation_call(self, W, arena, dIs, up, nf: int):
+        """The activation program's (family, static, program, inputs) for a
+        window of nf frames, the window's images dIs and the activation's
+        upload `up`."""
+        calib = self.calib
+        # keyed on the whole (frozen) Config the program closes over
+        static = (nf, self.cfg, calib, calib.w[1], calib.h[1])
+        return (ACTIVATE_GRAPHS, static, _activation_program(*static),
+                tuple(getattr(W, f) for f in ACT_FIELDS) + _arena_flat(arena)
+                + (dIs, up))
+
+    def _activation_upload(self):
         """The activation's host tables for the window as it stands, formed
-        in float64 and uploaded as one pinned buffer without a wait:
-        (KRKis, Kts, Rs, ts, affs, masks, min_act_dist, marg_flags, newest,
-        nf), the arguments of `_activate_fused` after the images."""
+        in float64 and uploaded as one pinned float32 buffer without a
+        wait (`activation_tables` reads it on the device): [KRKis, Kts, Rs,
+        ts, affs, masks, min_act_dist, marg_flags]."""
         calib = self.calib
         nf = len(self.window_frames)
         newest = nf - 1
@@ -1142,17 +1238,10 @@ class FullSystem:
                 ra = np.exp(fj.aff[0] - fi.aff[0]) * et_ / ef_
                 affs_a[i, j] = (ra, fj.aff[1] - ra * fi.aff[1])
                 masks[i, j] = True
-        up = self._f32(np.concatenate([
+        return self._f32(np.concatenate([
             KRKis.ravel(), Kts.ravel(), Rs.ravel(), ts.ravel(),
             affs_a.ravel(), masks.ravel(), [self.current_min_act_dist],
             marg_flags.ravel()]))
-        cut = np.cumsum([0, F * 9, F * 3, F * F * 9, F * F * 3, F * F * 2,
-                         F * F, 1, F])
-        KRKis, Kts, Rs, ts, affs, masks, mad, marg = (
-            up[cut[k]:cut[k + 1]] for k in range(8))
-        return (KRKis.view(F, 3, 3), Kts.view(F, 3), Rs.view(F, F, 3, 3),
-                ts.view(F, F, 3), affs.view(F, F, 2), masks.view(F, F) > 0.5,
-                mad.view(()), marg > 0.5, newest, nf)
 
     def _consume_activation(self):
         """Apply the activation's result to the host mirrors: the inserted

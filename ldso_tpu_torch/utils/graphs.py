@@ -8,10 +8,11 @@ the hashable arguments the program closes over, the inputs' shapes and
 dtypes), shared by every stream, with the family's own lock and counts.
 The tracker's family is frontend/track_graph.TRACKER, the windowed BA's
 backend/energy_functional.BA_GRAPHS, the point marginalization's
-backend/energy_functional.MARG_GRAPHS; the keyframe's post-BA flags and
-packed row, its tracker reference and its new candidates are
-system/full_system.POST_BA_GRAPHS, TRACKER_REF_GRAPHS and
-NEW_TRACES_GRAPHS.
+backend/energy_functional.MARG_GRAPHS; the keyframe's activation pass,
+its post-BA flags and packed row, its tracker reference and its new
+candidates are system/full_system.ACTIVATE_GRAPHS, POST_BA_GRAPHS,
+TRACKER_REF_GRAPHS and NEW_TRACES_GRAPHS; the bootstrap's frame (every
+level's LM and the propagation) is frontend/initializer.INIT_GRAPHS.
 
 A replay runs under the graph's lock on the caller's current stream: wait
 for the graph's previous replay (an event, whatever stream it ran on),
@@ -23,7 +24,10 @@ overwrite.
 
 A capture begins with `torch.cuda.graph`'s device synchronise; it happens
 at a key's first call, which `FullSystem.warm_retrack_programs` makes
-before a run starts. A capture that fails raises.
+before a run starts (`Programs.capture` captures without a replay: the
+activation's graph for every window size, and the bootstrap's at its
+first frame, whose later replays refuse a key with no graph). A capture
+that fails raises.
 
 The hand-written kernels in a program count their launches in Python,
 which a replay does not run: the capture records each kernel's launches
@@ -106,10 +110,10 @@ class Programs:
         self.counts = {"count": 0, "s": 0.0, "replays": 0}
         self._count_lock = threading.Lock()
 
-    def replay(self, static, program: Callable,
-               inputs: Tuple[torch.Tensor, ...]):
-        """program(*inputs) through its graph for this key (captured now if
-        it has none; a capture that fails raises); `static` holds the
+    def capture(self, static, program: Callable,
+                inputs: Tuple[torch.Tensor, ...]) -> Captured:
+        """The graph of program(*inputs) for this key, captured now if it
+        has none (a capture that fails raises); `static` holds the
         hashable arguments the program closes over. The inputs are CUDA
         tensors of one device."""
         key = _key(static, inputs)
@@ -122,6 +126,19 @@ class Programs:
                     g = self.graphs[key] = Captured(program, inputs)
                     self.counts["count"] += 1
                     self.counts["s"] += time.perf_counter() - t
+        return g
+
+    def replay(self, static, program: Callable,
+               inputs: Tuple[torch.Tensor, ...], capture: bool = True):
+        """program(*inputs) through its graph for this key: captured now
+        if it has none (`capture`), else a key with no graph raises."""
+        if capture:
+            g = self.capture(static, program, inputs)
+        else:
+            g = self.graphs.get(_key(static, inputs))
+            if g is None:
+                raise RuntimeError("no graph was captured for this program's "
+                                   "key before its first replay")
         out = g.replay(inputs)
         with self._count_lock:
             self.counts["replays"] += 1

@@ -293,6 +293,40 @@ def test_fused_activation_matches_jax(jax_activation):
         np.asarray(aj.pool.valid)))
 
 
+def test_activation_program_matches_jax(jax_activation):
+    """The activation as the program a card FullSystem replays
+    (full_system._activation_program over the window's ACT_FIELDS, the
+    arena, the images and one upload of the JAX call's tables), run
+    eagerly: bitwise the port's `_activate_fused` on the same inputs, and
+    so against the JAX package's `_activate_fused` as
+    test_fused_activation_matches_jax holds that (rows exactly, the
+    inserted idepths within 1e-4 relative but at the accept test's
+    ties)."""
+    calib, args, kw, _ = jax_activation
+    ins = _port_inputs(args)
+    W, arena, dIs = ins[:3]
+    newest, nf = ins[11:13]
+    assert newest == nf - 1
+    up = torch.cat([t.reshape(-1).to(torch.float32) for t in ins[3:11]])
+    assert up.numel() == tfs.activation_upload_size(W.frame_valid.shape[0])
+    program = tfs._activation_program(nf, TC(**KW), calib, args[15],
+                                      args[16])
+    out = program(*(tuple(getattr(W, f) for f in tfs.ACT_FIELDS)
+                    + tfs._arena_flat(arena) + (dIs, up)))
+    (Wt, at, pt), ties = _port_fused(args, calib)
+    nw = len(tfs.ACT_FIELDS)
+    for f, got in zip(tfs.ACT_FIELDS, out[:nw]):
+        assert torch.equal(got, getattr(Wt, f)), f
+    for got, want in zip(out[nw:-1], tfs._arena_flat(at)):
+        assert torch.equal(got, want)
+    assert torch.equal(out[-1], pt)
+    Wj, aj, pj = jfs._activate_fused(*args)
+    np.testing.assert_array_equal(out[-1].numpy(),
+                                  np.asarray(pj).astype(np.int64))
+    ins_ = pt[:, 2] > 0
+    _windows_equal(Wt, Wj, pt[ins_, 0].long(), pt[ins_ & ties, 0].long())
+
+
 def test_whole_arena_pass_equals_the_prefix_pass(jax_activation):
     """The port's pass over all lanes equals the JAX run's pass over the
     live prefix (its watermark, `n_act`): the prefix's rows exactly, the

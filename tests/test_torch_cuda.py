@@ -258,30 +258,26 @@ def _pipeline_cfg():
 def test_async_pipeline_on_the_card(cuda, monkeypatch):
     """20 frames through AsyncPipeline on the card: not lost, >= 3
     keyframes, ATE under 1 cm, and every distance-map kernel launched on
-    the mapping thread's stream."""
-    from ldso_tpu_torch.ops import cuda_kernels
+    the mapping thread's stream (each activation pass's replay, whose
+    graph holds K1's one launch, on the stream it replays on)."""
+    from ldso_tpu_torch.examples import time_modes
     from ldso_tpu_torch.system.full_system import FullSystem
     from ldso_tpu_torch.system.pipeline import AsyncPipeline
     calib, poses, imgs = _pipeline_frames(20)
     fs = FullSystem(calib, _pipeline_cfg())
-    streams = []
-    kernel = cuda_kernels.distance_transform
-
-    def traced(occ, max_k=18):
-        streams.append(torch.cuda.current_stream(occ.device).cuda_stream)
-        return kernel(occ, max_k)
-    monkeypatch.setattr(cuda_kernels, "distance_transform", traced)
-    drv = AsyncPipeline(fs)
-    for i, im in enumerate(imgs):
-        drv.add_active_frame(im, i, 1.0, i * 0.05)
-    drv.block_until_mapping_is_finished()
+    with time_modes.traced_k1() as k1:
+        drv = AsyncPipeline(fs)
+        for i, im in enumerate(imgs):
+            drv.add_active_frame(im, i, 1.0, i * 0.05)
+        drv.block_until_mapping_is_finished()
+    streams = {s for _, s in k1}
     assert fs.initialized and not fs.is_lost
     kfs = fs.global_map.get_all_kfs()
     assert len(kfs) >= 3
     boot = sorted(k.id for k in kfs)[1]
     # bootstrap keyframes run on the caller's thread under the mapping
     # stream, the later ones on the mapping thread
-    assert streams and set(streams) == {drv.map_stream.cuda_stream}
+    assert streams and streams == {drv.map_stream.cuda_stream}
     assert all(f.pose_valid for f in fs.all_frames[boot:])
     ate = _tracked_ate(fs, poses)
     assert ate < 0.01, ate
@@ -1434,14 +1430,15 @@ def test_marg_graph_equals_eager(cuda):
 def _kf_run(monkeypatch, watch=False, n=20):
     """A card FullSystem over n pipeline frames, with the last call of each
     keyframe program recorded (family -> (static, program, inputs)) and,
-    with `watch`, each keyframe's dispatch from the BA through the new
-    candidates under set_sync_debug_mode("error") behind ~50 ms of sleep
+    with `watch`, each keyframe's dispatch from the activation through the
+    new candidates under set_sync_debug_mode("error") behind ~50 ms of sleep
     (torch_kernel_checks.watched_keyframes): rows of (host ms,
     finish.ready() at return)."""
     from ldso_tpu_torch.system import full_system as fsm
     calib, poses, imgs = _pipeline_frames(n)
     fs = fsm.FullSystem(calib, _pipeline_cfg())
-    fams = (fsm.POST_BA_GRAPHS, fsm.TRACKER_REF_GRAPHS, fsm.NEW_TRACES_GRAPHS)
+    fams = (fsm.ACTIVATE_GRAPHS, fsm.POST_BA_GRAPHS, fsm.TRACKER_REF_GRAPHS,
+            fsm.NEW_TRACES_GRAPHS)
     counts = [f.counts["count"] for f in fams]
     seen = {}
     program = fsm._program
@@ -1461,10 +1458,11 @@ def _kf_run(monkeypatch, watch=False, n=20):
 
 
 def test_keyframe_programs_replay_equals_eager(cuda, monkeypatch):
-    """Each of the keyframe's three programs, on the run's last inputs:
-    the graph's replay bitwise the eager program."""
+    """Each of the keyframe's four programs (the activation pass, the
+    post-BA flags, the tracker reference, the new candidates), on the
+    run's last inputs: the graph's replay bitwise the eager program."""
     fs, seen, _ = _kf_run(monkeypatch)
-    assert len(seen) == 3
+    assert len(seen) == 4
     for family, (static, fn, inputs) in seen.items():
         want = fn(*inputs)
         got = family.replay(static, fn, inputs)
@@ -1473,8 +1471,8 @@ def test_keyframe_programs_replay_equals_eager(cuda, monkeypatch):
 
 
 def test_keyframe_dispatch_runs_ahead_of_the_card(cuda, monkeypatch):
-    """Every keyframe's dispatch from the BA through the new candidates
-    queues behind ~50 ms of sleep under set_sync_debug_mode("error"),
+    """Every keyframe's dispatch from the activation through the new
+    candidates queues behind ~50 ms of sleep under set_sync_debug_mode("error"),
     returns before the sleep ends (finish.ready() false), and the run's
     keyframes and poses are bitwise those of a run without the sleep."""
     fs, _, rows = _kf_run(monkeypatch, watch=True, n=24)
@@ -1483,3 +1481,87 @@ def test_keyframe_dispatch_runs_ahead_of_the_card(cuda, monkeypatch):
     assert [f.kf_id for f in fs.all_frames] == [f.kf_id for f in ref.all_frames]
     for a, b in zip(fs.all_frames, ref.all_frames):
         assert np.array_equal(a.T_cw, b.T_cw), a.id
+
+
+def test_activation_graphs_launch_k1_and_k5_once(cuda, monkeypatch):
+    """A card FullSystem captures the activation's graph for every window
+    size (1..F frames) when it is built; in a run each activation pass is
+    one replay of one of them, which launches K1 and K5 once."""
+    from ldso_tpu_torch.examples import time_modes
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system import full_system as fsm
+    fam = fsm.ACTIVATE_GRAPHS
+    with time_modes.counted_activations() as acts:
+        counts = dict(fam.counts)
+        before = dict(cuda_kernels.LAUNCHES)
+        fs, _, _ = _kf_run(monkeypatch)
+        replays = fam.counts["replays"] - counts["replays"]
+        captures = fam.counts["count"] - counts["count"]
+    keys = {k for k in fam.graphs if k[1][1:3] == (fs.cfg, fs.calib)}
+    assert {k[1][0] for k in keys} == set(range(1, fs.ef.F + 1))
+    for k in keys:
+        assert fam.graphs[k].launches == {"distance_transform": 1,
+                                          "activate": 1}
+    assert replays == acts["activations"] >= 2
+    assert captures in (0, fs.ef.F)
+    launched = {k: cuda_kernels.LAUNCHES[k] - before[k]
+                for k in ("distance_transform", "activate")}
+    # a graph captured when the system was built ran K1 and K5 once
+    # before its capture
+    assert launched == {"distance_transform": replays + captures,
+                        "activate": replays + captures}
+
+
+# ---------------------------------------------------------------------------
+# the bootstrap as one captured program (frontend/initializer.INIT_GRAPHS)
+# ---------------------------------------------------------------------------
+
+def test_bootstrap_replay_is_bitwise_eager(cuda, monkeypatch):
+    """A bootstrap on the card: the graph captured at the first frame
+    (capture_frame_program) and no later; each frame's dispatch one
+    replay, under set_sync_debug_mode("error") behind ~50 ms of sleep,
+    returning before its pull is ready; each replay's outputs bitwise the
+    eager masked program's on the same inputs; a key with no graph raises
+    rather than capture mid-run."""
+    from ldso_tpu_torch.frontend import initializer
+    from ldso_tpu_torch.ops.preprocess import make_pyramid, upload_image
+    from ldso_tpu_torch.utils.graphs import Programs
+    calib, _, imgs = _pipeline_frames(8)
+    cfg = _pipeline_cfg()
+    fam = Programs()
+    monkeypatch.setattr(initializer, "INIT_GRAPHS", fam)
+    calls = []
+    run = initializer._run
+
+    def recorded(family, static, fn, inputs):
+        out = run(family, static, fn, inputs)
+        calls.append((fn, tuple(inputs), out))
+        return out
+    monkeypatch.setattr(initializer, "_run", recorded)
+    pyrs = [make_pyramid(upload_image(im, cuda), calib.levels)
+            for im in imgs]
+    st = initializer.set_first(pyrs[0], calib, cfg)
+    with pytest.raises(RuntimeError, match="no graph"):
+        initializer.track_frame(st, pyrs[0], pyrs[1], calib, cfg)
+    initializer.capture_frame_program(st, pyrs[0], calib, cfg)
+    assert fam.counts["count"] == 1
+    calls.clear()
+    for k in range(1, len(imgs)):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pull = initializer.track_frame_dispatch(st, pyrs[0], pyrs[k],
+                                                    calib, cfg)
+            ready = pull.is_ready()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert not ready, k
+        initializer.track_frame_finish(st, pull)
+        assert len(st.trips) == calib.levels
+    assert fam.counts["count"] == 1 and fam.counts["replays"] == len(calls)
+    assert st.snapped
+    for fn, inputs, out in calls:
+        want = fn(*inputs)
+        assert len(out) == len(want)
+        assert all(_same(g, w) for g, w in zip(out, want))

@@ -1,6 +1,7 @@
-"""The keyframe's dispatch with no host read: its three captured programs
-(the post-BA flags and packed row, the tracker reference, the new
-candidates), the BA's deferred stats and the staged arena counts.
+"""The keyframe's dispatch with no host read: its four captured programs
+(the activation pass, the post-BA flags and packed row, the tracker
+reference, the new candidates), the BA's deferred stats and the staged
+arena counts.
 
 Each program is held against the JAX function on the same inputs, taken
 from a JAX FullSystem stopped after SNAP frames of the reduced slice scene
@@ -42,7 +43,7 @@ from ldso_tpu_torch.frontend import immature as tim
 from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.ops.scatter import segment_sum
 from ldso_tpu_torch.system import full_system as tfs
-from ldso_tpu_torch.utils import convert
+from ldso_tpu_torch.utils import convert, graphs
 from ldso_tpu_torch.utils.device import HostCopy
 
 KW = dict(max_points=1024, max_immature=1024,
@@ -303,6 +304,66 @@ def test_selection_status_maps_read_nothing():
     equal(got[:H * W], want)
 
 
+# ------------------------------------------------------ the activation
+def test_activation_program_is_the_fused_pass(port_run):
+    """Every activation of the port's run again through the activation
+    program (on the window's ACT_FIELDS, the arena, the images and the
+    one upload; a window of nf frames, the newest nf - 1), run eagerly as
+    the card's graph captures it: bitwise `_activate_fused` called as the
+    FullSystem called it before (the window and arena whole, the tables
+    from the upload), every window field it leaves alone untouched, and
+    FullSystem._activation_pass left that window, arena and packed rows
+    in the run."""
+    fs, acts = port_run[0], port_run[3]
+    calib = fs.calib
+    assert len(acts) >= 3 and len({a[4] for a in acts}) >= 2
+    inserted = removed = 0
+    for W0, a0, dIs, up, nf, W1, a1, pull in acts:
+        out = tfs._program(*fs._activation_call(W0, a0, dIs, up, nf))
+        Wf, af, pf = tfs._activate_fused(
+            W0, a0, dIs, *tfs.activation_tables(up, fs.ef.F), nf - 1, nf,
+            fs.cfg, calib, calib.w[1], calib.h[1])
+        nw = len(tfs.ACT_FIELDS)
+        for f, t in zip(tfs.ACT_FIELDS, out[:nw]):
+            equal(t, getattr(Wf, f), f)
+        for f in W0._fields:
+            if f not in tfs.ACT_FIELDS:
+                assert getattr(Wf, f) is getattr(W0, f), f
+            equal(getattr(W1, f), getattr(Wf, f), f)
+        for a, b, c in zip(out[nw:-1], tfs._arena_flat(af),
+                           tfs._arena_flat(a1)):
+            equal(a, b)
+            equal(c, b)
+        equal(out[-1], pf, "packed")
+        equal(pull.numpy(), pf, "pulled rows")
+        inserted += int(npy(pf[:, 2]).sum())
+        removed += int(npy(pf[:, 3]).sum())
+    assert inserted > 0 and removed > 0
+
+
+def test_activation_key_holds_the_window_and_config(snap):
+    """The activation's graph key changes with the window's frame count
+    (a graph per nf, newest nf - 1) and with a Config field the program
+    reads (K1's sweeps, K5's outlier threshold), and not for an equal
+    Config."""
+    calib, _, fp = snap
+    nf = len(fp.window_frames)
+    up = torch.zeros(tfs.activation_upload_size(fp.ef.F))
+
+    def key(fs, n):
+        _, static, _, inputs = fs._activation_call(fp.ef.W, fp.imm_arena,
+                                                   fp.dIs, up, n)
+        return graphs._key(static, inputs)
+    k0 = key(fp, nf)
+    assert key(copy.copy(fp), nf) == k0
+    assert len({key(fp, n) for n in range(1, fp.ef.F + 1)}) == fp.ef.F
+    for field in ("dist_map_steps", "outlier_th"):
+        other = copy.copy(fp)
+        other.cfg = dataclasses.replace(
+            fp.cfg, **{field: 2 * getattr(fp.cfg, field)})
+        assert key(other, nf) != k0, field
+
+
 # -------------------------------------------------- nothing read back
 # aten operators whose CUDA kernels read the card from the host (a value,
 # a count, a size) or copy host values into a tensor (an upload that a
@@ -394,6 +455,7 @@ def _program_cases(calib, fp):
                                  int(fp.cfg.desired_immature_density))
     st = tdet.detect_status_map(pyr.dI[0], pyr.abs_grad[0], *gp)
     cp = W.center_proj[:, nf - 1]
+    act_up = fp._activation_upload()
     return {
         "segment_sum": lambda: segment_sum(W.pt_u, torch.clamp(
             cp[:, 0].to(torch.int64), 0, 99), 100),
@@ -410,13 +472,15 @@ def _program_cases(calib, fp):
         "add_candidates": lambda: tfs._candidates_program(
             None, fp._imm_cap, fp.cfg)(
             *tfs._arena_flat(fp.imm_arena), pyr.dI[0], st, up),
+        "activate": lambda: tfs._program(*fp._activation_call(
+            W, fp.imm_arena, fp.dIs, act_up, nf)),
     }
 
 
 @pytest.mark.parametrize("name", ["segment_sum", "detect_status_map",
                                   "arena_add_from_status", "post_ba",
                                   "tracker_ref", "new_candidates",
-                                  "add_candidates"])
+                                  "add_candidates", "activate"])
 def test_programs_read_nothing_back(snap, name):
     """Each program, after one run (the eager warm-up a capture makes,
     which fills utils/static.device_const), calls no operator that reads
@@ -457,21 +521,21 @@ def test_host_reads_sees_them():
 @pytest.fixture(scope="module")
 def port_run():
     """RUN frames of the bench scene at 256x192 through a CPU FullSystem,
-    with every keyframe's dispatch watched from the BA through the new
-    candidates (host_reads without uploads: the pinned uploads the card
-    path makes are allowed), and each keyframe's frame flags checked
+    with every keyframe's dispatch watched from the activation through the
+    new candidates (host_reads without uploads: the pinned uploads the
+    card path makes are allowed), and each keyframe's frame flags checked
     against a fresh read of the arena's counts."""
     calib, poses, images = time_modes.bench_frames(RUN, 256, 192, "cpu")
     fs = tfs.FullSystem(calib, TC(**KW), device="cpu")
     spans, staged = [], []
-    optimize, new_traces = fs.ef.optimize, fs._make_new_traces
+    activate, new_traces = fs._activate_points, fs._make_new_traces
     flag = fs._flag_frames_for_marginalization
     watch = []
 
-    def watched_optimize(*a, **k):
+    def watched_activate(*a, **k):
         cm = host_reads(uploads=False)
         watch.append((cm, cm.__enter__()))
-        return optimize(*a, **k)
+        return activate(*a, **k)
 
     def watched_new_traces(*a, **k):
         out = new_traces(*a, **k)
@@ -487,20 +551,33 @@ def port_run():
             staged.append(np.array_equal(got[0].numpy()[:fs.ef.F], fresh))
         return flag()
 
-    fs.ef.optimize = watched_optimize
+    acts = []
+    act_pass = fs._activation_pass
+
+    def recorded_pass():
+        # the pass's inputs, then what it left: the window, the arena and
+        # its rows on their way home
+        before = (fs.ef.W, fs.imm_arena, fs.dIs.clone(),
+                  fs._activation_upload(), len(fs.window_frames))
+        act_pass()
+        acts.append(before + (fs.ef.W, fs.imm_arena, fs._act_pull[0]))
+
+    fs._activate_points = watched_activate
+    fs._activation_pass = recorded_pass
     fs._make_new_traces = watched_new_traces
     fs._flag_frames_for_marginalization = checked_flag
     for i, img in enumerate(images):
         fs.add_active_frame(img, i, 1.0, i * 0.05)
         assert not (fs.is_lost or fs.init_failed)
-    return fs, spans, staged
+    return fs, spans, staged, acts
 
 
 def test_keyframe_dispatch_reads_nothing_back(port_run):
-    """From the BA's dispatch through the new candidates, no keyframe of
-    the run read the device from the host (the K6/K7 and K12 wrappers'
-    CPU stand-ins aside: on the card they are launches)."""
-    fs, spans, staged = port_run
+    """From the activation's dispatch through the new candidates, no
+    keyframe of the run read the device from the host (the K1, K5, K6/K7
+    and K12 wrappers' CPU stand-ins aside: on the card they are
+    launches)."""
+    fs, spans, staged, _ = port_run
     assert len(spans) == len(fs.global_map.get_all_kfs()) - 1 >= 3
     assert all(not s for s in spans), spans
 
@@ -509,7 +586,7 @@ def test_frame_flags_read_the_staged_counts(port_run):
     """Every keyframe after the first took its frame flags from the
     counts the previous finish() staged, and they equal a fresh read of
     the arena's counts at that point."""
-    fs, spans, staged = port_run
+    fs, spans, staged, _ = port_run
     assert len(staged) == len(spans) - 1 and all(staged), staged
     assert fs._imm_counts is not None
 

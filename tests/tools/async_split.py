@@ -2,6 +2,7 @@
 it runs and with two controls in its place.
 
     PYTHONPATH=$PWD python tests/tools/async_split.py [--reps 2]
+        [--variants graph ...]
 
 Renders phase 3's 64 frames (`time_modes.bench_frames`, 640x480), warms up
 each variant below with 16 frames of strict, then runs
@@ -172,6 +173,9 @@ def summary(out) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help="the BA variants to run, of those the checkout "
+                    "has (default: all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("async_split: needs the card", file=sys.stderr)
@@ -182,6 +186,11 @@ def main(argv=None) -> int:
     calib, poses, images = time_modes.bench_frames(64)
     cuda_kernels.build()
     variants = _variants()
+    if args.variants:
+        variants = {k: v for k, v in variants.items()
+                    if k in args.variants} or {k: v for k, v in
+                                               variants.items()
+                                               if k == "as_is"}
     for variant in variants.values():         # warm-up: each BA once
         with instrumented(variant):
             time_modes.run_mode("strict", calib, poses, images[:16], gpu)

@@ -15,12 +15,15 @@ checkout it is run from (a parent commit's too: run it from an unpacked
     around it, and the rest of the frame step (the read of the tracker's
     result, which waits for the card, the gate, the trace's queueing);
   * `activate_split` (phase 3): `kf.activate` cut into the host tables
-    and their one upload (`_activation_tables`), the occupancy splat and
-    K1 (`_occupancy`, `distance_transform`), K5 (`activate_arena`) and
-    the insertion (`insert_points_dev`), each with its host ms per call
-    and its device ms per call from CUDA events around it, and the rest
-    (the density policy, the slot allocation, the arena's mask, the pull's
-    queueing); none for a checkout without these functions;
+    and their one upload (`_activation_upload`; `_activation_tables` in a
+    checkout that runs the pass eagerly) and the pass: one replay of the
+    activation's graph (`replay`), or in an eager checkout the occupancy
+    splat and K1 (`_occupancy`, `distance_transform`), K5
+    (`activate_arena`) and the insertion (`insert_points_dev`); each with
+    its host ms per call and its device ms per call from CUDA events
+    around it, and the rest (the density policy, the replay's results, the
+    pull's queueing, in an eager checkout the slot allocation and the
+    arena's mask); none for a checkout without these functions;
   * `keyframe_split` (phases 3 and 4): each keyframe's host ms in its
     two halves, `make_keyframe_dispatch` (from the trace through the new
     candidates) and its `finish()` (the reads of the device results, the
@@ -151,9 +154,13 @@ def activate_split():
     from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.system import full_system
     out = {}
-    if not hasattr(full_system.FullSystem, "_activation_tables"):
+    captured = hasattr(full_system, "ACTIVATE_GRAPHS")
+    if not (captured or hasattr(full_system.FullSystem,
+                                "_activation_tables")):
         yield out
         return
+    # the part each pass that ran has: the replay, or K5 in an eager pass
+    marker = "replay" if captured else "k5"
     calls = []           # per pass: {part: [(host ms, (e0, e1)), ...]}
     current = []         # the pass being timed
 
@@ -161,7 +168,9 @@ def activate_split():
         def wrap(fn):
             def call(*a, **k):
                 outer = part == "activate"
-                if not (outer or current):
+                if not (outer or current) or (
+                        part == "replay"
+                        and a[0] is not full_system.ACTIVATE_GRAPHS):
                     return fn(*a, **k)
                 if outer:
                     current.append({})
@@ -178,19 +187,24 @@ def activate_split():
                     parts.setdefault(part, []).append((ms, (e0, e1)))
                     if outer:
                         current.clear()
-                        if "k5" in parts:
+                        if marker in parts:
                             calls.append(parts)
                 return res
             return call
         return wrap
+    if captured:
+        patches = ((full_system.FullSystem, "_activate_points", "activate"),
+                   (full_system.FullSystem, "_activation_upload", "tables"),
+                   (full_system, "_program", "replay"))
+    else:
+        patches = ((full_system.FullSystem, "_activate_points", "activate"),
+                   (full_system.FullSystem, "_activation_tables", "tables"),
+                   (full_system, "_occupancy", "splat_k1"),
+                   (cuda_kernels, "distance_transform", "splat_k1"),
+                   (cuda_kernels, "activate_arena", "k5"),
+                   (full_system, "insert_points_dev", "insert"))
     with contextlib.ExitStack() as stack:
-        for owner, name, part in (
-                (full_system.FullSystem, "_activate_points", "activate"),
-                (full_system.FullSystem, "_activation_tables", "tables"),
-                (full_system, "_occupancy", "splat_k1"),
-                (cuda_kernels, "distance_transform", "splat_k1"),
-                (cuda_kernels, "activate_arena", "k5"),
-                (full_system, "insert_points_dev", "insert")):
+        for owner, name, part in patches:
             stack.enter_context(_patched(owner, name, timed(part)))
         yield out
     torch.cuda.synchronize()

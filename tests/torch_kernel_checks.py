@@ -2054,21 +2054,21 @@ def acc_emulated_err(got: dict, emu: dict) -> dict:
 @contextlib.contextmanager
 def watched_keyframes(fs, sleep_cycles: int):
     """While inside, each keyframe `fs` makes (its make_keyframe) queues
-    `sleep_cycles` of the card's sleep before its BA and runs its dispatch
-    from the BA through the new candidates under
+    `sleep_cycles` of the card's sleep before its activation and runs its
+    dispatch from the activation through the new candidates under
     torch.cuda.set_sync_debug_mode("error"), so a read of the card there
     raises. Yields a list that gets (the span's host ms, finish.ready()
     when the dispatch returned) per keyframe. On the card only."""
     import time
     rows, span = [], {}
-    optimize, new_traces = fs.ef.optimize, fs._make_new_traces
+    activate, new_traces = fs._activate_points, fs._make_new_traces
 
-    def watched_optimize(*a, **k):
+    def watched_activate(*a, **k):
         torch.cuda.synchronize()
         torch.cuda._sleep(sleep_cycles)
         torch.cuda.set_sync_debug_mode("error")
         span["t"] = time.perf_counter()
-        return optimize(*a, **k)
+        return activate(*a, **k)
 
     def watched_new_traces(*a, **k):
         out = new_traces(*a, **k)
@@ -2080,11 +2080,11 @@ def watched_keyframes(fs, sleep_cycles: int):
         fin = fs.make_keyframe_dispatch(shell, pyr)
         rows.append((span.pop("ms"), fin.ready()))
         fin()
-    fs.ef.optimize = watched_optimize
+    fs._activate_points = watched_activate
     fs._make_new_traces = watched_new_traces
     fs.make_keyframe = make_keyframe
     try:
         yield rows
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        del fs.ef.optimize, fs._make_new_traces, fs.make_keyframe
+        del fs._activate_points, fs._make_new_traces, fs.make_keyframe
