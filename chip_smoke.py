@@ -100,18 +100,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      after the last; asserts tracking, >= 8 keyframes, the kernel
      launched on every keyframe after the bootstrap, and a
      similarity-aligned ATE under 5 mm; then, on phase 3's system:
-     3a. the captured tracker (frontend/track_graph.py) against the eager
-         masked tracker, bitwise, at batch 1 and at the retry batch, its
-         device time per track (also behind a fixed sleep) and the aten
-         operations of an eager track (< 2,000); then every track of phase
-         3 again through the plain tracker (the plain modes patched in)
-         from the same inputs: every ok flag equal, T within 1e-4, aff
-         within 1e-3, residuals and flow within 1e-3 relative, and the
-         trips per track that K3 runs in full, from the plain flags;
+     3a. hypothesis 0's track inside the frame step's graph: phase 3's
+         last frame-step replay against its eager program, bitwise (K3
+         316 and K4 one launch in each); the captured tracker
+         (frontend/track_graph.py) against the eager masked tracker,
+         bitwise, at the retry batch, its device time per track (also
+         behind a fixed sleep) and the aten operations of an eager track
+         (< 2,000); then every track of phase 3 (hypothesis 0's from each
+         frame step's eager re-run, recorded_frame_steps, and the retry
+         batches') again through the plain tracker (the plain modes
+         patched in) from the same inputs: every ok flag equal, T within
+         1e-4, aff within 1e-3, residuals and flow within 1e-3 relative,
+         and the trips per track that K3 runs in full, from the plain
+         flags;
      3b. track_chain_dispatch under torch.cuda.set_sync_debug_mode("error")
          behind ~50 ms of sleep queued on a tracking stream: it returns
          well inside the sleep, its HostCopy not ready, its result bitwise
-         that of a dispatch without the sleep;
+         that of a dispatch without the sleep; each dispatch one replay of
+         the chain step's graph (full_system.CHAIN_STEP_GRAPHS, none
+         captured) and one HostCopy, each replay bitwise its eager
+         program;
      3c. the map checkpoint: save_all to .bin and .npz, load_all into a
          fresh system, keyframe ids and T_cw bitwise equal;
      3d. the device LM (backend/ba_device.optimize_device, one CUDA graph
@@ -160,6 +168,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
          eager masked program, the live trips per level beside the
          early-exit loop's (tests/torch_init_parent.py), and the device
          ms per replay;
+     3i. the frame step as one captured program (full_system.
+         FRAME_STEP_GRAPHS: the pyramid, hypothesis 0's track, the
+         retrack gate on the device, the trace's tables, K4 over the whole
+         arena and the select of its 7 traced fields): every
+         post-bootstrap strict frame of phase 3 one replay (and one
+         pull), no capture in the run, each replay bitwise its eager
+         program (recorded_frame_steps), K3 316 and K4 one launch a
+         replay; on phase 3's last inputs a replay that fails the gate
+         and one with commit 0 leave the arena bitwise as it went in,
+         with the trace flag 0; the strict dispatch under
+         set_sync_debug_mode("error") behind 50 ms of queued sleep returns
+         within 25 ms, its HostCopy not ready, its result bitwise a
+         dispatch without the sleep; the device ms per replay (20 replays
+         behind a sleep), the replay's split by part from torch.profiler
+         (copies, pyramid, K3, the tracker's other kernels, tables, K4,
+         selects), K2's bound beside the pyramid's part, and the graphs'
+         static buffers and the card memory their capture takes;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
@@ -216,14 +241,19 @@ graph replays, with no graph captured inside the run; K12's record gives
 phase 3's count and each path's.
 Every phase that tracks (3, 3a, 3b, 4, 4b, 5, 6, 7a-7c) asserts K3's
 launches, counted through graph replays: exactly
-tracker.trips_per_track (316 at 640x480) per track and per graph capture,
-plus one per rank_hypotheses call; K3's record gives phase 3's launches
+tracker.trips_per_track (316 at 640x480) per track (a frame step, a
+chain step, a retry batch) and per graph capture (the steps' and the
+tracker's), plus one per rank_hypotheses call; K3's record gives phase 3's launches
 of each mode, counted as they ran (cuda_kernels.TRIP_LAUNCHES). Every
 phase that drives a path (3, 4, 4b, 5, 6, 7a, 7b and every bench leg
-that traces, phase 8) asserts that K4 launched once for each trace of
-the arena (FullSystem._trace_arena's calls, and the bench's util trace
-calls): no trace went through the plain version; and that K5 launched
-once for each post-bootstrap keyframe (the bench: once for each
+that traces, phase 8) asserts that K4 launched exactly as often as the
+path's frame steps and traces imply (time_modes.counted_traces'
+`k4_expected`: one launch per replay of the frame step's graph, whatever
+its gate decided, one per FullSystem._trace_arena call, one per frame-step
+graph captured inside the block, and the bench's util trace calls) and
+that some trace was committed (the frame steps' trace flags and the
+_trace_arena calls): no trace went through the plain version; and that
+K5 launched once for each post-bootstrap keyframe (the bench: once for each
 activation pass, util's timed ones among them), printed per path in a
 `k5_by_path` line; and that K6 and K7 launched on the path, no call of
 their plain versions ran on the card, every point marginalization was one
@@ -232,7 +262,9 @@ the BA's or the marginalization's graphs (`k6_by_path`, `k7_by_path`
 lines; the bench per leg); and that each of the keyframe's three
 programs after the BA replayed once per keyframe dispatch (and once per
 system built inside the block), the activation once per pass and the
-bootstrap once per bootstrap frame, with no graph captured inside a run
+bootstrap once per bootstrap frame, the frame step and the chain step
+(captured for uint8 and float32 frames when a system is built) once per
+frame they track, with no graph captured inside a run
 (the bootstrap's at its first frame; a system built inside a counted
 block adds one K1 and one K5 launch for each activation graph it
 captures).
@@ -245,7 +277,8 @@ captures).
      counted through graph replays; its JSON line and its wall time.
 One JSON line per 7a/7b run and for 7c and 7d, a JSON line of the
 captured tracker's numbers, the BA's, the marginalization's, the
-keyframe programs' (3f), the activation's (3g) and the bootstrap's (3h),
+keyframe programs' (3f), the activation's (3g), the bootstrap's (3h)
+and the frame step's (3i),
 the bench's JSON line, then a JSON record of
 the kernels (K1, K3, K12, K4, K5, K6, K7), then the last line {"ok": true, "device":
 {...}}.
@@ -302,6 +335,10 @@ KF_SLEEP_MS = 50.0
 KF_QUEUED_MS = 25.0
 # 3h: the sleep queued ahead of each watched bootstrap frame's dispatch
 INIT_SLEEP_MS = 50.0
+# 3i: the sleep queued ahead of the watched strict frame step's dispatch,
+# and the host time the dispatch must return within
+STEP_SLEEP_MS = 50.0
+STEP_QUEUED_MS = 25.0
 KF_FRAMES = 24
 
 
@@ -988,26 +1025,74 @@ def _k3_run_check(run: dict) -> None:
 
 
 @contextlib.contextmanager
-def recorded_tracks():
-    """Yields a list that gets, for each track of the tracker's entry
-    points (track_frame, track_frame_hypotheses) inside, its inputs and
-    its outputs: (ref, pyramid, (T_inits, aff, exposure, min_res_abort),
-    calib, cfg, coarsest, outputs). The inputs are kept as given (the
-    system makes new tensors for every frame and writes none in place)."""
+def recorded_frame_steps():
+    """Yields a dict of lists: `tracks` gets, for each track inside, its
+    inputs and outputs (ref, pyramid, (T_inits, aff, exposure,
+    min_res_abort), calib, cfg, coarsest, outputs); `traces`, for each call
+    of K4's wrapper (every trace of the arena), ((arena, dI, KRKis, Kts,
+    affs, cfg), calib, output); `steps`, for each replay of the frame or
+    the chain step's graph (full_system._program with FRAME_STEP_GRAPHS or
+    CHAIN_STEP_GRAPHS), (family, static, program, inputs). The tracker's
+    entry points (the retry batches) and FullSystem._trace_arena run
+    Python and are recorded as they run. A replay runs none, so when the
+    block ends each recorded step runs again as its eager program with the
+    tracker's masked program (`tracker._track_batch`) and K4's wrapper
+    recording, and the eager program's outputs must be bitwise the
+    replay's (so the replay's track and trace gave the recorded outputs).
+    The system writes none of the inputs in place."""
     from ldso_tpu_torch.frontend import tracker
-    seen = []
-    track = tracker._track
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system import full_system as fsm
+    rec = dict(tracks=[], traces=[], steps=[])
+    outs = []
+    track, batch = tracker._track, tracker._track_batch
+    wrapper, program = cuda_kernels.trace_arena, fsm._program
+    fams = (fsm.FRAME_STEP_GRAPHS, fsm.CHAIN_STEP_GRAPHS)
 
-    def recorded(ref, pyr, T, aff, expo, abort, calib, cfg, coarsest):
-        out = track(ref, pyr, T, aff, expo, abort, calib, cfg, coarsest)
-        seen.append((ref, pyr, (T, aff, expo, abort), calib, cfg, coarsest,
-                     out))
+    def recording(fn):
+        def recorded(ref, pyr, T, aff, expo, abort, calib, cfg, coarsest):
+            out = fn(ref, pyr, T, aff, expo, abort, calib, cfg, coarsest)
+            rec["tracks"].append((ref, pyr, (T, aff, expo, abort), calib,
+                                  cfg, coarsest, out))
+            return out
+        return recorded
+
+    def recorded_trace(arena, dI, KRKis, Kts, affs, calib, cfg):
+        out = wrapper(arena, dI, KRKis, Kts, affs, calib, cfg)
+        rec["traces"].append(((arena, dI, KRKis, Kts, affs, cfg), calib,
+                              out))
         return out
-    tracker._track = recorded
+
+    def recorded_step(family, static, fn, inputs):
+        out = program(family, static, fn, inputs)
+        if any(family is f for f in fams):
+            rec["steps"].append((family, static, fn, tuple(inputs)))
+            outs.append(out)
+        return out
+    tracker._track = recording(track)
+    cuda_kernels.trace_arena = recorded_trace
+    fsm._program = recorded_step
     try:
-        yield seen
+        yield rec
     finally:
         tracker._track = track
+        cuda_kernels.trace_arena = wrapper
+        fsm._program = program
+    tracker._track_batch = recording(batch)
+    cuda_kernels.trace_arena = recorded_trace
+    try:
+        for k, ((_, _, fn, inputs), out) in enumerate(zip(rec["steps"],
+                                                          outs)):
+            want = fn(*inputs)
+            bad = [i for i, (g, w) in enumerate(zip(out, want))
+                   if not _same(g, w)]
+            if bad or len(out) != len(want):
+                _fail(f"frame step {k}: the replay differs from its eager "
+                      f"program in outputs {bad} of {len(want)}")
+            outs[k] = None
+    finally:
+        tracker._track_batch = batch
+        cuda_kernels.trace_arena = wrapper
 
 
 def phase_main_path(n_frames: int = N_FRAMES):
@@ -1020,9 +1105,8 @@ def phase_main_path(n_frames: int = N_FRAMES):
 
     calib, poses, images = time_modes.bench_frames(n_frames)   # set-up
     torch.cuda.reset_peak_memory_stats()
-    with recorded_tracks() as tracks:
-        strict, fs = time_modes.run_mode("strict", calib, poses, images,
-                                         gpu=time_modes.gpu_facts())
+    strict, fs = time_modes.run_mode("strict", calib, poses, images,
+                                     gpu=time_modes.gpu_facts())
     if fs.device.type != "cuda":
         _fail(f"FullSystem(calib, cfg) runs on {fs.device}, not the card")
     if strict["lost"] or strict["init_failed"]:
@@ -1046,8 +1130,10 @@ def phase_main_path(n_frames: int = N_FRAMES):
           f"post-bootstrap keyframes, K3 launches {strict['k3_launches']} "
           f"({strict['k3_by_mode']} by mode) for {strict['tracks']} tracks "
           f"and {strict['rank_calls']} rankings, K4 launches "
-          f"{strict['k4_launches']} for {strict['traces']} traces of the "
-          f"arena, K5 launches {strict['k5_launches']} for "
+          f"{strict['k4_launches']} for {strict['frame_steps']} frame steps "
+          f"({strict['traces']} traces of the arena committed) and "
+          f"{strict['trace_calls']} other traces, K5 launches "
+          f"{strict['k5_launches']} for "
           f"{strict['activations']} activations, K6 and K7 launches "
           f"{strict['k6_launches']} and {strict['k7_launches']} (all in "
           f"{strict['ba_replays']} BA and {strict['marg_replays']} "
@@ -1064,7 +1150,7 @@ def phase_main_path(n_frames: int = N_FRAMES):
     _k4_run_check(strict)
     _k5_run_check(strict)
     _k67_run_check(strict)
-    return launches, calib, images, poses, strict, fs, tracks
+    return launches, calib, images, poses, strict, fs
 
 
 def _same(a, b) -> bool:
@@ -1094,52 +1180,83 @@ def _track_inputs(fs, images, k: int):
             torch.full((L,), 1e9, **f32), torch.zeros(2, **f32))
 
 
-def phase_tracker_graph(fs, images, tracks):
-    """The captured tracker (frontend/track_graph.py) against the eager
-    masked function on the card, bitwise, at batch 1 and at the retry
-    path's batch, on the last frame of phase 3 against phase 3's last
-    tracking reference; then its device time per track (replays queued
-    behind a sleeping kernel) beside the eager function's synchronised
-    wall time, and the aten operations of one eager track (fewer than
+def _last_step(steps, family):
+    """The last recorded step of `family` (recorded_frame_steps' `steps`):
+    (static, program, inputs)."""
+    for fam, static, fn, inputs in reversed(steps):
+        if fam is family:
+            return static, fn, inputs
+    _fail("no step of the family was recorded")
+
+
+def phase_tracker_graph(fs, images, tracks, steps):
+    """3a. Hypothesis 0's track runs inside the frame step's graph: phase
+    3's last frame-step replay against its eager program on the card,
+    bitwise, K3 launched tracker.trips_per_track times and K4 once in
+    each; the captured tracker (frontend/track_graph.py) at the retry
+    path's batch against the eager masked function, bitwise, on the last
+    frame of phase 3 against phase 3's last tracking reference; then the
+    batch's device time per track (replays queued behind a sleeping
+    kernel) beside the eager function's synchronised wall time at batch 1,
+    and the aten operations of one eager track (fewer than
     MAX_TRACK_OPS); then phase 3's tracks through the plain tracker
     (phase_plain_tracker). Returns the numbers."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from ldso_tpu_torch.frontend import track_graph, tracker
     from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system import full_system as fsm
     from ldso_tpu_torch.system.full_system import RETRY_K
     calib, cfg = fs.calib, fs.cfg
+    L = calib.levels
+    trips = tracker.trips_per_track(cfg, L, L - 1)
+    fam = fsm.FRAME_STEP_GRAPHS
+    static, fn, inputs = _last_step(steps, fam)
+    outs = {}
+    for name, run in (("replay", lambda: fam.replay(static, fn, inputs)),
+                      ("eager", lambda: fn(*inputs))):
+        cuda_kernels.reset_launch_counts()
+        outs[name] = run()
+        _k3_check(f"3a frame step {name}",
+                  cuda_kernels.LAUNCHES["tracker_trip"], trips)
+        if cuda_kernels.LAUNCHES["trace"] != 1:
+            _fail(f"3a frame step {name}: K4 launched "
+                  f"{cuda_kernels.LAUNCHES['trace']} times")
+    torch.cuda.synchronize()
+    bad = [i for i, (g, e) in enumerate(zip(outs["replay"], outs["eager"]))
+           if not _same(g, e)]
+    if bad:
+        _fail(f"3a: the frame step's replay differs from its eager program "
+              f"in outputs {bad}")
+    print(f"tracker graph: the frame step's replay (hypothesis 0 at batch 1) "
+          f"equals its eager program bitwise ({len(outs['eager'])} "
+          f"outputs); K3 launched {trips} times and K4 once in each",
+          flush=True)
     ref, pyr, T_last, expo, abort, aff0 = _track_inputs(fs, images,
                                                         len(images) - 1)
     rng = np.random.RandomState(5)
     T_b = T_last.expand(RETRY_K, 4, 4).clone()
     T_b[1:, :3, 3] += torch.as_tensor(rng.randn(RETRY_K - 1, 3) * 0.01,
                                       dtype=torch.float32, device=fs.device)
-    L = calib.levels
-    trips = tracker.trips_per_track(cfg, L, L - 1)
-    for name, T0 in (("batch 1", T_last[None]), (f"batch {RETRY_K}", T_b)):
-        cuda_kernels.reset_launch_counts()
-        graph = tracker.track_frame_hypotheses(ref, pyr, T0, aff0, expo, abort,
-                                               calib, cfg, L - 1)
-        _k3_check(f"3a {name} graph replay",
-                  cuda_kernels.LAUNCHES["tracker_trip"], trips)
-        cuda_kernels.reset_launch_counts()
-        eager = tracker._track_batch(ref, pyr, T0, aff0, expo, abort, calib,
-                                     cfg, L - 1)
-        _k3_check(f"3a {name} eager", cuda_kernels.LAUNCHES["tracker_trip"],
-                  trips)
-        torch.cuda.synchronize()
-        for i, (g, e) in enumerate(zip(graph, eager)):
-            if not _same(g, e):
-                _fail(f"tracker graph: {name}: output {i} differs from the "
-                      f"eager function")
-        print(f"tracker graph: {name}: graph replay equals the eager masked "
-              f"function bitwise (5 outputs); K3 launched {trips} times in "
-              f"each", flush=True)
-
-    def replay():
-        return tracker.track_frame(ref, pyr, T_last, aff0, expo, abort, calib,
-                                   cfg, L - 1)
+    name = f"batch {RETRY_K}"
+    cuda_kernels.reset_launch_counts()
+    graph = tracker.track_frame_hypotheses(ref, pyr, T_b, aff0, expo, abort,
+                                           calib, cfg, L - 1)
+    _k3_check(f"3a {name} graph replay",
+              cuda_kernels.LAUNCHES["tracker_trip"], trips)
+    cuda_kernels.reset_launch_counts()
+    eager = tracker._track_batch(ref, pyr, T_b, aff0, expo, abort, calib,
+                                 cfg, L - 1)
+    _k3_check(f"3a {name} eager", cuda_kernels.LAUNCHES["tracker_trip"],
+              trips)
+    torch.cuda.synchronize()
+    for i, (g, e) in enumerate(zip(graph, eager)):
+        if not _same(g, e):
+            _fail(f"tracker graph: {name}: output {i} differs from the "
+                  f"eager function")
+    print(f"tracker graph: {name}: graph replay equals the eager masked "
+          f"function bitwise (5 outputs); K3 launched {trips} times in "
+          f"each", flush=True)
 
     def replay_b():
         return tracker.track_frame_hypotheses(ref, pyr, T_b, aff0, expo, abort,
@@ -1159,10 +1276,8 @@ def phase_tracker_graph(fs, images, tracks):
 
     with Count():
         eager()
-    out = dict(device_ms=_queued_device_ms(replay, n=10, reps=7),
+    out = dict(step_bitwise=True,
                device_ms_batch=_queued_device_ms(replay_b, n=4, reps=5),
-               device_ms_fixed_sleep=_queued_device_ms(
-                   replay, n=10, reps=7, sleep_cycles=FIXED_SLEEP_CYCLES),
                device_ms_batch_fixed_sleep=_queued_device_ms(
                    replay_b, n=4, reps=5, sleep_cycles=FIXED_SLEEP_CYCLES),
                eager_ms=1e3 * _host_us_per_call(eager, n=3) / 1e6,
@@ -1170,15 +1285,14 @@ def phase_tracker_graph(fs, images, tracks):
                captures=track_graph.CAPTURES["count"],
                capture_s=track_graph.CAPTURES["s"])
     print(f"tracker graph at {calib.w[0]}x{calib.h[0]}, {L} levels: "
-          f"{out['device_ms']:.4f} ms of device time per track (batch 1, 10 "
-          f"replays queued, median of 7), {out['device_ms_batch']:.4f} ms at "
-          f"batch {RETRY_K} (behind a fixed sleep of {FIXED_SLEEP_CYCLES} "
-          f"cycles: {out['device_ms_fixed_sleep']:.4f} and "
+          f"{out['device_ms_batch']:.4f} ms of device time per track at "
+          f"batch {RETRY_K} (4 replays queued, median of 5; behind a fixed "
+          f"sleep of {FIXED_SLEEP_CYCLES} cycles: "
           f"{out['device_ms_batch_fixed_sleep']:.4f} ms); the eager masked "
-          f"function {out['eager_ms']:.2f} "
+          f"function at batch 1 {out['eager_ms']:.2f} "
           f"ms per track (synchronised wall, 3 calls); {out['ops']} aten "
           f"operations per eager track, {out['view_ops']} of them views; "
-          f"{out['captures']} graphs captured so far in "
+          f"{out['captures']} tracker graphs captured so far in "
           f"{out['capture_s']:.2f} s", flush=True)
     if not out["ops"] < MAX_TRACK_OPS:
         _fail(f"3a: {out['ops']} aten operations per eager track (the trips "
@@ -1325,53 +1439,94 @@ def _sleep_cycles_per_ms() -> float:
 
 
 def phase_dispatch_ahead(fs, images, sleep_ms: float = 50.0):
-    """track_chain_dispatch runs ahead of the card: with ~50 ms of sleep
-    queued on a tracking stream, a dispatch under
+    """3b. track_chain_dispatch runs ahead of the card: with ~50 ms of
+    sleep queued on a tracking stream, a dispatch under
     torch.cuda.set_sync_debug_mode("error") returns in well under the sleep
     with its HostCopy not ready, and its packed result equals bitwise a
-    dispatch of the same frame from the same chain with no sleep."""
+    dispatch of the same frame from the same chain with no sleep. Each
+    dispatch is one replay of the chain step's graph (CHAIN_STEP_GRAPHS,
+    none captured) and one HostCopy, and the replay's outputs (the
+    pyramid, the packed row, the new chain) are bitwise its eager
+    program's."""
     import torch
     from ldso_tpu_torch.frontend import tracker
     from ldso_tpu_torch.ops import cuda_kernels
     from ldso_tpu_torch.slam_map import FrameShell
+    from ldso_tpu_torch.system import full_system as fsm
+    from ldso_tpu_torch.utils import device as devm
     k = len(images) - 1
     cuda_kernels.reset_launch_counts()
+    fam = fsm.CHAIN_STEP_GRAPHS
+    counts0 = dict(fam.counts)
+    program, host_copy = fsm._program, devm.HostCopy
+    steps, pulls = [], []
+
+    def recorded(family, static, fn, inputs):
+        out = program(family, static, fn, inputs)
+        if family is fam:
+            steps.append((static, fn, tuple(inputs), out))
+        return out
+
+    def counted_copy(t):
+        pulls.append(t)
+        return host_copy(t)
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     cycles = int(_sleep_cycles_per_ms() * sleep_ms)
-    with torch.cuda.stream(stream):
-        fs.chain_reset()
-        chain = fs.track_chain
-        _, first, _ = fs.track_chain_dispatch(FrameShell(id=k), images[k])
-        want = first.numpy().copy()
-        fs.track_chain = chain
-        torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            t = time.perf_counter()
-            _, packed, _ = fs.track_chain_dispatch(FrameShell(id=k), images[k])
-            call_ms = (time.perf_counter() - t) * 1e3
-            ready = packed.is_ready()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        got = packed.numpy()
+    fsm._program, fsm.HostCopy = recorded, counted_copy
+    try:
+        with torch.cuda.stream(stream):
+            fs.chain_reset()
+            chain = fs.track_chain
+            _, first, _ = fs.track_chain_dispatch(FrameShell(id=k), images[k])
+            want = first.numpy().copy()
+            fs.track_chain = chain
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t = time.perf_counter()
+                _, packed, _ = fs.track_chain_dispatch(FrameShell(id=k),
+                                                       images[k])
+                call_ms = (time.perf_counter() - t) * 1e3
+                ready = packed.is_ready()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got = packed.numpy()
+    finally:
+        fsm._program, fsm.HostCopy = program, host_copy
     torch.cuda.synchronize()
     L = fs.calib.levels
     _k3_check("3b dispatch ahead (two dispatches)",
               cuda_kernels.LAUNCHES["tracker_trip"],
               2 * tracker.trips_per_track(fs.cfg, L, L - 1))
+    replays = fam.counts["replays"] - counts0["replays"]
+    captures = fam.counts["count"] - counts0["count"]
+    if not (replays == len(steps) == len(pulls) == 2 and captures == 0):
+        _fail(f"3b: two chain dispatches made {replays} replays of the chain "
+              f"step's graph ({captures} captured) and {len(pulls)} "
+              f"HostCopys")
+    bad = []
+    for static, fn, inputs, out in steps:
+        want_e = fn(*inputs)
+        bad += [i for i, (g, w) in enumerate(zip(out, want_e))
+                if not _same(g, w)]
     print(f"dispatch ahead: track_chain_dispatch returned in {call_ms:.3f} ms "
           f"under set_sync_debug_mode('error') behind {sleep_ms:.0f} ms of "
           f"queued sleep; HostCopy ready on return: {ready}; packed result "
           f"bitwise equal to the dispatch without sleep: "
-          f"{got.tobytes() == want.tobytes()}", flush=True)
+          f"{got.tobytes() == want.tobytes()}; each dispatch one replay of "
+          f"the chain step's graph and one HostCopy, each replay bitwise "
+          f"its eager program: {not bad}", flush=True)
     if not call_ms < sleep_ms / 2:
         _fail(f"dispatch ahead: the call took {call_ms:.3f} ms")
     if ready:
         _fail("dispatch ahead: the HostCopy was ready before the sleep ended")
     if got.tobytes() != want.tobytes():
         _fail("dispatch ahead: the result differs from the one without sleep")
+    if bad:
+        _fail(f"3b: the chain step's replay differs from its eager program in "
+              f"outputs {sorted(set(bad))}")
     fs.chain_reset()
     return call_ms
 
@@ -1448,19 +1603,21 @@ def phase_boxes(n_frames: int = BOX_FRAMES):
 
 
 def _no_capture_inside(run: dict) -> None:
-    """The tracker's, the device LM's and the point marginalization's
-    graphs are captured when the FullSystem is built, never inside a timed
-    run; with the device LM, each
+    """The tracker's, the frame and chain steps', the device LM's, the
+    point marginalization's and the keyframe programs' graphs are captured
+    when the FullSystem is built, never inside a timed run; with the
+    device LM, each
     BA call of the run is one replay with one K12 launch."""
     what = run.get("phase", run["mode"])
     kf = {k: run[k] for k in run if k.endswith("_captures") and k.split(
-        "_captures")[0] in KF_PROGRAMS + ("activate",)}
+        "_captures")[0] in KF_PROGRAMS + ("activate", "frame_step",
+                                          "chain_step")}
     if run["graph_captures"] or run["ba_captures"] or run["marg_captures"] \
             or any(kf.values()):
-        _fail(f"{what}: {run['graph_captures']} tracker graphs, "
+        _fail(f"{what}: {run['graph_captures']} tracker and step graphs, "
               f"{run['ba_captures']} BA graphs, {run['marg_captures']} "
-              f"marginalization graphs and the keyframe programs' {kf} were "
-              f"captured inside the timed run")
+              f"marginalization graphs and the keyframe programs' and "
+              f"steps' {kf} were captured inside the timed run")
     # the bootstrap's graph: captured at the first frame if at all (its
     # level capacities are set_first's), one replay and one pull a frame
     if set(run["init_capture_frames"]) - {0} or not (
@@ -1479,7 +1636,9 @@ def _mode_line(run: dict) -> str:
     keys = ("mode", "interval_ms", "frames", "keyframes", "ate_mm",
             "ms_per_frame_median",
             "ms_per_frame_wall", "wall_s", "k1_launches", "k1_streams",
-            "k3_launches", "tracks", "rank_calls", "k4_launches", "traces",
+            "k3_launches", "tracks", "rank_calls", "k4_launches",
+            "k4_expected", "traces", "frame_step_replays",
+            "chain_step_replays",
             "k5_launches", "activations", "post_bootstrap_keyframes",
             "retrack_trips", "lm_frames",
             "graph_captures", "ba_replays", "k12_launches", "k6_launches",
@@ -1653,14 +1812,16 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
               f"by (thread, stream) {dict(k1)}; K3 launches {k3} for "
               f"{tracks['tracks']} tracks, {tracks['ranks']} rankings and "
               f"{tracks['captures']} captures; K4 launches {k4} for "
-              f"{traces['traces']} traces; K5 launches {k5}", flush=True)
+              f"{traces['k4_expected']} expected ({traces['traces']} traces "
+              f"committed); K5 launches {k5}", flush=True)
         if not ate < ATE_BOUND_M:
             _fail(f"cli {pmode}: keyframe ATE {ate * 1e3:.4f} mm >= "
                   f"{ATE_BOUND_M * 1e3} mm")
         if device == "cuda":
             _k3_check(f"cli {pmode}", k3, time_modes.k3_expected(
                 tracks, fs.cfg, fs.calib.levels))
-            _k4_check(f"cli {pmode}", k4, traces["traces"])
+            _k4_check(f"cli {pmode}", k4, traces["k4_expected"],
+                      traces["traces"])
             _k5_check(f"cli {pmode}", k5, post_boot)
             k67["post_bootstrap_keyframes"] = post_boot
             _k67_run_check(k67, built=1)
@@ -1829,7 +1990,8 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
         launches = dict(cuda_kernels.LAUNCHES)
     _k3_check("4 loop slice", launches["tracker_trip"],
               time_modes.k3_expected(tracks, cfg, calib.levels))
-    _k4_check("4 loop slice", launches["trace"], traces["traces"])
+    _k4_check("4 loop slice", launches["trace"], traces["k4_expected"],
+              traces["traces"])
     # the CLI's strict-mode final pose-graph pass before results.txt
     # (examples/run_common.py:200-203)
     torch.cuda.synchronize()
@@ -1865,7 +2027,8 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
           f"{launches['distance_transform']} for {post_boot} post-bootstrap "
           f"keyframes, K3 launches {launches['tracker_trip']} for "
           f"{tracks['tracks']} tracks and {tracks['ranks']} rankings, K4 "
-          f"launches {launches['trace']} for {traces['traces']} traces, K5 "
+          f"launches {launches['trace']} for {traces['k4_expected']} "
+          f"expected ({traces['traces']} traces committed), K5 "
           f"launches {launches['activate']}", flush=True)
     print("stage timers (host wall, s):\n" + fs.timer.summary(), flush=True)
     print(json.dumps(dict(
@@ -2226,27 +2389,6 @@ def phase_trace_kernel(device="cuda"):
                 bench_4096=bench, ptxas=ptx)
 
 
-@contextlib.contextmanager
-def recorded_traces():
-    """Yields a list that gets, for each call of K4's wrapper inside (every
-    trace of the arena), its inputs and output: ((arena, dI, KRKis, Kts,
-    affs, cfg), calib, output). The system makes a new arena at each
-    trace and writes none of these in place."""
-    from ldso_tpu_torch.ops import cuda_kernels
-    seen = []
-    wrapper = cuda_kernels.trace_arena
-
-    def recorded(arena, dI, KRKis, Kts, affs, calib, cfg):
-        out = wrapper(arena, dI, KRKis, Kts, affs, calib, cfg)
-        seen.append(((arena, dI, KRKis, Kts, affs, cfg), calib, out))
-        return out
-    cuda_kernels.trace_arena = recorded
-    try:
-        yield seen
-    finally:
-        cuda_kernels.trace_arena = wrapper
-
-
 def phase_trace_frame(record, traces):
     """Every trace of phase 3 again through the plain version on the card,
     from its recorded inputs, held to K4's recorded output by trace_err;
@@ -2296,17 +2438,22 @@ def phase_trace_frame(record, traces):
           f"in device time", flush=True)
 
 
-def _k4_check(what: str, launches: int, traces: int) -> None:
-    """K4 ran once for each trace of the arena on this path, and no trace
-    went through the plain version."""
-    if not launches == traces > 0:
-        _fail(f"{what}: K4 launched {launches} times for {traces} traces of "
-              f"the arena")
+def _k4_check(what: str, launches: int, expected: int,
+              traces: int) -> None:
+    """K4 ran on this path exactly as often as its frame steps, trace calls
+    and captures imply (time_modes.counted_traces' `k4_expected`: one
+    launch per frame-step replay, whatever its gate, one per
+    FullSystem._trace_arena call and one per graph captured), no trace
+    went through the plain version, and some trace was committed."""
+    if not (launches == expected > 0 and traces > 0):
+        _fail(f"{what}: K4 launched {launches} times where the path's frame "
+              f"steps, trace calls and captures imply {expected}, "
+              f"{traces} traces of the arena committed")
 
 
 def _k4_run_check(run: dict) -> None:
     _k4_check(f"{run.get('phase', run['mode'])}", run["k4_launches"],
-              run["traces"])
+              run["k4_expected"], run["traces"])
 
 
 
@@ -3203,7 +3350,7 @@ def phase_bootstrap_program(calib, images, strict: dict):
     t0 = time.perf_counter()
     cfg = dataclasses.replace(Config(), enable_loop_closing=False)
     saved, run = initializer.INIT_GRAPHS, initializer._run
-    fam = initializer.INIT_GRAPHS = Programs()
+    fam = initializer.INIT_GRAPHS = Programs(capture_on_replay=False)
     calls = []
 
     def recorded(family, static, fn, inputs):
@@ -3251,7 +3398,7 @@ def phase_bootstrap_program(calib, images, strict: dict):
                 bad.append(k)
         static, fn, inputs, _ = calls[-1]
         device_ms = _queued_device_ms(
-            lambda: fam.replay(static, fn, inputs, capture=False), n=5,
+            lambda: fam.replay(static, fn, inputs), n=5,
             reps=3)
         eager_ms = _host_us_per_call(lambda: fn(*inputs), n=1) / 1e3
     finally:
@@ -3296,6 +3443,251 @@ def _static_mib(family) -> float:
     """The MiB of a program family's graphs' static inputs and outputs."""
     return sum(x.numel() * x.element_size() for g in family.graphs.values()
                for x in g.static_in + g.static_out) / 2 ** 20
+
+
+def _device_records(run, reps: int):
+    """The card's kernel and copy records of `reps` calls of `run` from
+    torch.profiler: (start ns, duration ns, name), sorted by start."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        if hasattr(e, "start_ns"):
+            start, dur = e.start_ns(), e.duration_ns()
+        else:
+            start, dur = e.start_us() * 1e3, e.duration_us() * 1e3
+        out.append((start, dur, e.name()))
+    return sorted(out)
+
+
+# the parts of a frame step's device time (`_step_split`)
+STEP_PARTS = ("copies", "pyramid", "k3", "tracker_rest", "tables", "k4",
+              "selects")
+
+
+def _step_split(records, reps: int) -> dict:
+    """A frame step's device time by part from its card records over
+    `reps` calls, in launch order: `copies` (every memcpy and memset: a
+    replay's inputs copied in, its outputs cloned out, the program's own
+    copies), `k3` and `k4` (their kernels), then every other kernel by
+    where it ran: `pyramid` before the first K3 launch, `tracker_rest`
+    between K3 launches, `tables` after the last K3 launch and before K4
+    (the tracker's tail, the gate and the trace's tables) and `selects`
+    after K4 (the arena's selects, the packed row). Returns {part: {ms,
+    kernels}} per call and the busy ms per call."""
+    ms = dict.fromkeys(STEP_PARTS, 0.0)
+    count = dict.fromkeys(STEP_PARTS, 0)
+    state, pending = "pyramid", []
+
+    def add(part, dur):
+        ms[part] += dur * 1e-6 / reps
+        count[part] += 1
+    for _, dur, name in records:
+        if name.startswith(("Memcpy", "Memset")):
+            add("copies", dur)
+            if state == "selects":
+                state = "pyramid"          # the next call's copies in
+        elif "tracker_trip_kernel" in name:
+            for d in pending:
+                add("tracker_rest", d)
+            pending = []
+            add("k3", dur)
+            state = "tracker"
+        elif "immature_trace_kernel" in name:
+            for d in pending:
+                add("tables", d)
+            pending = []
+            add("k4", dur)
+            state = "selects"
+        elif state == "tracker":
+            pending.append(dur)
+        else:
+            add(state, dur)
+    for d in pending:
+        add("tracker_rest", d)
+    return dict(parts={p: dict(ms=ms[p], kernels=count[p] / reps)
+                       for p in STEP_PARTS},
+                busy_ms=sum(ms.values()))
+
+
+def pyramid_bound_ms(calib, frame_bytes: int) -> float:
+    """K2's bound: the frame read once and every level's dI (H, W, 3) and
+    abs_grad (H, W) float32 written once, over the card's memory rate."""
+    out = sum(calib.h[lvl] * calib.w[lvl] * 4 * 4
+              for lvl in range(calib.levels))
+    return (frame_bytes + out) / PEAK_BYTES_S * 1e3
+
+
+def phase_frame_step_program(steps, strict: dict, fs3, images):
+    """3i: the frame step as one captured program. Every post-bootstrap
+    strict frame of phase 3 was one replay of the frame step's graph
+    (FRAME_STEP_GRAPHS, captured when the system was built, none in the
+    run; recorded_frame_steps held each replay bitwise its eager program),
+    each replay K3 trips_per_track and K4 once; on phase 3's last inputs a
+    replay whose gate fails (the last RMSE set under any residual) and
+    one with commit 0 leave the arena bitwise as it went in, with the
+    trace flag 0; a strict dispatch (`_frame_step_dispatch`) under
+    set_sync_debug_mode("error") behind STEP_SLEEP_MS of queued sleep
+    returns within STEP_QUEUED_MS with its HostCopy not ready and its
+    result bitwise a dispatch without the sleep; the device ms per replay
+    (20 replays behind a sleep), the replay's split by part from
+    torch.profiler (`_step_split`), K2's bound beside the pyramid's part,
+    and the graphs' static buffers and the card memory their capture
+    takes. Returns the numbers."""
+    import torch
+    from ldso_tpu_torch.frontend import immature, tracker
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system import full_system as fsm
+    from ldso_tpu_torch.utils.graphs import Programs
+    t0 = time.perf_counter()
+    fam = fsm.FRAME_STEP_GRAPHS
+    calib, cfg = fs3.calib, fs3.cfg
+    L = calib.levels
+    trips = tracker.trips_per_track(cfg, L, L - 1)
+    recorded = sum(1 for f, *_ in steps if f is fam)
+    post_boot = strict["frames"] - strict["boot_dispatches"] - 1
+    if not (recorded == strict["frame_steps"] == strict["frame_step_replays"]
+            == post_boot > 0) or strict["frame_step_captures"] or \
+            strict["chain_step_replays"] or strict["chain_step_captures"]:
+        _fail(f"3i: {strict['frame_steps']} frame steps, "
+              f"{strict['frame_step_replays']} replays ({recorded} recorded, "
+              f"{strict['frame_step_captures']} captured in the run) for "
+              f"{post_boot} post-bootstrap frames; chain step "
+              f"{strict['chain_step_replays']} replays")
+    for g in fam.graphs.values():
+        per = {k: n for k, n in g.launches.items() if "." not in k}
+        if per != {"tracker_trip": trips, "trace": 1}:
+            _fail(f"3i: a frame step's graph launches {per} per replay")
+    static, fn, inputs = _last_step(steps, fam)
+    na = len(immature.ImmaturePool._fields) + 1
+    i_up = 2 * L + 3 + na
+    arena_in = inputs[2 * L + 3:i_up]
+    flags = {}
+    for name, at, value in (("gate_passes", 19, float("inf")),
+                            ("gate_fails", 19, 1e-30),
+                            ("commit_0", 20, 0.0)):
+        up = inputs[i_up].clone()
+        up[at] = value
+        xs = inputs[:i_up] + (up,) + inputs[i_up + 1:]
+        out = fam.replay(static, fn, xs)
+        flag = float(out[-1][19])
+        same = all(_same(o, x) for o, x in zip(out[2 * L:-1], arena_in))
+        flags[name] = dict(flag=flag, arena_unchanged=same,
+                           ok=float(out[-1][18]))
+        if name != "gate_passes" and not (flag == 0.0 and same):
+            _fail(f"3i: a replay with {name}: trace flag {flag}, arena "
+                  f"bitwise unchanged {same}")
+
+    # the strict dispatch behind a sleep, from phase 3's end
+    ref, ref_shell = fs3._current_tracker_ref()
+    k = len(images) - 1
+    T0 = fs3.all_frames[k].T_cw @ np.linalg.inv(ref_shell.T_cw)
+    args = (images[k], ref, T0, fs3.all_frames[k].aff, 1.0, ref_shell.T_cw,
+            True)
+    arena0, counts0 = fs3.imm_arena, dict(fam.counts)
+    cuda_kernels.reset_launch_counts()
+    _, first = fs3._frame_step_dispatch(*args)
+    want, want_arena = first.numpy().copy(), fs3.imm_arena
+    fs3.imm_arena = arena0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * STEP_SLEEP_MS))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        _, packed = fs3._frame_step_dispatch(*args)
+        call_ms = (time.perf_counter() - t) * 1e3
+        ready = packed.is_ready()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got, got_arena = packed.numpy(), fs3.imm_arena
+    fs3.imm_arena = arena0
+    torch.cuda.synchronize()
+    same = got.tobytes() == want.tobytes() and all(
+        _same(a, b) for a, b in zip(fsm._arena_flat(got_arena),
+                                    fsm._arena_flat(want_arena)))
+    replays = fam.counts["replays"] - counts0["replays"]
+    launches = dict(cuda_kernels.LAUNCHES)
+    if not (call_ms < STEP_QUEUED_MS and not ready and same and replays == 2
+            and fam.counts["count"] == counts0["count"]
+            and launches["tracker_trip"] == 2 * trips
+            and launches["trace"] == 2):
+        _fail(f"3i: the strict dispatch behind {STEP_SLEEP_MS} ms of sleep "
+              f"returned in {call_ms:.3f} ms, ready {ready}, bitwise {same}, "
+              f"{replays} replays, K3 {launches['tracker_trip']} and K4 "
+              f"{launches['trace']} launches for two dispatches")
+
+    device_ms = _queued_device_ms(lambda: fam.replay(static, fn, inputs),
+                                  n=20, reps=5)
+    replay_ms = _host_us_per_call(lambda: fam.replay(static, fn, inputs),
+                                  n=20) / 1e3
+    eager_ms = _host_us_per_call(lambda: fn(*inputs), n=3) / 1e3
+    try:
+        split = _step_split(_device_records(
+            lambda: fam.replay(static, fn, inputs), 5), 5)
+        split["source"] = "replay"
+        if not split["parts"]["k3"]["kernels"]:
+            split = _step_split(_device_records(lambda: fn(*inputs), 5), 5)
+            split["source"] = "eager program"
+    except Exception as e:  # noqa: BLE001 -- the split is reported, not held
+        split = dict(source=f"not measured ({type(e).__name__}: {e})")
+    frame_bytes = inputs[0].numel() * inputs[0].element_size()
+    k2 = dict(bound_ms=pyramid_bound_ms(calib, frame_bytes))
+    if "parts" in split:
+        pyr_ms = split["parts"]["pyramid"]["ms"]
+        k2.update(device_ms=pyr_ms, share_of_replay=pyr_ms / device_ms,
+                  share_of_busy=pyr_ms / split["busy_ms"],
+                  kernels=split["parts"]["pyramid"]["kernels"])
+
+    # the card memory (allocated) of capturing both steps again for every
+    # frame dtype, into families of their own
+    torch.cuda.synchronize()
+    fresh = (Programs(capture_on_replay=False),
+             Programs(capture_on_replay=False))
+    saved = (fsm.FRAME_STEP_GRAPHS, fsm.CHAIN_STEP_GRAPHS)
+    alloc0 = torch.cuda.memory_allocated()
+    fsm.FRAME_STEP_GRAPHS, fsm.CHAIN_STEP_GRAPHS = fresh
+    try:
+        fs3._capture_steps()
+    finally:
+        fsm.FRAME_STEP_GRAPHS, fsm.CHAIN_STEP_GRAPHS = saved
+    torch.cuda.synchronize()
+    mem = dict(graphs=[len(f.graphs) for f in fresh],
+               static_mib=[_static_mib(f) for f in fresh],
+               allocated_mib=(torch.cuda.memory_allocated() - alloc0)
+               / 2 ** 20, capture_s=sum(f.counts["s"] for f in fresh))
+    del fresh
+    res = dict(phase3_frame_steps=strict["frame_steps"],
+               phase3_replays=strict["frame_step_replays"],
+               phase3_traces_committed=strict["traces"],
+               captures_in_run=strict["frame_step_captures"], bitwise=True,
+               gate_cases=flags, dispatch_ms=call_ms, ready_at_return=ready,
+               device_ms=device_ms, replay_host_ms=replay_ms,
+               eager_host_ms=eager_ms, split=split, k2=k2,
+               wait_s=fam.lock_wait_s(), memory=mem)
+    parts = ({p: round(v["ms"], 4) for p, v in split["parts"].items()}
+             if "parts" in split else split["source"])
+    print(f"3i frame step program: phase 3's {strict['frame_steps']} "
+          f"post-bootstrap frames were {strict['frame_step_replays']} "
+          f"replays ({strict['frame_step_captures']} captured in the run, "
+          f"{strict['traces']} traces committed), K3 {trips} and K4 one "
+          f"launch a replay, each bitwise its eager program; gate cases "
+          f"{flags}; the strict dispatch behind {STEP_SLEEP_MS:.0f} ms of "
+          f"sleep returned in {call_ms:.3f} ms (ready {ready}), bitwise; "
+          f"device {device_ms:.4f} ms a replay, host {replay_ms:.3f} ms a "
+          f"replay against {eager_ms:.2f} ms eager; split by part "
+          f"({split['source']}) {parts}; K2 {k2}; memory {mem}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return res
 
 
 def phase_activation_program(records, strict: dict, fs3):
@@ -3904,6 +4296,11 @@ def phase_batched_tracker(S: int = BATCH_SEQUENCES):
     torch.cuda.synchronize()
     if not all(_same(a, b) for a, b in zip(out, again)):
         _fail("7c: a second batched replay differs from the first")
+    # the single tracks' graph (batch 1, which no path of the system
+    # replays since the frame step tracks inside its own) is captured by
+    # its first call, as the batched one was by `out` above
+    single(0)
+    torch.cuda.synchronize()
     cuda_kernels.reset_launch_counts()
     singles = [single(b) for b in range(S)]
     _k3_check(f"7c {S} single tracks", cuda_kernels.LAUNCHES["tracker_trip"],
@@ -4077,10 +4474,12 @@ def phase_bench():
         if leg in BENCH_BA and not n["ba_projector"] > 0:
             _fail(f"8 bench: K12 not launched in the {leg} leg")
         if leg in BENCH_TRACING:
-            _k4_check(f"8 bench: {leg}", n["trace"], res["traces"][leg])
-        elif n["trace"] != res["traces"][leg]:
-            _fail(f"8 bench: {leg}: K4 launched {n['trace']} times for "
-                  f"{res['traces'][leg]} traces")
+            _k4_check(f"8 bench: {leg}", n["trace"],
+                      res["k4_expected"][leg], res["traces"][leg])
+        elif n["trace"] != res["k4_expected"][leg]:
+            _fail(f"8 bench: {leg}: K4 launched {n['trace']} times where "
+                  f"its frame steps and traces imply "
+                  f"{res['k4_expected'][leg]}")
         # each activation graph captured in the leg ran K5 once before its
         # capture
         if n["activate"] != (res["activations"][leg]
@@ -4121,22 +4520,21 @@ def main() -> int:
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke")
     with ba_times() as phase3_ba_ms, recorded_ba() as ba_records, \
-            recorded_traces() as traces3, recorded_activations() as acts3, \
-            recorded_marg() as margs3, recorded_kf_programs() as kf3:
-        launches_vo, calib, images, poses, strict, fs, tracks3 = \
-            phase_main_path()
+            recorded_frame_steps() as steps3, \
+            recorded_activations() as acts3, recorded_marg() as margs3, \
+            recorded_kf_programs() as kf3:
+        launches_vo, calib, images, poses, strict, fs = phase_main_path()
     # every device-LM call of phase 3 went through its graph
     if not strict["ba_replays"] == len(phase3_ba_ms) > 0:
         _fail(f"phase 3: {strict['ba_replays']} BA graph replays for "
               f"{len(phase3_ba_ms)} BA calls")
     trip_record = phase_trip_frame(fs, images, trip_edges,
                                    strict["k3_by_mode"])
-    phase_trace_frame(trace_record, traces3)
-    del traces3
+    phase_trace_frame(trace_record, steps3.pop("traces"))
     phase_activate_frame(act_record, acts3)
     del acts3
-    graph = phase_tracker_graph(fs, images, tracks3)
-    del tracks3
+    graph = phase_tracker_graph(fs, images, steps3.pop("tracks"),
+                                steps3["steps"])
     ba_graph = phase_ba_graph(ba_records, phase3_ba_ms,
                               proj_record["device_ms"])
     phase_ba_frame(ba_records, margs3, lin_record, acc_record)
@@ -4148,6 +4546,9 @@ def main() -> int:
     phase_dispatch_ahead(fs, images)
     phase_checkpoint(fs, root)
     boot_program = phase_bootstrap_program(calib, images, strict)
+    step_program = phase_frame_step_program(steps3.pop("steps"), strict, fs,
+                                            images)
+    del steps3
     window3 = fs.ef.W
     del fs
     launches, post_boot, map4 = phase_loop_slice()
@@ -4268,6 +4669,7 @@ def main() -> int:
     print(json.dumps({"keyframe_programs": kf_programs}))
     print(json.dumps({"activation_program": act_program}))
     print(json.dumps({"bootstrap_program": boot_program}))
+    print(json.dumps({"frame_step_program": step_program}))
     print(json.dumps(bench))
     print(json.dumps({"kernels": [record, trip_record, proj_record,
                                   trace_record, act_record, lin_record,

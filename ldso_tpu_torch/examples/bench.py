@@ -23,7 +23,8 @@ clock starts), and the legs run in this order on one FullSystem:
   ate        the similarity-aligned ATE (`bench_ate`) over every frame
              before the async leg with a valid pose;
   util       device ms of four programs at the warm system's state: the
-             frame step (pyramid and the captured tracker), the trace of
+             frame step (the chain step's program: the pyramid and the
+             track, one graph replay), the trace of
              the whole arena as the system runs it (labelled with its live
              lane count), the keyframe's activation pass over the whole
              arena (the splat, K1, K5, the insert; same label) and the
@@ -56,9 +57,12 @@ point marginalization's, the activation's and the bootstrap frame's graph
 captures and replays, K6's and K7's launches through the BA's and the
 marginalization's, and the host seconds replays waited for a graph's
 lock: every FullSystem of the process shares the graphs, so S systems'
-replays queue on one lock), `traces` (the arena traces:
-FullSystem._trace_arena's calls, and util's timed trace calls; K4 launches
-once for each on the card), `activations` (the activation passes:
+replays queue on one lock; the frame and chain steps' too),
+`traces` (the arena traces committed: the frame steps' trace flags,
+FullSystem._trace_arena's calls and util's timed trace calls),
+`k4_expected` (K4's launches on the card that the leg's frame steps,
+trace calls and captures imply: time_modes.counted_traces), `activations`
+(the activation passes:
 FullSystem._activation_pass's calls, and util's timed ones; K5 launches
 once for each), `leg_s` (wall seconds) and
 `peak_memory_gb`; and `device` (the card's name and power limit, the
@@ -175,7 +179,7 @@ class Run:
     poses: List[np.ndarray] = None
     images: List[np.ndarray] = None
     fs: Optional[fsm.FullSystem] = None
-    # the arena traces: FullSystem._trace_arena's calls and util's own
+    # the arena traces (time_modes.counted_traces), util's own among them
     traces: Optional[dict] = None
     # the activation passes: FullSystem._activation_pass's calls and
     # util's own
@@ -408,17 +412,17 @@ def leg_util(run: Run, result: dict):
     W0, arena0 = fs.ef.W, fs.imm_arena
     img = upload_image(run.images[shell.id], dev)
 
-    # 1. the frame step: pyramid and the captured tracker, chained
+    # 1. the frame step: the chain step's program (the chain's hypothesis,
+    # the pyramid, the track and the chain's advance), one replay, chained
     fs.chain_reset()
     ref, ref_shell = fs._current_tracker_ref()
-    T_ref = fs._f32(ref_shell.T_cw)
+    up = fs._f32(np.r_[np.ravel(ref_shell.T_cw), 1.0])
 
     def frame_step(c):
-        T0, aff0, _ = fsm._chain_prep(c, T_ref)
-        pyr, packed = fs._frame_step_chain(img, ref, T0, aff0, 1.0)
-        return fsm._chain_update(c, packed, T0, T_ref), (pyr, packed)
+        pyr, packed, c = fs._chain_step(img, ref, c, up)
+        return c, (pyr, packed)
     util["frame_step(track)"] = program_util(dev, frame_step, fs.track_chain,
-                                             (img, ref, T_ref))
+                                             (img, ref, up))
 
     # 2. the whole arena's trace against that frame, labelled with its live
     # lane count
@@ -431,6 +435,7 @@ def leg_util(run: Run, result: dict):
 
     def trace(arena):
         run.traces["traces"] += 1
+        run.traces["trace_calls"] += 1
         out = immature.trace_arena(arena, pyr.dI[0], *transforms, calib,
                                    cfg)
         return out, out
@@ -478,6 +483,12 @@ def _graph_counts() -> dict:
                 init_captures=initializer.INIT_GRAPHS.counts["count"],
                 init_replays=initializer.INIT_GRAPHS.counts["replays"],
                 init_wait_s=initializer.INIT_GRAPHS.lock_wait_s(),
+                **{f"{name}_{k}": fam.counts[c] for name, fam
+                   in time_modes.STEP_FAMILIES.items()
+                   for k, c in (("captures", "count"),
+                                ("replays", "replays"))},
+                **{f"{name}_wait_s": fam.lock_wait_s() for name, fam
+                   in time_modes.STEP_FAMILIES.items()},
                 **{f"{k}_in_graphs": n
                    for k, n in time_modes.graph_launches().items()})
 
@@ -632,6 +643,8 @@ def measure(args: argparse.Namespace) -> dict:
                     fn(run, result)
             finally:
                 result.setdefault("traces", {})[leg] = run.traces["traces"]
+                result.setdefault("k4_expected", {})[leg] = \
+                    run.traces["k4_expected"]
                 result.setdefault("activations", {})[leg] = \
                     run.activations["activations"]
                 result.setdefault("leg_s", {})[leg] = time.perf_counter() - t0

@@ -12,14 +12,18 @@ the wall clock from the first frame to the end of the drain (with a
 synchronise) per frame (`ms_per_frame_wall`), the median host time of one
 add_active_frame call from the bootstrap on (`ms_per_frame_median`), the
 keyframes, the ATE, K1's launches and the streams they went to, K3's
-launches beside the count the run's tracker calls imply, K4's launches
-beside the arena traces (FullSystem._trace_arena calls), K5's launches
-beside the activation passes (FullSystem._activation_pass calls), the
-retrack-gate trips, how many frames the tracker ran on (a pipeline
-re-tracks its frames in flight after each keyframe) and the host time of
-those calls (on the card a graph replay that does not wait for the
-track), the tracker graphs captured inside the run (0: the FullSystem
-captures them when it is built), K12's launches and the device LM's graph
+launches beside the count the run's tracks imply, K4's launches beside
+the count the frame steps and FullSystem._trace_arena calls imply and the
+traces committed (the frame steps' trace flags and the _trace_arena
+calls), K5's launches beside the activation passes
+(FullSystem._activation_pass calls), the retrack-gate trips, how many
+frames the tracker ran on (a pipeline re-tracks its frames in flight
+after each keyframe) and the host time of those calls (on the card a
+graph replay that does not wait for the track), the tracker's and the
+frame and chain steps' graphs captured inside the run (0: the FullSystem
+captures them when it is built) and the steps' replays (one per strict
+frame after the bootstrap, one per chain dispatch), K12's launches and
+the device LM's graph
 replays and captures (one replay per BA call; 0 captures, as the
 tracker's), the keyframe's dispatches and its three programs' replays and
 captures (the post-BA flags, the tracker reference and the new
@@ -134,58 +138,102 @@ def traced_k1():
         FullSystem._activation_pass = act
 
 
+# the frame step's and the chain step's captured programs by the name
+# run_mode reports them under
+STEP_FAMILIES = dict(frame_step=fsm.FRAME_STEP_GRAPHS,
+                     chain_step=fsm.CHAIN_STEP_GRAPHS)
+
+
+def _step_counts(key: str) -> int:
+    return sum(f.counts[key] for f in STEP_FAMILIES.values())
+
+
 @contextlib.contextmanager
 def counted_tracks():
-    """Count the tracker's entry calls while inside and yield the counts:
-    tracks (track_frame and track_frame_hypotheses calls), ranks
-    (rank_hypotheses calls), captures (tracker graphs captured, each of
-    which also runs its program once eagerly), and lm_frames and lm_s, the
-    track_frame calls (not the retry batches) and their host seconds."""
+    """Count the tracks while inside and yield the counts: tracks (the
+    frame and chain steps, FullSystem._frame_step_dispatch and _chain_step,
+    each with hypothesis 0's track in its program, and the tracker's
+    entry calls track_frame and track_frame_hypotheses), ranks
+    (rank_hypotheses calls), captures (the steps' and the tracker's graphs
+    captured, each of which also runs its program once eagerly), and
+    lm_frames and lm_s, the steps and track_frame calls (not the retry
+    batches) and their host seconds (on the card a graph replay that does
+    not wait for the track)."""
     counts = dict(tracks=0, ranks=0, lm_frames=0, lm_s=0.0)
-    captures = track_graph.CAPTURES["count"]
+    captures = track_graph.CAPTURES["count"] + _step_counts("count")
     saved = {name: getattr(tracker, name) for name in
              ("track_frame", "track_frame_hypotheses", "rank_hypotheses")}
+    steps = {name: getattr(FullSystem, name)
+             for name in ("_frame_step_dispatch", "_chain_step")}
+    lock = threading.Lock()
 
     def wrap(fn, key, timed=False):
         def counted(*a, **k):
-            counts[key] += 1
             t = time.perf_counter()
             out = fn(*a, **k)
-            if timed:
-                counts["lm_frames"] += 1
-                counts["lm_s"] += time.perf_counter() - t
+            with lock:
+                counts[key] += 1
+                if timed:
+                    counts["lm_frames"] += 1
+                    counts["lm_s"] += time.perf_counter() - t
             return out
         return counted
     tracker.track_frame = wrap(saved["track_frame"], "tracks", timed=True)
     tracker.track_frame_hypotheses = wrap(saved["track_frame_hypotheses"],
                                           "tracks")
     tracker.rank_hypotheses = wrap(saved["rank_hypotheses"], "ranks")
+    for name, fn in steps.items():
+        setattr(FullSystem, name, wrap(fn, "tracks", timed=True))
     try:
         yield counts
     finally:
         for name, fn in saved.items():
             setattr(tracker, name, fn)
-        counts["captures"] = track_graph.CAPTURES["count"] - captures
+        for name, fn in steps.items():
+            setattr(FullSystem, name, fn)
+        counts["captures"] = (track_graph.CAPTURES["count"]
+                              + _step_counts("count") - captures)
 
 
 @contextlib.contextmanager
 def counted_traces():
-    """Count FullSystem._trace_arena's calls while inside, on every thread,
-    and yield the count ({"traces": n}): each is one trace of the candidate
-    arena, one K4 launch on the card."""
-    counts = dict(traces=0)
+    """Count the arena's traces while inside, on every thread, and yield
+    the counts: `traces`, the traces committed (each frame step's trace
+    flag, from its packed row, and each FullSystem._trace_arena call);
+    `trace_calls`, the _trace_arena calls; `frame_steps`, the strict frame
+    steps (FullSystem._frame_step calls); and, at the block's end,
+    `k4_expected`, the K4 launches they imply on the card: one per
+    _trace_arena call, one per replay of the frame step's graph (its trace
+    runs whatever the gate decides) and one per graph captured (its eager
+    warm-up). A caller that traces by itself adds to `traces` and
+    `trace_calls`."""
+    counts = dict(traces=0, trace_calls=0, frame_steps=0)
     lock = threading.Lock()
-    trace = FullSystem._trace_arena
+    trace, step = FullSystem._trace_arena, FullSystem._frame_step
+    fam = fsm.FRAME_STEP_GRAPHS
+    before = fam.counts["replays"] + fam.counts["count"]
 
     def counted(self, *a, **k):
         with lock:
             counts["traces"] += 1
+            counts["trace_calls"] += 1
         return trace(self, *a, **k)
+
+    def counted_step(self, *a, **k):
+        pyr, pk = step(self, *a, **k)
+        with lock:
+            counts["frame_steps"] += 1
+            counts["traces"] += int(pk[19] > 0.5)
+        return pyr, pk
     FullSystem._trace_arena = counted
+    FullSystem._frame_step = counted_step
     try:
         yield counts
     finally:
         FullSystem._trace_arena = trace
+        FullSystem._frame_step = step
+        counts["k4_expected"] = (counts["trace_calls"] + fam.counts["replays"]
+                                 + fam.counts["count"] - before)
 
 
 @contextlib.contextmanager
@@ -247,11 +295,13 @@ PASS_FAMILIES = dict(activate=fsm.ACTIVATE_GRAPHS,
 
 
 def kf_graph_counts() -> dict:
-    """The keyframe programs' and the bootstrap's graphs captured and
-    replays so far: {"<name>_captures": n, "<name>_replays": n} for each of
-    KF_FAMILIES and PASS_FAMILIES."""
+    """The keyframe programs', the bootstrap's and the frame and chain
+    steps' graphs captured and replays so far: {"<name>_captures": n,
+    "<name>_replays": n} for each of KF_FAMILIES, PASS_FAMILIES and
+    STEP_FAMILIES."""
     out = {}
-    for name, fam in {**KF_FAMILIES, **PASS_FAMILIES}.items():
+    for name, fam in {**KF_FAMILIES, **PASS_FAMILIES,
+                      **STEP_FAMILIES}.items():
         out[f"{name}_captures"] = fam.counts["count"]
         out[f"{name}_replays"] = fam.counts["replays"]
     return out
@@ -404,6 +454,9 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                k3_expected=k3_expected(tracks, cfg, calib.levels),
                k12_launches=launches["ba_projector"],
                k4_launches=launches["trace"], traces=traces["traces"],
+               trace_calls=traces["trace_calls"],
+               frame_steps=traces["frame_steps"],
+               k4_expected=traces["k4_expected"],
                k5_launches=launches["activate"],
                activations=acts["activations"],
                ba_replays=ba_graphs["replays"],

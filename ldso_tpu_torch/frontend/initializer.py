@@ -55,7 +55,7 @@ LM_SCALE = (SCALE_XI_ROT,) * 3 + (SCALE_XI_TRANS,) * 3 + (SCALE_A, SCALE_B)
 # the bootstrap frame's captured programs (utils/graphs.Programs): a CUDA
 # graph per (calibration, Config, level capacities), captured when the
 # first frame is set
-INIT_GRAPHS = Programs()
+INIT_GRAPHS = Programs(capture_on_replay=False)
 
 
 class InitLevel(NamedTuple):
@@ -628,7 +628,7 @@ def _run(family: Programs, static, fn, inputs):
     by capture_frame_program: a key with no graph raises), eagerly on the
     CPU."""
     if inputs[0].device.type == "cuda":
-        return family.replay(static, fn, tuple(inputs), capture=False)
+        return family.replay(static, fn, tuple(inputs))
     return tuple(fn(*inputs))
 
 

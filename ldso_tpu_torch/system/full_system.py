@@ -6,7 +6,9 @@ semantics: every frame is tracked, and every keyframe is mapped, before
 the next frame enters.
 
   addActiveFrame (:68-157)  -> add_active_frame: pyramid -> init or track
-  trackNewCoarse (:179-382) -> _track_new_coarse: hypothesis 0, then the
+  trackNewCoarse (:179-382) -> _track_new_coarse: the frame step (the
+                               pyramid, hypothesis 0, the retrack gate and
+                               the candidate trace), then the
                                rank-then-refine retry over the 83 motion
                                hypotheses when the retrack gate trips
   makeKeyFrame   (:410-591) -> make_keyframe: trace -> flag marg -> insert
@@ -34,7 +36,11 @@ point marginalization's result go home as HostCopys that finish() reads,
 and the post-BA flags, the tracker reference and the new candidates are
 one captured program each (POST_BA_GRAPHS, TRACKER_REF_GRAPHS,
 NEW_TRACES_GRAPHS). The bootstrap's frames are one captured program each
-too (frontend/initializer.INIT_GRAPHS, captured at the first frame).
+too (frontend/initializer.INIT_GRAPHS, captured at the first frame), and
+so is every tracked frame, as the JAX package's `_frame_step` and
+`_frame_step_chain` are: the strict frame step (`frame_step`,
+FRAME_STEP_GRAPHS) and the pipelines' chain step (`chain_step`,
+CHAIN_STEP_GRAPHS), each one replay and one pull a frame.
 """
 
 from __future__ import annotations
@@ -61,8 +67,9 @@ from ldso_tpu_torch.math import lie_np
 from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.ops import select as select_ops
 from ldso_tpu_torch.ops.interp import bilinear
-from ldso_tpu_torch.ops.preprocess import (FramePyramid, make_pyramid,
-                                           to_device, upload_image)
+from ldso_tpu_torch.ops.preprocess import (FramePyramid, _to_intensity,
+                                           make_pyramid, to_device,
+                                           upload_image)
 from ldso_tpu_torch.slam_map import FrameShell, GlobalMap, MapPointRecord
 from ldso_tpu_torch.utils.device import (DEFAULT_DEVICE, HostCopy,
                                          entry_device, record_event)
@@ -448,6 +455,172 @@ def _chain_update(chain: TrackChain, packed, T0, T_ref_cw) -> TrackChain:
                       torch.where(ok, res, chain.rmse))
 
 
+# the frame step (`frame_step`: the pyramid, hypothesis 0's track, the
+# retrack gate and the candidate arena's trace) and the pipelines' chain
+# step (`chain_step`: the chain's hypothesis, the pyramid, the track and
+# the chain's advance), each one captured program per key on the card, as
+# the JAX package's `_frame_step` and `_frame_step_chain` are one device
+# program each. FullSystem.warm_retrack_programs captures both for every
+# FRAME_DTYPES when a card system is built; a replay of a key with no
+# graph raises
+FRAME_STEP_GRAPHS = Programs(capture_on_replay=False)
+CHAIN_STEP_GRAPHS = Programs(capture_on_replay=False)
+# the frame dtypes the steps' graphs are captured for: uint8 frames as they
+# are uploaded (the synthetic scenes, the bench) and float32 ones (the
+# dataset readers' rectified frames); any other is made float32 first
+FRAME_DTYPES = (torch.uint8, torch.float32)
+
+
+def frame_image(image, device) -> torch.Tensor:
+    """A frame on `device` in one of FRAME_DTYPES: uploaded as upload_image
+    does, a uint16 (8.8 fixed point) or float64 frame then turned into the
+    float32 intensities make_pyramid would make of it, on the device."""
+    img = upload_image(image, device)
+    return img if img.dtype in FRAME_DTYPES else _to_intensity(img)
+
+
+def _frame_row(up):
+    """The frame step's upload (FullSystem._frame_upload) [T0 (16), aff0
+    (2), exposure, last_rmse[0], commit, T_ref_cw (16), T_hosts (F x 16),
+    host_affs (F x 2), host_expos (F)] read on the device as (T0 (4, 4),
+    aff0 (2,), exposure (0-d), last0 (0-d), commit (0-d bool), T_ref_cw
+    (4, 4), T_hosts (F, 4, 4), host_affs (F, 2), host_expos (F,)). Each
+    piece is a copy: it starts where a tensor of its own would, as the
+    separate uploads it replaces did."""
+    F = (up.shape[0] - 37) // 19
+    cut = np.cumsum([0, 16, 2, 1, 1, 1, 16, F * 16, F * 2, F]).tolist()
+    T0, aff0, expo, last0, commit, T_ref, T_hosts, affs, expos = (
+        up[cut[k]:cut[k + 1]].clone() for k in range(9))
+    return (T0.view(4, 4), aff0, expo.view(()), last0.view(()),
+            commit.view(()) > 0.5, T_ref.view(4, 4), T_hosts.view(F, 4, 4),
+            affs.view(F, 2), expos)
+
+
+def trace_tables(T_new_cw, aff, exposure, T_hosts, host_affs, host_expos,
+                 calib: Calibration):
+    """The trace's per-host inputs for a new frame at T_new_cw (4, 4) with
+    brightness affine `aff` (2,) and `exposure` (a float or a 0-d tensor),
+    against hosts at T_hosts (F, 4, 4) with host_affs (F, 2) and
+    host_expos (F,): K R K^-1 (F, 3, 3), K t (F, 3) and the host -> new
+    brightness transfer (F, 2). Reads nothing back: K is a kept device
+    constant and the inverses are inv_ex's LU with no check of its info."""
+    K = device_const(tuple(map(tuple, calib.K(0).tolist())), T_new_cw.device)
+    Ki = torch.linalg.inv_ex(K)[0]
+    T_rel = torch.einsum("ij,fjk->fik", T_new_cw,
+                         torch.linalg.inv_ex(T_hosts)[0])
+    # K4 takes contiguous tables; einsum may give a view on the card
+    KRKis = torch.einsum("ij,fjk,kl->fil", K, T_rel[:, :3, :3],
+                         Ki).contiguous()
+    Kts = torch.einsum("ij,fj->fi", K, T_rel[:, :3, 3]).contiguous()
+    ra = torch.exp(aff[0] - host_affs[:, 0]) * exposure / host_expos
+    affs = torch.stack([ra, aff[1] - ra * host_affs[:, 1]], dim=-1)
+    return KRKis, Kts, affs
+
+
+def _track_hypothesis0(img, ref, T0, aff0, exposure, b_grad,
+                       calib: Calibration, cfg: Config):
+    """The pyramid of an uploaded frame and its track from T0: the
+    tracker's masked program at batch 1, called as it is (a graph's replay
+    cannot be recorded inside another capture). Returns (pyr, T, aff, ok,
+    res, flow)."""
+    nlv = calib.levels
+    pyr = make_pyramid(img, nlv, b_grad)
+    no_abort = torch.full((nlv,), 1e9, dtype=torch.float32,
+                          device=img.device)
+    out = tracker._track_batch(ref, pyr, T0[None], aff0, exposure, no_abort,
+                               calib, cfg, nlv - 1)
+    return (pyr,) + tuple(o[0] for o in out)
+
+
+def frame_step(img, ref, arena, up, b_grad, calib: Calibration,
+               cfg: Config):
+    """The strict frame step (the JAX package's `_frame_step` with its
+    trace, full_system.py:47-104): the pyramid of the uploaded frame, the
+    track of hypothesis 0, the retrack gate on the device, and the trace of
+    the whole candidate arena against the new frame, committed only where
+    the gate passes. `up` is the one upload (`_frame_row`); its commit bit
+    is the caller's commit_trace. Returns (pyr, arena', packed): arena'
+    the traced fields where the gate passes and the arena bitwise as it
+    went in where it fails; packed [T (16), aff (2), ok, the trace flag,
+    res (L), flow (3)] in the JAX layout."""
+    (T0, aff0, expo, last0, commit, T_ref, T_hosts, host_affs,
+     host_expos) = _frame_row(up)
+    pyr, T, aff, ok, res, flow = _track_hypothesis0(img, ref, T0, aff0, expo,
+                                                    b_grad, calib, cfg)
+    # the retrack gate in float32 (FullSystem.cc:117-123, the JAX
+    # program's :67-69), and the caller's commit
+    gate = commit & ok & torch.isfinite(res[0]) & (
+        ~torch.isfinite(last0) | (res[0] < last0 * cfg.re_track_threshold))
+    traced = immature.trace_arena(
+        arena, pyr.dI[0], *trace_tables(T @ T_ref, aff, expo, T_hosts,
+                                         host_affs, host_expos, calib),
+        calib, cfg)
+    pool = arena.pool._replace(**{
+        f: torch.where(gate, getattr(traced.pool, f), getattr(arena.pool, f))
+        for f in cuda_kernels.TRACE_OUTPUTS})
+    packed = torch.cat([T.reshape(-1), aff, ok.to(torch.float32)[None],
+                        gate.to(torch.float32)[None], res, flow])
+    return pyr, arena._replace(pool=pool), packed
+
+
+def chain_step(img, ref, chain: TrackChain, up, b_grad, calib: Calibration,
+               cfg: Config):
+    """The pipelines' chain step (the JAX package's `_chain_prep`,
+    `_frame_step_chain` and `_chain_update`, full_system.py:106-123 and
+    :479-502): hypothesis 0 from the chain against the reference, the
+    pyramid and the track, no trace (the mapping side owns the arena), and
+    the chain advanced. `up` is the one upload [T_ref_cw (16), exposure].
+    Returns (pyr, packed with a zero trace flag, chain')."""
+    T_ref = up[:16].clone().view(4, 4)
+    expo = up[16:17].clone().view(())
+    T0, aff0, _ = _chain_prep(chain, T_ref)
+    pyr, T, aff, ok, res, flow = _track_hypothesis0(img, ref, T0, aff0, expo,
+                                                    b_grad, calib, cfg)
+    packed = torch.cat([T.reshape(-1), aff, ok.to(torch.float32)[None],
+                        torch.zeros(1, device=img.device), res, flow])
+    return pyr, packed, _chain_update(chain, packed, T0, T_ref)
+
+
+def _ref_flat(ref: tracker.TrackerRef) -> tuple:
+    return (*ref.points, *ref.valid, ref.ref_exposure, ref.ref_aff)
+
+
+def _ref_of(xs, L: int) -> tracker.TrackerRef:
+    return tracker.TrackerRef(points=tuple(xs[:L]), valid=tuple(xs[L:2 * L]),
+                              ref_exposure=xs[2 * L], ref_aff=xs[2 * L + 1])
+
+
+def _frame_step_program(calib: Calibration, cfg: Config, with_lut: bool):
+    """frame_step over (the frame, the tracker reference's tensors, the
+    arena's fields, the upload[, the gradient LUT]): the pyramid's dI and
+    abs_grad levels, the arena's fields and the packed row."""
+    L = calib.levels
+    na = len(immature.ImmaturePool._fields) + 1
+
+    def program(*xs):
+        ref, rest = _ref_of(xs[1:], L), xs[2 * L + 3:]
+        pyr, arena, packed = frame_step(
+            xs[0], ref, _arena_of(rest[:na]), rest[na],
+            rest[na + 1] if with_lut else None, calib, cfg)
+        return pyr.dI + pyr.abs_grad + _arena_flat(arena) + (packed,)
+    return program
+
+
+def _chain_step_program(calib: Calibration, cfg: Config, with_lut: bool):
+    """chain_step over (the frame, the tracker reference's tensors, the
+    chain's four tensors, the upload[, the gradient LUT]): the pyramid's
+    dI and abs_grad levels, the packed row and the new chain's tensors."""
+    L = calib.levels
+
+    def program(*xs):
+        ref, rest = _ref_of(xs[1:], L), xs[2 * L + 3:]
+        pyr, packed, chain = chain_step(
+            xs[0], ref, TrackChain(*rest[:4]), rest[4],
+            rest[5] if with_lut else None, calib, cfg)
+        return pyr.dI + pyr.abs_grad + (packed,) + tuple(chain)
+    return program
+
+
 def _tensors(tree):
     """The tensors of a NamedTuple/tuple tree (a pyramid, a tracker ref)."""
     if isinstance(tree, torch.Tensor):
@@ -521,6 +694,10 @@ class FullSystem:
         self.marg_flags: List[bool] = []
         self._imm_cap = cfg.max_immature
         self.imm_arena = immature.empty_arena(2 * cfg.max_immature, cfg, dev)
+        # dead lanes of the arena's shape: what a frame step that does not
+        # commit its trace traces (`_frame_step_dispatch`)
+        self._idle_arena = immature.empty_arena(2 * cfg.max_immature, cfg,
+                                                dev)
         self.imm_live: List[bool] = []
         self.dIs = torch.zeros((self.ef.F, calib.h[0], calib.w[0], 3),
                                dtype=torch.float32, device=dev)
@@ -690,35 +867,38 @@ class FullSystem:
         self.track_chain = TrackChain(self._f32(T_slast), self._f32(T_sprelast),
                                       self._f32(aff), self._f32(rmse))
 
-    def _frame_step_chain(self, img, ref, T0, aff0, exposure: float):
-        """The chain step: pyramid + tracking of hypothesis 0, no trace (the
-        mapping side owns the candidate arena). The packed layout is the
-        JAX package's: T (16), aff (2), ok, a zero trace flag, the L level
-        residuals, the 3 flow values."""
-        nlv = self.calib.levels
-        pyr = make_pyramid(img, nlv, self.b_grad)
-        no_abort = torch.full((nlv,), 1e9, dtype=torch.float32,
-                              device=self.device)
-        T, aff, ok, res, flow = tracker.track_frame(
-            ref, pyr, T0, aff0, self._f32(exposure), no_abort, self.calib,
-            self.cfg, nlv - 1)
-        packed = torch.cat([T.reshape(-1), aff, ok.to(torch.float32)[None],
-                            torch.zeros(1, device=self.device), res, flow])
-        return pyr, packed
+    def _chain_step(self, img, ref, chain: TrackChain, up):
+        """The chain step (`chain_step`) on an uploaded frame `img` (one of
+        FRAME_DTYPES) against the tracking reference `ref`, from `chain`,
+        on the upload `up` [T_ref_cw (16), exposure]: on the card one
+        replay of CHAIN_STEP_GRAPHS. Returns (pyr, packed, the new
+        chain)."""
+        L = self.calib.levels
+        out = _program(*self._chain_step_call(img, ref, chain, up))
+        return (FramePyramid(dI=out[:L], abs_grad=out[L:2 * L]), out[2 * L],
+                TrackChain(*out[2 * L + 1:]))
+
+    def _chain_step_call(self, img, ref, chain, up):
+        """The chain step's (family, static, program, inputs). The program
+        reads the Config's tracker fields alone, so it is keyed on them."""
+        calib, lut = self.calib, self.b_grad is not None
+        return (CHAIN_STEP_GRAPHS, (calib, tracker.graph_key(self.cfg), lut),
+                _chain_step_program(calib, self.cfg, lut),
+                (img,) + _ref_flat(ref) + tuple(chain) + (up,)
+                + ((self.b_grad,) if lut else ()))
 
     def track_chain_dispatch(self, shell: FrameShell, image):
         """Track a frame from the chain's motion hypothesis and advance the
         chain on the device. Returns (pyr, packed result as a HostCopy,
-        ref_shell used). Nothing here waits for the card: the uploads go
-        through pinned memory and the tracker is one graph replay, so the
-        call returns before the frame is tracked, and the HostCopy turns
-        ready once it is (the JAX package's dispatch, pipeline.py:95-98)."""
+        ref_shell used). Nothing here waits for the card: the frame and the
+        one upload [T_ref_cw, exposure] go through pinned memory and the
+        step is one graph replay, so the call returns before the frame is
+        tracked, and the HostCopy turns ready once it is (the JAX
+        package's dispatch, pipeline.py:95-98)."""
         ref, ref_shell = self._current_tracker_ref()
-        T_ref = self._f32(ref_shell.T_cw)
-        T0, aff0, _ = _chain_prep(self.track_chain, T_ref)
-        pyr, packed = self._frame_step_chain(upload_image(image, self.device),
-                                             ref, T0, aff0, shell.exposure)
-        self.track_chain = _chain_update(self.track_chain, packed, T0, T_ref)
+        up = self._f32(np.r_[np.ravel(ref_shell.T_cw), shell.exposure])
+        pyr, packed, self.track_chain = self._chain_step(
+            frame_image(image, self.device), ref, self.track_chain, up)
         if self.viewer is not None:
             self.viewer.publish_frame(image)
         return pyr, HostCopy(packed), ref_shell
@@ -764,21 +944,24 @@ class FullSystem:
 
     def warm_retrack_programs(self):
         """Build what a run would otherwise first build mid-run: the
-        kernels' library (compiled from source on first use), the tracker's
-        CUDA graphs for one frame and for the retry batch (frontend/
-        track_graph, captured on placeholder inputs of this system's
-        shapes), the device LM's graph for each of its trip counts
-        (EnergyFunctional.warm_ba_programs), the point marginalization's
-        graph (EnergyFunctional.warm_marg_program), the keyframe's
-        activation, post-BA, tracker-reference and new-candidate programs
-        (`_capture_keyframe`) and, with loop closing, the native host
-        library. The bootstrap's graph, keyed on set_first's level
-        capacities, is captured at the first frame (_do_initialize). The
-        constructor calls it on the card; repeat calls are free."""
+        kernels' library (compiled from source on first use), the frame
+        step's and the chain step's graphs for each of FRAME_DTYPES
+        (`_capture_steps`), the tracker's CUDA graph for the retry batch
+        (frontend/track_graph), each captured on placeholder inputs of
+        this system's shapes, the device LM's graph for each of its trip
+        counts (EnergyFunctional.warm_ba_programs), the point
+        marginalization's graph (EnergyFunctional.warm_marg_program), the
+        keyframe's activation, post-BA, tracker-reference and
+        new-candidate programs (`_capture_keyframe`) and, with loop
+        closing, the native host library. The bootstrap's graph, keyed on
+        set_first's level capacities, is captured at the first frame
+        (_do_initialize). The constructor calls it on the card; repeat
+        calls are free."""
         if self._retrack_warm:
             return
         if self.device.type == "cuda":
             cuda_kernels._load()
+            self._capture_steps()
             self._capture_tracker()
             self.ef.warm_ba_programs(self.dIs, self.cfg.max_opt_iterations,
                                      self.calib.w[0], self.calib.h[0])
@@ -789,27 +972,54 @@ class FullSystem:
             native.get_lib()
         self._retrack_warm = True
 
-    def _capture_tracker(self):
-        """Track placeholder inputs of this system's shapes at batch 1 and
-        RETRY_K, so both tracker graphs exist before the first frame."""
-        calib, dev = self.calib, self.device
-        caps = self.cfg.tracker_caps[:calib.levels]
-        f32 = dict(dtype=torch.float32, device=dev)
-        ref = tracker.TrackerRef(
-            points=tuple(torch.zeros(c, 4, **f32) for c in caps),
+    def _placeholder_ref(self) -> tracker.TrackerRef:
+        """A tracking reference of this system's shapes, all zeros."""
+        dev = self.device
+        caps = self.cfg.tracker_caps[:self.calib.levels]
+        return tracker.TrackerRef(
+            points=tuple(torch.zeros(c, 4, dtype=torch.float32, device=dev)
+                         for c in caps),
             valid=tuple(torch.zeros(c, dtype=torch.bool, device=dev)
                         for c in caps),
-            ref_exposure=torch.ones((), **f32), ref_aff=torch.zeros(2, **f32))
+            ref_exposure=torch.ones((), dtype=torch.float32, device=dev),
+            ref_aff=torch.zeros(2, dtype=torch.float32, device=dev))
+
+    def _capture_steps(self):
+        """Capture the frame step and the chain step for each of
+        FRAME_DTYPES on placeholder inputs of this system's shapes (the
+        arena as built, a zero frame, identity poses), so that no step
+        captures mid-run (FRAME_STEP_GRAPHS, CHAIN_STEP_GRAPHS)."""
+        calib, dev = self.calib, self.device
+        ref = self._placeholder_ref()
+        up = self._frame_upload(np.eye(4), np.zeros(2), 1.0, True, np.eye(4))
+        chain_up = self._f32(np.r_[np.eye(4).ravel(), 1.0])
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        chain = TrackChain(eye, eye, torch.zeros(2, device=dev),
+                           torch.full((calib.levels,), float("inf"),
+                                      device=dev))
+        for dtype in FRAME_DTYPES:
+            img = torch.zeros(calib.h[0], calib.w[0], dtype=dtype, device=dev)
+            for family, static, fn, inputs in (
+                    self._frame_step_call(img, ref, self.imm_arena, up),
+                    self._chain_step_call(img, ref, chain, chain_up)):
+                family.capture(static, fn, inputs)
+
+    def _capture_tracker(self):
+        """Track placeholder inputs of this system's shapes at the retry
+        batch RETRY_K, so that its tracker graph exists before the first
+        frame (hypothesis 0 is tracked inside the frame and chain
+        steps)."""
+        calib, dev = self.calib, self.device
+        f32 = dict(dtype=torch.float32, device=dev)
         pyr = FramePyramid(dI=tuple(torch.zeros(calib.h[lvl], calib.w[lvl], 3,
                                                 **f32)
                                     for lvl in range(calib.levels)),
                            abs_grad=())
-        for batch in (1, RETRY_K):
-            tracker.track_frame_hypotheses(
-                ref, pyr, torch.eye(4, **f32).expand(batch, 4, 4),
-                torch.zeros(2, **f32), torch.ones((), **f32),
-                torch.full((calib.levels,), 1e9, **f32), calib, self.cfg,
-                calib.levels - 1)
+        tracker.track_frame_hypotheses(
+            self._placeholder_ref(), pyr,
+            torch.eye(4, **f32).expand(RETRY_K, 4, 4), torch.zeros(2, **f32),
+            torch.ones((), **f32), torch.full((calib.levels,), 1e9, **f32),
+            calib, self.cfg, calib.levels - 1)
 
     def _capture_keyframe(self):
         """Capture the activation's graphs (`_capture_activation`) and run
@@ -887,40 +1097,53 @@ class FullSystem:
     # ---------------------------------------------------------------- tracking
     def _frame_step(self, img, ref, T0, aff0, exposure: float, T_ref_cw,
                     commit_trace: bool = True):
-        """Pyramid + tracking of hypothesis 0 + the candidate trace against
-        the new frame when tracking clears the retrack gate and
-        commit_trace is set (the JAX package's fused `_frame_step`)."""
-        cfg, calib = self.cfg, self.calib
-        dev = self.device
-        nlv = calib.levels
-        pyr = make_pyramid(upload_image(img, dev), nlv, self.b_grad)
-        no_abort = torch.full((nlv,), 1e9, dtype=torch.float32, device=dev)
-        T, aff, ok, res, flow = tracker.track_frame(
-            ref, pyr, T0, aff0, self._f32(exposure), no_abort, calib, cfg,
-            nlv - 1)
-        out = torch.cat([T.reshape(-1), aff, ok.to(torch.float32)[None], res,
-                         flow]).cpu().numpy()
-        T_np, aff_np, ok_np = out[:16].reshape(4, 4), out[16:18], out[18] > 0.5
-        res_np, flow_np = out[19:19 + nlv], out[19 + nlv:22 + nlv]
-        # the gate in float32, as the fused JAX program evaluates it
-        last0 = np.float32(self.last_coarse_rmse[0])
-        accept = commit_trace and bool(ok_np and np.isfinite(res_np[0]) and (
-            not np.isfinite(last0)
-            or res_np[0] < last0 * np.float32(cfg.re_track_threshold)))
-        if accept:
-            self._trace_arena(pyr, *self._trace_transforms(
-                T @ self._f32(T_ref_cw), aff, exposure))
-        return pyr, T_np, aff_np, ok_np, res_np, flow_np, accept
+        """The strict frame step (`frame_step`, the JAX package's fused
+        `_frame_step`): `_frame_step_dispatch`, then the one read of its
+        packed row. Returns (pyr, the packed row as float64 [T (16), aff
+        (2), ok, the trace flag, res (L), flow (3)])."""
+        with self.timer.stage("track.step_dispatch"):
+            pyr, packed = self._frame_step_dispatch(
+                img, ref, T0, aff0, exposure, T_ref_cw, commit_trace)
+        with self.timer.stage("track.step_pull"):
+            return pyr, packed.numpy().astype(np.float64)
 
-    def _trace_transforms(self, T_new_cw, aff, exposure: float):
-        """The trace's per-host inputs for a new frame at T_new_cw (a device
-        (4, 4)) with brightness affine `aff` (a device (2,)): K R K^-1,
-        K t and the host -> new brightness transfer of each window slot.
-        Reads nothing back: K is a kept device constant, the window's
-        poses, affines and exposures go up pinned and without a wait, and
-        the inverses are inv_ex's LU with no check of its info on the
-        host."""
-        calib, dev = self.calib, self.device
+    def _frame_step_dispatch(self, img, ref, T0, aff0, exposure: float,
+                             T_ref_cw, commit_trace: bool = True):
+        """The frame step's device half on a host frame (or a tensor),
+        hypothesis 0's T0 (4, 4) and aff0 (2,) and the reference's T_ref_cw
+        (host arrays): one pinned upload (`_frame_upload`) and, on the
+        card, one replay of FRAME_STEP_GRAPHS; nothing waits for the card.
+        With commit_trace the candidate arena takes the step's arena,
+        traced where the retrack gate passed and bitwise as it was where
+        it failed. Without it the step traces an idle arena of dead lanes
+        and the arena is left alone (the mapping side owns it: the
+        pipelines' retry path). Returns (pyr, the packed row as a
+        HostCopy)."""
+        arena = self.imm_arena if commit_trace else self._idle_arena
+        up = self._frame_upload(T0, aff0, exposure, commit_trace, T_ref_cw)
+        out = _program(*self._frame_step_call(frame_image(img, self.device),
+                                              ref, arena, up))
+        L = self.calib.levels
+        if commit_trace:
+            self.imm_arena = _arena_of(out[2 * L:-1])
+        return FramePyramid(dI=out[:L], abs_grad=out[L:2 * L]), \
+            HostCopy(out[-1])
+
+    def _frame_step_call(self, img, ref, arena, up):
+        """The frame step's (family, static, program, inputs); keyed on the
+        whole (frozen) Config the program closes over, the arena's lanes
+        and the window's slots."""
+        calib, cfg, lut = self.calib, self.cfg, self.b_grad is not None
+        static = (calib, cfg, arena.host.shape[0], self.ef.F, lut)
+        return (FRAME_STEP_GRAPHS, static,
+                _frame_step_program(calib, cfg, lut),
+                (img,) + _ref_flat(ref) + _arena_flat(arena) + (up,)
+                + ((self.b_grad,) if lut else ()))
+
+    def _window_tables(self):
+        """The window's host poses, affines and exposures padded to its F
+        slots with the identity: (T_hosts (F, 4, 4), host_affs (F, 2),
+        host_expos (F,)), float64."""
         F = self.ef.F
         T_hosts = np.tile(np.eye(4), (F, 1, 1))
         host_affs = np.zeros((F, 2))
@@ -929,19 +1152,36 @@ class FullSystem:
             T_hosts[i] = fr.T_cw
             host_affs[i] = fr.aff
             host_expos[i] = fr.exposure or 1.0
-        K = device_const(tuple(map(tuple, calib.K(0).tolist())), dev)
-        Ki = torch.linalg.inv_ex(K)[0]
-        T_rel = torch.einsum("ij,fjk->fik", T_new_cw,
-                             torch.linalg.inv_ex(self._f32(T_hosts))[0])
-        # K4 takes contiguous tables; einsum may give a view on the card
-        KRKis = torch.einsum("ij,fjk,kl->fil", K, T_rel[:, :3, :3],
-                             Ki).contiguous()
-        Kts = torch.einsum("ij,fj->fi", K, T_rel[:, :3, 3]).contiguous()
-        ha = self._f32(host_affs)
-        ra = torch.exp(aff[0] - ha[:, 0]) * float(np.float32(exposure)) \
-            / self._f32(host_expos)
-        affs = torch.stack([ra, aff[1] - ra * ha[:, 1]], dim=-1)
-        return KRKis, Kts, affs
+        return T_hosts, host_affs, host_expos
+
+    def _frame_upload(self, T0, aff0, exposure: float, commit: bool,
+                      T_ref_cw):
+        """The frame step's one upload, pinned and without a wait: [T0
+        (16), aff0 (2), exposure, last_coarse_rmse[0], commit, T_ref_cw
+        (16), T_hosts (F x 16), host_affs (F x 2), host_expos (F)] as
+        float32 (`_frame_row` reads it on the device). Without commit the
+        host tables are the identity's: the mapping side may be changing
+        the window, and the step's trace is not kept."""
+        if commit:
+            tables = self._window_tables()
+        else:
+            F = self.ef.F
+            tables = (np.tile(np.eye(4), (F, 1, 1)), np.zeros((F, 2)),
+                      np.ones(F))
+        return self._f32(np.concatenate(
+            [np.ravel(T0), np.ravel(aff0),
+             [exposure, self.last_coarse_rmse[0], float(commit)],
+             np.ravel(T_ref_cw)] + [np.ravel(t) for t in tables]))
+
+    def _trace_transforms(self, T_new_cw, aff, exposure: float):
+        """The trace's per-host inputs (`trace_tables`) for a new frame at
+        T_new_cw (a device (4, 4)) with brightness affine `aff` (a device
+        (2,)) against the window as it stands, whose poses, affines and
+        exposures go up pinned and without a wait."""
+        T_hosts, host_affs, host_expos = self._window_tables()
+        return trace_tables(T_new_cw, aff, float(np.float32(exposure)),
+                            self._f32(T_hosts), self._f32(host_affs),
+                            self._f32(host_expos), self.calib)
 
     def _trace_arena(self, pyr, KRKis, Kts, affs):
         """Trace the whole candidate arena against the new frame: on the
@@ -978,14 +1218,16 @@ class FullSystem:
             tries = [np.eye(4)]
             aff_last = np.zeros(2)
         coarsest = calib.levels - 1
-        aff0 = self._f32(aff_last)
+        nlv = calib.levels
 
-        pyr, T, aff, ok, res, flow, accepted = self._frame_step(
-            img, tracker_ref, self._f32(tries[0]), aff0, shell.exposure,
-            ref_shell.T_cw, commit_trace)
+        pyr, pk = self._frame_step(img, tracker_ref, tries[0], aff_last,
+                                   shell.exposure, ref_shell.T_cw,
+                                   commit_trace)
         self._frame_pyr = pyr
-        self._traced_this_frame = accepted
-        res = res.astype(np.float64)
+        T, aff, ok = pk[:16].reshape(4, 4), pk[16:18], pk[18] > 0.5
+        # the trace flag: the step committed its trace (JAX's :875-883)
+        self._traced_this_frame = bool(pk[19] > 0.5)
+        res, flow = pk[20:20 + nlv], pk[20 + nlv:23 + nlv]
         res0 = float(res[0]) if np.isfinite(res[0]) else np.inf
         best = (T, aff, res, flow) if (ok and np.isfinite(res0)) else None
         achieved = res if best else np.full(calib.levels, np.nan)
@@ -997,6 +1239,7 @@ class FullSystem:
             # rank all retry initializations with one coarsest-level warp,
             # then LM-refine the best RETRY_K as one batch
             self._n_retry_sweeps += 1
+            aff0 = self._f32(aff_last)
             expo = self._f32(shell.exposure)
             rest = tries[1:]
             res_best = res0 if best is not None else np.inf
@@ -1016,7 +1259,6 @@ class FullSystem:
                 pk = torch.cat([Tb.reshape(-1, 16), affb,
                                 okb.to(torch.float32)[:, None], resb, flowb],
                                dim=1).cpu().numpy().astype(np.float64)
-            nlv = calib.levels
             Tn = pk[:, :16].reshape(-1, 4, 4)
             affn = pk[:, 16:18]
             okn = pk[:, 18] > 0.5

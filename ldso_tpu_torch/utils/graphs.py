@@ -11,8 +11,11 @@ backend/energy_functional.BA_GRAPHS, the point marginalization's
 backend/energy_functional.MARG_GRAPHS; the keyframe's activation pass,
 its post-BA flags and packed row, its tracker reference and its new
 candidates are system/full_system.ACTIVATE_GRAPHS, POST_BA_GRAPHS,
-TRACKER_REF_GRAPHS and NEW_TRACES_GRAPHS; the bootstrap's frame (every
-level's LM and the propagation) is frontend/initializer.INIT_GRAPHS.
+TRACKER_REF_GRAPHS and NEW_TRACES_GRAPHS; the frame step (the pyramid,
+hypothesis 0's track, the retrack gate and the arena's trace) and the
+pipelines' chain step are system/full_system.FRAME_STEP_GRAPHS and
+CHAIN_STEP_GRAPHS; the bootstrap's frame (every level's LM and the
+propagation) is frontend/initializer.INIT_GRAPHS.
 
 A replay runs under the graph's lock on the caller's current stream: wait
 for the graph's previous replay (an event, whatever stream it ran on),
@@ -25,9 +28,11 @@ overwrite.
 A capture begins with `torch.cuda.graph`'s device synchronise; it happens
 at a key's first call, which `FullSystem.warm_retrack_programs` makes
 before a run starts (`Programs.capture` captures without a replay: the
-activation's graph for every window size, and the bootstrap's at its
-first frame, whose later replays refuse a key with no graph). A capture
-that fails raises.
+activation's graph for every window size, the frame and chain steps'
+for each image dtype, and the bootstrap's at its first frame). The
+families built with `capture_on_replay=False` (the frame and chain
+steps', the bootstrap's) refuse a replay of a key with no graph. A
+capture that fails raises.
 
 The hand-written kernels in a program count their launches in Python,
 which a replay does not run: the capture records each kernel's launches
@@ -104,8 +109,10 @@ class Programs:
     stream, and the family's counts (`counts`: graphs captured, their host
     seconds, replays)."""
 
-    def __init__(self):
+    def __init__(self, capture_on_replay: bool = True):
         self.graphs: Dict[tuple, Captured] = {}
+        # whether a replay of a key with no graph captures it (else raises)
+        self.capture_on_replay = capture_on_replay
         self.lock = threading.Lock()
         self.counts = {"count": 0, "s": 0.0, "replays": 0}
         self._count_lock = threading.Lock()
@@ -129,10 +136,11 @@ class Programs:
         return g
 
     def replay(self, static, program: Callable,
-               inputs: Tuple[torch.Tensor, ...], capture: bool = True):
+               inputs: Tuple[torch.Tensor, ...]):
         """program(*inputs) through its graph for this key: captured now
-        if it has none (`capture`), else a key with no graph raises."""
-        if capture:
+        if it has none and the family captures on replay, else a key with
+        no graph raises."""
+        if self.capture_on_replay:
             g = self.capture(static, program, inputs)
         else:
             g = self.graphs.get(_key(static, inputs))

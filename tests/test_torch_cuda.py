@@ -479,6 +479,90 @@ def test_dispatch_runs_ahead_of_the_card(cuda):
     assert packed.numpy().tobytes() == want.tobytes()
 
 
+def test_frame_step_graph_equals_eager_on_the_card(cuda):
+    """A card FullSystem captures the frame step's and the chain step's
+    graphs for uint8 and float32 frames when it is built (their families
+    refuse to capture at a replay). The strict step's replay on the next frame is bitwise
+    its eager program (K3 trips_per_track and K4 once in each), and so is
+    the chain step's; a failed gate leaves the arena bitwise as it went
+    in."""
+    from ldso_tpu_torch.frontend import tracker
+    from ldso_tpu_torch.ops import cuda_kernels
+    from ldso_tpu_torch.system import full_system as fsm
+    fs, imgs, ref, _, T0, _ = _tracked_system()
+    shell = fs.all_frames[-1]
+    L = fs.calib.levels
+    trips = tracker.trips_per_track(fs.cfg, L, L - 1)
+    img = fsm.frame_image(imgs[-1], fs.device)
+    for last, flag in ((np.nan, 1.0), (1e-30, 0.0)):
+        fs.last_coarse_rmse = np.full(L, last)
+        up = fs._frame_upload(T0.cpu().numpy(), shell.aff, 1.0, True,
+                              fs.tracker_ref_shell.T_cw)
+        family, static, fn, inputs = fs._frame_step_call(img, ref,
+                                                         fs.imm_arena, up)
+        outs = {}
+        for name, run in (("replay", lambda: family.replay(static, fn,
+                                                            inputs)),
+                          ("eager", lambda: fn(*inputs))):
+            before = dict(cuda_kernels.LAUNCHES)
+            outs[name] = run()
+            assert cuda_kernels.LAUNCHES["tracker_trip"] == \
+                before["tracker_trip"] + trips
+            assert cuda_kernels.LAUNCHES["trace"] == before["trace"] + 1
+        for g, e in zip(outs["replay"], outs["eager"]):
+            assert _same(g, e)
+        assert float(outs["replay"][-1][19]) == flag
+        if not flag:
+            for o, x in zip(outs["replay"][2 * L:-1],
+                            fsm._arena_flat(fs.imm_arena)):
+                assert _same(o, x)
+    fs.chain_reset()
+    family, static, fn, inputs = fs._chain_step_call(
+        img, ref, fs.track_chain, fs._f32(np.r_[np.ravel(
+            fs.tracker_ref_shell.T_cw), 1.0]))
+    for g, e in zip(family.replay(static, fn, inputs), fn(*inputs)):
+        assert _same(g, e)
+    # a replay of a key with no graph raises: these were captured when
+    # the system was built, one per frame dtype and step
+    mine = (fs.cfg, tracker.graph_key(fs.cfg))
+    for f in (fsm.FRAME_STEP_GRAPHS, fsm.CHAIN_STEP_GRAPHS):
+        assert len([k for k in f.graphs if k[1][0] == fs.calib
+                    and k[1][1] in mine]) == len(fsm.FRAME_DTYPES)
+
+
+def test_frame_step_dispatch_runs_ahead_of_the_card(cuda):
+    """FullSystem._frame_step_dispatch behind ~100 ms of sleep, under
+    set_sync_debug_mode("error"): it returns before the sleep ends (its
+    HostCopy not ready), one replay of the frame step's graph, and its
+    packed row and arena equal bitwise a dispatch without the sleep."""
+    import time
+    from ldso_tpu_torch.system import full_system as fsm
+    fs, imgs, ref, _, T0, _ = _tracked_system()
+    args = (imgs[-1], ref, T0.cpu().numpy(), fs.all_frames[-1].aff, 1.0,
+            fs.tracker_ref_shell.T_cw, True)
+    arena0 = fs.imm_arena
+    want = fs._frame_step_dispatch(*args)[1].numpy().copy()
+    want_arena = fs.imm_arena
+    fs.imm_arena = arena0
+    replays = fsm.FRAME_STEP_GRAPHS.counts["replays"]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        packed = fs._frame_step_dispatch(*args)[1]
+        ms = (time.perf_counter() - t) * 1e3
+        ready = packed.is_ready()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not ready, ms
+    assert fsm.FRAME_STEP_GRAPHS.counts["replays"] == replays + 1
+    assert packed.numpy().tobytes() == want.tobytes()
+    for a, b in zip(fsm._arena_flat(fs.imm_arena),
+                    fsm._arena_flat(want_arena)):
+        assert _same(a, b)
+
+
 # ---------------------------------------------------------------------------
 # K3, the tracker trip (csrc/tracker_trip.cu)
 # ---------------------------------------------------------------------------
@@ -1444,7 +1528,9 @@ def _kf_run(monkeypatch, watch=False, n=20):
     program = fsm._program
 
     def recorded(family, static, fn, inputs):
-        seen[family] = (static, fn, tuple(inputs))
+        # the keyframe's programs (the frame step goes through here too)
+        if any(family is f for f in fams):
+            seen[family] = (static, fn, tuple(inputs))
         return program(family, static, fn, inputs)
     monkeypatch.setattr(fsm, "_program", recorded)
     with (_kc().watched_keyframes(fs, 100_000_000) if watch
@@ -1528,7 +1614,7 @@ def test_bootstrap_replay_is_bitwise_eager(cuda, monkeypatch):
     from ldso_tpu_torch.utils.graphs import Programs
     calib, _, imgs = _pipeline_frames(8)
     cfg = _pipeline_cfg()
-    fam = Programs()
+    fam = Programs(capture_on_replay=False)
     monkeypatch.setattr(initializer, "INIT_GRAPHS", fam)
     calls = []
     run = initializer._run

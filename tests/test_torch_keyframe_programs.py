@@ -456,6 +456,15 @@ def _program_cases(calib, fp):
     st = tdet.detect_status_map(pyr.dI[0], pyr.abs_grad[0], *gp)
     cp = W.center_proj[:, nf - 1]
     act_up = fp._activation_upload()
+    ref, ref_shell = fp._current_tracker_ref()
+    img = pyr.dI[0][..., 0].contiguous()
+    step_up = fp._frame_upload(np.eye(4), np.zeros(2), 1.0, True,
+                               ref_shell.T_cw)
+    eye = torch.eye(4)
+    chain = tfs.TrackChain(eye, eye, torch.zeros(2),
+                           torch.full((calib.levels,), float("inf")))
+    chain_up = torch.from_numpy(np.r_[np.ravel(ref_shell.T_cw),
+                                      1.0].astype(np.float32))
     return {
         "segment_sum": lambda: segment_sum(W.pt_u, torch.clamp(
             cp[:, 0].to(torch.int64), 0, 99), 100),
@@ -474,13 +483,18 @@ def _program_cases(calib, fp):
             *tfs._arena_flat(fp.imm_arena), pyr.dI[0], st, up),
         "activate": lambda: tfs._program(*fp._activation_call(
             W, fp.imm_arena, fp.dIs, act_up, nf)),
+        "frame_step": lambda: tfs._program(*fp._frame_step_call(
+            img, ref, fp.imm_arena, step_up)),
+        "frame_step_chain": lambda: tfs._program(*fp._chain_step_call(
+            img, ref, chain, chain_up)),
     }
 
 
 @pytest.mark.parametrize("name", ["segment_sum", "detect_status_map",
                                   "arena_add_from_status", "post_ba",
                                   "tracker_ref", "new_candidates",
-                                  "add_candidates", "activate"])
+                                  "add_candidates", "activate",
+                                  "frame_step", "frame_step_chain"])
 def test_programs_read_nothing_back(snap, name):
     """Each program, after one run (the eager warm-up a capture makes,
     which fills utils/static.device_const), calls no operator that reads

@@ -117,9 +117,11 @@ def test_chain_update_matches(ok):
 
 def test_chain_frame_step_matches(frames):
     """One 192x144 plane frame through the port's chain step and JAX's
-    `_frame_step_chain`, the packed vectors compared whole at the port's
-    tracker tolerances (tests/test_torch_tracker.py): pose 1e-4, affine
-    1e-3, flags exact, residuals and flow 1e-3 relative plus 1e-4."""
+    `_frame_step_chain`, from the same chain (its hypothesis 0 the pose
+    below, by JAX's `_chain_prep` on the JAX side), the packed vectors
+    compared whole at the port's tracker tolerances
+    (tests/test_torch_tracker.py): pose 1e-4, affine 1e-3, flags exact,
+    residuals and flow 1e-3 relative plus 1e-4."""
     from ldso_tpu.frontend import tracker as jtr
     from ldso_tpu.ops.preprocess import make_pyramid as jmp
     from ldso_tpu.synthetic import PlaneScene
@@ -134,14 +136,17 @@ def test_chain_frame_step_matches(frames):
     T0 = poses[2] @ np.linalg.inv(poses[0])
     T0 = np.asarray(lie.se3_exp(jnp.asarray([0.004, -0.002, 0.001, 0.0,
                                              0.001, 0.0]))) @ T0
+    # a chain whose hypothesis 0 is T0 against the identity reference
+    cj, ct = _chain(np.eye(4), np.linalg.inv(T0), np.zeros(2),
+                    np.full(L, np.inf))
+    T0j, aff0j, rmse_j = jfs._chain_prep(cj, jnp.eye(4, dtype=jnp.float32))
     _, pk_j = jfs._frame_step_chain(
-        jnp.asarray(images[2]), ref_j, jnp.asarray(T0, jnp.float32),
-        jnp.zeros(2, jnp.float32), jnp.float32(1.0),
-        jnp.full((L,), jnp.inf, jnp.float32), None, calib, cfg, L - 1)
+        jnp.asarray(images[2]), ref_j, T0j, aff0j, jnp.float32(1.0), rmse_j,
+        None, calib, cfg, L - 1)
     fs = tfs.FullSystem(calib, TC(**KW), device="cpu")
-    pyr, pk_t = fs._frame_step_chain(
-        torch.from_numpy(images[2]), convert.tracker_ref_to_torch(ref_j),
-        t32(T0), torch.zeros(2), 1.0)
+    pyr, pk_t, _ = fs._chain_step(
+        torch.from_numpy(images[2]), convert.tracker_ref_to_torch(ref_j), ct,
+        t32(np.r_[np.eye(4).ravel(), 1.0]))
     pk_j, pk_t = npy(pk_j), npy(pk_t)
     assert pk_t.shape == pk_j.shape == (23 + L,)
     atol = np.r_[np.full(16, 1e-4), np.full(2, 1e-3), 0, 0,

@@ -9,11 +9,15 @@ checkout it is run from (a parent commit's too: run it from an unpacked
 `git archive` with PYTHONPATH set there). Prints one JSON line per phase:
   * `stages`: every `fs.timer` stage's median, mean and count of host ms
     per call (the StageTimer's calls, sampled one by one);
-  * `track_split` (phase 3): strict's `track` stage cut into the pyramid,
-    the tracker (a graph replay) and the candidate trace it queues, each
-    with its host ms per call and its device ms per call from CUDA events
-    around it, and the rest of the frame step (the read of the tracker's
-    result, which waits for the card, the gate, the trace's queueing);
+  * `track_split` (phase 3): strict's frame step (`_frame_step`) cut into
+    its parts, each with its host ms per call and its device ms per call
+    from CUDA events around it: where the step is one captured program
+    (FRAME_STEP_GRAPHS), its dispatch (the upload and the replay,
+    `_frame_step_dispatch`, whose events span the replay's device time);
+    in an older checkout the eager pyramid, the tracker (a graph replay)
+    and the candidate trace it queues. The rest of the frame step is
+    `read_gate_and_trace` (the one read of the result, which waits for the
+    card; in an older checkout the host gate and the trace's set-up too);
   * `activate_split` (phase 3): `kf.activate` cut into the host tables
     and their one upload (`_activation_upload`; `_activation_tables` in a
     checkout that runs the pass eagerly) and the pass: one replay of the
@@ -24,6 +28,8 @@ checkout it is run from (a parent commit's too: run it from an unpacked
     around it, and the rest (the density policy, the replay's results, the
     pull's queueing, in an eager checkout the slot allocation and the
     arena's mask); none for a checkout without these functions;
+  * phase 3's keyframe ids, ATE and the SHA-256 of every frame's pose
+    (`poses_sha256`), so that two checkouts' runs compare bitwise;
   * `keyframe_split` (phases 3 and 4): each keyframe's host ms in its
     two halves, `make_keyframe_dispatch` (from the trace through the new
     candidates) and its `finish()` (the reads of the device results, the
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import json
 import os
 import sys
@@ -87,9 +94,10 @@ def _patched(owner, name, wrap):
 
 @contextlib.contextmanager
 def track_split():
-    """strict's `track` stage in parts: host ms and CUDA-event device ms of
-    the pyramid, the tracker and the trace; the read of the result is the
-    rest of `_frame_step`'s host time."""
+    """strict's frame step in parts: host ms and CUDA-event device ms of
+    its dispatch (one replay of the frame step's graph), or in an older
+    checkout of the pyramid, the tracker and the trace; the read of the
+    result is the rest of `_frame_step`'s host time."""
     from ldso_tpu_torch.frontend import tracker
     from ldso_tpu_torch.system import full_system
     host = collections.defaultdict(list)
@@ -119,14 +127,17 @@ def track_split():
                 return out
             return call
         return wrap
+    fs_cls = full_system.FullSystem
+    if hasattr(fs_cls, "_frame_step_dispatch"):
+        parts = ((fs_cls, "_frame_step_dispatch", "dispatch"),)
+    else:
+        parts = ((full_system, "make_pyramid", "pyramid"),
+                 (tracker, "track_frame", "tracker"),
+                 (fs_cls, "_trace_arena", "trace"))
     with contextlib.ExitStack() as stack:
-        stack.enter_context(_patched(full_system, "make_pyramid",
-                                     timed("pyramid")))
-        stack.enter_context(_patched(tracker, "track_frame",
-                                     timed("tracker")))
-        stack.enter_context(_patched(full_system.FullSystem, "_trace_arena",
-                                     timed("trace")))
-        stack.enter_context(_patched(full_system.FullSystem, "_frame_step",
+        for owner, name, part in parts:
+            stack.enter_context(_patched(owner, name, timed(part)))
+        stack.enter_context(_patched(fs_cls, "_frame_step",
                                      timed("frame_step")))
         out = {}
         yield out
@@ -134,11 +145,12 @@ def track_split():
     for part, ms in host.items():
         dev = [a.elapsed_time(b) for a, b in events[part]]
         out[part] = dict(host=_stats(ms), device=_stats(dev))
-    # what _frame_step spends besides the pyramid and the tracker: the
-    # result's read (which waits for the card), the gate, and the trace's
-    # set-up and queueing when it runs
+    # what _frame_step spends besides the parts before the read: the
+    # result's read (which waits for the card) and, in an older checkout,
+    # the host gate and the trace's set-up and queueing when it runs
     n = len(host["frame_step"])
-    rest = [host["frame_step"][i] - host["pyramid"][i] - host["tracker"][i]
+    timed_parts = [p for _, _, p in parts if p != "trace"]
+    rest = [host["frame_step"][i] - sum(host[p][i] for p in timed_parts)
             for i in range(n)]
     out["read_gate_and_trace"] = dict(host=_stats(rest))
 
@@ -294,12 +306,17 @@ def main() -> int:
     chip_smoke.phase_device()
     with stage_samples() as samples, track_split() as split, \
             activate_split() as act, keyframe_split() as kf:
-        chip_smoke.phase_main_path()
+        out = chip_smoke.phase_main_path()
+    strict, fs = out[4], out[5]
     print(json.dumps(dict(
         phase="3 strict", stages={k: _stats(v) for k, v in
                                   sorted(samples.items())},
-        track_split=split, activate_split=act, keyframe_split=kf)),
+        track_split=split, activate_split=act, keyframe_split=kf,
+        kf_ids=strict["kf_ids"], ate_mm=strict["ate_mm"],
+        poses_sha256=hashlib.sha256(b"".join(
+            f.T_cw.tobytes() for f in fs.all_frames)).hexdigest())),
         flush=True)
+    del out, fs
     with stage_samples() as samples, loop_split() as parts, \
             keyframe_split() as kf:
         chip_smoke.phase_loop_slice()
