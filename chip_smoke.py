@@ -16,7 +16,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the share of it, and the wrapper's host time per call; then the
      two float scatters of the path (the tracker-reference splat, the
      initializer's level averaging) 20 times each on the same inputs,
-     every output bitwise equal. K3 (the tracker trip with its LM control,
+     every output bitwise equal. K2 (the frame's pyramid and the readers'
+     rectification, csrc/preprocess.cu) against its plain versions
+     (ops/preprocess.make_pyramid_ref and rectify_ref), bitwise: the
+     pyramid on the bench scene's 640x480 uint8 frame at the main path's 4
+     levels with and without a b_grad table, a float32 frame with steps
+     of more than 255, uint16, levels that end odd, 6 levels and one
+     level, one launch each; the rectification with uint8 and int32 raw
+     and a response table, the inverse vignette, invalid and edge-clamped
+     remap coordinates and float32 raw, one launch each; 20 launches of
+     each bitwise; its device time per launch (20 in a graph) beside the
+     bound, `ms`, `plain_ms` and ptxas's registers. K3 (the tracker trip with its LM control,
      csrc/tracker_trip.cu) in its three modes against their plain versions
      (frontend/tracker.tracker_trip_ref, cutoff_trip_ref, lm_trip_ref) at
      every level of a 640x480 scene, batch 1 and 8, on the scene and on
@@ -182,9 +192,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
          within 25 ms, its HostCopy not ready, its result bitwise a
          dispatch without the sleep; the device ms per replay (20 replays
          behind a sleep), the replay's split by part from torch.profiler
-         (copies, pyramid, K3, the tracker's other kernels, tables, K4,
-         selects), K2's bound beside the pyramid's part, and the graphs'
-         static buffers and the card memory their capture takes;
+         (copies, pyramid (K2's kernel), K3, the tracker's other kernels,
+         tables, K4, selects), K2's bound beside the pyramid's part, K2
+         one launch a replay, and the graphs' static buffers and the card
+         memory their capture takes;
   4. the loop slice: the default Config (mode=1 photometrics, loop closing
      on, ORB corner selection) on the 150-frame out-and-back revisit scene
      at 640x480 with an exposure ramp, a vocabulary trained from 8 views;
@@ -239,6 +250,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 Every run of the device LM (3, 4b, 5, 7b) holds K12's launches to its BA
 graph replays, with no graph captured inside the run; K12's record gives
 phase 3's count and each path's.
+Every phase that drives a path (3, 3b, 4, 4b, 5, 6, 7a, 7b and the
+bench's legs) asserts K2's pyramid launches: one per replay of the frame
+step's and the chain step's graphs, one per such graph captured inside
+the block and one per bootstrap frame (time_modes.counted_pyramids'
+`k2_expected`; the util and batched tracking legs build pyramids of
+their own, more than that), and phase 6 one rectify launch per frame the
+reader read; a `k2_by_path` line.
 Every phase that tracks (3, 3a, 3b, 4, 4b, 5, 6, 7a-7c) asserts K3's
 launches, counted through graph replays: exactly
 tracker.trips_per_track (316 at 640x480) per track (a frame step, a
@@ -280,7 +298,7 @@ captured tracker's numbers, the BA's, the marginalization's, the
 keyframe programs' (3f), the activation's (3g), the bootstrap's (3h)
 and the frame step's (3i),
 the bench's JSON line, then a JSON record of
-the kernels (K1, K3, K12, K4, K5, K6, K7), then the last line {"ok": true, "device":
+the kernels (K1, K2's pyramid and rectify, K3, K12, K4, K5, K6, K7), then the last line {"ok": true, "device":
 {...}}.
 """
 
@@ -1115,6 +1133,7 @@ def phase_main_path(n_frames: int = N_FRAMES):
     launches = dict(distance_transform=strict["k1_launches"],
                     tracker_trip=strict["k3_launches"],
                     trace=strict["k4_launches"],
+                    pyramid=strict["k2_launches"],
                     activate=strict["k5_launches"],
                     ba_linearize=strict["k6_launches"],
                     ba_accumulate=strict["k7_launches"])
@@ -1127,7 +1146,10 @@ def phase_main_path(n_frames: int = N_FRAMES):
           f"{strict['ms_per_frame_median']:.2f} ms per call, peak device "
           f"memory {peak / 2**20:.1f} MiB, K1 launches "
           f"{strict['k1_launches']} for {strict['post_bootstrap_keyframes']} "
-          f"post-bootstrap keyframes, K3 launches {strict['k3_launches']} "
+          f"post-bootstrap keyframes, K2 launches {strict['k2_launches']} "
+          f"for {strict['frame_steps']} frame steps and "
+          f"{strict['boot_dispatches'] + 1} bootstrap frames, K3 launches "
+          f"{strict['k3_launches']} "
           f"({strict['k3_by_mode']} by mode) for {strict['tracks']} tracks "
           f"and {strict['rank_calls']} rankings, K4 launches "
           f"{strict['k4_launches']} for {strict['frame_steps']} frame steps "
@@ -1147,6 +1169,7 @@ def phase_main_path(n_frames: int = N_FRAMES):
               f"{strict['post_bootstrap_keyframes']} post-bootstrap keyframes")
     _no_capture_inside(strict)
     _k3_run_check(strict)
+    _k2_run_check(strict)
     _k4_run_check(strict)
     _k5_run_check(strict)
     _k67_run_check(strict)
@@ -1500,6 +1523,8 @@ def phase_dispatch_ahead(fs, images, sleep_ms: float = 50.0):
     _k3_check("3b dispatch ahead (two dispatches)",
               cuda_kernels.LAUNCHES["tracker_trip"],
               2 * tracker.trips_per_track(fs.cfg, L, L - 1))
+    _k2_check("3b dispatch ahead (two dispatches)",
+              cuda_kernels.LAUNCHES["pyramid"], 2)
     replays = fam.counts["replays"] - counts0["replays"]
     captures = fam.counts["count"] - counts0["count"]
     if not (replays == len(steps) == len(pulls) == 2 and captures == 0):
@@ -1590,6 +1615,7 @@ def phase_boxes(n_frames: int = BOX_FRAMES):
     _no_capture_inside(run)
     run["phase"] = "4b boxes"
     _k3_run_check(run)
+    _k2_run_check(run)
     _k4_run_check(run)
     _k5_run_check(run)
     _k67_run_check(run)
@@ -1674,6 +1700,7 @@ def phase_pipelines(calib, images, poses, strict: dict, device="cuda"):
         _no_capture_inside(run)
         if device == "cuda":
             _k3_run_check(run)
+            _k2_run_check(run)
             _k4_run_check(run)
             _k5_run_check(run)
             _k67_run_check(run)
@@ -1764,7 +1791,8 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         t0 = time.time()
         with time_modes.traced_k1() as k1, \
                 time_modes.counted_tracks() as tracks, \
-                time_modes.counted_traces() as traces:
+                time_modes.counted_traces() as traces, \
+                time_modes.counted_pyramids() as pyrs:
             cuda_kernels.reset_launch_counts()
             act_caps = fsm.ACTIVATE_GRAPHS.counts["count"]
             with k67_counted() as k67:
@@ -1777,6 +1805,8 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
             k3 = cuda_kernels.LAUNCHES["tracker_trip"]
             k12 = cuda_kernels.LAUNCHES["ba_projector"]
             k4 = cuda_kernels.LAUNCHES["trace"]
+            k2 = cuda_kernels.LAUNCHES["pyramid"]
+            rect = cuda_kernels.LAUNCHES["rectify"]
             k5 = cuda_kernels.LAUNCHES["activate"] - act_caps
             k67.update(k6_launches=cuda_kernels.LAUNCHES["ba_linearize"],
                        k7_launches=cuda_kernels.LAUNCHES["ba_accumulate"],
@@ -1813,7 +1843,9 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
               f"{tracks['tracks']} tracks, {tracks['ranks']} rankings and "
               f"{tracks['captures']} captures; K4 launches {k4} for "
               f"{traces['k4_expected']} expected ({traces['traces']} traces "
-              f"committed); K5 launches {k5}", flush=True)
+              f"committed); K2 {k2} pyramid launches for "
+              f"{pyrs['k2_expected']} expected and {rect} rectify launches "
+              f"for {len(images)} frames read; K5 launches {k5}", flush=True)
         if not ate < ATE_BOUND_M:
             _fail(f"cli {pmode}: keyframe ATE {ate * 1e3:.4f} mm >= "
                   f"{ATE_BOUND_M * 1e3} mm")
@@ -1822,6 +1854,10 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
                 tracks, fs.cfg, fs.calib.levels))
             _k4_check(f"cli {pmode}", k4, traces["k4_expected"],
                       traces["traces"])
+            _k2_check(f"cli {pmode}", k2, pyrs["k2_expected"])
+            if rect != len(images):
+                _fail(f"cli {pmode}: K2's rectify launched {rect} times for "
+                      f"{len(images)} frames read")
             _k5_check(f"cli {pmode}", k5, post_boot)
             k67["post_bootstrap_keyframes"] = post_boot
             _k67_run_check(k67, built=1)
@@ -1838,6 +1874,8 @@ def phase_cli(calib, images, poses, root: str, device="cuda"):
         out_launches[f"k3_{pmode}"] = k3
         out_launches[f"k12_{pmode}"] = k12
         out_launches[f"k4_{pmode}"] = k4
+        out_launches[f"k2_{pmode}"] = k2
+        out_launches[f"rectify_{pmode}"] = rect
         out_launches[f"k5_{pmode}"] = k5
         out_launches[f"k6_{pmode}"] = k67["k6_launches"]
         out_launches[f"k7_{pmode}"] = k67["k7_launches"]
@@ -1975,7 +2013,8 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
     torch.cuda.reset_peak_memory_stats()
     frame_ms = []
     with time_modes.counted_tracks() as tracks, \
-            time_modes.counted_traces() as traces:
+            time_modes.counted_traces() as traces, \
+            time_modes.counted_pyramids() as pyrs:
         cuda_kernels.reset_launch_counts()
         with k67_counted() as k67:
             for i, img in enumerate(images):
@@ -1992,6 +2031,7 @@ def phase_loop_slice(n_frames: int = LOOP_FRAMES):
               time_modes.k3_expected(tracks, cfg, calib.levels))
     _k4_check("4 loop slice", launches["trace"], traces["k4_expected"],
               traces["traces"])
+    _k2_check("4 loop slice", launches["pyramid"], pyrs["k2_expected"])
     # the CLI's strict-mode final pose-graph pass before results.txt
     # (examples/run_common.py:200-203)
     torch.cuda.synchronize()
@@ -2624,6 +2664,7 @@ def phase_activate_kernel(device="cuda"):
         cases[f"window {F} in {F} slots"] = kc.activate_inputs(scene, F,
                                                                slots=F)
     worst, flips, ties, lanes, opt, not_bitwise = 0.0, 0, 0, 0, 0, 0
+    margin_ties, margin_flips = 0, 0
     launches = cuda_kernels.LAUNCHES["activate"]
     for name, inputs in cases.items():
         got = cuda_kernels.activate_arena(*inputs[:13], calib, inputs[13])
@@ -2631,6 +2672,8 @@ def phase_activate_kernel(device="cuda"):
         worst = max(worst, rep["max_err"])
         flips += len(rep["flips"])
         ties += rep["ties"]
+        margin_ties += rep["margin_ties"]
+        margin_flips += len(rep["margin_flips"])
         lanes += rep["live"]
         opt += rep["optimised"]
         not_bitwise += rep["not_bitwise"]
@@ -2661,7 +2704,10 @@ def phase_activate_kernel(device="cuda"):
           f"{sorted(kc.ACT_PLANTS.values())}), {lanes} live lanes, {opt} "
           f"optimised: max|kernel - plain| {worst:.3g}, {not_bitwise} lanes "
           f"not bitwise the plain version's, {flips} flips at the plain "
-          f"version's {ties} tie lanes; {DET_REPEATS} launches bitwise "
+          f"version's {ties} tie lanes ({margin_flips} flips at the "
+          f"{margin_ties} that only the accept test's margin of "
+          f"{kc.ACT_ACCEPT_ULPS:.0f} ulps makes ties); {DET_REPEATS} "
+          f"launches bitwise "
           f"equal; window of 8 ({int(parts['live'].sum())} live lanes, "
           f"{int(parts['to_opt'].sum())} optimised): kernel "
           f"{rec['ms']:.4f} ms per single call, "
@@ -2677,6 +2723,7 @@ def phase_activate_kernel(device="cuda"):
                 source="ldso_tpu_torch/csrc/immature_activate.cu",
                 replaces="ldso_tpu/frontend/immature.py:654",
                 max_abs_err=worst, cases=len(cases), flips=flips,
+                margin_ties=margin_ties, margin_flips=margin_flips,
                 not_bitwise=not_bitwise, library_ms=None,
                 dispatch_host_ms=dispatch_ms, **rec)
 
@@ -2736,11 +2783,14 @@ def phase_activate_frame(record, acts):
     if not acts:
         _fail("phase 3 activated no arena")
     flips, ties, lanes, opt, worst, not_bitwise = [], 0, 0, 0, 0.0, 0
+    margin_ties, margin_flips = 0, 0
     for k, (inputs, calib, got) in enumerate(acts):
         rep, _, parts = _activate_check(kc, f"phase 3 activation {k}",
                                         inputs, got, calib)
         flips += [(k, i) for i in rep["flips"]]
         ties += rep["ties"]
+        margin_ties += rep["margin_ties"]
+        margin_flips += len(rep["margin_flips"])
         lanes += rep["live"]
         opt += rep["optimised"]
         worst = max(worst, rep["max_err"])
@@ -2755,6 +2805,8 @@ def phase_activate_frame(record, acts):
     rec.update(phase3_activations=len(acts), phase3_live_lanes=lanes,
                phase3_optimised_lanes=opt, phase3_flips=len(flips),
                phase3_tie_lanes=ties, phase3_not_bitwise=not_bitwise,
+               phase3_margin_ties=margin_ties,
+               phase3_margin_flips=margin_flips,
                last_live_lanes=int(parts["live"].sum()),
                last_optimised_lanes=int(parts["to_opt"].sum()),
                last_window_frames=int(inputs[12]))
@@ -2762,7 +2814,9 @@ def phase_activate_frame(record, acts):
     record.update(rec)
     print(f"K5 on phase 3: {len(acts)} activations, {lanes} live lanes, "
           f"{opt} optimised, all held by activate_err: {len(flips)} flips "
-          f"{flips[:10]} at the plain version's {ties} tie lanes, "
+          f"{flips[:10]} at the plain version's {ties} tie lanes "
+          f"({margin_flips} at the {margin_ties} that only the accept "
+          f"test's margin makes ties), "
           f"{not_bitwise} lanes not bitwise, max|kernel - plain| "
           f"{worst:.3g}; on the last ({rec['last_live_lanes']} live lanes, "
           f"{rec['last_optimised_lanes']} optimised, "
@@ -3483,20 +3537,30 @@ def _step_split(records, reps: int) -> dict:
     where it ran: `pyramid` before the first K3 launch, `tracker_rest`
     between K3 launches, `tables` after the last K3 launch and before K4
     (the tracker's tail, the gate and the trace's tables) and `selects`
-    after K4 (the arena's selects, the packed row). Returns {part: {ms,
-    kernels}} per call and the busy ms per call."""
-    ms = dict.fromkeys(STEP_PARTS, 0.0)
-    count = dict.fromkeys(STEP_PARTS, 0)
-    state, pending = "pyramid", []
+    after K4 (the arena's selects, the packed row); since K2, `pyramid`
+    is K2's kernel alone, and the other kernels before the first K3 launch
+    count to `tracker_rest`. `before_k3` (not a part: its kernels are in
+    `pyramid` and `tracker_rest`) is every kernel before the first K3
+    launch, the `pyramid` part as it was measured before K2. Returns
+    {part: {ms, kernels}} per call, `before_k3` and the busy ms per
+    call."""
+    ms = dict.fromkeys(STEP_PARTS + ("before_k3",), 0.0)
+    count = dict.fromkeys(STEP_PARTS + ("before_k3",), 0)
+    state, pending = "pre", []
 
     def add(part, dur):
         ms[part] += dur * 1e-6 / reps
         count[part] += 1
+        if state == "pre" and part in ("pyramid", "tracker_rest"):
+            ms["before_k3"] += dur * 1e-6 / reps
+            count["before_k3"] += 1
     for _, dur, name in records:
         if name.startswith(("Memcpy", "Memset")):
             add("copies", dur)
             if state == "selects":
-                state = "pyramid"          # the next call's copies in
+                state = "pre"              # the next call's copies in
+        elif "pyramid_kernel" in name:
+            add("pyramid", dur)
         elif "tracker_trip_kernel" in name:
             for d in pending:
                 add("tracker_rest", d)
@@ -3512,20 +3576,181 @@ def _step_split(records, reps: int) -> dict:
         elif state == "tracker":
             pending.append(dur)
         else:
-            add(state, dur)
+            add("tracker_rest" if state == "pre" else state, dur)
     for d in pending:
         add("tracker_rest", d)
     return dict(parts={p: dict(ms=ms[p], kernels=count[p] / reps)
                        for p in STEP_PARTS},
-                busy_ms=sum(ms.values()))
+                before_k3=dict(ms=ms["before_k3"],
+                               kernels=count["before_k3"] / reps),
+                busy_ms=sum(ms[p] for p in STEP_PARTS))
 
 
-def pyramid_bound_ms(calib, frame_bytes: int) -> float:
-    """K2's bound: the frame read once and every level's dI (H, W, 3) and
-    abs_grad (H, W) float32 written once, over the card's memory rate."""
-    out = sum(calib.h[lvl] * calib.w[lvl] * 4 * 4
-              for lvl in range(calib.levels))
-    return (frame_bytes + out) / PEAK_BYTES_S * 1e3
+# K2's arithmetic per output pixel (the mean, the differences, their
+# tests, absSquaredGrad and the b_grad weight), for its operations bound
+PYR_OPS = 20
+
+
+def pyramid_bound_ms(H: int, W: int, levels: int, frame_bytes: int,
+                     b_grad: bool = False):
+    """K2's pyramid bound: the frame read once (and the b_grad table), and
+    every level's dI (H, W, 3) and abs_grad (H, W) float32 written once,
+    over the card's memory rate, against PYR_OPS operations a pixel over
+    its float32 rate. Returns (ms, "bytes" or "operations")."""
+    from ldso_tpu_torch.ops.cuda_kernels import pyramid_shapes
+    px = sum(h * w for h, w in pyramid_shapes(H, W, levels))
+    t_bytes = (frame_bytes + 1024 * b_grad + 16 * px) / PEAK_BYTES_S
+    t_ops = PYR_OPS * px / PEAK_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def rectify_bound_ms(raw, G, vig, remap_x) -> float:
+    """K2's rectify bound: the raw frame, its response table and inverse
+    vignette read once, the two remap maps read once and the image written
+    once, over the card's memory rate (its 30 operations a pixel take a
+    hundredth of that)."""
+    n = (raw.numel() * raw.element_size() + 4 * remap_x.numel() * 3
+         + sum(4 * t.numel() for t in (G, vig) if t is not None))
+    return n / PEAK_BYTES_S * 1e3
+
+
+def phase_preprocess_kernel(device="cuda"):
+    """K2 (csrc/preprocess.cu) against its plain versions
+    (ops/preprocess.make_pyramid_ref and rectify_ref) on the card, bitwise:
+    the pyramid on the cases of torch_kernel_checks.pyramid_cases (the
+    bench scene's 640x480 uint8 frame at the main path's 4 levels with and
+    without a b_grad table, a float32 frame with steps of more than 255,
+    uint16, levels that end odd, 6 levels, one level), one launch each;
+    the rectification on rectify_cases (uint8 and int32 raw with a
+    response table, the inverse vignette, invalid and edge-clamped remap
+    coordinates, float32 raw), one launch each; 20 launches of each
+    bitwise; the times and bounds of the main path's pyramid and of the
+    readers' rectification. Returns the two kernel records (their
+    launches are filled in from the paths)."""
+    import torch
+    from ldso_tpu_torch.ops import cuda_kernels, preprocess
+    kc = _kernel_checks()
+    t0 = time.perf_counter()
+    pyr_cases = kc.pyramid_cases(device)
+    rect_cases = kc.rectify_cases(device)
+    before = dict(cuda_kernels.LAUNCHES)
+    worst = dict(pyramid=0.0, rectify=0.0)
+    for name, (img, L, b) in pyr_cases.items():
+        got = preprocess.make_pyramid(img, L, b)
+        want = preprocess.make_pyramid_ref(img, L, b)
+        for x, y in zip(got.dI + got.abs_grad, want.dI + want.abs_grad):
+            worst["pyramid"] = max(worst["pyramid"], float(
+                torch.nan_to_num(torch.abs(x - y)).max()))
+        if not kc.pyramid_bitwise(got, want):
+            _fail(f"K2 pyramid: case {name!r} not bitwise its plain "
+                  f"version (max|kernel - plain| {worst['pyramid']})")
+    for name, (raw, G, vig, rx, ry) in rect_cases.items():
+        got = preprocess.rectify(raw, G, vig, rx, ry)
+        want = preprocess.rectify_ref(raw, G, vig, rx, ry)
+        worst["rectify"] = max(worst["rectify"],
+                               float(torch.abs(got - want).max()))
+        if not (got.shape == want.shape and bool(kc.bits(got, want).all())):
+            _fail(f"K2 rectify: case {name!r} not bitwise its plain version "
+                  f"(max|kernel - plain| {worst['rectify']})")
+    n = {k: cuda_kernels.LAUNCHES[k] - before[k] for k in worst}
+    if device == "cuda" and n != dict(pyramid=len(pyr_cases),
+                                      rectify=len(rect_cases)):
+        _fail(f"K2: launches {n} for {len(pyr_cases)} pyramid and "
+              f"{len(rect_cases)} rectify cases")
+    for name in ("uint8 640x480", "float32 steps b_grad"):
+        img, L, b = pyr_cases[name]
+        first = preprocess.make_pyramid(img, L, b)
+        for rep in range(1, DET_REPEATS):
+            if not kc.pyramid_bitwise(preprocess.make_pyramid(img, L, b),
+                                      first):
+                _fail(f"K2 pyramid {name!r}: launch {rep} differs from "
+                      f"launch 0")
+    raw, G, vig, rx, ry = rect_cases["int32 G vignette"]
+    first = preprocess.rectify(raw, G, vig, rx, ry)
+    for rep in range(1, DET_REPEATS):
+        if not bool(kc.bits(preprocess.rectify(raw, G, vig, rx, ry),
+                            first).all()):
+            _fail(f"K2 rectify: launch {rep} differs from launch 0")
+
+    img, L, _ = pyr_cases["uint8 640x480"]
+    kernel = lambda: preprocess.make_pyramid(img, L)  # noqa: E731
+    bound, by = pyramid_bound_ms(*img.shape, L, img.numel())
+    pyr = dict(name="pyramid", route="cuda",
+               source="ldso_tpu_torch/csrc/preprocess.cu",
+               replaces="ldso_tpu/ops/preprocess.py:124",
+               max_abs_err=worst["pyramid"], cases=len(pyr_cases),
+               ms=_median_event_ms(kernel), device_ms=_graph_device_ms(kernel),
+               plain_ms=_median_event_ms(
+                   lambda: preprocess.make_pyramid_ref(img, L)),
+               bound_ms=bound, bound_by=by, library_ms=None,
+               smem_bytes={lv: cuda_kernels.pyramid_smem(lv)
+                           for lv in (1, 4, 6)})
+    img6, L6, b6 = pyr_cases["6 levels"]
+    pyr["device_ms_6_levels_float32"] = _graph_device_ms(
+        lambda: preprocess.make_pyramid(img6, L6, b6))
+    raw, G, vig, rx, ry = rect_cases["uint8 G vignette"]
+    kernel = lambda: preprocess.rectify(raw, G, vig, rx, ry)  # noqa: E731
+    # the library's bilinear remap (no response table or vignette, a
+    # border clamp): torch's grid_sample on the float32 raw case, timed
+    # as a yardstick only
+    rawf, _, _, _, _ = rect_cases["float32"]
+    h_org, w_org = rawf.shape
+    grid = torch.stack([torch.clamp(rx, 0.0, w_org - 1.001) / (w_org - 1),
+                        torch.clamp(ry, 0.0, h_org - 1.001) / (h_org - 1)],
+                       -1)[None] * 2.0 - 1.0
+    library = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+        rawf[None, None], grid, mode="bilinear", padding_mode="border",
+        align_corners=True)
+    rect = dict(name="rectify", route="cuda",
+                source="ldso_tpu_torch/csrc/preprocess.cu",
+                replaces="ldso_tpu/ops/preprocess.py:132",
+                max_abs_err=worst["rectify"], cases=len(rect_cases),
+                ms=_median_event_ms(kernel),
+                device_ms=_graph_device_ms(kernel),
+                plain_ms=_median_event_ms(
+                    lambda: preprocess.rectify_ref(raw, G, vig, rx, ry)),
+                bound_ms=rectify_bound_ms(raw, G, vig, rx),
+                bound_by="bytes", library_ms=_median_event_ms(library),
+                library_call="torch.nn.functional.grid_sample (float32 "
+                             "raw, bilinear, border clamp)")
+    report = cuda_kernels.ptxas_report("preprocess.cu")
+    for rec, k in ((pyr, "pyramid_kernel"), (rect, "rectify_kernel")):
+        rec["ptxas"] = ptxas_facts(report, k)
+    print(f"K2 pyramid: {len(pyr_cases)} cases bitwise their plain version "
+          f"({sorted(pyr_cases)}), {DET_REPEATS} launches bitwise; at "
+          f"640x480 uint8, 4 levels: {pyr['device_ms'] * 1e3:.3f} us of "
+          f"device time per launch (20 in a graph), {pyr['ms']:.4f} ms a "
+          f"single call, plain {pyr['plain_ms']:.4f} ms, bound "
+          f"{pyr['bound_ms'] * 1e3:.3f} us ({pyr['bound_by']}, "
+          f"{100 * pyr['bound_ms'] / pyr['device_ms']:.1f}% of the device "
+          f"time); 6 levels float32 "
+          f"{pyr['device_ms_6_levels_float32'] * 1e3:.3f} us; shared memory "
+          f"{pyr['smem_bytes']}, ptxas {pyr['ptxas']}. K2 rectify: "
+          f"{len(rect_cases)} cases bitwise ({sorted(rect_cases)}), "
+          f"{DET_REPEATS} launches bitwise; 640x480 onto 600x440: "
+          f"{rect['device_ms'] * 1e3:.3f} us of device time per launch, "
+          f"plain {rect['plain_ms']:.4f} ms, grid_sample "
+          f"{rect['library_ms']:.4f} ms, bound "
+          f"{rect['bound_ms'] * 1e3:.3f} us, ptxas {rect['ptxas']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return pyr, rect
+
+
+def _k2_check(what: str, launches: int, expected: int) -> None:
+    """K2's pyramid ran on this path exactly as often as its steps'
+    replays, their captures and the bootstrap's frames imply
+    (time_modes.counted_pyramids' `k2_expected`), so no pyramid went
+    through the plain version."""
+    if not launches == expected > 0:
+        _fail(f"{what}: K2's pyramid launched {launches} times where the "
+              f"path's step replays, captures and bootstrap frames imply "
+              f"{expected}")
+
+
+def _k2_run_check(run: dict) -> None:
+    _k2_check(f"{run.get('phase', run['mode'])}", run["k2_launches"],
+              run["k2_expected"])
 
 
 def phase_frame_step_program(steps, strict: dict, fs3, images):
@@ -3566,7 +3791,7 @@ def phase_frame_step_program(steps, strict: dict, fs3, images):
               f"{strict['chain_step_replays']} replays")
     for g in fam.graphs.values():
         per = {k: n for k, n in g.launches.items() if "." not in k}
-        if per != {"tracker_trip": trips, "trace": 1}:
+        if per != {"tracker_trip": trips, "trace": 1, "pyramid": 1}:
             _fail(f"3i: a frame step's graph launches {per} per replay")
     static, fn, inputs = _last_step(steps, fam)
     na = len(immature.ImmaturePool._fields) + 1
@@ -3620,11 +3845,12 @@ def phase_frame_step_program(steps, strict: dict, fs3, images):
     if not (call_ms < STEP_QUEUED_MS and not ready and same and replays == 2
             and fam.counts["count"] == counts0["count"]
             and launches["tracker_trip"] == 2 * trips
-            and launches["trace"] == 2):
+            and launches["trace"] == 2 and launches["pyramid"] == 2):
         _fail(f"3i: the strict dispatch behind {STEP_SLEEP_MS} ms of sleep "
               f"returned in {call_ms:.3f} ms, ready {ready}, bitwise {same}, "
-              f"{replays} replays, K3 {launches['tracker_trip']} and K4 "
-              f"{launches['trace']} launches for two dispatches")
+              f"{replays} replays, K3 {launches['tracker_trip']}, K4 "
+              f"{launches['trace']} and K2 {launches['pyramid']} launches "
+              f"for two dispatches")
 
     device_ms = _queued_device_ms(lambda: fam.replay(static, fn, inputs),
                                   n=20, reps=5)
@@ -3641,12 +3867,15 @@ def phase_frame_step_program(steps, strict: dict, fs3, images):
     except Exception as e:  # noqa: BLE001 -- the split is reported, not held
         split = dict(source=f"not measured ({type(e).__name__}: {e})")
     frame_bytes = inputs[0].numel() * inputs[0].element_size()
-    k2 = dict(bound_ms=pyramid_bound_ms(calib, frame_bytes))
+    k2 = dict(bound_ms=pyramid_bound_ms(calib.h[0], calib.w[0], L,
+                                        frame_bytes)[0])
     if "parts" in split:
         pyr_ms = split["parts"]["pyramid"]["ms"]
         k2.update(device_ms=pyr_ms, share_of_replay=pyr_ms / device_ms,
                   share_of_busy=pyr_ms / split["busy_ms"],
-                  kernels=split["parts"]["pyramid"]["kernels"])
+                  kernels=split["parts"]["pyramid"]["kernels"],
+                  before_k3_ms=split["before_k3"]["ms"],
+                  before_k3_kernels=split["before_k3"]["kernels"])
 
     # the card memory (allocated) of capturing both steps again for every
     # frame dtype, into families of their own
@@ -4218,6 +4447,7 @@ def phase_variants(calib, images, poses, phase3_ba_ms, device="cuda"):
         _no_capture_inside(run)
         if device == "cuda":
             _k3_run_check(run)
+            _k2_run_check(run)
             _k4_run_check(run)
             _k5_run_check(run)
             _k67_run_check(run)
@@ -4414,6 +4644,10 @@ BENCH_TRACKING = ("warmup", "lookahead", "strict", "async", "util",
                   "aggregate_8seq", "aggregate_16seq", "batched_tracking")
 BENCH_BA = ("warmup", "lookahead", "strict", "util", "aggregate_8seq",
             "aggregate_16seq", "batched_ba")
+# and those whose every pyramid is a step's or a bootstrap frame's (util
+# and batched tracking build pyramids of their own too)
+BENCH_K2_EXACT = ("warmup", "lookahead", "strict", "async", "aggregate_8seq",
+                  "aggregate_16seq")
 # and those that trace the candidate arena
 BENCH_TRACING = ("warmup", "lookahead", "strict", "async", "util",
                  "aggregate_8seq", "aggregate_16seq")
@@ -4473,6 +4707,14 @@ def phase_bench():
             _fail(f"8 bench: K3 not launched in the {leg} leg")
         if leg in BENCH_BA and not n["ba_projector"] > 0:
             _fail(f"8 bench: K12 not launched in the {leg} leg")
+        if leg in BENCH_K2_EXACT:
+            _k2_check(f"8 bench: {leg}", n["pyramid"],
+                      res["k2_expected"][leg])
+        elif leg in BENCH_TRACKING and not (
+                n["pyramid"] > res["k2_expected"][leg]):
+            _fail(f"8 bench: {leg}: K2's pyramid launched {n['pyramid']} "
+                  f"times, not more than the {res['k2_expected'][leg]} its "
+                  f"steps imply beside the leg's own pyramids")
         if leg in BENCH_TRACING:
             _k4_check(f"8 bench: {leg}", n["trace"],
                       res["k4_expected"][leg], res["traces"][leg])
@@ -4513,6 +4755,7 @@ def main() -> int:
     record = phase_kernels()
     trip_edges = phase_trip_edges()
     proj_record = phase_projector()
+    pyr_record, rect_record = phase_preprocess_kernel()
     trace_record = phase_trace_kernel()
     act_record = phase_activate_kernel()
     lin_record, acc_record = phase_ba_kernels()
@@ -4564,7 +4807,8 @@ def main() -> int:
     bench_launches = {k: sum(leg[k] for leg in bench["launches"].values())
                       for k in ("distance_transform", "tracker_trip",
                                 "ba_projector", "trace", "activate",
-                                "ba_linearize", "ba_accumulate")}
+                                "ba_linearize", "ba_accumulate", "pyramid",
+                                "rectify")}
     by_path = dict(vo_strict=launches_vo["distance_transform"],
                    loop=launches["distance_transform"],
                    boxes=boxes["k1_launches"],
@@ -4621,6 +4865,24 @@ def main() -> int:
                          for name, run in variants.items()},
                       bench=bench_launches["trace"])
     print(f"K4 launches per path: {k4_by_path}", flush=True)
+    k2_by_path = dict(vo_strict=launches_vo["pyramid"],
+                      loop=launches["pyramid"],
+                      boxes=boxes["k2_launches"],
+                      vo_lookahead=look["k2_launches"],
+                      vo_async=asyn["k2_launches"],
+                      vo_async_paced=paced["k2_launches"],
+                      cli_lookahead=cli["k2_lookahead"],
+                      cli_async=cli["k2_async"],
+                      **{name.split()[1]: run["k2_launches"]
+                         for name, run in variants.items()},
+                      bench=bench_launches["pyramid"])
+    print(json.dumps({"k2_by_path": k2_by_path}), flush=True)
+    pyr_record["launches"] = launches_vo["pyramid"]
+    pyr_record["launches_by_path"] = k2_by_path
+    rect_record["launches"] = cli["rectify_lookahead"]
+    rect_record["launches_by_path"] = dict(
+        cli_lookahead=cli["rectify_lookahead"], cli_async=cli["rectify_async"],
+        bench=bench_launches["rectify"])
     trace_record["launches"] = launches_vo["trace"]
     trace_record["launches_by_path"] = k4_by_path
     k5_by_path = dict(vo_strict=launches_vo["activate"],
@@ -4671,9 +4933,9 @@ def main() -> int:
     print(json.dumps({"bootstrap_program": boot_program}))
     print(json.dumps({"frame_step_program": step_program}))
     print(json.dumps(bench))
-    print(json.dumps({"kernels": [record, trip_record, proj_record,
-                                  trace_record, act_record, lin_record,
-                                  acc_record]}))
+    print(json.dumps({"kernels": [record, pyr_record, rect_record,
+                                  trip_record, proj_record, trace_record,
+                                  act_record, lin_record, acc_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -33,13 +33,17 @@
 // idepth_max, quality, status, last_u, last_v, last_interval); a lane that
 // is not active copies its fields through bit for bit.
 //
-// Every operation is the plain version's, in its order: the plain version
-// writes its three contractions (the projection, the rotated pattern, the
-// 8-tap sums, in the tree ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)))
-// out in that order, and this file is built with --fmad=false, so no
-// multiply and add is contracted here either. On the same inputs the two
-// give the same bits; tests/torch_kernel_checks.trace_err still allows a
-// lane to differ where the plain version's own numbers tie.
+// Every operation is the plain version's, in its order, and the plain
+// version's order is the JAX package's jitted trace on the CPU: XLA:CPU
+// contracts a multiply into the add that consumes it (the projection, the
+// interval's ends and sums, each step's position, the bilinear blend, the
+// residual's affine model, the GN's gradient and steps) and sums the 8
+// taps left to right. The plain version writes those contractions with
+// math/rounding.fma, one rounding each; this file is built with
+// --fmad=false, so it contracts only where it says `__fmaf_rn`, at the
+// same places. On the same inputs the two give the same bits;
+// tests/torch_kernel_checks.trace_err still allows a lane to differ where
+// the plain version's own numbers tie.
 //
 // What bounds it on this card: bytes, by the function's own count. The
 // work is small: at 640x480 about 1,300 live lanes, 34 steps and 8
@@ -78,7 +82,7 @@
 //   * the search: thread g of the group scores steps g, g + 16, g + 32, ...
 //     (3 rounds at 34 steps, 7 at the cap of 100), a step's 32 pixel loads
 //     issued before any is used (`fetch`, then `energy`), its 8 taps summed
-//     in sum8's tree in the thread;
+//     left to right in the thread;
 //   * the argmin and the second best are xor-shuffle reductions over the
 //     group under `before`, a total order (lowest step on a tie, a NaN
 //     first), and nan_min, which is order-free, so any tree gives the plain
@@ -86,9 +90,9 @@
 //   * the re-score puts candidate j of its 2K + 1 on thread j % 16 (2
 //     rounds at most) and recomputes the winner's position from its index;
 //   * a Gauss-Newton step puts tap p on threads p and p + 8 of the group
-//     (one instruction for both); the xor shuffles 1, 2, 4 sum the 8 taps
-//     in sum8's tree (a + b and b + a being the same bits), and the 12
-//     words of a tap's three channels go out together;
+//     (one instruction for both); every thread reads the 8 taps' terms in
+//     tap order by shuffles and sums them left to right, and the 12 words
+//     of a tap's three channels go out together;
 //   * thread 0 of the group writes the lane's 7 outputs.
 // Every shuffle names its group's threads, so the 2 lanes of a warp may
 // take different branches. A dead or inactive lane costs its group one
@@ -184,19 +188,21 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
 }
 
-// immature._sum8's tree
-__device__ __forceinline__ float sum8(const float* x) {
-  return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]));
+// immature._tap_sum: the 8 taps left to right
+__device__ __forceinline__ float tap_sum(const float* x) {
+  float s = x[0];
+#pragma unroll
+  for (int p = 1; p < kTaps; ++p) s = s + x[p];
+  return s;
 }
 
 // the same sum with tap p on threads p and p + 8 of a 16-thread group
-// (`group` its mask): the xor shuffles 1, 2, 4 run within each 8-thread
-// half, each adding the partner's partial, a + b and b + a being the same
-// bits, so every thread ends with the tree's sum
-__device__ __forceinline__ float sum8_shfl(float x, unsigned group) {
-  x = x + __shfl_xor_sync(group, x, 1);
-  x = x + __shfl_xor_sync(group, x, 2);
-  return x + __shfl_xor_sync(group, x, 4);
+// (`group` its mask): every thread reads the taps in order
+__device__ __forceinline__ float tap_sum_shfl(float x, unsigned group) {
+  float s = __shfl_sync(group, x, 0, kGroup);
+#pragma unroll
+  for (int p = 1; p < kTaps; ++p) s = s + __shfl_sync(group, x, p, kGroup);
+  return s;
 }
 
 // torch.argmin's order (LessOrNan): a NaN before any number, the lower
@@ -232,16 +238,15 @@ __device__ __forceinline__ float group_amin(float x, unsigned group) {
   return x;
 }
 
-// the plain version's th / x is x.reciprocal() * th (Tensor.__rtruediv__),
-// two roundings
+// immature._trace_huber_w: th / |r| as one division
 __device__ __forceinline__ float huber_w(float ar, float th) {
-  return ar < th ? 1.0f : (1.0f / clamp_min(ar, 1e-12f)) * th;
+  return ar < th ? 1.0f : th / clamp_min(ar, 1e-12f);
 }
 
 // one tap's term of pattern_energy
 __device__ __forceinline__ float pattern_term(float hit, float color,
                                               const float* af, float th) {
-  const float res = hit - (af[0] * color + af[1]);
+  const float res = hit - __fmaf_rn(af[0], color, af[1]);
   const float hw = huber_w(fabsf(res), th);
   return isfinite(hit) ? hw * res * res * (2.0f - hw) : 1e5f;
 }
@@ -269,11 +274,14 @@ __device__ __forceinline__ Cell bilinear_cell(const Args& a, float x,
   c.dy = y - y0;
   return c;
 }
+// immature._blend: each of the last three products contracted into the
+// sum before it
 __device__ __forceinline__ float blend(float dx, float dy, float v00,
                                        float v01, float v10, float v11) {
   const float dxdy = dx * dy;
-  return dxdy * v11 + (dy - dxdy) * v10 + (dx - dxdy) * v01 +
-         (1.0f - dx - dy + dxdy) * v00;
+  float s = __fmaf_rn(dxdy, v11, (dy - dxdy) * v10);
+  s = __fmaf_rn(dx - dxdy, v01, s);
+  return __fmaf_rn(1.0f - dx - dy + dxdy, v00, s);
 }
 // interp.nearest's index: round half to even, then clamp to the image
 __device__ __forceinline__ int nearest_index(float x, int n) {
@@ -347,30 +355,30 @@ __device__ Lane interval(const Args& a, const Fields& f) {
   L.k2[2] = K[3];
   L.k2[3] = K[4];
   for (int r = 0; r < 3; ++r) {
-    L.pr[r] = K[3 * r] * f.u + K[3 * r + 1] * f.v + K[3 * r + 2];
+    L.pr[r] = __fmaf_rn(K[3 * r + 1], f.v, K[3 * r] * f.u) + K[3 * r + 2];
   }
   const float W = static_cast<float>(a.w), H = static_cast<float>(a.h);
   const float mps = a.max_pix_search;
   const float id_min = f.idepth_min;
-  const float p0 = L.pr[0] + L.kt[0] * id_min;
-  const float p1 = L.pr[1] + L.kt[1] * id_min;
-  const float p2 = L.pr[2] + L.kt[2] * id_min;
+  const float p0 = __fmaf_rn(L.kt[0], id_min, L.pr[0]);
+  const float p1 = __fmaf_rn(L.kt[1], id_min, L.pr[1]);
+  const float p2 = __fmaf_rn(L.kt[2], id_min, L.pr[2]);
   L.u_min = p0 / p2;
   L.v_min = p1 / p2;
   const bool inb_min = (L.u_min > 4.0f) & (L.v_min > 4.0f) &
                        (L.u_min < W - 5.0f) & (L.v_min < H - 5.0f);
   const bool finite_max = isfinite(f.idepth_max);
   const float id_max = finite_max ? f.idepth_max : 0.01f;
-  const float q0 = L.pr[0] + L.kt[0] * id_max;
-  const float q1 = L.pr[1] + L.kt[1] * id_max;
-  const float q2 = L.pr[2] + L.kt[2] * id_max;
+  const float q0 = __fmaf_rn(L.kt[0], id_max, L.pr[0]);
+  const float q1 = __fmaf_rn(L.kt[1], id_max, L.pr[1]);
+  const float q2 = __fmaf_rn(L.kt[2], id_max, L.pr[2]);
   const float u_max0 = q0 / q2;
   const float v_max0 = q1 / q2;
   const float du = L.u_min - u_max0, dv = L.v_min - v_max0;
-  const float dist_f = sqrtf(du * du + dv * dv);
+  const float dist_f = sqrtf(__fmaf_rn(du, du, dv * dv));
   const float dnorm = 1.0f / clamp_min(dist_f, 1e-12f);
-  const float u_max_inf = L.u_min + mps * (u_max0 - L.u_min) * dnorm;
-  const float v_max_inf = L.v_min + mps * (v_max0 - L.v_min) * dnorm;
+  const float u_max_inf = __fmaf_rn(mps * (u_max0 - L.u_min), dnorm, L.u_min);
+  const float v_max_inf = __fmaf_rn(mps * (v_max0 - L.v_min), dnorm, L.v_min);
   L.u_max = finite_max ? u_max0 : u_max_inf;
   L.v_max = finite_max ? v_max0 : v_max_inf;
   float dist = finite_max ? dist_f : mps;
@@ -386,10 +394,10 @@ __device__ Lane interval(const Args& a, const Fields& f) {
   const float dx0 = a.stepsize * (L.u_max - L.u_min);
   const float dy0 = a.stepsize * (L.v_max - L.v_min);
   const float* g = f.g;
-  const float A = dx0 * (g[0] * dx0 + g[1] * dy0) +
-                  dy0 * (g[2] * dx0 + g[3] * dy0);
-  const float B = dy0 * (g[0] * dy0 - g[1] * dx0) -
-                  dx0 * (g[2] * dy0 - g[3] * dx0);
+  const float A = __fmaf_rn(dx0, __fmaf_rn(g[1], dy0, g[0] * dx0),
+                            dy0 * __fmaf_rn(g[2], dx0, g[3] * dy0));
+  const float B = __fmaf_rn(dy0, __fmaf_rn(g[0], dy0, -(g[1] * dx0)),
+                            -(dx0 * __fmaf_rn(g[2], dy0, -(g[3] * dx0))));
   float error_px = 0.2f + 0.2f * (A + B) / clamp_min(A, 1e-12f);
   L.badcond = (error_px * a.min_improvement > dist) & finite_max & !oob &
               !L.skipped;
@@ -398,8 +406,8 @@ __device__ Lane interval(const Args& a, const Fields& f) {
   L.dxn = dx0 / clamp_min(dist, 1e-12f);
   L.dyn = dy0 / clamp_min(dist, 1e-12f);
   if (dist > mps) {
-    L.u_max = L.u_min + mps * L.dxn;
-    L.v_max = L.v_min + mps * L.dyn;
+    L.u_max = __fmaf_rn(mps, L.dxn, L.u_min);
+    L.v_max = __fmaf_rn(mps, L.dyn, L.v_min);
   }
   L.dist = clamp_max(dist, mps);
   L.n_steps = min(static_cast<int>(1.9999f + L.dist / a.stepsize),
@@ -408,8 +416,8 @@ __device__ Lane interval(const Args& a, const Fields& f) {
   L.oob = oob | bad_dir;
 
   const float rand_shift = L.u_min * 1000.0f - floorf(L.u_min * 1000.0f);
-  L.ptx0 = L.u_min - rand_shift * L.dxn;
-  L.pty0 = L.v_min - rand_shift * L.dyn;
+  L.ptx0 = __fmaf_rn(-rand_shift, L.dxn, L.u_min);
+  L.pty0 = __fmaf_rn(-rand_shift, L.dyn, L.v_min);
   return L;
 }
 
@@ -475,7 +483,7 @@ __device__ __forceinline__ void fetch(const Args& a, const Lane& L, float sx,
   }
 }
 
-// pattern_energy of fetched taps: each tap's term, summed in sum8's tree
+// pattern_energy of fetched taps: each tap's term, summed left to right
 template <int kSearch>
 __device__ __forceinline__ float energy(const Args& a, const Lane& L,
                                         const float* color, const Taps& T) {
@@ -489,7 +497,7 @@ __device__ __forceinline__ float energy(const Args& a, const Lane& L,
                     T.v[p][3]);
     e[p] = pattern_term(hit, color[p], L.af, a.huber_th);
   }
-  return sum8(e);
+  return tap_sum(e);
 }
 
 // The discrete search: the first minimum's step and energy, and the
@@ -514,7 +522,8 @@ __device__ Search search(const Args& a, const Lane& L, const float* color,
     if (kGroup * k < a.n_cap && s < a.n_cap) {
       const float fs = static_cast<float>(s);
       Taps T;
-      fetch<kSearch>(a, L, L.ptx0 + fs * L.dxn, L.pty0 + fs * L.dyn, T);
+      fetch<kSearch>(a, L, __fmaf_rn(fs, L.dxn, L.ptx0),
+                     __fmaf_rn(fs, L.dyn, L.pty0), T);
       const float en = energy<kSearch>(a, L, color, T);
       e[k] = fs < static_cast<float>(L.n_steps) ? en : 1e10f;
       if (before(e[k], s, val, idx)) {
@@ -559,7 +568,8 @@ __device__ void refine(const Args& a, const Lane& L, const float* color,
       const bool live = (cand >= 0.0f) &
                         (cand < static_cast<float>(L.n_steps));
       Taps T;
-      fetch<kRotated>(a, L, L.ptx0 + cand * L.dxn, L.pty0 + cand * L.dyn, T);
+      fetch<kRotated>(a, L, __fmaf_rn(cand, L.dxn, L.ptx0),
+                      __fmaf_rn(cand, L.dyn, L.pty0), T);
       const float en = energy<kRotated>(a, L, color, T);
       const float e = live ? en : 1e10f;
       if (before(e, j, val, idx)) {
@@ -571,8 +581,8 @@ __device__ void refine(const Args& a, const Lane& L, const float* color,
   group_argmin(val, idx, group);
   const float cand = static_cast<float>(best) + static_cast<float>(idx - K);
   best_e = val;
-  best_u = L.ptx0 + cand * L.dxn;
-  best_v = L.pty0 + cand * L.dyn;
+  best_u = __fmaf_rn(cand, L.dxn, L.ptx0);
+  best_v = __fmaf_rn(cand, L.dyn, L.pty0);
 }
 
 // Gauss-Newton along the line with backtracking, tap p on threads p and
@@ -601,22 +611,22 @@ __device__ void gauss_newton(const Args& a, const Lane& L, const Fields& f,
     const float h1 = blend(q.dx, q.dy, w[1][0], w[1][1], w[1][2], w[1][3]);
     const float h2 = blend(q.dx, q.dy, w[2][0], w[2][1], w[2][2], w[2][3]);
     const bool finite = isfinite(h0);
-    const float r = h0 - (L.af[0] * color + L.af[1]);
-    const float d = L.dxn * h1 + L.dyn * h2;
+    const float r = h0 - __fmaf_rn(L.af[0], color, L.af[1]);
+    const float d = __fmaf_rn(L.dxn, h1, L.dyn * h2);
     const float hw = huber_w(fabsf(r), a.huber_th);
-    const float e = sum8_shfl(
+    const float e = tap_sum_shfl(
         finite ? wt * wt * hw * r * r * (2.0f - hw) : 1e5f, group);
-    const float Hc = 1.0f + sum8_shfl(finite ? hw * d * d : 0.0f, group);
-    const float bc = sum8_shfl(finite ? hw * r * d : 0.0f, group);
+    const float Hc = 1.0f + tap_sum_shfl(finite ? hw * d * d : 0.0f, group);
+    const float bc = tap_sum_shfl(finite ? hw * r * d : 0.0f, group);
 
     const bool worse = e > be;
     const float sb_half = stepback * 0.5f;
-    const float bu_back = ubak + sb_half * L.dxn;
-    const float bv_back = vbak + sb_half * L.dyn;
+    const float bu_back = __fmaf_rn(sb_half, L.dxn, ubak);
+    const float bv_back = __fmaf_rn(sb_half, L.dyn, vbak);
     float step = clamp_f(-bc / Hc, -0.5f, 0.5f);
     step = isfinite(step) ? step : 0.0f;
-    const float bu_fwd = bu + step * L.dxn;
-    const float bv_fwd = bv + step * L.dyn;
+    const float bu_fwd = __fmaf_rn(step, L.dxn, bu);
+    const float bv_fwd = __fmaf_rn(step, L.dyn, bv);
     if (!done) {
       if (!worse) {
         ubak = bu;
@@ -670,8 +680,8 @@ __global__ void __launch_bounds__(kThreads)
     const float new_q = s.second / clamp_min(s.best_e, 1e-12f);
     quality = (new_q < quality) | (L.n_steps > 10) ? new_q : quality;
     best_e = s.best_e;
-    best_u = L.ptx0 + static_cast<float>(s.best) * L.dxn;
-    best_v = L.pty0 + static_cast<float>(s.best) * L.dyn;
+    best_u = __fmaf_rn(static_cast<float>(s.best), L.dxn, L.ptx0);
+    best_v = __fmaf_rn(static_cast<float>(s.best), L.dyn, L.pty0);
     if ((kSearch == kNearestPacked || kSearch == kNearestRotated) &&
         a.refine > 0) {
       refine(a, L, color, g, group, s.best, best_e, best_u, best_v);
@@ -683,14 +693,16 @@ __global__ void __launch_bounds__(kThreads)
     // the outlier test and the new interval
     is_outlier = !(best_e < f.energy_th * a.extra_slack);
     const bool use_x = L.dxn * L.dxn > L.dyn * L.dyn;
-    const float px_lo = use_x ? best_u - L.error_px * L.dxn
-                              : best_v - L.error_px * L.dyn;
-    const float px_hi = use_x ? best_u + L.error_px * L.dxn
-                              : best_v + L.error_px * L.dyn;
+    const float px_lo = use_x ? __fmaf_rn(-L.error_px, L.dxn, best_u)
+                              : __fmaf_rn(-L.error_px, L.dyn, best_v);
+    const float px_hi = use_x ? __fmaf_rn(L.error_px, L.dxn, best_u)
+                              : __fmaf_rn(L.error_px, L.dyn, best_v);
     const float pr_a = use_x ? L.pr[0] : L.pr[1];
     const float kt_a = use_x ? L.kt[0] : L.kt[1];
-    const float id_lo = (L.pr[2] * px_lo - pr_a) / (kt_a - L.kt[2] * px_lo);
-    const float id_hi = (L.pr[2] * px_hi - pr_a) / (kt_a - L.kt[2] * px_hi);
+    const float id_lo = __fmaf_rn(L.pr[2], px_lo, -pr_a) /
+                        __fmaf_rn(-L.kt[2], px_lo, kt_a);
+    const float id_hi = __fmaf_rn(L.pr[2], px_hi, -pr_a) /
+                        __fmaf_rn(-L.kt[2], px_hi, kt_a);
     new_min = nan_min(id_lo, id_hi);
     new_max = nan_max(id_lo, id_hi);
     interval_bad = !isfinite(new_min) | !isfinite(new_max) | (new_max < 0.0f);

@@ -61,7 +61,10 @@ replays queue on one lock; the frame and chain steps' too),
 `traces` (the arena traces committed: the frame steps' trace flags,
 FullSystem._trace_arena's calls and util's timed trace calls),
 `k4_expected` (K4's launches on the card that the leg's frame steps,
-trace calls and captures imply: time_modes.counted_traces), `activations`
+trace calls and captures imply: time_modes.counted_traces), `k2_expected`
+(K2's pyramid launches that the leg's step replays, captures and
+bootstrap frames imply: time_modes.counted_pyramids; the util and batched
+tracking legs also build pyramids of their own), `activations`
 (the activation passes:
 FullSystem._activation_pass's calls, and util's timed ones; K5 launches
 once for each), `leg_s` (wall seconds) and
@@ -639,9 +642,12 @@ def measure(args: argparse.Namespace) -> dict:
             t0 = time.perf_counter()
             try:
                 with time_modes.counted_traces() as run.traces, \
-                        time_modes.counted_activations() as run.activations:
+                        time_modes.counted_activations() as run.activations, \
+                        time_modes.counted_pyramids() as pyramids:
                     fn(run, result)
             finally:
+                result.setdefault("k2_expected", {})[leg] = \
+                    pyramids["k2_expected"]
                 result.setdefault("traces", {})[leg] = run.traces["traces"]
                 result.setdefault("k4_expected", {})[leg] = \
                     run.traces["k4_expected"]

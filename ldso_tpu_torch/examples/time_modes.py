@@ -15,7 +15,8 @@ keyframes, the ATE, K1's launches and the streams they went to, K3's
 launches beside the count the run's tracks imply, K4's launches beside
 the count the frame steps and FullSystem._trace_arena calls imply and the
 traces committed (the frame steps' trace flags and the _trace_arena
-calls), K5's launches beside the activation passes
+calls), K2's pyramid launches beside the count the steps' replays and
+the bootstrap's frames imply, K5's launches beside the activation passes
 (FullSystem._activation_pass calls), the retrack-gate trips, how many
 frames the tracker ran on (a pipeline re-tracks its frames in flight
 after each keyframe) and the host time of those calls (on the card a
@@ -237,6 +238,33 @@ def counted_traces():
 
 
 @contextlib.contextmanager
+def counted_pyramids():
+    """Count the pyramids the system's frames imply while inside, on every
+    thread, and yield the counts: `boot_pyramids`, the bootstrap's frames
+    (FullSystem._do_initialize calls, each after one pyramid of its
+    frame), and at the block's end `k2_expected`, K2's pyramid launches
+    they imply on the card: one per replay of the frame step's and the
+    chain step's graphs, one per such graph captured (its eager warm-up)
+    and one per bootstrap frame."""
+    counts = dict(boot_pyramids=0)
+    lock = threading.Lock()
+    boot = FullSystem._do_initialize
+    before = _step_counts("replays") + _step_counts("count")
+
+    def counted(self, *a, **k):
+        with lock:
+            counts["boot_pyramids"] += 1
+        return boot(self, *a, **k)
+    FullSystem._do_initialize = counted
+    try:
+        yield counts
+    finally:
+        FullSystem._do_initialize = boot
+        counts["k2_expected"] = (_step_counts("replays") + _step_counts("count")
+                                 - before + counts["boot_pyramids"])
+
+
+@contextlib.contextmanager
 def counted_activations():
     """Count the keyframes' activation passes (FullSystem._activation_pass
     calls) while inside, on every thread, and yield the count
@@ -394,7 +422,8 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
     mapping = mapping.cuda_stream if mapping is not None else None
     with traced_k1() as k1, counted_tracks() as tracks, \
             counted_traces() as traces, counted_activations() as acts, \
-            counted_ba() as bas, counted_boot() as boot:
+            counted_ba() as bas, counted_boot() as boot, \
+            counted_pyramids() as pyrs:
         _sync(fs.device)
         cuda_kernels.reset_launch_counts()
         ba_graphs = dict(BA_GRAPHS.counts)
@@ -453,6 +482,8 @@ def run_mode(mode: str, calib, poses, images, gpu=None,
                k3_by_mode=k3_by_mode,
                k3_expected=k3_expected(tracks, cfg, calib.levels),
                k12_launches=launches["ba_projector"],
+               k2_launches=launches["pyramid"],
+               k2_expected=pyrs["k2_expected"],
                k4_launches=launches["trace"], traces=traces["traces"],
                trace_calls=traces["trace_calls"],
                frame_steps=traces["frame_steps"],

@@ -24,18 +24,30 @@ by `trace_packed` and `trace_search_nearest`:
 The packing that implemented the packed samplings on the TPU is not
 ported; the functions it computes are.
 
-`trace` is the plain PyTorch version of K4 (csrc/immature_trace.cu): its
-three contractions (the projection K R K^-1 (u, v, 1), the rotated
-pattern, each 8-tap sum) are written out in one fixed order (`_sum8`), so
-that it rounds alike on the CPU and on the card, and K4 computes the same
-function in the same order. `trace_arena` goes through the wrapper
-`ops.cuda_kernels.trace_arena` (K4 on the card, one launch over the whole
-arena); `trace_arena_ref` is its plain version.
+`trace` is the plain PyTorch version of K4 (csrc/immature_trace.cu). It
+rounds as the JAX package's jitted trace does on the CPU: XLA:CPU
+contracts a multiply into the add that consumes it (the projection
+K R K^-1 (u, v, 1), the interval's ends and error bound, each step's
+position, the bilinear blend, the residual's affine model, the GN's
+gradient and steps), which the plain version writes with
+math/rounding.fma (one rounding, alike on the CPU and the card), sums
+the 8 taps left to right (`_tap_sum`) and divides the Huber threshold by
+|r| (`_huber_div`); K4 computes the same function in the same order.
+`trace_arena` goes through the wrapper `ops.cuda_kernels.trace_arena` (K4
+on the card, one launch over the whole arena); `trace_arena_ref` is its
+plain version.
 
 `activate_arena_ref` is the plain version of K5 (csrc/immature_activate.cu),
 the keyframe's activation of every lane of the arena: the gate
 (`gate_candidates`) and the depth-only LM (`activate`'s), written out in
 K5's order; FullSystem reaches it through `ops.cuda_kernels.activate_arena`.
+The activation rounds as the JAX package's activation run op by op:
+separate multiplies and adds, interp.bilinear's blend, the 8 taps in
+`_sum8`'s tree and the Huber weight as a multiply by |r|'s reciprocal
+(`_huber_w`). So each helper pair here (`_tap_sum`/`_sum8`,
+`_huber_div`/`_huber_w`, `_bilinear`/interp.bilinear) is one function in
+the two roundings, the trace's and the activation's, and K4 and K5 copy
+their own.
 """
 
 from __future__ import annotations
@@ -46,7 +58,8 @@ import torch
 
 from ldso_tpu_torch.config import Config, PATTERN
 from ldso_tpu_torch.camera.calib import Calibration
-from ldso_tpu_torch.ops.interp import bilinear, nearest
+from ldso_tpu_torch.math.rounding import fma
+from ldso_tpu_torch.ops.interp import _floor_index, bilinear, nearest
 from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.utils.static import device_const, nonzero_padded
 
@@ -175,9 +188,34 @@ def _search_samples(img, x, y, patt_int):
     v01 = flat[cy * W + cx1]
     v10 = flat[cy1 * W + cx]
     v11 = flat[cy1 * W + cx1]
+    return _blend(dx, dy, v00, v01, v10, v11)
+
+
+def _blend(dx, dy, v00, v01, v10, v11):
+    """The bilinear weights of GlobalFuncs.h:55-67 applied as the JAX
+    package's jitted trace applies them: XLA:CPU contracts each of the last
+    three products into the sum before it (`fma`)."""
     dxdy = dx * dy
-    return (dxdy * v11 + (dy - dxdy) * v10 + (dx - dxdy) * v01
-            + (1.0 - dx - dy + dxdy) * v00)
+    s = fma(dxdy, v11, (dy - dxdy) * v10)
+    s = fma(dx - dxdy, v01, s)
+    return fma(1.0 - dx - dy + dxdy, v00, s)
+
+
+def _bilinear(img, x, y):
+    """interp.bilinear with the trace's `_blend`: the rotated search, the
+    re-score and the GN's samples, as the jitted trace samples them."""
+    H, W = img.shape[0], img.shape[1]
+    x, x0, xi = _floor_index(x, W - 1.001)
+    y, y0, yi = _floor_index(y, H - 1.001)
+    dx = x - x0
+    dy = y - y0
+    flat = img.reshape((H * W,) + tuple(img.shape[2:]))
+    idx = yi * W + xi
+    if img.dim() == 3:
+        dx = dx[..., None]
+        dy = dy[..., None]
+    return _blend(dx, dy, flat[idx], flat[idx + 1], flat[idx + W],
+                  flat[idx + W + 1])
 
 
 def _nearest_samples(img, x, y, patt_int):
@@ -196,6 +234,24 @@ def _nearest_samples(img, x, y, patt_int):
     cx = torch.clamp(xi[..., None] + patt_int[:, 0], 0, W - 1)
     cy = torch.clamp(yi[..., None] + patt_int[:, 1], 0, H - 1)
     return img.reshape(-1)[cy * W + cx]
+
+
+def _tap_sum(x):
+    """The trace's sum over the last axis (8 pattern taps), left to right,
+    as the JAX package's jitted `jnp.sum` adds them on the CPU."""
+    s = x[..., 0]
+    for p in range(1, x.shape[-1]):
+        s = s + x[..., p]
+    return s
+
+
+def _huber_div(ar, cfg):
+    """The trace's Huber weight: huber_th / |r| as one division, as the
+    JAX package's jitted trace divides (`_huber_w` multiplies by the
+    reciprocal, as the activation does)."""
+    th = torch.full((), cfg.huber_th, dtype=ar.dtype, device=ar.device)
+    return torch.where(ar < cfg.huber_th, torch.ones_like(ar),
+                       th / torch.clamp(ar, min=1e-12))
 
 
 def _huber_w(ar, cfg):
@@ -226,10 +282,10 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
     sticky_oob = pool.status == IPS_OOB
     active = pool.valid & ~sticky_oob
 
-    # K R K^-1 (u, v, 1), each row (k0 u + k1 v) + k2
-    pr = (KRKi[:, :, 0] * pool.u[:, None] + KRKi[:, :, 1] * pool.v[:, None]
-          + KRKi[:, :, 2])
-    ptp_min = pr + Kt * pool.idepth_min[:, None]
+    # K R K^-1 (u, v, 1), each row fma(k1, v, k0 u) + k2
+    pr = fma(KRKi[:, :, 1], pool.v[:, None],
+             KRKi[:, :, 0] * pool.u[:, None]) + KRKi[:, :, 2]
+    ptp_min = fma(Kt, pool.idepth_min[:, None], pr)
     u_min = ptp_min[:, 0] / ptp_min[:, 2]
     v_min = ptp_min[:, 1] / ptp_min[:, 2]
     inb_min = (u_min > 4) & (v_min > 4) & (u_min < W - 5) & (v_min < H - 5)
@@ -237,14 +293,16 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
     finite_max = torch.isfinite(pool.idepth_max)
     id_max = torch.where(finite_max, pool.idepth_max,
                          torch.full_like(pool.idepth_max, 0.01))
-    ptp_max = pr + Kt * id_max[:, None]
+    ptp_max = fma(Kt, id_max[:, None], pr)
     u_max0 = ptp_max[:, 0] / ptp_max[:, 2]
     v_max0 = ptp_max[:, 1] / ptp_max[:, 2]
 
-    dist_f = torch.sqrt((u_min - u_max0) ** 2 + (v_min - v_max0) ** 2)
+    du = u_min - u_max0
+    dv = v_min - v_max0
+    dist_f = torch.sqrt(fma(du, du, dv * dv))
     dnorm = 1.0 / torch.clamp(dist_f, min=1e-12)
-    u_max_inf = u_min + max_pix_search * (u_max0 - u_min) * dnorm
-    v_max_inf = v_min + max_pix_search * (v_max0 - v_min) * dnorm
+    u_max_inf = fma(max_pix_search * (u_max0 - u_min), dnorm, u_min)
+    v_max_inf = fma(max_pix_search * (v_max0 - v_min), dnorm, v_min)
     u_max = torch.where(finite_max, u_max0, u_max_inf)
     v_max = torch.where(finite_max, v_max0, v_max_inf)
     dist = torch.where(finite_max, dist_f,
@@ -260,11 +318,11 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
     # error bound from gradH (:133-146)
     dx0 = cfg.trace_stepsize * (u_max - u_min)
     dy0 = cfg.trace_stepsize * (v_max - v_min)
-    gH = pool.gradH
-    a = (dx0 * (gH[:, 0, 0] * dx0 + gH[:, 0, 1] * dy0)
-         + dy0 * (gH[:, 1, 0] * dx0 + gH[:, 1, 1] * dy0))
-    b_q = (dy0 * (gH[:, 0, 0] * dy0 - gH[:, 0, 1] * dx0)
-           - dx0 * (gH[:, 1, 0] * dy0 - gH[:, 1, 1] * dx0))
+    g00, g01 = pool.gradH[:, 0, 0], pool.gradH[:, 0, 1]
+    g10, g11 = pool.gradH[:, 1, 0], pool.gradH[:, 1, 1]
+    a = fma(dx0, fma(g01, dy0, g00 * dx0), dy0 * fma(g10, dx0, g11 * dy0))
+    b_q = fma(dy0, fma(g00, dy0, -(g01 * dx0)),
+              -(dx0 * fma(g10, dy0, -(g11 * dx0))))
     error_px = 0.2 + 0.2 * (a + b_q) / torch.clamp(a, min=1e-12)
     badcond = ((error_px * cfg.trace_min_improvement_factor > dist)
                & finite_max & ~oob & ~skipped)
@@ -273,8 +331,8 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
     dxn = dx0 / torch.clamp(dist, min=1e-12)
     dyn = dy0 / torch.clamp(dist, min=1e-12)
     clipped = dist > max_pix_search
-    u_max = torch.where(clipped, u_min + max_pix_search * dxn, u_max)
-    v_max = torch.where(clipped, v_min + max_pix_search * dyn, v_max)
+    u_max = torch.where(clipped, fma(max_pix_search, dxn, u_min), u_max)
+    v_max = torch.where(clipped, fma(max_pix_search, dyn, v_min), v_max)
     dist = torch.clamp(dist, max=max_pix_search)
     n_cap = _steps_cap(W, H, cfg)
     steps_f = 1.9999 + dist / cfg.trace_stepsize
@@ -290,12 +348,12 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
                 + patt[None, :, None, 1] * Rp[:, None, :, 1])    # (N,8,2)
 
     rand_shift = u_min * 1000.0 - torch.floor(u_min * 1000.0)
-    ptx0 = u_min - rand_shift * dxn
-    pty0 = v_min - rand_shift * dyn
+    ptx0 = fma(-rand_shift, dxn, u_min)
+    pty0 = fma(-rand_shift, dyn, v_min)
 
     steps = torch.arange(n_cap, dtype=torch.float32, device=dev)
-    sx = ptx0[:, None] + steps[None, :] * dxn[:, None]              # (N,S)
-    sy = pty0[:, None] + steps[None, :] * dyn[:, None]
+    sx = fma(steps[None, :], dxn[:, None], ptx0[:, None])           # (N,S)
+    sy = fma(steps[None, :], dyn[:, None], pty0[:, None])
     img0 = dI_target[..., 0]
     patt_int = _patt(dev, torch.int64)
     if cfg.trace_search_nearest:
@@ -306,17 +364,17 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
         # the default: the unrotated integer pattern around each step
         hit = _search_samples(img0, sx, sy, patt_int)
     else:
-        hit = bilinear(img0, sx[:, :, None] + rot_patt[:, None, :, 0],
-                       sy[:, :, None] + rot_patt[:, None, :, 1])    # (N,S,8)
+        hit = _bilinear(img0, sx[:, :, None] + rot_patt[:, None, :, 0],
+                        sy[:, :, None] + rot_patt[:, None, :, 1])   # (N,S,8)
 
     def pattern_energy(h):
         """Huber SSD of each step's pattern samples h (N, S, 8)."""
-        res = h - (aff[:, None, None, 0] * pool.color[:, None, :]
-                   + aff[:, None, None, 1])
-        hw = _huber_w(torch.abs(res), cfg)
+        res = h - fma(aff[:, None, None, 0], pool.color[:, None, :],
+                      aff[:, None, None, 1])
+        hw = _huber_div(torch.abs(res), cfg)
         e_pix = torch.where(torch.isfinite(h), hw * res * res * (2.0 - hw),
                             torch.full_like(res, 1e5))
-        return _sum8(e_pix)
+        return _tap_sum(e_pix)
 
     energies = pattern_energy(hit)                                  # (N,S)
     step_live = steps[None, :] < n_steps[:, None].to(torch.float32)
@@ -324,8 +382,8 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
                            torch.full_like(energies, 1e10))
 
     best_idx, best_energy = _first_min(energies)
-    best_u = ptx0 + best_idx.to(torch.float32) * dxn
-    best_v = pty0 + best_idx.to(torch.float32) * dyn
+    best_u = fma(best_idx.to(torch.float32), dxn, ptx0)
+    best_v = fma(best_idx.to(torch.float32), dyn, pty0)
 
     # second-best outside +-2 steps -> quality (:213-220)
     far = torch.abs(steps[None, :] - best_idx[:, None].to(torch.float32)) > 2.0
@@ -348,9 +406,9 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
         offs = torch.arange(-K, K + 1, dtype=torch.float32, device=dev)
         cand = best_idx[:, None].to(torch.float32) + offs[None, :]
         cand_live = (cand >= 0) & (cand < n_steps[:, None].to(torch.float32))
-        cu = ptx0[:, None] + cand * dxn[:, None]
-        cv = pty0[:, None] + cand * dyn[:, None]
-        re_sum = pattern_energy(bilinear(
+        cu = fma(cand, dxn[:, None], ptx0[:, None])
+        cv = fma(cand, dyn[:, None], pty0[:, None])
+        re_sum = pattern_energy(_bilinear(
             img0, cu[:, :, None] + rot_patt[:, None, :, 0],
             cv[:, :, None] + rot_patt[:, None, :, 1]))
         re_sum = torch.where(cand_live, re_sum, torch.full_like(re_sum, 1e10))
@@ -362,19 +420,20 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
 
     # GN refinement along the line (:223-275)
     def gn_energy_Hb(bu, bv):
-        hc = bilinear(dI_target, bu[:, None] + rot_patt[:, :, 0],
-                      bv[:, None] + rot_patt[:, :, 1])               # (N,8,3)
+        hc = _bilinear(dI_target, bu[:, None] + rot_patt[:, :, 0],
+                       bv[:, None] + rot_patt[:, :, 1])              # (N,8,3)
         finite = torch.isfinite(hc[..., 0])
-        r = hc[..., 0] - (aff[:, None, 0] * pool.color + aff[:, None, 1])
-        d = dxn[:, None] * hc[..., 1] + dyn[:, None] * hc[..., 2]
-        hw = _huber_w(torch.abs(r), cfg)
+        r = hc[..., 0] - fma(aff[:, None, 0], pool.color, aff[:, None, 1])
+        d = fma(dxn[:, None], hc[..., 1], dyn[:, None] * hc[..., 2])
+        hw = _huber_div(torch.abs(r), cfg)
         e = torch.where(finite, pool.weights ** 2 * hw * r * r * (2.0 - hw),
                         torch.full_like(r, 1e5))
-        Hc = 1.0 + _sum8(torch.where(finite, hw * d * d, zero))
+        Hc = 1.0 + _tap_sum(torch.where(finite, hw * d * d, zero))
         b_terms = torch.where(finite, hw * r * d, zero)
         if parts is not None:
-            parts.setdefault("gn_b_abs", []).append(_sum8(torch.abs(b_terms)))
-        return _sum8(e), Hc, _sum8(b_terms)
+            parts.setdefault("gn_b_abs", []).append(
+                _tap_sum(torch.abs(b_terms)))
+        return _tap_sum(e), Hc, _tap_sum(b_terms)
 
     if cfg.trace_gn_iterations > 0:
         bu, bv = best_u, best_v
@@ -386,12 +445,12 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
             e, Hc, bc = gn_energy_Hb(bu, bv)
             worse = e > be
             sb_half = stepback * 0.5
-            bu_back = ubak + sb_half * dxn
-            bv_back = vbak + sb_half * dyn
+            bu_back = fma(sb_half, dxn, ubak)
+            bv_back = fma(sb_half, dyn, vbak)
             step = torch.clamp(-bc / Hc, -0.5, 0.5)
             step = torch.where(torch.isfinite(step), step, zero)
-            bu_fwd = bu + step * dxn
-            bv_fwd = bv + step * dyn
+            bu_fwd = fma(step, dxn, bu)
+            bv_fwd = fma(step, dyn, bv)
             upd = ~done
             keep = upd & ~worse
             if parts is not None:
@@ -418,19 +477,22 @@ def trace(pool: ImmaturePool, dI_target, KRKi, Kt, aff, calib: Calibration,
 
     # new idepth interval (:290-303)
     use_x = dxn * dxn > dyn * dyn
-    px_lo = torch.where(use_x, best_u - error_px * dxn, best_v - error_px * dyn)
-    px_hi = torch.where(use_x, best_u + error_px * dxn, best_v + error_px * dyn)
+    px_lo = torch.where(use_x, fma(-error_px, dxn, best_u),
+                        fma(-error_px, dyn, best_v))
+    px_hi = torch.where(use_x, fma(error_px, dxn, best_u),
+                        fma(error_px, dyn, best_v))
     pr_a = torch.where(use_x, pr[:, 0], pr[:, 1])
     kt_a = torch.where(use_x, Kt[:, 0], Kt[:, 1])
-    id_lo = (pr[:, 2] * px_lo - pr_a) / (kt_a - Kt[:, 2] * px_lo)
-    id_hi = (pr[:, 2] * px_hi - pr_a) / (kt_a - Kt[:, 2] * px_hi)
+    id_lo = fma(pr[:, 2], px_lo, -pr_a) / fma(-Kt[:, 2], px_lo, kt_a)
+    id_hi = fma(pr[:, 2], px_hi, -pr_a) / fma(-Kt[:, 2], px_hi, kt_a)
     new_min = torch.minimum(id_lo, id_hi)
     new_max = torch.maximum(id_lo, id_hi)
     interval_bad = (~torch.isfinite(new_min)) | (~torch.isfinite(new_max)) \
         | (new_max < 0)
     if parts is not None:
         parts.update(best_energy=best_energy, outlier_th=outlier_th,
-                     bounds=[(pr[:, 2] * px - pr_a, kt_a - Kt[:, 2] * px,
+                     bounds=[(fma(pr[:, 2], px, -pr_a),
+                              fma(-Kt[:, 2], px, kt_a),
                               pr[:, 2] * px, Kt[:, 2] * px, pr_a, kt_a)
                              for px in (px_lo, px_hi)])
 

@@ -2,8 +2,8 @@
 
 Counterpart of ldso_tpu/io/datasets.py (examples/DatasetReader.h). The
 host decodes the raw 8/16-bit frame and only that crosses to the device,
-where `preprocess_frame` applies the photometric calibration and the
-rectification remap. `.png` frames go through the port's own decoder
+where `rectify` (one K2 launch on the card) applies the photometric
+calibration and the rectification remap. `.png` frames go through the port's own decoder
 (io/png.py) on every machine; `.jpg` frames need PIL, and without it the
 reader raises.
 """
@@ -22,7 +22,7 @@ import torch
 from ldso_tpu_torch.camera.undistort import Undistorter
 from ldso_tpu_torch.io.png import decode_png
 from ldso_tpu_torch.ops.perturb import benchmark_perturb, perturb_fields
-from ldso_tpu_torch.ops.preprocess import preprocess_frame
+from ldso_tpu_torch.ops.preprocess import rectify
 from ldso_tpu_torch.utils.device import DEFAULT_DEVICE, entry_device
 
 
@@ -188,8 +188,7 @@ class ImageFolderReader:
         if raw.dtype == torch.uint16:       # no uint16 indexing on the card
             raw = raw.to(torch.int32)
         G, vig, rx, ry = self._device_tables()
-        pyr = preprocess_frame(raw.to(self.device), G, vig, rx, ry, None, 1)
-        img = pyr.dI[0][..., 0]
+        img = rectify(raw.to(self.device), G, vig, rx, ry)
         if self.var_noise > 0.0 or self.var_blur > 0.0:
             fields = perturb_fields(idx, self.noise_grid_size, self.device)
             img = benchmark_perturb(img, fields, self.var_noise,

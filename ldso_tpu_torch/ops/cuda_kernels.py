@@ -24,7 +24,8 @@ The kernels: K1 `distance_transform` (csrc/distance_map.cu), K3
 `activate_arena` (csrc/immature_activate.cu), K6 `ba_linearize`
 (csrc/ba_linearize.cu) and K7 `ba_accumulate_top` / `ba_accumulate_sc`
 (csrc/ba_accumulate.cu; one count in LAUNCHES["ba_accumulate"] per call,
-each call queues its two stages).
+each call queues its two stages), and K2 `pyramid` and `rectify`
+(csrc/preprocess.cu).
 """
 
 from __future__ import annotations
@@ -51,15 +52,17 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _SOURCES = ("distance_map.cu", "tracker_trip.cu", "ba_projector.cu",
             "immature_trace.cu", "immature_activate.cu", "ba_linearize.cu",
-            "ba_accumulate.cu")
-# flags of one source beside NVCC_FLAGS: K4, K5 and K6 round every
+            "ba_accumulate.cu", "preprocess.cu")
+# flags of one source beside NVCC_FLAGS: K2, K4, K5 and K6 round every
 # multiply and add on their own, as their plain versions' separate aten
-# operations do; K7 too, so that its order of sums written out in plain
-# PyTorch (tests/torch_kernel_checks.acc_emulated) gives its bits
+# operations do (contracting only where they say __fmaf_rn); K7 too, so
+# that its order of sums written out in plain PyTorch
+# (tests/torch_kernel_checks.acc_emulated) gives its bits
 _SOURCE_FLAGS = {"immature_trace.cu": ("--fmad=false",),
                  "immature_activate.cu": ("--fmad=false",),
                  "ba_linearize.cu": ("--fmad=false",),
-                 "ba_accumulate.cu": ("--fmad=false",)}
+                 "ba_accumulate.cu": ("--fmad=false",),
+                 "preprocess.cu": ("--fmad=false",)}
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "ldso_tpu_torch")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -68,7 +71,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SMEM_LIMIT = 48 * 1024
 
 LAUNCHES = {"distance_transform": 0, "tracker_trip": 0, "ba_projector": 0,
-            "trace": 0, "activate": 0, "ba_linearize": 0, "ba_accumulate": 0}
+            "trace": 0, "activate": 0, "ba_linearize": 0, "ba_accumulate": 0,
+            "pyramid": 0, "rectify": 0}
 # K3's launches by mode (TRIP_MODES); each is also one of LAUNCHES's
 TRIP_LAUNCHES = {"trip": 0, "cutoff": 0, "lm": 0}
 
@@ -253,6 +257,17 @@ def _load():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.POINTER(ctypes.c_longlong)]
             lib.ldso_ba_accumulate_scratch.restype = ctypes.c_int
+            lib.ldso_pyramid_smem.argtypes = [ctypes.c_int]
+            lib.ldso_pyramid_smem.restype = ctypes.c_int
+            lib.ldso_pyramid.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                         ctypes.POINTER(ctypes.c_int),
+                                         ctypes.c_void_p]
+            lib.ldso_pyramid.restype = ctypes.c_int
+            lib.ldso_rectify.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                         ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_float),
+                                         ctypes.c_void_p]
+            lib.ldso_rectify.restype = ctypes.c_int
             for name in ("ldso_ba_linearize", "ldso_ba_accumulate"):
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
@@ -262,6 +277,36 @@ def _load():
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def _on_card(what: str, name: str, t, dtype=None, shape=None, dev=None,
+             contiguous: bool = True):
+    """One input of a launch: on a CUDA device (`dev` where given), of
+    `dtype` and `shape` where given, contiguous unless told otherwise."""
+    if t.device.type != "cuda" or (dev is not None and t.device != dev):
+        raise ValueError(f"{what}: {name} on {t.device}; every input must "
+                         f"be on one CUDA device")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{what}: {name} is {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {name} is {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _launch(what: str, fn, ptrs, ints, floats, dev) -> None:
+    """fn(ptrs, ints[, floats], stream) on `dev`'s current stream, the C
+    interface of every kernel launched here but K1, K3 and K12; `floats`
+    None for a kernel that takes none. Raises on a CUDA error."""
+    arrays = [(ctypes.c_void_p * len(ptrs))(*ptrs),
+              (ctypes.c_int * len(ints))(*ints)]
+    if floats is not None:
+        arrays.append((ctypes.c_float * max(len(floats), 1))(*floats))
+    with torch.cuda.device(dev):
+        err = fn(*arrays, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def distance_plan(H: int, W: int, max_k: int, n_sm: int):
@@ -737,14 +782,7 @@ def trace_arena(arena, dI_target, KRKis, Kts, affs, calib, cfg):
                 ("Kts", Kts, (F, 3), torch.float32),
                 ("affs", affs, (F, 2), torch.float32)]
     for name, t, shape, dtype in tensors:
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"trace: {name} on {t.device}; every input must "
-                             f"be on one CUDA device")
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"trace: {name} is {tuple(t.shape)} {t.dtype}, "
-                             f"expected {shape} {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"trace: {name} must be contiguous")
+        _on_card("trace", name, t, dtype, shape, dev)
     if N < 1 or F < 1:
         raise ValueError(f"trace: {N} lanes and {F} host slots (need >= 1)")
     ints, floats = trace_params(calib, cfg)
@@ -753,15 +791,8 @@ def trace_arena(arena, dI_target, KRKis, Kts, affs, calib, cfg):
            for f in TRACE_OUTPUTS}
     ptrs = [t.data_ptr() for _, t, _, _ in tensors]
     ptrs += [out[f].data_ptr() for f in TRACE_OUTPUTS]
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ldso_immature_trace(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * (2 + len(ints)))(N, F, *ints),
-            (ctypes.c_float * len(floats))(*floats), stream)
-    if err != 0:
-        raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
+    _launch("trace", _load().ldso_immature_trace, ptrs, (N, F, *ints), floats,
+            dev)
     _count("trace")
     return arena._replace(pool=pool._replace(**out))
 
@@ -850,14 +881,7 @@ def activate_arena(arena, dist_map, KRKis, Kts, Rs, ts, affs, masks, dIs,
     tensors.append(("min_act_dist", min_act_dist,
                     tuple(min_act_dist.shape), f32))
     for name, t, shape, dtype in tensors:
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"activate: {name} on {t.device}; every input "
-                             f"must be on one CUDA device")
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"activate: {name} is {tuple(t.shape)} "
-                             f"{t.dtype}, expected {shape} {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"activate: {name} must be contiguous")
+        _on_card("activate", name, t, dtype, shape, dev)
     ints, floats = activate_params(calib, cfg)
     h1, w1 = dist_map.shape
     out = dict(to_opt=torch.empty(N, dtype=b8, device=dev),
@@ -867,16 +891,8 @@ def activate_arena(arena, dist_map, KRKis, Kts, Rs, ts, affs, masks, dIs,
                n_good=torch.empty(N, dtype=torch.int32, device=dev))
     ptrs = [t.data_ptr() for _, t, _, _ in tensors]
     ptrs += [out[f].data_ptr() for f in ACTIVATE_OUTPUTS]
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ldso_immature_activate(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_int * (9 + 16))(N, F, W, H, w1, h1, int(newest),
-                                      int(nf), *ints),
-            (ctypes.c_float * len(floats))(*floats), stream)
-    if err != 0:
-        raise RuntimeError(f"activate kernel launch failed: CUDA error {err}")
+    _launch("activate", _load().ldso_immature_activate, ptrs,
+            (N, F, W, H, w1, h1, int(newest), int(nf), *ints), floats, dev)
     _count("activate")
     return tuple(out[f] for f in ACTIVATE_OUTPUTS)
 
@@ -977,27 +993,10 @@ def _ba_check(what: str, x: Dict[str, torch.Tensor], names, shapes, S: int,
     window axis S) and dtype, contiguous but those in `strided`."""
     dev = x[names[0]].device
     for name in names:
-        t = x[name]
         shape, dtype = shapes[name]
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{what}: {name} on {t.device}; every input "
-                             f"must be on one CUDA device")
-        if tuple(t.shape) != (S,) + shape or t.dtype != dtype:
-            raise ValueError(f"{what}: {name} is {tuple(t.shape)} {t.dtype}, "
-                             f"expected {(S,) + shape} {dtype}")
-        if name not in strided and not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
+        _on_card(what, name, x[name], dtype, (S,) + shape, dev,
+                 name not in strided)
     return dev
-
-
-def _ba_call(what: str, fn, ptrs, ints, floats, dev) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
-                 (ctypes.c_int * len(ints))(*ints),
-                 (ctypes.c_float * max(len(floats), 1))(*floats), stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def lin_launch(x: Dict[str, torch.Tensor], mode: int, floats, ints):
@@ -1021,8 +1020,8 @@ def lin_launch(x: Dict[str, torch.Tensor], mode: int, floats, ints):
             + [out[f].data_ptr() for f in LIN_FIELDS + ("energy",)]
             + [partial.data_ptr(), arrived.data_ptr()])
     strides = [d for n in _LIN_STRIDED for d in x[n].stride()]
-    _ba_call("ba_linearize", _load().ldso_ba_linearize, ptrs,
-             (S, P, F, H, W, int(mode), *ints, *strides), floats, dev)
+    _launch("ba_linearize", _load().ldso_ba_linearize, ptrs,
+            (S, P, F, H, W, int(mode), *ints, *strides), floats, dev)
     _count("ba_linearize")
     return tuple(out[f] for f in LIN_FIELDS + ("energy",))
 
@@ -1055,8 +1054,8 @@ def top_launch(x: Dict[str, torch.Tensor], mode: int):
     ptrs = ([x[n].data_ptr() for n in _TOP_INPUTS]
             + [out[f].data_ptr() for f in TOP_OUTPUTS]
             + [t.data_ptr() for t in _acc_scratch(0, S, P, F, dev)])
-    _ba_call("ba_accumulate_top", _load().ldso_ba_accumulate, ptrs,
-             (0, S, P, F, int(mode)), (), dev)
+    _launch("ba_accumulate_top", _load().ldso_ba_accumulate, ptrs,
+            (0, S, P, F, int(mode)), (), dev)
     _count("ba_accumulate")
     return tuple(out[f] for f in TOP_OUTPUTS)
 
@@ -1077,8 +1076,8 @@ def sc_launch(x: Dict[str, torch.Tensor], shift_prior: bool):
     ptrs = ([x[n].data_ptr() for n in _SC_INPUTS]
             + [out[f].data_ptr() for f in SC_OUTPUTS] + [pflags.data_ptr()]
             + [t.data_ptr() for t in _acc_scratch(1, S, P, F, dev)])
-    _ba_call("ba_accumulate_sc", _load().ldso_ba_accumulate, ptrs,
-             (1, S, P, F, int(bool(shift_prior))), (), dev)
+    _launch("ba_accumulate_sc", _load().ldso_ba_accumulate, ptrs,
+            (1, S, P, F, int(bool(shift_prior))), (), dev)
     _count("ba_accumulate")
     return tuple(out[f] for f in SC_OUTPUTS)
 
@@ -1217,3 +1216,117 @@ def ba_accumulate_sc(W, Hdd_tot, bd_tot, Hcd_tot, shift_prior: bool,
     out = torch.ops.ldso_tpu_torch.ba_accumulate_sc(
         *(x[f] for f in _SC_INPUTS), bool(shift_prior))
     return dict(zip(SC_OUTPUTS, out))
+
+
+# ---------------------------------------------------------------------------
+# K2: the frame's pyramid and the readers' rectification (csrc/preprocess.cu)
+# ---------------------------------------------------------------------------
+
+# the frame types the pyramid kernel reads (its dtype codes), and the most
+# levels one launch builds (a level-0 tile of 32 with a 2^(L-1) halo)
+PYRAMID_DTYPES = {torch.uint8: 0, torch.float32: 1, torch.uint16: 2}
+PYRAMID_MAX_LEVELS = 6
+# the raw frame types the rectify kernel reads: uint8 and int32 (with or
+# without a response table) and float32 (without)
+RECTIFY_DTYPES = {torch.uint8: 0, torch.float32: 1, torch.int32: 3}
+
+
+def pyramid_shapes(H: int, W: int, levels: int):
+    """(H, W) of each level: the frame's, each next one halved (floor)."""
+    return [(H >> lvl, W >> lvl) for lvl in range(levels)]
+
+
+def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
+    """The frame's pyramid (ops/preprocess.make_pyramid_ref is the
+    function): per level (I, dx, dy) and absSquaredGrad, times b_grad^2
+    with a (256,) table. Returns a FramePyramid.
+
+    CPU tensor: the plain version. CUDA tensor: K2's pyramid kernel, one
+    launch for every level on the current stream (uint8, uint16 or float32
+    frames; another type is made float32 first, as the plain version
+    decodes it; 1..PYRAMID_MAX_LEVELS levels); it reads nothing back and
+    allocates with torch.empty only."""
+    from ldso_tpu_torch.ops.preprocess import FramePyramid, make_pyramid_ref
+    if img.device.type == "cpu":
+        return make_pyramid_ref(img, levels, b_grad_lut)
+    _on_card("pyramid", "the frame", img)
+    if img.dtype not in PYRAMID_DTYPES:
+        # the plain version's decoding of any other frame type
+        img = img.to(torch.float32)
+    if img.dim() != 2:
+        raise ValueError(f"pyramid: expected an (H, W) frame, got "
+                         f"{tuple(img.shape)}")
+    H, W = img.shape
+    if not 1 <= levels <= PYRAMID_MAX_LEVELS or min(H, W) >> (levels - 1) < 1:
+        raise ValueError(f"pyramid: {levels} levels of a {H}x{W} frame "
+                         f"(1..{PYRAMID_MAX_LEVELS}, every level non-empty)")
+    dev = img.device
+    if b_grad_lut is not None:
+        _on_card("pyramid", "b_grad", b_grad_lut, torch.float32, (256,), dev)
+    shapes = pyramid_shapes(H, W, levels)
+    dIs = [torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+           for h, w in shapes]
+    ags = [torch.empty((h, w), dtype=torch.float32, device=dev)
+           for h, w in shapes]
+    ptrs = [img.data_ptr(), 0 if b_grad_lut is None else b_grad_lut.data_ptr()]
+    for d, g in zip(dIs, ags):
+        ptrs += [d.data_ptr(), g.data_ptr()]
+    ints = [levels, PYRAMID_DTYPES[img.dtype]]
+    for h, w in shapes:
+        ints += [h, w]
+    _launch("pyramid", _load().ldso_pyramid, ptrs, ints, None, dev)
+    _count("pyramid")
+    return FramePyramid(dI=tuple(dIs), abs_grad=tuple(ags))
+
+
+def pyramid_smem(levels: int) -> int:
+    """The pyramid launch's dynamic shared memory in bytes (the card's
+    library; 0 for a level count it does not take)."""
+    return int(_load().ldso_pyramid_smem(levels))
+
+
+def rectify(raw: torch.Tensor, G_lut, vignette_inv, remap_x: torch.Tensor,
+            remap_y: torch.Tensor) -> torch.Tensor:
+    """A raw (h_org, w_org) frame through the response table (integer raw
+    only), the inverse vignette and the bilinear remap onto (h, w), 0
+    where remap_x < 0 (ops/preprocess.rectify_ref is the function).
+
+    CPU tensor: the plain version. CUDA tensor: K2's rectify kernel, one
+    thread per output pixel on the current stream (uint8 and int32 raw
+    with or without the table, float32 raw without it)."""
+    if raw.device.type == "cpu":
+        from ldso_tpu_torch.ops.preprocess import rectify_ref
+        return rectify_ref(raw, G_lut, vignette_inv, remap_x, remap_y)
+    _on_card("rectify", "raw", raw)
+    if raw.dtype not in RECTIFY_DTYPES or raw.dim() != 2:
+        raise ValueError(f"rectify: a {raw.dtype} {tuple(raw.shape)} raw "
+                         f"frame (the kernel takes (h, w) "
+                         f"{sorted(map(str, RECTIFY_DTYPES))})")
+    dev = raw.device
+    h_org, w_org = raw.shape
+    h, w = remap_x.shape
+    if h_org < 2 or w_org < 2 or h * w < 1:
+        raise ValueError(f"rectify: a {h_org}x{w_org} raw frame onto "
+                         f"{h}x{w}")
+    _on_card("rectify", "remap_x", remap_x, torch.float32, (h, w), dev)
+    _on_card("rectify", "remap_y", remap_y, torch.float32, (h, w), dev)
+    table = G_lut if raw.dtype != torch.float32 else None
+    if table is not None:
+        _on_card("rectify", "G", table, torch.float32, None, dev)
+        if table.dim() != 1 or table.numel() < 1:
+            raise ValueError(f"rectify: G is {tuple(table.shape)}, expected "
+                             f"a non-empty table")
+    if vignette_inv is not None:
+        _on_card("rectify", "the vignette", vignette_inv, torch.float32,
+                 (h_org, w_org), dev)
+    out = torch.empty((h, w), dtype=torch.float32, device=dev)
+    ptrs = [raw.data_ptr(), 0 if table is None else table.data_ptr(),
+            0 if vignette_inv is None else vignette_inv.data_ptr(),
+            remap_x.data_ptr(), remap_y.data_ptr(), out.data_ptr()]
+    ints = [RECTIFY_DTYPES[raw.dtype], 0 if table is None else table.numel(),
+            h_org, w_org, h * w]
+    floats = [float(torch.tensor(w_org - 1.001, dtype=torch.float32)),
+              float(torch.tensor(h_org - 1.001, dtype=torch.float32))]
+    _launch("rectify", _load().ldso_rectify, ptrs, ints, floats, dev)
+    _count("rectify")
+    return out

@@ -25,11 +25,13 @@ pipeline's tracking stream and its mapping stream) never use the buffers
 at once, and each result is a fresh tensor that the next replay cannot
 overwrite.
 
-A capture begins with `torch.cuda.graph`'s device synchronise; it happens
-at a key's first call, which `FullSystem.warm_retrack_programs` makes
-before a run starts (`Programs.capture` captures without a replay: the
-activation's graph for every window size, the frame and chain steps'
-for each image dtype, and the bootstrap's at its first frame). The
+A capture begins with `torch.cuda.graph`'s device synchronise and ends
+with the graph's upload to the card (`upload`), so that no replay pays
+for it; it happens at a key's first call, which
+`FullSystem.warm_retrack_programs` makes before a run starts
+(`Programs.capture` captures without a replay: the activation's graph
+for every window size, the frame and chain steps' for each image dtype,
+and the bootstrap's at its first frame). The
 families built with `capture_on_replay=False` (the frame and chain
 steps', the bootstrap's) refuse a replay of a key with no graph. A
 capture that fails raises.
@@ -42,6 +44,7 @@ which a replay does not run: the capture records each kernel's launches
 
 from __future__ import annotations
 
+import ctypes
 import threading
 import time
 from typing import Callable, Dict, Tuple
@@ -49,6 +52,28 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from ldso_tpu_torch.ops import cuda_kernels
+
+
+_driver = None
+
+
+def upload(graph: torch.cuda.CUDAGraph, stream: torch.cuda.Stream) -> None:
+    """Upload a captured graph to the card on `stream` without running it
+    (the CUDA driver's cuGraphUpload) and wait for that. A graph's first
+    launch would upload it, and that launch may hold the host until the
+    card is idle (the bootstrap's frame program did: 202.67 host ms behind
+    150 ms of queued sleep on an H100)."""
+    global _driver
+    if _driver is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuGraphUpload.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.cuGraphUpload.restype = ctypes.c_int
+        _driver = lib
+    err = _driver.cuGraphUpload(graph.raw_cuda_graph_exec(),
+                                stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cuGraphUpload failed: CUDA driver error {err}")
+    stream.synchronize()
 
 
 class Captured:
@@ -69,6 +94,7 @@ class Captured:
                 torch.cuda.graph(self.graph, stream=side,
                                  capture_error_mode="thread_local"):
             self.static_out = tuple(program(*self.static_in))
+        upload(self.graph, side)
         self.launches = launches       # kernel launches of one replay
         caller.wait_stream(side)
         # an output that is an input (a field the program did not write)

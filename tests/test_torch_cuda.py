@@ -509,6 +509,7 @@ def test_frame_step_graph_equals_eager_on_the_card(cuda):
             assert cuda_kernels.LAUNCHES["tracker_trip"] == \
                 before["tracker_trip"] + trips
             assert cuda_kernels.LAUNCHES["trace"] == before["trace"] + 1
+            assert cuda_kernels.LAUNCHES["pyramid"] == before["pyramid"] + 1
         for g, e in zip(outs["replay"], outs["eager"]):
             assert _same(g, e)
         assert float(outs["replay"][-1][19]) == flag
@@ -1651,3 +1652,106 @@ def test_bootstrap_replay_is_bitwise_eager(cuda, monkeypatch):
         want = fn(*inputs)
         assert len(out) == len(want)
         assert all(_same(g, w) for g, w in zip(out, want))
+
+
+
+def test_captured_graph_first_replay_runs_ahead(cuda):
+    """A program's graph is uploaded at its capture: its first replay,
+    queued behind ~60 ms of sleep, returns before the card has run it (a
+    graph's first launch would otherwise upload it and hold the host
+    until the card is idle), and gives the eager program's bits."""
+    from ldso_tpu_torch.utils.graphs import Programs
+
+    def program(x):
+        y = x
+        for _ in range(20):
+            y = y * 1.0001 + 0.5
+        return (y,)
+    x = torch.randn(1 << 16, device=cuda)
+    fam = Programs(capture_on_replay=False)
+    fam.capture("toy", program, (x,))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    (got,) = fam.replay("toy", program, (x,))
+    after = torch.cuda.Event()
+    after.record()
+    ran_ahead = not after.query()
+    torch.cuda.synchronize()
+    assert ran_ahead
+    assert _same(got, program(x)[0])
+
+
+# K2: the frame's pyramid and the readers' rectification
+# (csrc/preprocess.cu); the cases are torch_kernel_checks.pyramid_cases and
+# rectify_cases
+_PYR_CASES = ("uint8 640x480", "uint8 640x480 b_grad", "float32 steps",
+              "float32 steps b_grad", "uint16", "uint8 97x61",
+              "uint8 1241x376", "float32 620x188", "6 levels", "1 level")
+_RECT_CASES = ("uint8 G vignette", "uint8 G", "int32 G vignette",
+               "uint8 raw", "float32 vignette", "float32")
+
+
+@pytest.mark.parametrize("name", _PYR_CASES)
+def test_pyramid_kernel_is_bitwise_plain(cuda, name):
+    """K2's pyramid, one launch for every level, bitwise its plain version
+    (make_pyramid_ref) on the card."""
+    import torch_kernel_checks as kc
+    from ldso_tpu_torch.ops import cuda_kernels, preprocess
+    img, L, b = kc.pyramid_cases(cuda)[name]
+    before = dict(cuda_kernels.LAUNCHES)
+    got = preprocess.make_pyramid(img, L, b)
+    assert cuda_kernels.LAUNCHES["pyramid"] == before["pyramid"] + 1
+    assert kc.pyramid_bitwise(got, preprocess.make_pyramid_ref(img, L, b))
+
+
+@pytest.mark.parametrize("name", _RECT_CASES)
+def test_rectify_kernel_is_bitwise_plain(cuda, name):
+    """K2's rectify, one launch, bitwise its plain version (rectify_ref)
+    on the card; preprocess_frame is one rectify and one pyramid launch."""
+    import torch_kernel_checks as kc
+    from ldso_tpu_torch.ops import cuda_kernels, preprocess
+    raw, G, vig, rx, ry = kc.rectify_cases(cuda)[name]
+    before = dict(cuda_kernels.LAUNCHES)
+    got = preprocess.rectify(raw, G, vig, rx, ry)
+    assert cuda_kernels.LAUNCHES["rectify"] == before["rectify"] + 1
+    assert kc.bits(got, preprocess.rectify_ref(raw, G, vig, rx, ry)).all()
+    pyr = preprocess.preprocess_frame(raw, G, vig, rx, ry, None, 3)
+    assert cuda_kernels.LAUNCHES["rectify"] == before["rectify"] + 2
+    assert cuda_kernels.LAUNCHES["pyramid"] == before["pyramid"] + 1
+    assert kc.pyramid_bitwise(pyr, preprocess.preprocess_frame_ref(
+        raw, G, vig, rx, ry, None, 3))
+
+
+def test_pyramid_kernel_in_a_graph_and_refusals(cuda):
+    """Captured into a CUDA graph the pyramid counts one launch a replay
+    and gives its eager bits; a float64 frame is made float32 and takes
+    one launch; the wrappers raise on what K2 does not take rather than
+    run the plain version."""
+    import torch_kernel_checks as kc
+    from ldso_tpu_torch.ops import cuda_kernels, preprocess
+    img, L, b = kc.pyramid_cases(cuda)["uint8 640x480 b_grad"]
+    want = preprocess.make_pyramid(img, L, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), cuda_kernels.recording_launches() as tally:
+        with torch.cuda.graph(g):
+            got = preprocess.make_pyramid(img, L, b)
+    torch.cuda.current_stream().wait_stream(side)
+    assert tally == {"pyramid": 1}
+    g.replay()
+    torch.cuda.synchronize()
+    assert kc.pyramid_bitwise(got, want)
+    before = cuda_kernels.LAUNCHES["pyramid"]
+    assert kc.pyramid_bitwise(preprocess.make_pyramid(img.double(), L),
+                              preprocess.make_pyramid_ref(img.double(), L))
+    assert cuda_kernels.LAUNCHES["pyramid"] == before + 1
+    with pytest.raises(ValueError):
+        preprocess.make_pyramid(img, cuda_kernels.PYRAMID_MAX_LEVELS + 1)
+    with pytest.raises(ValueError):
+        preprocess.make_pyramid(img, L, b[:128].contiguous())
+    raw, G, vig, rx, ry = kc.rectify_cases(cuda)["uint8 G vignette"]
+    with pytest.raises(ValueError):
+        preprocess.rectify(raw.to(torch.int16), G, vig, rx, ry)
+    with pytest.raises(ValueError):
+        preprocess.rectify(raw, G, vig[:10], rx, ry)

@@ -50,15 +50,18 @@ def test_make_pool(seq):
 
 def test_search_samples_match_packed_pattern():
     """The trace search's unrotated integer-pattern bilinear samples equal
-    the JAX packed implementation exactly, border clamps included."""
+    the JAX packed implementation exactly, border clamps included, as the
+    jitted trace computes them (XLA:CPU contracts the blend's products into
+    its sums)."""
+    import jax
     from ldso_tpu.ops.interp import (bilinear_packed_pattern,
                                      pack_pattern_bilinear)
     rng = np.random.RandomState(0)
     img = (rng.rand(40, 50) * 255).astype(np.float32)
     x = rng.uniform(-2, 52, (30, 20)).astype(np.float32)
     y = rng.uniform(-2, 42, (30, 20)).astype(np.float32)
-    ref = bilinear_packed_pattern(pack_pattern_bilinear(j32(img), PATTERN),
-                                  j32(x), j32(y), 8)
+    ref = jax.jit(lambda im, a, b: bilinear_packed_pattern(
+        pack_pattern_bilinear(im, PATTERN), a, b, 8))(j32(img), j32(x), j32(y))
     got = tim._search_samples(t32(img), t32(x), t32(y),
                               torch.tensor(PATTERN, dtype=torch.int64))
     close(got, ref, 0, 0, "search samples")

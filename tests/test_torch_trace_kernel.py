@@ -312,7 +312,7 @@ def test_trace_err_reports_planted_faults(flat_scene, scene, fault):
 
 def test_tie_share_covers_the_plain_spread():
     """TRACE_TIE_SHARE's derivation: the plain version with its taps summed
-    left to right against the plain version (the tree), on every case of
+    in the tree against the plain version (left to right), on every case of
     the bench scene at 640x480 with 4,096 lanes: no lane differs outside
     a tie, and the lanes that differ are at most a tenth of the share."""
     scene = kc.trace_scene(640, 480, "cpu")

@@ -509,8 +509,14 @@ def _bits(a, b):
 
 
 class _FakeGraph:
+    uploaded = False
+
     def replay(self):
-        pass
+        assert self.uploaded, "a graph replayed before its upload"
+
+
+def _fake_upload(graph, stream):
+    graph.uploaded = True
 
 
 @contextlib.contextmanager
@@ -536,6 +542,8 @@ class _FakeEvent:
 
 def _fake_cuda(monkeypatch):
     """The CUDA pieces utils.graphs uses, faked on the CPU."""
+    from ldso_tpu_torch.utils import graphs
+    monkeypatch.setattr(graphs, "upload", _fake_upload)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda *a: _FakeStream())
     monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
@@ -574,7 +582,8 @@ def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
     assert cuda_kernels.LAUNCHES == {"distance_transform": 2,
                                      "tracker_trip": 3, "ba_projector": 0,
                                      "trace": 0, "activate": 0,
-                                     "ba_linearize": 0, "ba_accumulate": 0}
+                                     "ba_linearize": 0, "ba_accumulate": 0,
+                                     "pyramid": 0, "rectify": 0}
     assert g.launches == {"tracker_trip": 3, "distance_transform": 1}
     for k in range(1, 3):
         out = g.replay((torch.ones(2),))
@@ -582,7 +591,8 @@ def test_captured_graph_counts_kernel_launches_at_each_replay(monkeypatch):
                                          "tracker_trip": 3 + 3 * k,
                                          "ba_projector": 0, "trace": 0,
                                          "activate": 0, "ba_linearize": 0,
-                                         "ba_accumulate": 0}
+                                         "ba_accumulate": 0, "pyramid": 0,
+                                         "rectify": 0}
     assert torch.equal(out[0], torch.full((2,), 1.0))
     # a family's launches: each graph's warm-up and replays times its tally
     family = graphs.Programs()

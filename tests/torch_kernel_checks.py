@@ -907,9 +907,10 @@ def ba_batch_err(batched, singles, reordered):
 #     and the flips are held to TRACE_TIE_SHARE of the live lanes.
 #
 # TRACE_TIE_SHARE comes from the plain version's own spread: the plain
-# version with its 8-tap sums in the other order (`reordered_taps`, left
-# to right) against itself (the tree) on the 13 cases of the bench scene at
-# 640x480 (trace_cases, 50,877 live lanes in all) differs beyond the
+# version with its 8-tap sums in the other order (`reordered_taps`) against
+# itself on the 13 cases of the bench scene at 640x480 (trace_cases, 50,877
+# live lanes in all; measured with the tree as the plain version's order
+# and left to right as the other, which are now swapped) differs beyond the
 # tolerances in 2 lanes, both at ties, 1 in 3,881 in the worst case
 # (0.026%); tests/test_torch_trace_kernel.py::
 # test_tie_share_covers_the_plain_spread holds that spread to a tenth of
@@ -939,29 +940,26 @@ def plain_trace(arena, dI, KRKis, Kts, affs, calib, cfg):
 
 @contextlib.contextmanager
 def reordered_taps():
-    """While inside, the plain version sums its 8 taps left to right: the
-    same function in another order, whose spread TRACE_TIE_SHARE covers."""
+    """While inside, the plain versions sum their 8 taps in the other
+    order: the trace (left to right, as the JAX package's jitted trace)
+    in `_sum8`'s tree, the activation (the tree) left to right. The same
+    functions in another order, whose spread TRACE_TIE_SHARE and
+    ACT_TIE_SHARE cover."""
     from ldso_tpu_torch.frontend import immature
-    tree = immature._sum8
-
-    def left_to_right(x):
-        s = x[..., 0]
-        for p in range(1, x.shape[-1]):
-            s = s + x[..., p]
-        return s
-    immature._sum8 = left_to_right
+    tree, left_to_right = immature._sum8, immature._tap_sum
+    immature._sum8, immature._tap_sum = left_to_right, tree
     try:
         yield
     finally:
-        immature._sum8 = tree
+        immature._sum8, immature._tap_sum = tree, left_to_right
 
 
-def _near(a, b, scale=None):
-    """|a - b| within TRACE_TIE_ULPS float32 ulps of the larger of |a|, |b|
-    (or of `scale`)."""
+def _near(a, b, scale=None, ulps: float = TRACE_TIE_ULPS):
+    """|a - b| within `ulps` float32 ulps of the larger of |a|, |b| (or of
+    `scale`)."""
     if scale is None:
         scale = torch.maximum(torch.abs(a), torch.abs(b))
-    return torch.abs(a - b) <= TRACE_TIE_ULPS * _EPS32 * scale
+    return torch.abs(a - b) <= ulps * _EPS32 * scale
 
 
 def _rival(e, idx):
@@ -1237,9 +1235,10 @@ def trace_cases(scene: dict):
 #     numbers tie (`activate_ties`): within TRACE_TIE_ULPS float32 ulps of
 #     one of the function's exact decisions (the gate's rounding to a pixel
 #     and its distance test, an outlier state, the LM's accept test and its
-#     convergence test, the final Hdd >= min_idepth_h_act). Such a lane is
-#     a flip: it is reported by index, and the flips are held to
-#     ACT_TIE_SHARE of the live lanes (the trace's share, which
+#     convergence test, the final Hdd >= min_idepth_h_act), or the accept
+#     test within ACT_ACCEPT_ULPS (`accept_ties`). Such a lane is a flip:
+#     it is reported by index, and the flips are held to ACT_TIE_SHARE of
+#     the live lanes (the trace's share, which
 #     tests/test_torch_activate_kernel.py::
 #     test_tie_share_covers_the_plain_spread holds against the plain
 #     version's own spread under another order of its sums).
@@ -1247,6 +1246,16 @@ def trace_cases(scene: dict):
 ACT_RTOL = 1e-4
 ACT_ATOL = 1e-6
 ACT_TIE_SHARE = 0.01
+# the float32 ulps of the larger energy within which the LM's accept test
+# e2 < e is a tie. Wider than TRACE_TIE_ULPS: an earlier step that moves
+# an idepth by one ulp moves a tap's pixel, and the energies then part by
+# more than a sum's reordering does. Set from the plain version's own
+# spread: with its tap sums in the other order (reordered_taps) on
+# activate_cases at 640x480, 2 of 15,724 live lanes flip at an accept
+# test, 73.4 and 126.5 ulps from a tie (tests/tools/
+# activate_accept_ties.py); the margin ties 592 live lanes (3.8%) that
+# TRACE_TIE_ULPS does not.
+ACT_ACCEPT_ULPS = 256.0
 # the relative margin of the LM's accept test within which the JAX package
 # (whose XLA contracts the projections' multiply-adds) may decide the other
 # way (activate_ties's `jax`): its per-target energies differ from the
@@ -1267,11 +1276,13 @@ def plain_activate(inputs, calib):
     return out, parts
 
 
-def activate_ties(parts, cfg, jax: bool = False) -> torch.Tensor:
+def activate_ties(parts, cfg, jax: bool = False,
+                  accept_ulps: float = ACT_ACCEPT_ULPS) -> torch.Tensor:
     """(N,) bool: the live lanes where the plain version's own numbers tie,
-    so that another float32 evaluation may take the other branch. With
-    `jax`, for the JAX package's evaluation too: an accept test within
-    ACT_JAX_RTOL of its threshold is then a tie as well."""
+    so that another float32 evaluation may take the other branch: an
+    accept test within `accept_ulps`. With `jax`, for the JAX package's
+    evaluation too: an accept test within ACT_JAX_RTOL of its threshold is
+    then a tie as well."""
     reached, gate = parts["reached"], parts["gate"]
     tie = torch.zeros_like(reached)
     for x in parts["pixel"]:
@@ -1283,14 +1294,23 @@ def activate_ties(parts, cfg, jax: bool = False) -> torch.Tensor:
     for it in parts.get("lm", ()):
         conv = torch.abs(it["step"])
         th = 1e-4 * torch.abs(it["idepth"])
-        tie |= to_opt & it["upd"] & (_near(it["e2"], it["e"])
-                                     | _near(conv, th))
+        tie |= to_opt & it["upd"] & _near(conv, th)
         if jax:
             scale = torch.maximum(torch.abs(it["e2"]), torch.abs(it["e"]))
             tie |= to_opt & it["upd"] & (torch.abs(it["e2"] - it["e"])
                                          <= ACT_JAX_RTOL * scale)
     tie |= to_opt & _near(parts["Hc"], torch.full_like(
         parts["Hc"], cfg.min_idepth_h_act))
+    return tie & parts["live"] | accept_ties(parts, accept_ulps)
+
+
+def accept_ties(parts, ulps: float = ACT_ACCEPT_ULPS) -> torch.Tensor:
+    """(N,) bool: the live lanes whose LM made an accept test e2 < e
+    within `ulps` float32 ulps of the larger energy."""
+    tie = torch.zeros_like(parts["reached"])
+    for it in parts.get("lm", ()):
+        tie |= parts["to_opt"] & it["upd"] & _near(it["e2"], it["e"],
+                                                    ulps=ulps)
     return tie & parts["live"]
 
 
@@ -1300,11 +1320,14 @@ def activate_err(plain, got, parts, cfg, share: float = ACT_TIE_SHARE):
     inputs. Returns a report: lanes, live and optimised lanes, the plain
     version's tie lanes, `flips` (lanes that differ, all at ties), `faults`
     ({what: lanes} that differ outside a tie, or a dead lane written),
-    `max_err` (the largest |got - plain| idepth over the optimised lanes,
-    NaNs and infinities aside) and `ok`."""
+    `margin_ties` and `margin_flips` (the tie lanes and flips that only
+    ACT_ACCEPT_ULPS's margin over TRACE_TIE_ULPS makes ties), `max_err`
+    (the largest |got - plain| idepth over the optimised lanes, NaNs and
+    infinities aside) and `ok`."""
     live = parts["live"]
     dead = ~live
     ties = activate_ties(parts, cfg)
+    margin = ties & ~activate_ties(parts, cfg, accept_ulps=TRACE_TIE_ULPS)
     names = ("to_opt", "remove", "idepth", "ok", "n_good")
     faults, max_err = {}, 0.0
     differ = torch.zeros_like(live)
@@ -1330,6 +1353,8 @@ def activate_err(plain, got, parts, cfg, share: float = ACT_TIE_SHARE):
     return dict(lanes=int(live.numel()), live=n_live,
                 optimised=int(parts["to_opt"].sum()), ties=int(ties.sum()),
                 flips=flips, faults=faults, max_err=max_err,
+                margin_ties=int(margin.sum()),
+                margin_flips=_idx(differ & margin),
                 ok=not faults and len(flips) <= share * max(n_live, 1))
 
 
@@ -2088,3 +2113,112 @@ def watched_keyframes(fs, sleep_cycles: int):
     finally:
         torch.cuda.set_sync_debug_mode(0)
         del fs._activate_points, fs._make_new_traces, fs.make_keyframe
+
+
+# ---------------------------------------------------------------------------
+# K2: the frame's pyramid and the readers' rectification
+# (csrc/preprocess.cu against ops/preprocess.make_pyramid_ref, rectify_ref)
+# ---------------------------------------------------------------------------
+
+PYR_LEVELS = 4                 # Calibration.create's levels at 640x480
+
+
+def _b_grad_table():
+    """A (256,) b_grad table that varies over the clamped range 5..250."""
+    k = torch.arange(256, dtype=torch.float64)
+    return (0.5 + 1.5 * torch.sin(k / 40.0) ** 2).to(torch.float32)
+
+
+def pyramid_cases(device="cpu") -> dict:
+    """K2's pyramid cases, {name: (frame, levels, b_grad or None)} on
+    `device`: the bench scene's 640x480 uint8 frame at the main path's 4
+    levels without and with a b_grad table; a float32 frame of it with
+    sub-integer noise and steps of more than 255 (a column at 900, a row
+    at -700, so both differences are zeroed there); the uint16 8.8 frame;
+    widths and heights whose levels end odd (97x61 over 3 levels, 1241x376
+    and 620x188 over 5); 6 levels at 640x480 (the launch's shared memory
+    over 48 KB); one level (the readers' images)."""
+    import numpy as np
+    from ldso_tpu_torch.examples.time_modes import bench_frames
+    _, _, images = bench_frames(1, 640, 480, "cpu")
+    u8 = torch.from_numpy(images[0])
+    rng = np.random.RandomState(21)
+    f32 = u8.to(torch.float32) + torch.from_numpy(
+        rng.rand(480, 640).astype(np.float32))
+    f32[100:140, 300] = 900.0
+    f32[200, 50:400] = -700.0
+    b = _b_grad_table()
+    odd = lambda h, w: torch.from_numpy(  # noqa: E731
+        (rng.rand(h, w) * 255).astype(np.uint8))
+    cases = {
+        "uint8 640x480": (u8, PYR_LEVELS, None),
+        "uint8 640x480 b_grad": (u8, PYR_LEVELS, b),
+        "float32 steps": (f32, PYR_LEVELS, None),
+        "float32 steps b_grad": (f32, PYR_LEVELS, b),
+        "uint16": ((u8.to(torch.int32) * 256 + 77).to(torch.uint16),
+                   PYR_LEVELS, b),
+        "uint8 97x61": (odd(61, 97), 3, None),
+        "uint8 1241x376": (odd(376, 1241), 5, b),
+        "float32 620x188": (odd(188, 620).to(torch.float32) * 0.73, 5, None),
+        "6 levels": (f32, 6, b),
+        "1 level": (f32, 1, None),
+    }
+    return {k: (img.to(device), L, None if g is None else g.to(device))
+            for k, (img, L, g) in cases.items()}
+
+
+def rectify_cases(device="cpu") -> dict:
+    """K2's rectify cases, {name: (raw, G, vignette_inv, remap_x,
+    remap_y)} on `device`: a 640x480 raw frame onto 600x440 through a
+    warp with an invalid border (remap_x = -1) and coordinates past every
+    edge (the clamps to w - 1.001 and h - 1.001 and to 0); uint8 raw with
+    a 256-entry response table, with and without the inverse vignette;
+    int32 raw (the readers' uint16 frames) with a 65,536-entry table;
+    uint8 raw without a table (raw as float); float32 raw with and
+    without the vignette (no table: the plain version applies none)."""
+    import numpy as np
+    from ldso_tpu_torch.examples.time_modes import bench_frames
+    _, _, images = bench_frames(1, 640, 480, "cpu")
+    raw8 = torch.from_numpy(images[0])
+    rng = np.random.RandomState(22)
+    h_org, w_org, h, w = 480, 640, 440, 600
+    G8 = np.cumsum(rng.rand(256)).astype(np.float32)
+    G8 = torch.from_numpy(G8 / G8[-1] * 255.0)
+    G16 = np.cumsum(rng.rand(65536)).astype(np.float32)
+    G16 = torch.from_numpy(G16 / G16[-1] * 255.0)
+    vig = torch.from_numpy(
+        (1.0 / (0.6 + 0.4 * rng.rand(h_org, w_org))).astype(np.float32))
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    rr = ((xx - w / 2) ** 2 + (yy - h / 2) ** 2) / (w / 2) ** 2
+    rx = (xx - w / 2) * (1.1 + 0.08 * rr) + w_org / 2
+    ry = (yy - h / 2) * (1.1 + 0.08 * rr) + h_org / 2 - 3.0
+    rx[rr > 1.15] = -1.0                 # invalid corners
+    rx[:, :3] = w_org + 5.0               # past the right edge: clamped
+    ry[:4] = -2.5                         # above the top: clamped to 0
+    rx = torch.from_numpy(rx.astype(np.float32))
+    ry = torch.from_numpy(ry.astype(np.float32))
+    raw16 = torch.from_numpy(
+        (images[0].astype(np.int32) * 256
+         + rng.randint(0, 256, (h_org, w_org))).astype(np.int32))
+    rawf = raw8.to(torch.float32) * 1.37
+    cases = {
+        "uint8 G vignette": (raw8, G8, vig),
+        "uint8 G": (raw8, G8, None),
+        "int32 G vignette": (raw16, G16, vig),
+        "uint8 raw": (raw8, None, None),
+        "float32 vignette": (rawf, None, vig),
+        "float32": (rawf, None, None),
+    }
+    on = lambda t: None if t is None else t.to(device)  # noqa: E731
+    return {k: (raw.to(device), on(G), on(v), rx.to(device), ry.to(device))
+            for k, (raw, G, v) in cases.items()}
+
+
+def pyramid_bitwise(got, want) -> bool:
+    """Two FramePyramids with every level's dI and abs_grad bit for bit."""
+    pairs = list(zip(got.dI, want.dI)) + list(zip(got.abs_grad,
+                                                  want.abs_grad))
+    return (len(got.dI) == len(want.dI)
+            and all(a.shape == b.shape and a.dtype == b.dtype
+                    for a, b in pairs)
+            and all(bool(bits(a, b).all()) for a, b in pairs))
