@@ -241,9 +241,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
          group of world size 1, against the unsharded functions on phase
          3's final window and phase 4's final pose graph;
      7e. phase 3's last 8 BA inputs in one vmapped CUDA graph against 8
-         single replays (within BA_ORDER_FACTOR times the spread of a
-         single replay with its points reversed, tests/
-         torch_kernel_checks.ba_batch_err), K12 once, K6 trips + 2 and
+         single replays (each member no farther from its window's float64
+         result than BA_F64_FACTOR times the farthest single replay, tests/
+         torch_kernel_checks.ba_batch_err; two planted faults refused),
+         K12 once, K6 trips + 2 and
          K7 3 x trips times for the 8, and the device ms of the batch and
          of the singles; K12 alone on the 8 windows, one launch against 8
          single ones.
@@ -3684,8 +3685,14 @@ def phase_preprocess_kernel(device="cuda"):
                plain_ms=_median_event_ms(
                    lambda: preprocess.make_pyramid_ref(img, L)),
                bound_ms=bound, bound_by=by, library_ms=None,
-               smem_bytes={lv: cuda_kernels.pyramid_smem(lv)
-                           for lv in (1, 4, 6)})
+               plan=cuda_kernels.pyramid_plan(*img.shape, L),
+               smem_bytes={lv: cuda_kernels.pyramid_smem(lv) for lv in
+                           range(1, cuda_kernels.PYRAMID_MAX_LEVELS + 1)})
+    for lv, smem in pyr["smem_bytes"].items():
+        plan = cuda_kernels.pyramid_plan(*img.shape, lv)
+        if plan["smem"] != smem:
+            _fail(f"K2 pyramid: the plan's shared memory {plan['smem']} B "
+                  f"at {lv} levels is not the library's {smem} B")
     img6, L6, b6 = pyr_cases["6 levels"]
     pyr["device_ms_6_levels_float32"] = _graph_device_ms(
         lambda: preprocess.make_pyramid(img6, L6, b6))
@@ -3715,7 +3722,10 @@ def phase_preprocess_kernel(device="cuda"):
                 library_call="torch.nn.functional.grid_sample (float32 "
                              "raw, bilinear, border clamp)")
     report = cuda_kernels.ptxas_report("preprocess.cu")
-    for rec, k in ((pyr, "pyramid_kernel"), (rect, "rectify_kernel")):
+    # the main path's instantiation: the plan's (levels, tile)
+    tx, ty = pyr["plan"]["tile"]
+    for rec, k in ((pyr, f"pyramid_kernelILi{L}ELi{tx}ELi{ty}E"),
+                   (rect, "rectify_kernel")):
         rec["ptxas"] = ptxas_facts(report, k)
     print(f"K2 pyramid: {len(pyr_cases)} cases bitwise their plain version "
           f"({sorted(pyr_cases)}), {DET_REPEATS} launches bitwise; at "
@@ -4305,9 +4315,11 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
     """7e: phase 3's last S device-LM inputs (one trip count) in one vmapped
     CUDA graph (as bench.py's _bench_batched_ba vmaps the JAX package's),
     against S single replays, within torch_kernel_checks.ba_batch_err's
-    tolerance (the batched products sum in another order: BA_ORDER_FACTOR
-    times the spread of single replays with the points reversed), the
-    residual bookkeeping equal; K12 launched once for the S; the device ms
+    tolerance (the batched products sum in another order: each member no
+    farther from its window's float64 result, the plain versions in
+    float64 on the card, than BA_F64_FACTOR times the farthest single
+    replay), the residual bookkeeping equal, and the two faults of
+    ba_batch_plants refused; K12 launched once for the S; the device ms
     of the batch and of the S singles; K12 alone on the S windows' bases,
     one launch (bitwise the S single launches) against S single launches,
     in device ms. Returns the numbers."""
@@ -4348,13 +4360,21 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
 
     def single(W, *rest):
         return efm.replay_ba(W, *rest, cfg, w, h, trips)
-    worst, tol, faults = kc.ba_batch_err(
-        [(Window(*(x[s] for x in out[:-1])), out[-1][s]) for s in range(S)],
-        [single(*c[:5]) for c in calls],
-        [kc.reordered_ba(single, *c[:5]) for c in calls])
+
+    def plain(W, *rest):
+        return ba_device.optimize_device(W, *rest, cfg, w, h, trips)
+    batched = [(Window(*(x[s] for x in out[:-1])), out[-1][s])
+               for s in range(S)]
+    singles = [single(*c[:5]) for c in calls]
+    reference = [kc.ba_f64(plain, *c[:5]) for c in calls]
+    worst, tol, faults = kc.ba_batch_err(batched, singles, reference)
     if faults or k12 != 1:
         _fail(f"7e: batch of {S} against single replays: {faults} "
               f"(largest {worst}, tolerance {tol}), K12 launched {k12} times")
+    readings = kc.ba_batch_readings(batched, singles, reference)
+    for name, planted in kc.ba_batch_plants(batched, tol).items():
+        if not kc.ba_batch_err(planted, singles, reference)[2]:
+            _fail(f"7e: the yardstick accepts a planted fault ({name})")
     delta = cfg.solver_mode_delta
     bases = torch.stack([ba_device.orth_basis(c[0]) for c in calls])
     together = cuda_kernels.projector_launch(bases, delta)[0]
@@ -4363,7 +4383,12 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
         _fail(f"7e: K12 on the {S} bases in one launch differs from {S} "
               f"single launches")
     res = dict(phase="7e batched_ba", windows=S, trips=trips, max_err=worst,
-               tol=tol, k12_launches=k12, k6_launches=k67[0],
+               tol=tol, readings=readings,
+               batch_over_single_f64={
+                   k: max(r["batch_f64"][k] for r in readings)
+                   / max(max(r["single_f64"][k] for r in readings), 1e-30)
+                   for k in kc.BA_ORDER_FLOORS},
+               k12_launches=k12, k6_launches=k67[0],
                k7_launches=k67[1],
                device_ms=_queued_device_ms(batch, n=3, reps=5),
                single_device_ms=[_queued_device_ms(
@@ -4376,7 +4401,9 @@ def phase_batched_ba(records, S: int = BATCH_BA_WINDOWS):
     res["k12_share_of_batch"] = res["k12_batch_device_ms"] / res["device_ms"]
     print(f"7e batched BA: phase 3's last {S} windows ({trips} trips) in one "
           f"vmapped graph against {S} single replays: largest differences "
-          f"{worst} within {tol} (BA_ORDER_FACTOR x the reordered spread), "
+          f"from float64 {worst} within {tol} (BA_F64_FACTOR x the "
+          f"farthest single; the batch's farthest over the singles' "
+          f"{res['batch_over_single_f64']}), both planted faults refused, "
           f"bookkeeping equal; K12 launched once, K6 {k67[0]} and K7 "
           f"{k67[1]} times for the batch; {res['device_ms']:.4f} ms "
           f"of device time per batch against "

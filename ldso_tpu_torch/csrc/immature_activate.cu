@@ -32,16 +32,22 @@
 // ok and n_good per lane. A dead lane writes (false, false, idm, false,
 // 0) and does nothing else.
 //
-// Every operation is the plain version's, in its order: the plain version
-// writes its projections ((r0 x + r1 y) + r2, then + t idepth), its 8-tap
-// sums (the tree ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7))) and its
-// target sums (slot order from 0.0) out in one order, a Python scalar over
-// a tensor is its reciprocal times the scalar there and here, the division
-// by the focal length is a true division in both, and this file is built
-// with --fmad=false, so no multiply and add is contracted. On the same
-// inputs the two give the same bits; tests/torch_kernel_checks.
-// activate_err still allows a lane to differ where the plain version's own
-// numbers tie.
+// Every operation is the plain version's, in its order. The
+// LM's residual rounds as the JAX package's jitted activation does on the
+// CPU: the pattern rays times the focal lengths' float32 reciprocals (XLA
+// turns a division by a constant into that multiply), each row of the
+// projection fma(r1, y, r0 x) + r2, then + t idepth, the pixel
+// fma(uu, fx, cx), the bilinear blend and the residual's affine model
+// contracted, the depth derivative fma(dxI dr, t0 - t2 uu, dyI dr (t1 -
+// t2 vv)) with both differences contracted (`__fmaf_rn` here, the plain
+// version's math/rounding.fma). The gate's projection ((r0 u + r1 v) +
+// r2, then + t idm), the 8-tap sums (the tree ((x0 + x1) + (x2 + x3)) +
+// ((x4 + x5) + (x6 + x7))), the target sums (slot order from 0.0) and a
+// Python scalar over a tensor (its reciprocal times the scalar) are
+// written out alike in both; this file is built with --fmad=false, so it
+// contracts only where it says `__fmaf_rn`. On the same inputs the two
+// give the same bits; tests/torch_kernel_checks.activate_err still allows
+// a lane to differ where the plain version's own numbers tie.
 //
 // What bounds it on this card: bytes, by the function's own count. At
 // 640x480 with 4,096 lanes and 8 window slots, the work is at most 4,096 x
@@ -222,17 +228,17 @@ __device__ __forceinline__ void tap_pair(const Args& a, const Target& T,
   bool inb[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const float p0 = (T.R[0] * P.x[k] + T.R[1] * P.y[k] + T.R[2]) +
+    const float p0 = (__fmaf_rn(T.R[1], P.y[k], T.R[0] * P.x[k]) + T.R[2]) +
                      T.t[0] * idepth;
-    const float p1 = (T.R[3] * P.x[k] + T.R[4] * P.y[k] + T.R[5]) +
+    const float p1 = (__fmaf_rn(T.R[4], P.y[k], T.R[3] * P.x[k]) + T.R[5]) +
                      T.t[1] * idepth;
-    const float p2 = (T.R[6] * P.x[k] + T.R[7] * P.y[k] + T.R[8]) +
+    const float p2 = (__fmaf_rn(T.R[7], P.y[k], T.R[6] * P.x[k]) + T.R[8]) +
                      T.t[2] * idepth;
     dr[k] = 1.0f / p2;
     uu[k] = p0 * dr[k];
     vv[k] = p1 * dr[k];
-    const float Ku = uu[k] * a.fx + a.cx;
-    const float Kv = vv[k] * a.fy + a.cy;
+    const float Ku = __fmaf_rn(uu[k], a.fx, a.cx);
+    const float Kv = __fmaf_rn(vv[k], a.fy, a.cy);
     inb[k] = (dr[k] > 0.0f) & (Ku > 1.1f) & (Kv > 1.1f) & (Ku < W - 3.0f) &
              (Kv < H - 3.0f);
     // interp.bilinear's cell: the W - 1.001 clamp, a NaN coordinate at
@@ -259,25 +265,27 @@ __device__ __forceinline__ void tap_pair(const Args& a, const Target& T,
   ok = true;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    // interp.bilinear of the three channels
+    // immature._bilinear of the three channels: each of the last three
+    // products contracted into the sum before it
     float hit[3];
     const float dxdy = dx[k] * dy[k];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      hit[c] = dxdy * wd[k][c][3] + (dy[k] - dxdy) * wd[k][c][2] +
-               (dx[k] - dxdy) * wd[k][c][1] +
-               (1.0f - dx[k] - dy[k] + dxdy) * wd[k][c][0];
+      float s = __fmaf_rn(dxdy, wd[k][c][3], (dy[k] - dxdy) * wd[k][c][2]);
+      s = __fmaf_rn(dx[k] - dxdy, wd[k][c][1], s);
+      hit[c] = __fmaf_rn(1.0f - dx[k] - dy[k] + dxdy, wd[k][c][0], s);
     }
     const bool pix_ok = inb[k] & isfinite(hit[0]);
     ok = ok & pix_ok;
-    const float r = hit[0] - (T.aff[0] * P.color[k] + T.aff[1]);
+    const float r = hit[0] - __fmaf_rn(T.aff[0], P.color[k], T.aff[1]);
     const float hw = huber_w(fabsf(r), a.huber_th);
     const float w2 = P.weight[k] * P.weight[k];
     et[k] = pix_ok ? w2 * hw * r * r * (2.0f - hw) : 0.0f;
     const float dxI = hit[1] * a.fx;
     const float dyI = hit[2] * a.fy;
-    const float d = dxI * dr[k] * (T.t[0] - T.t[2] * uu[k]) +
-                    dyI * dr[k] * (T.t[1] - T.t[2] * vv[k]);
+    const float d =
+        __fmaf_rn(dxI * dr[k], __fmaf_rn(-T.t[2], uu[k], T.t[0]),
+                  dyI * dr[k] * __fmaf_rn(-T.t[2], vv[k], T.t[1]));
     const float hww = hw * w2;
     ht[k] = pix_ok ? hww * d * d : 0.0f;
     bt[k] = pix_ok ? hww * r * d : 0.0f;
@@ -355,13 +363,14 @@ __global__ void __launch_bounds__(32) immature_activate_kernel(const Args a) {
   const float eth = __ldg(a.energy_th + i);
   const float min_act = __ldg(a.min_act_dist);
   Taps P;
+  // the focal lengths' float32 reciprocals, one correctly rounded division
+  // each (immature._focal_reciprocal)
+  const float rfx = 1.0f / a.fx, rfy = 1.0f / a.fy;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     const int p = 2 * q + k;
-    // a true division by the focal length, as the plain version's by a
-    // 0-d tensor
-    P.x[k] = (u + static_cast<float>(a.patt[p][0]) - a.cx) / a.fx;
-    P.y[k] = (v + static_cast<float>(a.patt[p][1]) - a.cy) / a.fy;
+    P.x[k] = (u + static_cast<float>(a.patt[p][0]) - a.cx) * rfx;
+    P.y[k] = (v + static_cast<float>(a.patt[p][1]) - a.cy) * rfy;
     P.color[k] = __ldg(a.color + kTaps * i + p);
     P.weight[k] = __ldg(a.weights + kTaps * i + p);
   }

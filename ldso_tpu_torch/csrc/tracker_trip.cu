@@ -293,7 +293,12 @@ __device__ __forceinline__ float lm_step(const float* __restrict__ Hm,
   const float theta2 = w0 * w0 + w1 * w1 + w2 * w2;
   const float theta = sqrtf(theta2 + 1e-30f);
   const bool small = theta < 1e-4f;
-  const float sn = sinf(theta), cs = cosf(theta);
+  // sine and cosine rounded once from double, as the plain step's
+  // lie.se3_exp(exact=True) (XLA:CPU's float32 cosine is the correctly
+  // rounded one; cosf is not on some small angles, and (1 - cos) / theta^2
+  // amplifies that)
+  const float sn = static_cast<float>(sin(static_cast<double>(theta)));
+  const float cs = static_cast<float>(cos(static_cast<double>(theta)));
   const float ca = small ? 1.0f - theta2 / 6.0f : sn / theta;
   const float cb = small ? 0.5f - theta2 / 24.0f : (1.0f - cs) / theta2;
   const float vb = small ? 1.0f / 6.0f - theta2 / 120.0f
@@ -432,7 +437,11 @@ tracker_trip_kernel(Args a, Params p, int mode, int B, int N, int w, int h,
       et = 1.0f;
     }
     const float ra0 = a.ref_aff[s * 2 + 0], ra1 = a.ref_aff[s * 2 + 1];
-    const float a_rel = __fdiv_rn(__fmul_rn(expf(aff[0] - ra0), et), ef);
+    // exp rounded once from double, as frontend/affine.from_to(exact=True)
+    const float a_rel = __fdiv_rn(
+        __fmul_rn(static_cast<float>(exp(static_cast<double>(aff[0] - ra0))),
+                  et),
+        ef);
     tr.a_rel = a_rel;
     tr.b_rel = __fsub_rn(aff[1], __fmul_rn(a_rel, ra1));
     tr.cut = cut;

@@ -10,12 +10,16 @@ from __future__ import annotations
 
 import torch
 
+from ldso_tpu_torch.math.rounding import rounded
 
-def from_to(exposure_f, exposure_t, aff_f, aff_t):
+
+def from_to(exposure_f, exposure_t, aff_f, aff_t, exact: bool = False):
     """Relative (a, b) from frame F to frame T (AffLight.h:27-35).
 
     aff_f, aff_t: (..., 2) tensors [a, b]; exposures: tensors or floats.
-    Zero exposures fall back to 1 (matching the reference)."""
+    Zero exposures fall back to 1 (matching the reference). `exact`: the
+    exponential rounded once, as XLA:CPU gives it (math/rounding.rounded;
+    the tracker's)."""
     exposure_f = torch.as_tensor(exposure_f, dtype=torch.float32,
                                  device=aff_f.device)
     exposure_t = torch.as_tensor(exposure_t, dtype=torch.float32,
@@ -24,6 +28,7 @@ def from_to(exposure_f, exposure_t, aff_f, aff_t):
     one = torch.ones_like(exposure_f)
     ef = torch.where(bad, one, exposure_f)
     et = torch.where(bad, one, exposure_t)
-    a = torch.exp(aff_t[..., 0] - aff_f[..., 0]) * et / ef
+    d = aff_t[..., 0] - aff_f[..., 0]
+    a = (rounded(torch.exp, d) if exact else torch.exp(d)) * et / ef
     b = aff_t[..., 1] - a * aff_f[..., 1]
     return torch.stack([a, b], dim=-1)

@@ -41,12 +41,17 @@ plain version.
 the keyframe's activation of every lane of the arena: the gate
 (`gate_candidates`) and the depth-only LM (`activate`'s), written out in
 K5's order; FullSystem reaches it through `ops.cuda_kernels.activate_arena`.
-The activation rounds as the JAX package's activation run op by op:
-separate multiplies and adds, interp.bilinear's blend, the 8 taps in
-`_sum8`'s tree and the Huber weight as a multiply by |r|'s reciprocal
-(`_huber_w`). So each helper pair here (`_tap_sum`/`_sum8`,
-`_huber_div`/`_huber_w`, `_bilinear`/interp.bilinear) is one function in
-the two roundings, the trace's and the activation's, and K4 and K5 copy
+The activation's LM residual rounds as the JAX package's jitted activation
+does on the CPU (read off its outputs, `tests/tools/trace_rounding.py
+--activation`): the pattern rays times the focal lengths' float32
+reciprocals (`_focal_reciprocal`), XLA's contractions of the projection
+rows, the pixel, the blend (`_bilinear`), the residual's affine model and
+the depth derivative (`fma`), the 8 taps in `_sum8`'s tree and the Huber
+weight as a multiply by |r|'s reciprocal (`_huber_w`). The gate keeps its
+written-out order. So the two tap sums (`_tap_sum` the trace's, `_sum8`
+the activation's and the BA's) and the two Huber weights (`_huber_div`
+the trace's, `_huber_w` the activation's) are each one function in the
+two roundings the JAX package's jitted programs have, and K4 and K5 copy
 their own.
 """
 
@@ -109,8 +114,11 @@ def _patt(device, dtype=torch.float32):
 
 
 def _sum8(x):
-    """The sum over the last axis (8 pattern taps) in K4's fixed order:
-    ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7))."""
+    """The sum over the last axis (8 pattern taps) in the tree
+    ((x0 + x1) + (x2 + x3)) + ((x4 + x5) + (x6 + x7)): the activation's
+    (K5's; the order in which the JAX package's jitted activation gives
+    its bits) and the BA residual's (K6's). The trace sums left to right
+    (`_tap_sum`)."""
     x = x[..., 0::2] + x[..., 1::2]
     x = x[..., 0::2] + x[..., 1::2]
     return x[..., 0] + x[..., 1]
@@ -255,6 +263,10 @@ def _huber_div(ar, cfg):
 
 
 def _huber_w(ar, cfg):
+    """The activation's Huber weight (K5's): huber_th times |r|'s
+    reciprocal, as torch computes a Python scalar over a tensor and as the
+    JAX package's jitted activation gives its bits. The trace divides
+    (`_huber_div`)."""
     return torch.where(ar < cfg.huber_th, torch.ones_like(ar),
                        cfg.huber_th / torch.clamp(ar, min=1e-12))
 
@@ -677,17 +689,23 @@ def arena_mask(arena: ImmatureArena, remove) -> ImmatureArena:
 # ---------------------------------------------------------------------------
 # activation: the gate, then a depth-only LM over all window frames. The
 # plain version of K5 (csrc/immature_activate.cu), written out in K5's
-# order of operations (the projections as (r0 x + r1 y) + r2 + t idepth,
+# order of operations (the gate's projection as (r0 u + r1 v) + r2 + t
+# idm; the LM residual's rays times the focal lengths' float32
+# reciprocals, its rows fma(r1, y, r0 x) + r2 + t idepth, its pixel,
+# blend, affine model and depth derivative contracted as XLA:CPU does;
 # every 8-tap sum in `_sum8`'s tree, the targets summed in slot order, a
-# Python scalar over a tensor as its reciprocal times the scalar, and a
-# division by the focal length a true division on both devices)
+# Python scalar over a tensor as its reciprocal times the scalar)
 # ---------------------------------------------------------------------------
 
-def _focal(calib: Calibration, dev):
-    """(fx, fy) as 0-d float32 tensors on `dev`: `x / fx` then divides on
-    the card too, where a Python scalar would multiply by its reciprocal."""
-    fx, fy = device_const((float(calib.fx[0]), float(calib.fy[0])), dev)
-    return fx, fy
+def _focal_reciprocal(calib: Calibration, dev):
+    """(1 / fx, 1 / fy) rounded to float32, as 0-d tensors on `dev`: the
+    JAX package's jitted activation multiplies by them where it divides
+    by the focal length (XLA turns a division by a constant into a
+    multiply by its reciprocal)."""
+    import numpy as np
+    one = np.float32(1.0)
+    return device_const((float(one / np.float32(calib.fx[0])),
+                         float(one / np.float32(calib.fy[0]))), dev)
 
 
 def gate_candidates(pool: ImmaturePool, KRKi, Kt, dist_map, min_act_dist,
@@ -757,36 +775,34 @@ def linearize_depth_residual(u, v, color, weights, energy_th, idepth,
         t = t.expand(N, 3)
         affLL = affLL.expand(N, 2)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    fx_t, fy_t = _focal(calib, dev)
-
-    # K^-1 (u + px, v + py, 1), then R (x, y, 1) + t idepth per row
-    x = (u[:, None] + patt[None, :, 0] - cx) / fx_t
-    y = (v[:, None] + patt[None, :, 1] - cy) / fy_t
+    rfx, rfy = _focal_reciprocal(calib, dev)
+    x = (u[:, None] + patt[None, :, 0] - cx) * rfx
+    y = (v[:, None] + patt[None, :, 1] - cy) * rfy
 
     def row(i):
-        return ((R[:, i, 0:1] * x + R[:, i, 1:2] * y + R[:, i, 2:3])
+        return ((fma(R[:, i, 1:2], y, R[:, i, 0:1] * x) + R[:, i, 2:3])
                 + t[:, i:i + 1] * idepth[:, None])
     p0, p1, p2 = row(0), row(1), row(2)
     drescale = p2.reciprocal()
     uu = p0 * drescale
     vv = p1 * drescale
-    Ku = uu * fx + cx
-    Kv = vv * fy + cy
+    Ku = fma(uu, fx, cx)
+    Kv = fma(vv, fy, cy)
     inb = (drescale > 0) & (Ku > 1.1) & (Kv > 1.1) & (Ku < W - 3) & (Kv < H - 3)
 
-    hit = bilinear(dI_target, Ku, Kv)
+    hit = _bilinear(dI_target, Ku, Kv)
     pix_ok = inb & torch.isfinite(hit[..., 0])
     oob = ~torch.all(pix_ok, dim=-1)
 
-    r = hit[..., 0] - (affLL[:, None, 0] * color + affLL[:, None, 1])
+    r = hit[..., 0] - fma(affLL[:, None, 0], color, affLL[:, None, 1])
     hw = _huber_w(torch.abs(r), cfg)
     w2 = weights * weights
     energy = _sum8(torch.where(pix_ok, w2 * hw * r * r * (2.0 - hw), zero))
 
     dxI = hit[..., 1] * fx
     dyI = hit[..., 2] * fy
-    d_id = (dxI * drescale * (t[:, 0:1] - t[:, 2:3] * uu)
-            + dyI * drescale * (t[:, 1:2] - t[:, 2:3] * vv))
+    d_id = fma(dxI * drescale, fma(-t[:, 2:3], uu, t[:, 0:1]),
+               dyI * drescale * fma(-t[:, 2:3], vv, t[:, 1:2]))
     hww = hw * w2
     Hdd = _sum8(torch.where(pix_ok, hww * d_id * d_id, zero))
     bd = _sum8(torch.where(pix_ok, hww * r * d_id, zero))

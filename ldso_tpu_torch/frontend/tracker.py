@@ -41,6 +41,7 @@ from ldso_tpu_torch.config import (Config, SCALE_A, SCALE_B, SCALE_XI_ROT,
 from ldso_tpu_torch.camera.calib import Calibration
 from ldso_tpu_torch.frontend import affine, track_graph
 from ldso_tpu_torch.math import lie
+from ldso_tpu_torch.math.rounding import rounded
 from ldso_tpu_torch.ops import cuda_kernels
 from ldso_tpu_torch.ops.interp import bilinear
 from ldso_tpu_torch.ops.preprocess import FramePyramid
@@ -202,7 +203,8 @@ def _calc_res(ref: TrackerRef, pyr_new: FramePyramid, lvl: int, T, aff_new,
     t = T[:, :3, 3]
     RKi = R @ Ki
 
-    rel = affine.from_to(ref.ref_exposure, new_exposure, ref.ref_aff, aff_new)
+    rel = affine.from_to(ref.ref_exposure, new_exposure, ref.ref_aff, aff_new,
+                         exact=True)
     a_rel, b_rel = rel[:, 0:1], rel[:, 1:2]
 
     p_ref = torch.stack([x, y, torch.ones_like(x)], dim=-1)            # (N,3)
@@ -279,7 +281,8 @@ def _calc_gs(bufs, lvl, ref: TrackerRef, aff_new, new_exposure,
     """Batched 8x8 H, b from the warped buffers (calcGSSSE,
     CoarseTracker.cc:574-632)."""
     fx, fy = calib.fx[lvl], calib.fy[lvl]
-    rel = affine.from_to(ref.ref_exposure, new_exposure, ref.ref_aff, aff_new)
+    rel = affine.from_to(ref.ref_exposure, new_exposure, ref.ref_aff, aff_new,
+                         exact=True)
     a_rel = rel[:, 0:1]
     b0 = ref.ref_aff[1]
 
@@ -387,14 +390,18 @@ def lm_step_ref(T, aff, H, b, lam, cfg: Config):
     inc = _solve_inc(H, b, lam, cfg)
     extrap = torch.where(
         lam < _LAMBDA_EXTRAPOLATION_LIMIT,
-        torch.sqrt(torch.sqrt(_LAMBDA_EXTRAPOLATION_LIMIT
-                              / torch.clamp(lam, min=1e-12))),
+        rounded(torch.sqrt, rounded(
+            torch.sqrt,
+            _LAMBDA_EXTRAPOLATION_LIMIT / torch.clamp(lam, min=1e-12))),
         torch.ones_like(lam))
     inc = inc * extrap[:, None]
     inc_scaled = inc * _scale_vec(T.device)
     inc_scaled = torch.where(torch.isfinite(inc_scaled), inc_scaled,
                              torch.zeros_like(inc_scaled))
-    T_new = lie.se3_exp(inc_scaled[:, :6]) @ T
+    # the step's exponential with its sine, cosine and square root rounded
+    # once, as XLA:CPU gives them: torch's float32 cosine biased the
+    # tracked poses (ROADMAP 3a)
+    T_new = lie.se3_exp(inc_scaled[:, :6], exact=True) @ T
     aff_n = aff + inc_scaled[:, 6:8]
     return inc, T_new, aff_n
 
@@ -466,7 +473,8 @@ def _level_block(ref, pyr_new, lvl, state, run, new_exposure, min_res_abort,
 
     # zero surviving terms score inf, not 0 (FullSystem.cc:117-123)
     rms = torch.where(stats[:, 1] > 0,
-                      torch.sqrt(stats[:, 0] / torch.clamp(stats[:, 1], min=1.0)),
+                      rounded(torch.sqrt, stats[:, 0]
+                              / torch.clamp(stats[:, 1], min=1.0)),
                       torch.full_like(stats[:, 0], float("inf")))
     new_last = torch.cat([last_res[:, :lvl], rms[:, None],
                           last_res[:, lvl + 1:]], dim=1)
@@ -514,7 +522,8 @@ def _track_batch(ref: TrackerRef, pyr_new: FramePyramid, T_init, aff_init,
         ok = ok & (torch.abs(aff[:, 0]) <= 1.2)
     if cfg.affine_opt_mode_b != 0:
         ok = ok & (torch.abs(aff[:, 1]) <= 200.0)
-    rel = affine.from_to(ref.ref_exposure, new_exposure, ref.ref_aff, aff)
+    rel = affine.from_to(ref.ref_exposure, new_exposure, ref.ref_aff, aff,
+                         exact=True)
     if cfg.affine_opt_mode_a == 0:
         ok = ok & (torch.abs(torch.log(rel[:, 0])) <= 1.5)
     if cfg.affine_opt_mode_b == 0:

@@ -16,12 +16,27 @@ from __future__ import annotations
 
 import torch
 
+from ldso_tpu_torch.math.rounding import rounded
+
 _EPS = 1e-8
 _SQRT_GUARD = 1e-30
 
 
-def _safe_sqrt(x):
-    return torch.sqrt(x + _SQRT_GUARD)
+def _safe_sqrt(x, exact: bool = False):
+    return (rounded(torch.sqrt, x + _SQRT_GUARD) if exact
+            else torch.sqrt(x + _SQRT_GUARD))
+
+
+def _sin_cos(theta, exact: bool):
+    """(sin, cos) of theta; with `exact` each rounded once
+    (math/rounding.rounded), as XLA:CPU's float32 sine and cosine are.
+    torch's float32 cosine rounds toward 1 on some small angles, and
+    (1 - cos) / theta^2 turns that into a bias with one sign of the
+    rotation's and the left Jacobian's coefficients (ROADMAP 3a: the
+    tracker's steps take them exact)."""
+    if exact:
+        return rounded(torch.sin, theta), rounded(torch.cos, theta)
+    return torch.sin(theta), torch.cos(theta)
 
 
 def _safe_norm(x, dim=-1, keepdim=False):
@@ -48,16 +63,18 @@ def _eye_like(w, n):
         w.shape[:-1] + (n, n))
 
 
-def so3_exp(omega):
-    """Rodrigues: (...,3) -> (...,3,3)."""
+def so3_exp(omega, exact: bool = False):
+    """Rodrigues: (...,3) -> (...,3,3). `exact`: the sine, cosine and
+    square root rounded once (`_sin_cos`)."""
     theta2 = torch.sum(omega * omega, dim=-1)
-    theta = _safe_sqrt(theta2)
+    theta = _safe_sqrt(theta2, exact)
+    sin_t, cos_t = _sin_cos(theta, exact)
     small = theta < 1e-4
     one = torch.ones_like(theta)
     a = torch.where(small, 1.0 - theta2 / 6.0,
-                    torch.sin(theta) / torch.where(small, one, theta))
+                    sin_t / torch.where(small, one, theta))
     b = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - torch.cos(theta)) / torch.where(small, one, theta2))
+                    (1.0 - cos_t) / torch.where(small, one, theta2))
     W = hat(omega)
     return (_eye_like(omega, 3) + a[..., None, None] * W
             + b[..., None, None] * (W @ W))
@@ -93,18 +110,20 @@ def so3_log(R):
     return torch.where(near_pi[..., None], w_pi, w_generic)
 
 
-def _so3_left_jacobian_coeffs(omega):
-    """Coefficients (a, b) of V = I + a*W + b*W^2 (left Jacobian of SO3)."""
+def _so3_left_jacobian_coeffs(omega, exact: bool = False):
+    """Coefficients (a, b) of V = I + a*W + b*W^2 (left Jacobian of SO3);
+    `exact` as so3_exp."""
     theta2 = torch.sum(omega * omega, dim=-1)
-    theta = _safe_sqrt(theta2)
+    theta = _safe_sqrt(theta2, exact)
+    sin_t, cos_t = _sin_cos(theta, exact)
     small = theta < 1e-4
     one = torch.ones_like(theta)
     safe_t2 = torch.where(small, one, theta2)
     safe_t3 = safe_t2 * torch.where(small, one, theta)
     a = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - torch.cos(theta)) / safe_t2)
+                    (1.0 - cos_t) / safe_t2)
     b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
-                    (theta - torch.sin(theta)) / safe_t3)
+                    (theta - sin_t) / safe_t3)
     return a, b
 
 
@@ -122,18 +141,19 @@ def se3(R, t):
     return torch.cat([top, bottom], dim=-2)
 
 
-def _V(w):
-    a, b = _so3_left_jacobian_coeffs(w)
+def _V(w, exact: bool = False):
+    a, b = _so3_left_jacobian_coeffs(w, exact)
     W = hat(w)
     return (_eye_like(w, 3) + a[..., None, None] * W
             + b[..., None, None] * (W @ W))
 
 
-def se3_exp(xi):
-    """(...,6) [v, w] -> (...,4,4)."""
+def se3_exp(xi, exact: bool = False):
+    """(...,6) [v, w] -> (...,4,4). `exact`: the sine, cosine and square
+    root rounded once, as XLA:CPU gives them (the tracker's LM steps)."""
     v, w = xi[..., :3], xi[..., 3:6]
-    t = torch.einsum("...ij,...j->...i", _V(w), v)
-    return se3(so3_exp(w), t)
+    t = torch.einsum("...ij,...j->...i", _V(w, exact), v)
+    return se3(so3_exp(w, exact), t)
 
 
 def se3_log(T):

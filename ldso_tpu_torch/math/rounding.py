@@ -1,4 +1,5 @@
-"""Float32 multiply-adds rounded once, as XLA:CPU computes them.
+"""Float32 multiply-adds and elementary functions rounded once, as
+XLA:CPU computes them.
 
 XLA:CPU contracts `a * b + c` of float32 operands inside a fused program
 into one fused multiply-add (one rounding where PyTorch's separate
@@ -6,6 +7,15 @@ operations round twice). Where the port must give the JAX package's bits
 (the trace's search chain, the pyramid's absSquaredGrad), its plain
 versions write those sums with `fma`, and the CUDA kernels that copy the
 plain versions' bits use `__fmaf_rn` at the same places.
+
+XLA:CPU's float32 cosine, sine and square root are the correctly rounded
+values on the arguments the trackers take (its exponential too, on small
+arguments); PyTorch's CPU ones are not on 0.6-8% of them, and its cosine
+rounds toward 1 more often than away. `rounded` takes such a function in
+float64 and rounds once (ROADMAP 3a: the cosine's bias, through
+(1 - cos) / theta^2 in the tracker's se3_exp, drifted the port's scale;
+the tracker takes its step's exponential, square roots and affine
+exponential so).
 """
 
 from __future__ import annotations
@@ -43,3 +53,12 @@ def _f64(x):
     if isinstance(x, torch.Tensor):
         return x.double()
     return float(np.float32(x))
+
+
+def rounded(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn (torch.cos, sin, exp, sqrt) of a float32 tensor taken in float64
+    and rounded once to float32, on the CPU and the card alike; another
+    dtype takes fn as it is."""
+    if x.dtype == torch.float32:
+        return fn(x.double()).to(torch.float32)
+    return fn(x)

@@ -257,7 +257,7 @@ def _load():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.POINTER(ctypes.c_longlong)]
             lib.ldso_ba_accumulate_scratch.restype = ctypes.c_int
-            lib.ldso_pyramid_smem.argtypes = [ctypes.c_int]
+            lib.ldso_pyramid_smem.argtypes = [ctypes.c_int] * 3
             lib.ldso_pyramid_smem.restype = ctypes.c_int
             lib.ldso_pyramid.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                                          ctypes.POINTER(ctypes.c_int),
@@ -1223,9 +1223,13 @@ def ba_accumulate_sc(W, Hdd_tot, bd_tot, Hcd_tot, shift_prior: bool,
 # ---------------------------------------------------------------------------
 
 # the frame types the pyramid kernel reads (its dtype codes), and the most
-# levels one launch builds (a level-0 tile of 32 with a 2^(L-1) halo)
+# levels one launch builds (a level-0 tile with a 2^(L-1) halo)
 PYRAMID_DTYPES = {torch.uint8: 0, torch.float32: 1, torch.uint16: 2}
 PYRAMID_MAX_LEVELS = 6
+# the coarse blocks' level-0 tile (width, height; every side a multiple
+# of 2^(L-1) up to PYRAMID_MAX_LEVELS) and a block's threads
+PYRAMID_TILE = (64, 32)
+PYRAMID_THREADS = 256
 # the raw frame types the rectify kernel reads: uint8 and int32 (with or
 # without a response table) and float32 (without)
 RECTIFY_DTYPES = {torch.uint8: 0, torch.float32: 1, torch.int32: 3}
@@ -1236,6 +1240,28 @@ def pyramid_shapes(H: int, W: int, levels: int):
     return [(H >> lvl, W >> lvl) for lvl in range(levels)]
 
 
+def pyramid_plan(H: int, W: int, levels: int) -> dict:
+    """K2's pyramid launch on an (H, W) frame with `levels` levels: one
+    1-D grid of PYRAMID_THREADS-thread blocks, first the coarse blocks
+    (one per PYRAMID_TILE of level 0: levels 1 .. L-1 of the tile, none
+    for one level), then the level-0 blocks (a quad of four pixels of a
+    row a thread); the dynamic shared memory of a coarse block (the coarse
+    levels' regions: the tile and its 2^(L-1) halo, halved per level, as
+    float32). ValueError for a level count the library has no kernel
+    for."""
+    if not 1 <= levels <= PYRAMID_MAX_LEVELS:
+        raise ValueError(f"pyramid_plan: {levels} levels "
+                         f"(1..{PYRAMID_MAX_LEVELS})")
+    halo = 1 << (levels - 1)
+    tx, ty = PYRAMID_TILE
+    smem = 4 * sum(((tx + 2 * halo) >> lvl) * ((ty + 2 * halo) >> lvl)
+                   for lvl in range(1, levels))
+    coarse = (-(-W // tx)) * (-(-H // ty)) if levels > 1 else 0
+    fine = -(-(H * (-(-W // 4))) // PYRAMID_THREADS)
+    return dict(tile=(tx, ty), coarse_blocks=coarse, level0_blocks=fine,
+                grid=coarse + fine, threads=PYRAMID_THREADS, smem=smem)
+
+
 def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
     """The frame's pyramid (ops/preprocess.make_pyramid_ref is the
     function): per level (I, dx, dy) and absSquaredGrad, times b_grad^2
@@ -1244,8 +1270,9 @@ def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
     CPU tensor: the plain version. CUDA tensor: K2's pyramid kernel, one
     launch for every level on the current stream (uint8, uint16 or float32
     frames; another type is made float32 first, as the plain version
-    decodes it; 1..PYRAMID_MAX_LEVELS levels); it reads nothing back and
-    allocates with torch.empty only."""
+    decodes it; 1..PYRAMID_MAX_LEVELS levels; the launch is
+    pyramid_plan's); it reads nothing back and allocates with torch.empty
+    only."""
     from ldso_tpu_torch.ops.preprocess import FramePyramid, make_pyramid_ref
     if img.device.type == "cpu":
         return make_pyramid_ref(img, levels, b_grad_lut)
@@ -1263,6 +1290,7 @@ def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
     dev = img.device
     if b_grad_lut is not None:
         _on_card("pyramid", "b_grad", b_grad_lut, torch.float32, (256,), dev)
+    plan = pyramid_plan(H, W, levels)
     shapes = pyramid_shapes(H, W, levels)
     dIs = [torch.empty((h, w, 3), dtype=torch.float32, device=dev)
            for h, w in shapes]
@@ -1271,7 +1299,7 @@ def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
     ptrs = [img.data_ptr(), 0 if b_grad_lut is None else b_grad_lut.data_ptr()]
     for d, g in zip(dIs, ags):
         ptrs += [d.data_ptr(), g.data_ptr()]
-    ints = [levels, PYRAMID_DTYPES[img.dtype]]
+    ints = [levels, PYRAMID_DTYPES[img.dtype], *plan["tile"]]
     for h, w in shapes:
         ints += [h, w]
     _launch("pyramid", _load().ldso_pyramid, ptrs, ints, None, dev)
@@ -1280,9 +1308,10 @@ def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
 
 
 def pyramid_smem(levels: int) -> int:
-    """The pyramid launch's dynamic shared memory in bytes (the card's
-    library; 0 for a level count it does not take)."""
-    return int(_load().ldso_pyramid_smem(levels))
+    """The pyramid launch's dynamic shared memory in bytes, from the card's
+    library (-1 for a level count it has no kernel for); pyramid_plan's
+    `smem` must equal it."""
+    return int(_load().ldso_pyramid_smem(levels, *PYRAMID_TILE))
 
 
 def rectify(raw: torch.Tensor, G_lut, vignette_inv, remap_x: torch.Tensor,

@@ -114,9 +114,9 @@ def test_vmap_over_windows_matches_single_calls():
     and 5 frames of 5 slots, other seeds, so other newest frames and other
     masked trips) against 3 single calls, with no batching rule falling
     back to a loop over the windows: within torch_kernel_checks.
-    ba_batch_err's tolerance, BA_ORDER_FACTOR times the spread of a single
-    call with its sums in another order (the batched products sum in
-    another order too), the residual bookkeeping equal."""
+    ba_batch_err's tolerance (each member no farther from its window's
+    float64 result than BA_F64_FACTOR times the farthest single call),
+    the residual bookkeeping equal."""
     singles = [kc.ba_window(nf, 5, n_pts=64, seed=10 + nf)
                for nf in (3, 4, 5)]
     cfg, (w, h) = singles[0][4], singles[0][5]
@@ -141,7 +141,7 @@ def test_vmap_over_windows_matches_single_calls():
             for s, (W, dIs, HM, bM, _, _) in enumerate(singles)]
     worst, tol, faults = kc.ba_batch_err(
         [(Window(*(x[s] for x in Wv)), sv[s]) for s in range(3)],
-        [one(*a) for a in args], [kc.reordered_ba(one, *a) for a in args])
+        [one(*a) for a in args], [kc.ba_f64(one, *a) for a in args])
     assert not faults, (faults, worst, tol)
 
 
@@ -183,3 +183,85 @@ def test_projector_float32_against_float64():
             nullspace_projector_ref(Nn, cfg.solver_mode_delta)[None],
             exact[None], Nn[None], cfg.solver_mode_delta)
         assert not at_gate and share <= 0.25, (nf, err, share)
+
+
+# 7e's yardstick (torch_kernel_checks.ba_batch_err): a vmapped batch of the
+# port's own BA windows, recorded from a CPU run of its FullSystem in the
+# activation's present (jitted) order and in its earlier one, held to the
+# float64 results of those windows
+_RECORDED = {}
+
+
+def _recorded_batch(order: str):
+    """(batched, singles, reference, readings) over the last 3 recorded
+    device-LM calls of one trip count, in activation `order` ("jitted" or
+    "earlier")."""
+    if order not in _RECORDED:
+        calls = kc.recorded_ba_windows(earlier_activation=order == "earlier")
+        trips = calls[-1][-1]
+        calls = [c for c in calls if c[-1] == trips][-3:]
+        assert len(calls) == 3, [c[-1] for c in calls]
+        cfg, w, h = calls[0][5:8]
+
+        def one(W, dIs, HM, bM, n):
+            return ba_device.optimize_device(W, dIs, HM, bM, n, cfg, w, h,
+                                             trips)
+        Wv, sv = torch.func.vmap(one)(
+            Window(*(torch.stack([c[0][i] for c in calls])
+                     for i in range(len(Window._fields)))),
+            *(torch.stack([c[k] for c in calls]) for k in (1, 2, 3, 4)))
+        batched = [(Window(*(x[s] for x in Wv)), sv[s]) for s in range(3)]
+        singles = [one(*c[:5]) for c in calls]
+        reference = [kc.ba_f64(one, *c[:5]) for c in calls]
+        _RECORDED[order] = (batched, singles, reference,
+                            kc.ba_batch_readings(batched, singles, reference))
+    return _RECORDED[order]
+
+
+@pytest.mark.parametrize("order", ["jitted", "earlier"])
+def test_batch_yardstick_passes_on_recorded_windows(order):
+    """On windows the port's own run hands its BA (30 bench frames at
+    160x120), in either order of the activation's rounding, every member of
+    the vmapped batch is within BA_F64_FACTOR times the farthest single
+    call's distance from float64, its bookkeeping its single call's; and
+    float32 rounding is what both carry: each single call lies off its
+    float64 result by more than nothing and by less than 1e-3."""
+    batched, singles, reference, readings = _recorded_batch(order)
+    worst, tol, faults = kc.ba_batch_err(batched, singles, reference)
+    print(order, worst, tol, readings)
+    assert not faults, (faults, worst, tol)
+    for r in readings:
+        assert 0.0 < r["single_f64"]["pose"] < 1e-3, r
+
+
+@pytest.mark.parametrize("plant", ["neighbour's window",
+                                   "pose moved 10x the tolerance"])
+def test_batch_yardstick_refuses_planted_faults(plant):
+    """The yardstick refuses a batch whose member 0 carries its
+    neighbour's result, and one whose member 1's newest pose moved by 10
+    times the pose tolerance."""
+    batched, singles, reference, _ = _recorded_batch("jitted")
+    _, tol, faults = kc.ba_batch_err(batched, singles, reference)
+    assert not faults
+    planted = kc.ba_batch_plants(batched, tol)[plant]
+    assert kc.ba_batch_err(planted, singles, reference)[2], plant
+
+
+def test_float64_plain_leaves_the_float32_path_alone():
+    """ba_f64 runs the device LM in float64 (every float output float64)
+    and the float32 call after it gives the bits it gave before: the
+    context puts torch, the device constants and the kernels back."""
+    from ldso_tpu_torch.ops import cuda_kernels
+    W, dIs, HM, bM, newest, cfg, w, h, trips = _case("full_window_6_trips")
+
+    def one(*a):
+        return ba_device.optimize_device(*a, cfg, w, h, trips)
+    before = one(W, dIs, HM, bM, newest)
+    W64, s64 = kc.ba_f64(one, W, dIs, HM, bM, newest)
+    assert s64.dtype == torch.float64
+    assert all(x.dtype == torch.float64 for x in W64 if x.is_floating_point())
+    assert ba.torch is torch and ba_device.cuda_kernels is cuda_kernels
+    after = one(W, dIs, HM, bM, newest)
+    _same_window(after[0], before[0])
+    assert torch.equal(after[1], before[1])
+    assert kc.ba_diffs(kc.window_f64(*before), (W64, s64))["pose"] < 1e-3

@@ -935,10 +935,10 @@ def test_ba_vmapped_graph_matches_single_replays(cuda):
     """torch.func.vmap of the device LM over S = 8 windows (2 to 8 frames
     of 8 slots, so other newest frames and other masked trips), captured
     as one CUDA graph, against 8 single replays, within torch_kernel_checks.
-    ba_batch_err's tolerance (the batched products sum in another order:
-    BA_ORDER_FACTOR times the spread of single replays with the points
-    reversed), the residual bookkeeping equal; K12 launched once for the
-    8."""
+    ba_batch_err's tolerance (each member no farther from its window's
+    float64 result than BA_F64_FACTOR times the farthest single replay),
+    the residual bookkeeping equal, the planted faults refused; K12
+    launched once for the 8."""
     from ldso_tpu_torch.backend import ba_device, energy_functional as efm
     from ldso_tpu_torch.backend.window import Window
     from ldso_tpu_torch.ops import cuda_kernels
@@ -963,12 +963,17 @@ def test_ba_vmapped_graph_matches_single_replays(cuda):
 
     def single(W, *rest):
         return efm.replay_ba(W, *rest, cfg, w, h, 6)
-    worst, tol, faults = kc.ba_batch_err(
-        [(Window(*(x[s] for x in out[:-1])), out[-1][s])
-         for s in range(len(inputs))],
-        [single(*a[0]) for a in inputs],
-        [kc.reordered_ba(single, *a[0]) for a in inputs])
+
+    def plain(W, *rest):
+        return ba_device.optimize_device(W, *rest, cfg, w, h, 6)
+    batched = [(Window(*(x[s] for x in out[:-1])), out[-1][s])
+               for s in range(len(inputs))]
+    singles = [single(*a[0]) for a in inputs]
+    reference = [kc.ba_f64(plain, *a[0]) for a in inputs]
+    worst, tol, faults = kc.ba_batch_err(batched, singles, reference)
     assert not faults, (faults, worst, tol)
+    for name, planted in kc.ba_batch_plants(batched, tol).items():
+        assert kc.ba_batch_err(planted, singles, reference)[2], name
 
 
 # the counts of tests/test_torch_bench.py's CPU run
@@ -1686,9 +1691,12 @@ def test_captured_graph_first_replay_runs_ahead(cuda):
 # rectify_cases
 _PYR_CASES = ("uint8 640x480", "uint8 640x480 b_grad", "float32 steps",
               "float32 steps b_grad", "uint16", "uint8 97x61",
-              "uint8 1241x376", "float32 620x188", "6 levels", "1 level")
+              "uint8 1241x376", "float32 620x188", "6 levels", "1 level",
+              "uint8 37x23", "uint8 642x482", "float32 642x482 b_grad",
+              "uint8 640x480 offset")
 _RECT_CASES = ("uint8 G vignette", "uint8 G", "int32 G vignette",
-               "uint8 raw", "float32 vignette", "float32")
+               "uint8 raw", "float32 vignette", "float32",
+               "uint8 G onto 597x437", "uint8 G maps offset")
 
 
 @pytest.mark.parametrize("name", _PYR_CASES)
@@ -1720,6 +1728,24 @@ def test_rectify_kernel_is_bitwise_plain(cuda, name):
     assert cuda_kernels.LAUNCHES["pyramid"] == before["pyramid"] + 1
     assert kc.pyramid_bitwise(pyr, preprocess.preprocess_frame_ref(
         raw, G, vig, rx, ry, None, 3))
+
+
+@pytest.mark.parametrize("name", ("uint8 640x480 b_grad", "float32 steps",
+                                  "uint8 97x61", "uint8 642x482",
+                                  "uint8 37x23", "6 levels"))
+def test_pyramid_kernel_plan_is_the_library_s(cuda, name):
+    """The launch plan's shared memory (cuda_kernels.pyramid_plan) is the
+    library's at the case's level count, and the launch it plans, one,
+    is bitwise the plain version."""
+    import torch_kernel_checks as kc
+    from ldso_tpu_torch.ops import cuda_kernels, preprocess
+    img, L, b = kc.pyramid_cases(cuda)[name]
+    plan = cuda_kernels.pyramid_plan(*img.shape, L)
+    assert plan["smem"] == cuda_kernels.pyramid_smem(L)
+    before = cuda_kernels.LAUNCHES["pyramid"]
+    got = cuda_kernels.pyramid(img, L, b)
+    assert cuda_kernels.LAUNCHES["pyramid"] == before + 1
+    assert kc.pyramid_bitwise(got, preprocess.make_pyramid_ref(img, L, b))
 
 
 def test_pyramid_kernel_in_a_graph_and_refusals(cuda):

@@ -130,3 +130,50 @@ def test_abs_grad_is_one_rounding():
     assert (pyr.dI[0][110, [299, 301], 1] == 0).all()
     assert (pyr.dI[0][[199, 201], 60, 2] == 0).all()
     assert (pyr.dI[0][110, 300, 1] != 0) and (pyr.dI[0][200, 60, 2] != 0)
+
+
+@pytest.mark.parametrize("levels", range(1, cuda_kernels.PYRAMID_MAX_LEVELS + 1))
+def test_pyramid_plan(levels):
+    """K2's launch plan: PYRAMID_TILE, whose sides 2^(L-1) divides at
+    every level count (so every coarse level's tile is whole), one coarse
+    block per tile over the frame (none for one level), then enough
+    level-0 blocks for a quad of four pixels of every row a thread, and
+    the shared memory of the coarse levels' regions (the tile and its
+    2^(L-1) halo, halved per level, levels 1 .. L-1) as float32; a frame
+    smaller than a tile takes one block of each kind."""
+    halo = 1 << (levels - 1)
+    plan = cuda_kernels.pyramid_plan(480, 640, levels)
+    tx, ty = plan["tile"]
+    assert (tx, ty) == cuda_kernels.PYRAMID_TILE
+    assert tx % halo == 0 and ty % halo == 0
+    coarse = (-(-640 // tx)) * (-(-480 // ty)) if levels > 1 else 0
+    assert plan["coarse_blocks"] == coarse
+    assert plan["threads"] == cuda_kernels.PYRAMID_THREADS
+    assert plan["level0_blocks"] * plan["threads"] >= 480 * 160
+    assert (plan["level0_blocks"] - 1) * plan["threads"] < 480 * 160
+    assert plan["grid"] == coarse + plan["level0_blocks"]
+    want = sum(((tx + 2 * halo) >> lvl) * ((ty + 2 * halo) >> lvl)
+               for lvl in range(1, levels)) * 4
+    assert plan["smem"] == want
+    small = cuda_kernels.pyramid_plan(23, 37, levels)
+    assert small["coarse_blocks"] == (1 if levels > 1 else 0)
+    # 23 rows of 10 quads (the last one a single pixel wide)
+    assert small["level0_blocks"] == 1
+
+
+def test_pyramid_plan_at_the_main_path():
+    """At 640x480 with 4 levels: 64x32 coarse tiles, 150 coarse blocks and
+    300 level-0 blocks of 256 threads (76,800 quads), and 5,040 B of
+    shared memory (40x24 + 20x12 + 10x6 floats); 6 levels take the same
+    tile and 16,368 B (64x48 + 32x24 + 16x12 + 8x6 + 4x3 floats); one
+    level no coarse block and no shared memory; 7 levels and 0 raise."""
+    plan = cuda_kernels.pyramid_plan(480, 640, 4)
+    assert plan == dict(tile=(64, 32), coarse_blocks=150, level0_blocks=300,
+                        grid=450, threads=256, smem=5040)
+    six = cuda_kernels.pyramid_plan(480, 640, 6)
+    assert six["tile"] == (64, 32) and six["smem"] == 16368
+    one = cuda_kernels.pyramid_plan(480, 640, 1)
+    assert one["coarse_blocks"] == 0 and one["smem"] == 0
+    for bad in (0, cuda_kernels.PYRAMID_MAX_LEVELS + 1):
+        with pytest.raises(ValueError):
+            cuda_kernels.pyramid_plan(480, 640, bad)

@@ -1,6 +1,8 @@
 """chip_smoke.py 7e's batch of 8 device LMs against the orders of a single
-call: does a member of the vmapped batch part from its single replay by
-more than the single call does when its points come in another order?
+call and against float64: does a member of the vmapped batch part from its
+single replay by more than the single call does when its points come in
+another order, and is it farther from its window's float64 result than
+the single replay is?
 
     python3 tests/tools/batched_ba_orders.py [--perms 6] \
         [--package-root DIR]
@@ -9,8 +11,10 @@ On the card: phase 3 of chip_smoke.py (64 bench frames, strict), its last
 8 BA inputs in one vmapped graph as 7e runs them, and per member the
 differences (torch_kernel_checks.ba_diffs: pose, idepth, stats relative)
 of the batch, of the single replay with its points reversed (7e's
-yardstick) and of `--perms` random point orders, each against the single
-replay, with the stat that parts most. `--package-root` puts another copy
+yardstick before) and of `--perms` random point orders, each against the
+single replay, with the stat that parts most; and the batch's, the single
+replay's and the reversed replay's distances from the float64 result
+(torch_kernel_checks.ba_f64, 7e's yardstick now). `--package-root` puts another copy
 of ldso_tpu_torch first on the path (for instance one with another
 rounding of the activation). Prints one JSON line per member and 7e's
 verdict on the batch.
@@ -78,8 +82,12 @@ def main() -> None:
                             for x in W))
         Wp, stats = single(take(W, perm), *rest)
         return take(Wp, torch.argsort(perm)), stats
+    def plain(W, *rest):
+        return ba_device.optimize_device(W, *rest, cfg, w, h, trips)
     singles = [single(*c[:5]) for c in calls]
     rev = [kc.reordered_ba(single, *c[:5]) for c in calls]
+    reference = [kc.ba_f64(plain, *c[:5]) for c in calls]
+    readings = kc.ba_batch_readings(batched, singles, reference)
     for i in range(S):
         perms = [kc.ba_diffs(permuted(*calls[i][:5], seed=k), singles[i])
                  for k in range(args.perms)]
@@ -89,14 +97,21 @@ def main() -> None:
         print(json.dumps(dict(
             member=i, batched=kc.ba_diffs(batched[i], singles[i]),
             reversed=kc.ba_diffs(rev[i], singles[i]),
+            batch_f64=readings[i]["batch_f64"],
+            single_f64=readings[i]["single_f64"],
+            reversed_f64=kc.ba_diffs(kc.window_f64(*rev[i]), reference[i]),
             perms={k: [d[k] for d in perms]
                    for k in ("pose", "idepth", "stats")},
             worst_stat=j, single=float(ss[j]), batch=float(sb[j]),
             reversed_value=float(rev[i][1].flatten()[j]))), flush=True)
-    worst, tol, faults = kc.ba_batch_err(batched, singles, rev)
+    worst, tol, faults = kc.ba_batch_err(batched, singles, reference)
+    ratio = {k: max(r["batch_f64"][k] for r in readings)
+             / max(max(r["single_f64"][k] for r in readings), 1e-30)
+             for k in kc.BA_ORDER_FLOORS}
     print(json.dumps(dict(phase3_keyframes=strict["keyframes"],
                           phase3_ate_mm=strict["ate_mm"], trips=trips,
-                          largest=worst, tolerance=tol, faults=faults,
+                          largest_from_f64=worst, tolerance=tol,
+                          faults=faults, batch_over_single_f64=ratio,
                           seconds=time.perf_counter() - t0)), flush=True)
 
 
