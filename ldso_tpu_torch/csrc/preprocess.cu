@@ -58,14 +58,15 @@
 //     consecutive float4 (the stores of the first design, three 4-byte
 //     stores a pixel at a 12-byte stride, cost twice the time); each
 //     thread writes its absSquaredGrad as one float4.
-//   * coarse blocks, one per TX x TY (64x32) tile of level 0
-//     (cuda_kernels.pyramid_plan; every side a multiple of 2^(L-1), so
-//     that every level's tile is whole): levels 1 .. L-1. The block forms level 1's
-//     tile and halo (2^(L-2) pixels) from the frame, then per level,
-//     behind one barrier, writes the level (a quad a thread, through the
-//     warp's staging where the level's tile rows are at least 32 pixels
-//     wide) and forms the next level's region in shared memory.
-// A template per (levels, tile) makes every region's side and offset a
+//   * coarse blocks, one per kTileX x kTileY (64x32) tile of level 0
+//     (every side a multiple of 2^(L-1), so that every level's tile is
+//     whole; the plan is ldso_pyramid_plan's): levels 1 .. L-1. The
+//     block forms level 1's tile and halo (2^(L-2) pixels) from the
+//     frame, then per level, behind one barrier, writes the level (a
+//     quad a thread, through the warp's staging where the level's tile
+//     rows are at least 32 pixels wide) and forms the next level's
+//     region in shared memory.
+// A template per level count makes every region's side and offset a
 // compile-time constant, so the index math is shifts and multiplies.
 // Nothing is summed across blocks. The coarse blocks come first in the
 // grid, so their chain of barriers starts while the level-0 blocks run.
@@ -83,7 +84,15 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxPyrLevels = 6;     // cuda_kernels.PYRAMID_MAX_LEVELS
+// the coarse tile of level 0 (64x32: whole tiles of every level count up
+// to kMaxPyrLevels; a 32x16 one measured the same at 4 levels) and the
+// threads of a pyramid block, coarse or level 0
+constexpr int kTileX = 64, kTileY = 32;
+constexpr int kPyrThreads = 256;
+static_assert(kTileX % (1 << (kMaxPyrLevels - 1)) == 0 &&
+                  kTileY % (1 << (kMaxPyrLevels - 1)) == 0,
+              "every level's tile must be whole");
 constexpr int kRectThreads = 256;    // rectify: one pixel a thread
 
 constexpr int kU8 = 0;
@@ -102,19 +111,19 @@ struct PyrArgs {
   bool vec_out[kMaxLevels];  // level l's dI and abs_grad 16-byte aligned
 };
 
-// The coarse blocks' geometry: L levels, a TX x TY tile of level 0 and a
-// halo of 2^(L-1) pixels around it; level l's region (l >= 1) in shared
-// memory is the tile and halo halved l times, the regions one after
-// another from level 1 on (level 0's is never stored).
-template <int L, int TX, int TY>
+// The coarse blocks' geometry: L levels, a kTileX x kTileY tile of level
+// 0 and a halo of 2^(L-1) pixels around it; level l's region (l >= 1)
+// in shared memory is the tile and halo halved l times, the regions one
+// after another from level 1 on (level 0's is never stored).
+template <int L>
 struct Geo {
   static constexpr int kHalo = 1 << (L - 1);
-  static constexpr int kThreads = 256;   // a block, coarse or level 0
+  static constexpr int kThreads = kPyrThreads;
   __host__ __device__ static constexpr int rx(int l) {
-    return (TX + 2 * kHalo) >> l;
+    return (kTileX + 2 * kHalo) >> l;
   }
   __host__ __device__ static constexpr int ry(int l) {
-    return (TY + 2 * kHalo) >> l;
+    return (kTileY + 2 * kHalo) >> l;
   }
   __host__ __device__ static constexpr int off(int l) {
     return l <= 1 ? 0 : off(l - 1) + rx(l - 1) * ry(l - 1);
@@ -280,10 +289,10 @@ __device__ __forceinline__ void level0_block(const PyrArgs& a, float4* st,
 // A coarse block's level-1 region, formed from the frame: pixel (r, c)
 // the mean of level 0's (2r .. 2r + 1, 2c .. 2c + 1), 0 off level 1; two
 // pixels an item, from a quad of each of the two rows.
-template <int L, int TX, int TY>
+template <int L>
 __device__ __forceinline__ void level1_region(const PyrArgs& a, float* dst,
                                               int tx0, int ty0) {
-  using G = Geo<L, TX, TY>;
+  using G = Geo<L>;
   constexpr int RX = G::rx(1), RY = G::ry(1);
   constexpr int NP = (RX + 1) / 2, N = RY * NP;
   constexpr int IT = (N + G::kThreads - 1) / G::kThreads;
@@ -313,10 +322,10 @@ __device__ __forceinline__ void level1_region(const PyrArgs& a, float* dst,
 // Level l's region (l >= 2) from level l - 1's in shared memory: origins
 // and sides halve exactly, so pixel (r, c) of level l is the mean of (2r
 // .. 2r + 1, 2c .. 2c + 1) of level l - 1, all on the image where it is.
-template <int L, int TX, int TY, int l>
+template <int L, int l>
 __device__ __forceinline__ void downsample(const PyrArgs& a, float* sm,
                                            int tx0, int ty0) {
-  using G = Geo<L, TX, TY>;
+  using G = Geo<L>;
   constexpr int RX = G::rx(l), RY = G::ry(l);
   constexpr int SP = G::rx(l - 1), N = RX * RY;
   constexpr int IT = (N + G::kThreads - 1) / G::kThreads;
@@ -343,11 +352,11 @@ __device__ __forceinline__ void downsample(const PyrArgs& a, float* sm,
 // an item where the level's tile rows hold whole quads (through
 // warp_quad_out where its rows are at least 32 pixels wide, else each
 // quad's own float4 stores), else one.
-template <int L, int TX, int TY, int m>
+template <int L, int m>
 __device__ __forceinline__ void outputs(const PyrArgs& a, const float* sm,
                                         float4* st, int tx0, int ty0) {
-  using G = Geo<L, TX, TY>;
-  constexpr int TW = TX >> m, TH = TY >> m, RX = G::rx(m);
+  using G = Geo<L>;
+  constexpr int TW = kTileX >> m, TH = kTileY >> m, RX = G::rx(m);
   constexpr int HL = G::kHalo >> m;
   constexpr int V = TW % 4 == 0 ? 4 : 1;
   constexpr int NQ = TW / V, N = TH * NQ;
@@ -426,24 +435,24 @@ __device__ __forceinline__ void outputs(const PyrArgs& a, const float* sm,
 
 // Step l of a coarse block: level l - 1's outputs, then level l's region;
 // one barrier before the next step reads it.
-template <int L, int TX, int TY, int l>
+template <int L, int l>
 __device__ __forceinline__ void level_step(const PyrArgs& a, float* sm,
                                            float4* st, int tx0, int ty0) {
-  outputs<L, TX, TY, l - 1>(a, sm, st, tx0, ty0);
+  outputs<L, l - 1>(a, sm, st, tx0, ty0);
   if constexpr (l < L) {
-    downsample<L, TX, TY, l>(a, sm, tx0, ty0);
+    downsample<L, l>(a, sm, tx0, ty0);
     __syncthreads();
-    level_step<L, TX, TY, l + 1>(a, sm, st, tx0, ty0);
+    level_step<L, l + 1>(a, sm, st, tx0, ty0);
   }
 }
 
-// The launch's first `coarse` blocks build levels 1 .. L-1 of a TX x TY
-// tile of level 0 each (level 1 from the frame, the rest in shared
+// The launch's first `coarse` blocks build levels 1 .. L-1 of a tile of
+// level 0 each (level 1 from the frame, the rest in shared
 // memory); the others write level 0, a quad of four pixels a thread.
-template <int L, int TX, int TY>
-__global__ void __launch_bounds__(Geo<L, TX, TY>::kThreads)
+template <int L>
+__global__ void __launch_bounds__(Geo<L>::kThreads)
     pyramid_kernel(const PyrArgs a, int coarse) {
-  constexpr int T = Geo<L, TX, TY>::kThreads;
+  constexpr int T = Geo<L>::kThreads;
   extern __shared__ __align__(16) float sm[];
   // each warp's staging of its quads' dI (warp_quad_out)
   __shared__ float4 stage[T / 32][96];
@@ -453,46 +462,38 @@ __global__ void __launch_bounds__(Geo<L, TX, TY>::kThreads)
     return;
   }
   if constexpr (L > 1) {
-    const int tiles_x = (a.W[0] + TX - 1) / TX;
-    const int ty0 = (blockIdx.x / tiles_x) * TY;
-    const int tx0 = (blockIdx.x - (blockIdx.x / tiles_x) * tiles_x) * TX;
-    level1_region<L, TX, TY>(a, sm, tx0, ty0);
+    const int tiles_x = (a.W[0] + kTileX - 1) / kTileX;
+    const int ty0 = (blockIdx.x / tiles_x) * kTileY;
+    const int tx0 =
+        (blockIdx.x - (blockIdx.x / tiles_x) * tiles_x) * kTileX;
+    level1_region<L>(a, sm, tx0, ty0);
     __syncthreads();
-    level_step<L, TX, TY, 2>(a, sm, st, tx0, ty0);
+    level_step<L, 2>(a, sm, st, tx0, ty0);
   }
 }
 
-struct PyrLaunch {
-  void (*kernel)(PyrArgs, int);
-  int threads;
-};
+using PyrKernel = void (*)(PyrArgs, int);
 
-template <int L, int TX, int TY>
-PyrLaunch launch_or_null() {
-  if constexpr (TX % (1 << (L - 1)) == 0 && TY % (1 << (L - 1)) == 0)
-    return {pyramid_kernel<L, TX, TY>, Geo<L, TX, TY>::kThreads};
-  else
-    return {nullptr, 0};
-}
+// the coarse blocks' dynamic shared memory: the regions of levels
+// 1 .. L-1, as float32
+template <int L>
+constexpr int kPyrSmem = Geo<L>::off(L) * static_cast<int>(sizeof(float));
+// no opt-in above the default 48 KB: the most levels' regions and the
+// warps' staging fit under it
+static_assert(kPyrSmem<kMaxPyrLevels> + (kPyrThreads / 32) * 96 * 16 <=
+                  48 * 1024,
+              "the pyramid's shared memory needs no opt-in");
 
-template <int TX, int TY>
-PyrLaunch pick_levels(int levels) {
+PyrKernel pick(int levels, int* smem) {
   switch (levels) {
-    case 1: return launch_or_null<1, TX, TY>();
-    case 2: return launch_or_null<2, TX, TY>();
-    case 3: return launch_or_null<3, TX, TY>();
-    case 4: return launch_or_null<4, TX, TY>();
-    case 5: return launch_or_null<5, TX, TY>();
-    case 6: return launch_or_null<6, TX, TY>();
-    default: return {nullptr, 0};
+    case 1: *smem = kPyrSmem<1>; return pyramid_kernel<1>;
+    case 2: *smem = kPyrSmem<2>; return pyramid_kernel<2>;
+    case 3: *smem = kPyrSmem<3>; return pyramid_kernel<3>;
+    case 4: *smem = kPyrSmem<4>; return pyramid_kernel<4>;
+    case 5: *smem = kPyrSmem<5>; return pyramid_kernel<5>;
+    case 6: *smem = kPyrSmem<6>; return pyramid_kernel<6>;
+    default: return nullptr;
   }
-}
-
-// the coarse tile (cuda_kernels.PYRAMID_TILE): 64x32 holds whole tiles of
-// every level count up to 6 (a 32x16 one measured the same at 4 levels)
-PyrLaunch pick(int levels, int tx, int ty) {
-  if (tx == 64 && ty == 32) return pick_levels<64, 32>(levels);
-  return {nullptr, 0};
 }
 
 struct RectArgs {
@@ -526,7 +527,8 @@ __device__ __forceinline__ float linear(const RectArgs& a, int i) {
   return v;
 }
 
-__global__ void __launch_bounds__(kRectThreads) rectify_kernel(const RectArgs a) {
+__global__ void __launch_bounds__(kRectThreads)
+    rectify_kernel(const RectArgs a) {
   const int i = blockIdx.x * kRectThreads + threadIdx.x;
   if (i >= a.n) return;
   const float x = a.rx[i];
@@ -552,34 +554,37 @@ __global__ void __launch_bounds__(kRectThreads) rectify_kernel(const RectArgs a)
 
 extern "C" {
 
-// The dynamic shared memory of a pyramid launch over `levels` levels with
-// a tx x ty coarse tile: the coarse levels' regions (the tile and its
-// 2^(levels-1) halo, halved per level, levels 1 .. levels-1) as float32;
-// 0 for a (levels, tile) the library has no kernel for, and 0 bytes but a
-// kernel for one level (-1 then means none).
-int ldso_pyramid_smem(int levels, int tx, int ty) {
-  if (pick(levels, tx, ty).kernel == nullptr) return -1;
-  const int halo = 1 << (levels - 1);
-  int floats = 0;
-  for (int l = 1; l < levels; ++l)
-    floats += ((tx + 2 * halo) >> l) * ((ty + 2 * halo) >> l);
-  return floats * static_cast<int>(sizeof(float));
+// The pyramid launch over an H x W frame with `levels` levels, into
+// out[0..5]: the coarse tile's width and height, the coarse blocks (one a
+// tile, first in the grid; none for one level), the level-0 blocks (a quad
+// of four pixels of a row a thread), the threads of a block and the
+// coarse blocks' dynamic shared memory in bytes. Returns 0, or -1 for a
+// level count the library has no kernel for.
+int ldso_pyramid_plan(int levels, int H, int W, int* out) {
+  int smem = 0;
+  if (pick(levels, &smem) == nullptr) return -1;
+  out[0] = kTileX;
+  out[1] = kTileY;
+  out[2] = levels > 1 ? ((W + kTileX - 1) / kTileX) *
+                            ((H + kTileY - 1) / kTileY)
+                      : 0;
+  out[3] = (H * ((W + 3) / 4) + kPyrThreads - 1) / kPyrThreads;
+  out[4] = kPyrThreads;
+  out[5] = smem;
+  return 0;
 }
 
 // ptrs: img, b_grad (or null), then dI and abs_grad of each level; ints:
-// levels, dtype (0 uint8, 1 float32, 2 uint16), the coarse tile's width
-// and height, then H and W of each level. One launch on `stream` of the
-// coarse blocks (one a tile, none for one level) and the level-0 blocks
-// (a quad of four pixels a thread), Geo::kThreads threads a block, in one
-// grid; returns its error (0 on success).
+// levels, dtype (0 uint8, 1 float32, 2 uint16), then H and W of each
+// level. One launch on `stream` of ldso_pyramid_plan's grid; returns its
+// error (0 on success).
 int ldso_pyramid(void* const* ptrs, const int* ints, void* stream) {
   PyrArgs a;
   const int levels = ints[0];
   a.dtype = ints[1];
-  const int tx = ints[2], ty = ints[3];
-  const PyrLaunch k = pick(levels, tx, ty);
-  const int smem = ldso_pyramid_smem(levels, tx, ty);
-  if (k.kernel == nullptr || smem < 0 || ptrs[0] == nullptr ||
+  int smem = 0;
+  const PyrKernel kernel = pick(levels, &smem);
+  if (kernel == nullptr || ptrs[0] == nullptr ||
       (a.dtype != kU8 && a.dtype != kF32 && a.dtype != kU16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -589,8 +594,8 @@ int ldso_pyramid(void* const* ptrs, const int* ints, void* stream) {
   for (int l = 0; l < levels; ++l) {
     a.dI[l] = static_cast<float*>(ptrs[2 + 2 * l]);
     a.ag[l] = static_cast<float*>(ptrs[3 + 2 * l]);
-    a.H[l] = ints[4 + 2 * l];
-    a.W[l] = ints[5 + 2 * l];
+    a.H[l] = ints[2 + 2 * l];
+    a.W[l] = ints[3 + 2 * l];
     if (a.dI[l] == nullptr || a.ag[l] == nullptr || a.H[l] < 1 ||
         a.W[l] < 1) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -598,18 +603,10 @@ int ldso_pyramid(void* const* ptrs, const int* ints, void* stream) {
     a.vec_out[l] = ((reinterpret_cast<uintptr_t>(a.dI[l]) |
                      reinterpret_cast<uintptr_t>(a.ag[l])) & 15) == 0;
   }
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        k.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int coarse = levels > 1 ? ((a.W[0] + tx - 1) / tx) *
-                                      ((a.H[0] + ty - 1) / ty)
-                                : 0;
-  const int quads = a.H[0] * ((a.W[0] + 3) / 4);
-  const int fine = (quads + k.threads - 1) / k.threads;
-  k.kernel<<<coarse + fine, k.threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(a, coarse);
+  int plan[6];
+  ldso_pyramid_plan(levels, a.H[0], a.W[0], plan);
+  kernel<<<plan[2] + plan[3], plan[4], plan[5],
+           static_cast<cudaStream_t>(stream)>>>(a, plan[2]);
   return static_cast<int>(cudaGetLastError());
 }
 

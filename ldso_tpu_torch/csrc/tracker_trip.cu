@@ -294,7 +294,7 @@ __device__ __forceinline__ float lm_step(const float* __restrict__ Hm,
   const float theta = sqrtf(theta2 + 1e-30f);
   const bool small = theta < 1e-4f;
   // sine and cosine rounded once from double, as the plain step's
-  // lie.se3_exp(exact=True) (XLA:CPU's float32 cosine is the correctly
+  // lie.se3_exp_exact (XLA:CPU's float32 cosine is the correctly
   // rounded one; cosf is not on some small angles, and (1 - cos) / theta^2
   // amplifies that)
   const float sn = static_cast<float>(sin(static_cast<double>(theta)));

@@ -398,10 +398,10 @@ def lm_step_ref(T, aff, H, b, lam, cfg: Config):
     inc_scaled = inc * _scale_vec(T.device)
     inc_scaled = torch.where(torch.isfinite(inc_scaled), inc_scaled,
                              torch.zeros_like(inc_scaled))
-    # the step's exponential with its sine, cosine and square root rounded
+    # the step's exponential with its square root, sine and cosine rounded
     # once, as XLA:CPU gives them: torch's float32 cosine biased the
     # tracked poses (ROADMAP 3a)
-    T_new = lie.se3_exp(inc_scaled[:, :6], exact=True) @ T
+    T_new = lie.se3_exp_exact(inc_scaled[:, :6]) @ T
     aff_n = aff + inc_scaled[:, 6:8]
     return inc, T_new, aff_n
 

@@ -22,21 +22,39 @@ _EPS = 1e-8
 _SQRT_GUARD = 1e-30
 
 
-def _safe_sqrt(x, exact: bool = False):
-    return (rounded(torch.sqrt, x + _SQRT_GUARD) if exact
-            else torch.sqrt(x + _SQRT_GUARD))
+def _safe_sqrt(x):
+    return torch.sqrt(x + _SQRT_GUARD)
 
 
-def _sin_cos(theta, exact: bool):
-    """(sin, cos) of theta; with `exact` each rounded once
-    (math/rounding.rounded), as XLA:CPU's float32 sine and cosine are.
-    torch's float32 cosine rounds toward 1 on some small angles, and
-    (1 - cos) / theta^2 turns that into a bias with one sign of the
-    rotation's and the left Jacobian's coefficients (ROADMAP 3a: the
-    tracker's steps take them exact)."""
-    if exact:
-        return rounded(torch.sin, theta), rounded(torch.cos, theta)
-    return torch.sin(theta), torch.cos(theta)
+def _plain(fn, x):
+    return fn(x)
+
+
+def _rodrigues(w, f):
+    """The coefficients of w's exponential and left Jacobian: sin t / t,
+    (1 - cos t) / t^2 and (t - sin t) / t^3, their Taylor forms under
+    theta = 1e-4. f(fn, x) applies the square root, sine and cosine:
+    `_plain`, or math/rounding.rounded (se3_exp_exact)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = f(torch.sqrt, theta2 + _SQRT_GUARD)
+    sin_t, cos_t = f(torch.sin, theta), f(torch.cos, theta)
+    small = theta < 1e-4
+    one = torch.ones_like(theta)
+    safe_t2 = torch.where(small, one, theta2)
+    safe_t3 = safe_t2 * torch.where(small, one, theta)
+    a = torch.where(small, 1.0 - theta2 / 6.0,
+                    sin_t / torch.where(small, one, theta))
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - cos_t) / safe_t2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - sin_t) / safe_t3)
+    return a, b, c
+
+
+def _poly(w, a, b):
+    """I + a W + b W^2 with W = hat(w)."""
+    W = hat(w)
+    return (_eye_like(w, 3) + a[..., None, None] * W
+            + b[..., None, None] * (W @ W))
 
 
 def _safe_norm(x, dim=-1, keepdim=False):
@@ -63,21 +81,10 @@ def _eye_like(w, n):
         w.shape[:-1] + (n, n))
 
 
-def so3_exp(omega, exact: bool = False):
-    """Rodrigues: (...,3) -> (...,3,3). `exact`: the sine, cosine and
-    square root rounded once (`_sin_cos`)."""
-    theta2 = torch.sum(omega * omega, dim=-1)
-    theta = _safe_sqrt(theta2, exact)
-    sin_t, cos_t = _sin_cos(theta, exact)
-    small = theta < 1e-4
-    one = torch.ones_like(theta)
-    a = torch.where(small, 1.0 - theta2 / 6.0,
-                    sin_t / torch.where(small, one, theta))
-    b = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - cos_t) / torch.where(small, one, theta2))
-    W = hat(omega)
-    return (_eye_like(omega, 3) + a[..., None, None] * W
-            + b[..., None, None] * (W @ W))
+def so3_exp(omega):
+    """Rodrigues: (...,3) -> (...,3,3)."""
+    a, b, _ = _rodrigues(omega, _plain)
+    return _poly(omega, a, b)
 
 
 def so3_log(R):
@@ -110,20 +117,9 @@ def so3_log(R):
     return torch.where(near_pi[..., None], w_pi, w_generic)
 
 
-def _so3_left_jacobian_coeffs(omega, exact: bool = False):
-    """Coefficients (a, b) of V = I + a*W + b*W^2 (left Jacobian of SO3);
-    `exact` as so3_exp."""
-    theta2 = torch.sum(omega * omega, dim=-1)
-    theta = _safe_sqrt(theta2, exact)
-    sin_t, cos_t = _sin_cos(theta, exact)
-    small = theta < 1e-4
-    one = torch.ones_like(theta)
-    safe_t2 = torch.where(small, one, theta2)
-    safe_t3 = safe_t2 * torch.where(small, one, theta)
-    a = torch.where(small, 0.5 - theta2 / 24.0,
-                    (1.0 - cos_t) / safe_t2)
-    b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
-                    (theta - sin_t) / safe_t3)
+def _so3_left_jacobian_coeffs(omega):
+    """Coefficients (a, b) of V = I + a*W + b*W^2 (left Jacobian of SO3)."""
+    _, a, b = _rodrigues(omega, _plain)
     return a, b
 
 
@@ -141,19 +137,31 @@ def se3(R, t):
     return torch.cat([top, bottom], dim=-2)
 
 
-def _V(w, exact: bool = False):
-    a, b = _so3_left_jacobian_coeffs(w, exact)
-    W = hat(w)
-    return (_eye_like(w, 3) + a[..., None, None] * W
-            + b[..., None, None] * (W @ W))
+def _V(w):
+    return _poly(w, *_so3_left_jacobian_coeffs(w))
 
 
-def se3_exp(xi, exact: bool = False):
-    """(...,6) [v, w] -> (...,4,4). `exact`: the sine, cosine and square
-    root rounded once, as XLA:CPU gives them (the tracker's LM steps)."""
+def _se3_exp(xi, f):
     v, w = xi[..., :3], xi[..., 3:6]
-    t = torch.einsum("...ij,...j->...i", _V(w, exact), v)
-    return se3(so3_exp(w, exact), t)
+    a, b, c = _rodrigues(w, f)
+    t = torch.einsum("...ij,...j->...i", _poly(w, b, c), v)
+    return se3(_poly(w, a, b), t)
+
+
+def se3_exp(xi):
+    """(...,6) [v, w] -> (...,4,4)."""
+    return _se3_exp(xi, _plain)
+
+
+def se3_exp_exact(xi):
+    """se3_exp with its square root, sine and cosine each taken in float64
+    and rounded once (math/rounding.rounded), as XLA:CPU gives them: the
+    tracker's LM steps (ROADMAP 3a). torch's float32 cosine on the CPU
+    rounds toward 1 on some small angles, and (1 - cos) / theta^2 turns
+    that into a bias with one sign of the rotation's and the left
+    Jacobian's coefficients; its float32 square root is not the correctly
+    rounded one on some arguments either."""
+    return _se3_exp(xi, rounded)
 
 
 def se3_log(T):

@@ -257,8 +257,9 @@ def _load():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.POINTER(ctypes.c_longlong)]
             lib.ldso_ba_accumulate_scratch.restype = ctypes.c_int
-            lib.ldso_pyramid_smem.argtypes = [ctypes.c_int] * 3
-            lib.ldso_pyramid_smem.restype = ctypes.c_int
+            lib.ldso_pyramid_plan.argtypes = [ctypes.c_int] * 3 + [
+                ctypes.POINTER(ctypes.c_int)]
+            lib.ldso_pyramid_plan.restype = ctypes.c_int
             lib.ldso_pyramid.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                                          ctypes.POINTER(ctypes.c_int),
                                          ctypes.c_void_p]
@@ -1248,7 +1249,8 @@ def pyramid_plan(H: int, W: int, levels: int) -> dict:
     row a thread); the dynamic shared memory of a coarse block (the coarse
     levels' regions: the tile and its 2^(L-1) halo, halved per level, as
     float32). ValueError for a level count the library has no kernel
-    for."""
+    for. The launch itself takes the library's own plan
+    (`library_pyramid_plan`), which the card tests hold equal to this."""
     if not 1 <= levels <= PYRAMID_MAX_LEVELS:
         raise ValueError(f"pyramid_plan: {levels} levels "
                          f"(1..{PYRAMID_MAX_LEVELS})")
@@ -1271,8 +1273,8 @@ def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
     launch for every level on the current stream (uint8, uint16 or float32
     frames; another type is made float32 first, as the plain version
     decodes it; 1..PYRAMID_MAX_LEVELS levels; the launch is
-    pyramid_plan's); it reads nothing back and allocates with torch.empty
-    only."""
+    the library's, `library_pyramid_plan`); it reads nothing back and
+    allocates with torch.empty only."""
     from ldso_tpu_torch.ops.preprocess import FramePyramid, make_pyramid_ref
     if img.device.type == "cpu":
         return make_pyramid_ref(img, levels, b_grad_lut)
@@ -1290,7 +1292,6 @@ def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
     dev = img.device
     if b_grad_lut is not None:
         _on_card("pyramid", "b_grad", b_grad_lut, torch.float32, (256,), dev)
-    plan = pyramid_plan(H, W, levels)
     shapes = pyramid_shapes(H, W, levels)
     dIs = [torch.empty((h, w, 3), dtype=torch.float32, device=dev)
            for h, w in shapes]
@@ -1299,7 +1300,7 @@ def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
     ptrs = [img.data_ptr(), 0 if b_grad_lut is None else b_grad_lut.data_ptr()]
     for d, g in zip(dIs, ags):
         ptrs += [d.data_ptr(), g.data_ptr()]
-    ints = [levels, PYRAMID_DTYPES[img.dtype], *plan["tile"]]
+    ints = [levels, PYRAMID_DTYPES[img.dtype]]
     for h, w in shapes:
         ints += [h, w]
     _launch("pyramid", _load().ldso_pyramid, ptrs, ints, None, dev)
@@ -1307,11 +1308,16 @@ def pyramid(img: torch.Tensor, levels: int, b_grad_lut=None):
     return FramePyramid(dI=tuple(dIs), abs_grad=tuple(ags))
 
 
-def pyramid_smem(levels: int) -> int:
-    """The pyramid launch's dynamic shared memory in bytes, from the card's
-    library (-1 for a level count it has no kernel for); pyramid_plan's
-    `smem` must equal it."""
-    return int(_load().ldso_pyramid_smem(levels, *PYRAMID_TILE))
+def library_pyramid_plan(H: int, W: int, levels: int):
+    """The pyramid launch's plan as the card's library makes it
+    (ldso_pyramid_plan), in pyramid_plan's form; None for a level count it
+    has no kernel for."""
+    out = (ctypes.c_int * 6)()
+    if _load().ldso_pyramid_plan(levels, H, W, out) != 0:
+        return None
+    tx, ty, coarse, fine, threads, smem = out
+    return dict(tile=(tx, ty), coarse_blocks=coarse, level0_blocks=fine,
+                grid=coarse + fine, threads=threads, smem=smem)
 
 
 def rectify(raw: torch.Tensor, G_lut, vignette_inv, remap_x: torch.Tensor,

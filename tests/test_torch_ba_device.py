@@ -193,9 +193,10 @@ _RECORDED = {}
 
 
 def _recorded_batch(order: str):
-    """(batched, singles, reference, readings) over the last 3 recorded
-    device-LM calls of one trip count, in activation `order` ("jitted" or
-    "earlier")."""
+    """(batched, singles, reference, readings, plants) over the last 3
+    recorded device-LM calls of one trip count, in activation `order`
+    ("jitted" or "earlier"); plants: ba_batch_plants' arguments for the
+    faults that rerun a member."""
     if order not in _RECORDED:
         calls = kc.recorded_ba_windows(earlier_activation=order == "earlier")
         trips = calls[-1][-1]
@@ -203,9 +204,8 @@ def _recorded_batch(order: str):
         assert len(calls) == 3, [c[-1] for c in calls]
         cfg, w, h = calls[0][5:8]
 
-        def one(W, dIs, HM, bM, n):
-            return ba_device.optimize_device(W, dIs, HM, bM, n, cfg, w, h,
-                                             trips)
+        def one(W, dIs, HM, bM, n, t=trips):
+            return ba_device.optimize_device(W, dIs, HM, bM, n, cfg, w, h, t)
         Wv, sv = torch.func.vmap(one)(
             Window(*(torch.stack([c[0][i] for c in calls])
                      for i in range(len(Window._fields)))),
@@ -214,7 +214,9 @@ def _recorded_batch(order: str):
         singles = [one(*c[:5]) for c in calls]
         reference = [kc.ba_f64(one, *c[:5]) for c in calls]
         _RECORDED[order] = (batched, singles, reference,
-                            kc.ba_batch_readings(batched, singles, reference))
+                            kc.ba_batch_readings(batched, singles, reference),
+                            dict(calls=[c[:5] for c in calls], run=one,
+                                 trips=trips))
     return _RECORDED[order]
 
 
@@ -226,7 +228,7 @@ def test_batch_yardstick_passes_on_recorded_windows(order):
     call's distance from float64, its bookkeeping its single call's; and
     float32 rounding is what both carry: each single call lies off its
     float64 result by more than nothing and by less than 1e-3."""
-    batched, singles, reference, readings = _recorded_batch(order)
+    batched, singles, reference, readings, _ = _recorded_batch(order)
     worst, tol, faults = kc.ba_batch_err(batched, singles, reference)
     print(order, worst, tol, readings)
     assert not faults, (faults, worst, tol)
@@ -235,16 +237,23 @@ def test_batch_yardstick_passes_on_recorded_windows(order):
 
 
 @pytest.mark.parametrize("plant", ["neighbour's window",
-                                   "pose moved 10x the tolerance"])
+                                   "pose moved 10x the tolerance",
+                                   "last live trip lost",
+                                   "1 in 256 points masked"])
 def test_batch_yardstick_refuses_planted_faults(plant):
     """The yardstick refuses a batch whose member 0 carries its
-    neighbour's result, and one whose member 1's newest pose moved by 10
-    times the pose tolerance."""
-    batched, singles, reference, _ = _recorded_batch("jitted")
+    neighbour's result, one whose member 1's newest pose moved by 10
+    times the pose tolerance, and two real runs of member 2 in its place:
+    one that stops a trip before the LM's `done`, one with 1 in 256 of its
+    points masked. The last two are real faults of a size a batched path
+    could make; their distances over the tolerance (printed) move with
+    torch's thread count, and PERF.md gives the readings."""
+    batched, singles, reference, _, plants = _recorded_batch("jitted")
     _, tol, faults = kc.ba_batch_err(batched, singles, reference)
     assert not faults
-    planted = kc.ba_batch_plants(batched, tol)[plant]
-    assert kc.ba_batch_err(planted, singles, reference)[2], plant
+    got = kc.ba_plant_readings(batched, singles, reference, **plants)[plant]
+    print(plant, got)
+    assert got["faults"], (plant, got)
 
 
 def test_float64_plain_leaves_the_float32_path_alone():

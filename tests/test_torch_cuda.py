@@ -937,7 +937,8 @@ def test_ba_vmapped_graph_matches_single_replays(cuda):
     as one CUDA graph, against 8 single replays, within torch_kernel_checks.
     ba_batch_err's tolerance (each member no farther from its window's
     float64 result than BA_F64_FACTOR times the farthest single replay),
-    the residual bookkeeping equal, the planted faults refused; K12
+    the residual bookkeeping equal, the planted faults (ba_batch_plants,
+    the two reruns of a member too) refused; K12
     launched once for the 8."""
     from ldso_tpu_torch.backend import ba_device, energy_functional as efm
     from ldso_tpu_torch.backend.window import Window
@@ -972,8 +973,12 @@ def test_ba_vmapped_graph_matches_single_replays(cuda):
     reference = [kc.ba_f64(plain, *a[0]) for a in inputs]
     worst, tol, faults = kc.ba_batch_err(batched, singles, reference)
     assert not faults, (faults, worst, tol)
-    for name, planted in kc.ba_batch_plants(batched, tol).items():
-        assert kc.ba_batch_err(planted, singles, reference)[2], name
+    plants = kc.ba_plant_readings(
+        batched, singles, reference, calls=[a[0] for a in inputs],
+        run=lambda *a: ba_device.optimize_device(*a[:5], cfg, w, h, a[5]),
+        trips=6)
+    for name, got in plants.items():
+        assert got["faults"], (name, got)
 
 
 # the counts of tests/test_torch_bench.py's CPU run
@@ -1734,14 +1739,14 @@ def test_rectify_kernel_is_bitwise_plain(cuda, name):
                                   "uint8 97x61", "uint8 642x482",
                                   "uint8 37x23", "6 levels"))
 def test_pyramid_kernel_plan_is_the_library_s(cuda, name):
-    """The launch plan's shared memory (cuda_kernels.pyramid_plan) is the
-    library's at the case's level count, and the launch it plans, one,
-    is bitwise the plain version."""
+    """The launch plan (cuda_kernels.pyramid_plan: tile, grid, threads,
+    shared memory) is the library's at the case's shape and level count,
+    and the launch, one, is bitwise the plain version."""
     import torch_kernel_checks as kc
     from ldso_tpu_torch.ops import cuda_kernels, preprocess
     img, L, b = kc.pyramid_cases(cuda)[name]
     plan = cuda_kernels.pyramid_plan(*img.shape, L)
-    assert plan["smem"] == cuda_kernels.pyramid_smem(L)
+    assert plan == cuda_kernels.library_pyramid_plan(*img.shape, L)
     before = cuda_kernels.LAUNCHES["pyramid"]
     got = cuda_kernels.pyramid(img, L, b)
     assert cuda_kernels.LAUNCHES["pyramid"] == before + 1

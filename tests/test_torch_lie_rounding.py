@@ -1,6 +1,6 @@
 """The repair of fault 3a (ROADMAP §3): the tracker's LM step takes its
-se3_exp with the sine, cosine and square root of a float32 angle rounded
-once from float64 (`lie.se3_exp(xi, exact=True)`, `lie._sin_cos`), as
+se3_exp with the square root, sine and cosine of a float32 angle rounded
+once from float64 (`lie.se3_exp_exact(xi)`, `math/rounding.rounded`), as
 XLA:CPU's float32 cosine is the correctly rounded one on the angles the
 tracker takes. torch's float32 cosine is not on 4-8% of them and rounds
 toward 1 more often than away; (1 - cos) / theta^2, the coefficient of
@@ -19,6 +19,7 @@ import torch
 
 from ldso_tpu.math import lie as jlie
 from ldso_tpu_torch.math import lie
+from ldso_tpu_torch.math.rounding import rounded
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -35,7 +36,7 @@ def _angles(lo, hi, n=50000, seed=5):
 
 @pytest.mark.parametrize("band", BANDS)
 def test_cos_and_sin_are_xla_s(band):
-    """On float32 angles of the band, the exact cosine (`lie._sin_cos`)
+    """On float32 angles of the band, the exact cosine (`rounded`)
     gives the JAX package's jitted jnp.cos bit for bit on all but 1 in
     1,000 at most (torch's float32 cosine, the default, on 2-9% fewer),
     the exact sine its jnp.sin on all but 1 in 100 (the sine has no
@@ -44,12 +45,12 @@ def test_cos_and_sin_are_xla_s(band):
     t = torch.from_numpy(x)
     cj = np.asarray(jax.jit(jnp.cos)(jnp.asarray(x)))
     sj = np.asarray(jax.jit(jnp.sin)(jnp.asarray(x)))
-    sin_e, cos_e = lie._sin_cos(t, True)
+    sin_e, cos_e = rounded(torch.sin, t), rounded(torch.cos, t)
     same = np.mean(cos_e.numpy() == cj)
     assert same >= 0.999
-    assert same - np.mean(lie._sin_cos(t, False)[1].numpy() == cj) >= 0.015
+    assert same - np.mean(torch.cos(t).numpy() == cj) >= 0.015
     assert np.mean(sin_e.numpy() == sj) >= 0.99
-    assert lie._sin_cos(t.double(), True)[1].dtype == torch.float64
+    assert rounded(torch.cos, t.double()).dtype == torch.float64
 
 
 @pytest.mark.parametrize("band", BANDS)
@@ -62,7 +63,7 @@ def test_left_jacobian_coefficient_has_no_sign(band):
     own float32 cosine (the formula before the repair) the share above
     sits well under a half from 1e-3 to 1e-2."""
     w = _angles(*band)
-    a_t, _ = lie._so3_left_jacobian_coeffs(torch.from_numpy(w), exact=True)
+    _, a_t, _ = lie._rodrigues(torch.from_numpy(w), rounded)
     a_j, _ = jax.jit(jlie._so3_left_jacobian_coeffs)(jnp.asarray(w))
     th = np.linalg.norm(w.astype(np.float64), axis=1)
     a64 = (1.0 - np.cos(th)) / th ** 2
@@ -88,8 +89,7 @@ def test_se3_exp_against_jax(band):
     rng = np.random.RandomState(7)
     v = (rng.randn(len(w), 3) * 1e-3).astype(np.float32)
     xi = np.concatenate([v, w], 1)
-    Tt = lie.se3_exp(torch.from_numpy(xi), exact=True).numpy().astype(
-        np.float64)
+    Tt = lie.se3_exp_exact(torch.from_numpy(xi)).numpy().astype(np.float64)
     Tj = np.asarray(jax.jit(jlie.se3_exp)(jnp.asarray(xi)), np.float64)
     c = np.cross(w.astype(np.float64), v.astype(np.float64))
     c = c / np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-300)

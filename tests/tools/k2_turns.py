@@ -165,7 +165,6 @@ def main() -> int:
     bound_pyr = 1e3 * cs.pyramid_bound_ms(*img.shape, L, img.numel())[0]
     bound_rect = 1e3 * cs.rectify_bound_ms(raw, G, vig, rx)
     ptx = ck.ptxas_report("preprocess.cu")
-    tx, ty = ck.pyramid_plan(*img.shape, L)["tile"]
     res = dict(
         gpu=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True,
@@ -175,7 +174,7 @@ def main() -> int:
         bound_us=dict(pyramid=bound_pyr, rectify=bound_rect),
         plan=ck.pyramid_plan(*img.shape, L),
         ptxas=dict(pyramid=cs.ptxas_facts(
-            ptx, f"pyramid_kernelILi{L}ELi{tx}ELi{ty}E"),
+            ptx, f"pyramid_kernelILi{L}EE"),
             rectify=cs.ptxas_facts(ptx, "rectify_kernel")),
         seconds=time.perf_counter() - t0)
     res["share_of_bound"] = {

@@ -1093,12 +1093,31 @@ def ba_batch_readings(batched, singles, reference) -> list:
             for i, (b, s, r) in enumerate(zip(batched, singles, reference))]
 
 
-def ba_batch_plants(batched, tol) -> dict:
+def _live_trips(run, call, trips: int) -> int:
+    """The trips after which the device LM stops moving on `call` (its
+    `done` masks the rest): the fewest of 1 .. trips whose run gives the
+    full run's bits."""
+    full = run(*call, trips)
+    for t in range(1, trips):
+        W, stats = run(*call, t)
+        if torch.equal(stats, full[1]) and all(
+                torch.equal(a, b) for a, b in zip(W, full[0])):
+            return t
+    return trips
+
+
+def ba_batch_plants(batched, tol, calls=None, run=None, trips=None) -> dict:
     """Faults planted in a batch's results ([(W, stats)] per member), each
     of which ba_batch_err must refuse: member 0 given its neighbour's
     result (the batch handing a member another window), and member 1's
     newest pose moved by 10 times the pose tolerance `tol` (a translation
-    along x of the newest valid frame's linearization point T_eval)."""
+    along x of the newest valid frame's linearization point T_eval).
+    With each member's inputs `calls` ((W, dIs, HM, bM, newest) each) and
+    `run(W, dIs, HM, bM, newest, trips)` (one device-LM call; the batch
+    ran `trips`), two faults of a batched path near the tolerance, each a
+    real run of member 2 in its place: its last live trip lost (the run
+    stops one trip before the LM's `done`), and 1 in 256 of its valid
+    points masked (pt_valid false, at least one point)."""
     S = len(batched)
     out = {}
     swapped = list(batched)
@@ -1111,6 +1130,33 @@ def ba_batch_plants(batched, tol) -> dict:
     moved = list(batched)
     moved[1 % S] = (W._replace(T_eval=T), stats)
     out["pose moved 10x the tolerance"] = moved
+    if calls is not None:
+        m = 2 % S
+        live = _live_trips(run, calls[m], trips)
+        planted = list(batched)
+        planted[m] = run(*calls[m], live - 1)
+        out["last live trip lost"] = planted
+        W = calls[m][0]
+        valid = W.pt_valid.nonzero()[:, 0]
+        pv = W.pt_valid.clone()
+        pv[valid[::256]] = False
+        planted = list(batched)
+        planted[m] = run(W._replace(pt_valid=pv), *calls[m][1:], trips)
+        out["1 in 256 points masked"] = planted
+    return out
+
+
+def ba_plant_readings(batched, singles, reference, **plants) -> dict:
+    """Per fault of ba_batch_plants(batched, tol, **plants): the planted
+    batch's farthest member from float64 over the tolerance, per quantity
+    (`over_tol`), and ba_batch_err's faults (none: the fault got
+    through)."""
+    _, tol, _ = ba_batch_err(batched, singles, reference)
+    out = {}
+    for name, planted in ba_batch_plants(batched, tol, **plants).items():
+        worst, _, faults = ba_batch_err(planted, singles, reference)
+        out[name] = dict(over_tol={k: worst[k] / tol[k] for k in tol},
+                         faults=faults)
     return out
 
 
